@@ -1,0 +1,580 @@
+// Point-family MPPI rollout, hand-written for Hopper (sm_90a).
+//
+// Replaces the TPU kernel m3p2i_aip_tpu/ops/pallas_rollout.py::_rollout_kernel
+// (factory make_point_rollout, :611).  Each of the K samples rolls its action
+// sequence through T control steps of the planar PBD engine
+// (m3p2i_aip_tpu/models/point_env.py::step): velocity drive (2- or 3-dof omni,
+// or differential drive), the robot speed cap, ground friction with the
+// sample's friction scale, substeps x pos_iters rounds of the five Jacobi
+// contact passes, and the arena clamp; then the point costs
+// (PointObjective.compute) with the mode split by global sample index, and
+// the suction force of the pull cost carried into the next step.
+//
+// What bounds it on the H100: latency.  At K = 200 there are 200 independent
+// serial chains of ~T * substeps * pos_iters * (5 passes) contact solves, a
+// few thousand dependent flops each, and no data to speak of (2.5 KB of
+// actions in, 36 KB out).  Seven warps on a 132-SM card: the time is the
+// length of one sample's dependency chain, not throughput.
+//
+// What the design does about it: one thread per sample with the whole
+// T x substeps x pos_iters nest in registers -- the robot, the D dynamic
+// boxes (fully unrolled over the compile-time maximum kMaxD, so the per-box
+// state stays in registers) and the four suction carries.  Nothing touches
+// global memory inside the nest except the per-step action read and the
+// cost/trajectory write.  The scene constants (statics, per-box constants)
+// come from a small param buffer built once per scene in make_point_rollout
+// and staged to shared memory, so there is no per-scene build.  Blocks are
+// two warps, which spreads the seven warps over four SMs.
+//
+// Semantics kept from the TPU kernel (and the XLA step it mirrors):
+//   * every contact pass is Jacobi: pass 1 takes all D contacts from the
+//     pre-pass robot pose and sums the robot corrections afterwards; pass 2
+//     takes all box pairs from frozen poses and adds the deltas at the end;
+//     pass 3 works per box over all S statics x 4 corners with
+//     relax = 1 / n_active; passes 4 and 5 sum the robot corrections;
+//   * the dyn-obs contact force read by the motion cost is accumulated with
+//     the XLA step's signs in passes 1-3 and divided by substeps * pos_iters;
+//   * task id is clipped to [0, 3] with 8 (reposition) mapped to 0;
+//   * mode1 is (k + k0) >= K_total / 2, by global sample index;
+//   * the suction carry starts at zero and is gated by `towards` and mode;
+//   * the 1e-9 / 1e-6 division guards sit where the JAX code has them.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kMaxD = 4;   // dynamic boxes
+constexpr int kMaxS = 16;  // static boxes
+constexpr int kThreads = 64;
+constexpr float kGravity = 9.8f;
+
+// param buffer layout (floats), shared with ops/rollout.py::_param_buffer
+enum Scalar {
+  P_H = 0, P_DECAY, P_WMR_H, P_WMR, P_RR, P_ROBOT_FRIC, P_MAX_SPEED, P_KP,
+  P_ARENA, P_ARENA_LIM, P_EDGE_LIM, P_POCKET_LIM, P_WHEEL_R, P_WHEEL_B,
+  N_SCALARS = 16
+};
+constexpr int kDynStride = 6;   // hx, hy, inv_mass, inv_inertia, ang_rad, friction
+constexpr int kStatStride = 7;  // x, y, cos, sin, hx, hy, friction
+
+struct Contact {
+  float pen, nx, ny, px, py;
+};
+
+// Corrections of one contact projection (pbd2d.resolve_contact).
+struct Resolved {
+  float dax, day, dyaw_a, dvax, dvay, dom_a;
+  float dbx, dby, dyaw_b, dvbx, dvby, dom_b;
+  float fx, fy;  // equivalent force on A
+};
+
+__device__ __forceinline__ float sgn_pos(float v) { return v >= 0.0f ? 1.0f : -1.0f; }
+
+__device__ __forceinline__ float clampf(float v, float lo, float hi) {
+  return fminf(fmaxf(v, lo), hi);
+}
+
+// Circle (center cx, cy; radius r) vs oriented box; normal pushes the circle.
+__device__ Contact circle_vs_obb(float cx, float cy, float r, float bx, float by,
+                                 float bc, float bs, float hx, float hy) {
+  const float dx = cx - bx, dy = cy - by;
+  const float lx = bc * dx + bs * dy;
+  const float ly = -bs * dx + bc * dy;
+  const float clx = clampf(lx, -hx, hx);
+  const float cly = clampf(ly, -hy, hy);
+  const bool inside = fabsf(lx) < hx && fabsf(ly) < hy;
+  const bool use_x = fabsf(lx) / hx >= fabsf(ly) / hy;
+  const float sgx = sgn_pos(lx), sgy = sgn_pos(ly);
+  const float sx = inside ? (use_x ? sgx * hx : lx) : clx;
+  const float sy = inside ? (use_x ? ly : sgy * hy) : cly;
+  const float ddx = lx - sx, ddy = ly - sy;
+  const float dist = sqrtf(ddx * ddx + ddy * ddy);
+  const float guard = fmaxf(dist, 1e-9f);
+  const float nlx = inside ? (use_x ? sgx : 0.0f) : ddx / guard;
+  const float nly = inside ? (use_x ? 0.0f : sgy) : ddy / guard;
+  Contact c;
+  c.pen = inside ? r + dist : r - dist;
+  c.nx = bc * nlx - bs * nly;
+  c.ny = bs * nlx + bc * nly;
+  c.px = bx + (bc * sx - bs * sy);
+  c.py = by + (bs * sx + bc * sy);
+  return c;
+}
+
+// The four corners of box A against box B's dominant face (chosen from A's
+// center): penetrations, world corner points, one world normal.
+struct CornerContacts {
+  float pen[4], wx[4], wy[4];
+  float nx, ny;
+};
+
+__device__ CornerContacts corners_vs_obb(float ax, float ay, float ac, float as,
+                                         float hxa, float hya, float bx, float by,
+                                         float bc, float bs, float hxb, float hyb) {
+  const float dx = ax - bx, dy = ay - by;
+  const float clx = bc * dx + bs * dy;
+  const float cly = -bs * dx + bc * dy;
+  const bool use_x = fabsf(clx) / hxb >= fabsf(cly) / hyb;
+  const float sgn = use_x ? sgn_pos(clx) : sgn_pos(cly);
+  const float half_axis = use_x ? hxb : hyb;
+  const float nlx = use_x ? sgn : 0.0f;
+  const float nly = use_x ? 0.0f : sgn;
+  CornerContacts cc;
+  cc.nx = bc * nlx - bs * nly;
+  cc.ny = bs * nlx + bc * nly;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float lxa = (i < 2 ? 1.0f : -1.0f) * hxa;
+    const float lya = (i % 2 == 0 ? 1.0f : -1.0f) * hya;
+    const float wx = ax + (ac * lxa - as * lya);
+    const float wy = ay + (as * lxa + ac * lya);
+    const float ex = wx - bx, ey = wy - by;
+    const float lx = bc * ex + bs * ey;
+    const float ly = -bs * ex + bc * ey;
+    const float local_a = use_x ? lx : ly;
+    const float sep_other = use_x ? hyb - fabsf(ly) : hxb - fabsf(lx);
+    const float pen_val = half_axis - sgn * local_a;
+    cc.pen[i] = (pen_val > 0.0f && sep_other > 0.0f) ? pen_val : -1.0f;
+    cc.wx[i] = wx;
+    cc.wy[i] = wy;
+  }
+  return cc;
+}
+
+// One Jacobi projection of a single contact (masked when pen <= 0).
+__device__ Resolved resolve(float pen, float nx, float ny, float px, float py,
+                            float ax, float ay, float avx, float avy, float aom,
+                            float wm_a, float wi_a, float bx, float by, float bvx,
+                            float bvy, float bom, float wm_b, float wi_b, float h,
+                            float friction, float relax) {
+  const bool active = pen > 0.0f;
+  const float d = active ? pen : 0.0f;
+  const float rax = px - ax, ray = py - ay;
+  const float rbx = px - bx, rby = py - by;
+  const float ca = rax * ny - ray * nx;
+  const float cb = rbx * ny - rby * nx;
+  const float w_sum = wm_a + wi_a * (ca * ca) + wm_b + wi_b * (cb * cb);
+  const float w_guard = fmaxf(w_sum, 1e-9f);
+  const float lam = relax * d / w_guard;
+
+  Resolved o;
+  o.dax = (wm_a * lam) * nx;
+  o.day = (wm_a * lam) * ny;
+  o.dyaw_a = wi_a * lam * ca;
+  o.dbx = -(wm_b * lam) * nx;
+  o.dby = -(wm_b * lam) * ny;
+  o.dyaw_b = -wi_b * lam * cb;
+
+  // velocity solve: restitution 0 on the normal, Coulomb friction tangential
+  const float vrx = (avx - aom * ray) - (bvx - bom * rby);
+  const float vry = (avy + aom * rax) - (bvy + bom * rbx);
+  const float vn = vrx * nx + vry * ny;
+  const float jn = (active && vn < 0.0f) ? -vn / w_guard : 0.0f;
+  const float tx = -ny, ty = nx;
+  const float ta = rax * ty - ray * tx;
+  const float tb = rbx * ty - rby * tx;
+  const float wt_sum = wm_a + wi_a * (ta * ta) + wm_b + wi_b * (tb * tb);
+  const float vt = vrx * tx + vry * ty;
+  const float jt_un = -vt / fmaxf(wt_sum, 1e-9f);
+  const float jt_max = friction * (jn + lam / h);
+  const float jt = active ? clampf(jt_un, -jt_max, jt_max) : 0.0f;
+
+  o.dvax = (wm_a * jn) * nx + (wm_a * jt) * tx;
+  o.dvay = (wm_a * jn) * ny + (wm_a * jt) * ty;
+  o.dom_a = wi_a * jn * ca + wi_a * jt * ta;
+  o.dvbx = -(wm_b * jn) * nx - (wm_b * jt) * tx;
+  o.dvby = -(wm_b * jn) * ny - (wm_b * jt) * ty;
+  o.dom_b = -wi_b * jn * cb - wi_b * jt * tb;
+  const float f = (jn + lam / h) / h;
+  o.fx = f * nx;
+  o.fy = f * ny;
+  return o;
+}
+
+__global__ void __launch_bounds__(kThreads)
+point_rollout_kernel(const float* __restrict__ params, const float* __restrict__ task,
+                     const float* __restrict__ state0, const float* __restrict__ fric_k,
+                     const float* __restrict__ acts, float* __restrict__ cost_out,
+                     float* __restrict__ traj_out, int K, int K_total, int T, int D,
+                     int S, int substeps, int pos_iters, int box, int obs,
+                     int robot_type, int n_q, int n_u, int multi_modal,
+                     int boxer_align, int n_params) {
+  extern __shared__ float sp[];
+  for (int i = threadIdx.x; i < n_params; i += blockDim.x) sp[i] = params[i];
+  __syncthreads();
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= K) return;
+
+  const float h = sp[P_H], decay = sp[P_DECAY], wm_r = sp[P_WMR], rr = sp[P_RR];
+  const float* dynp = sp + N_SCALARS;
+  const float* statp = sp + N_SCALARS + kDynStride * D;
+  const bool boxer = robot_type == 2;
+
+  // task: clip the id to [0, 3], reposition (8) runs navigation
+  const float task_raw = task[0];
+  const float task_id = task_raw == 8.0f ? 0.0f : clampf(task_raw, 0.0f, 3.0f);
+  const float gx = task[1], gy = task[2];
+  const float gk = static_cast<float>(k) + task[3];  // global sample index
+  const bool mode1 = gk >= static_cast<float>(K_total / 2) && gk < static_cast<float>(K_total);
+
+  // state: q[n_q], qd[n_q], dyn_pos[D][2], dyn_yaw[D], dyn_vel[D][2], dyn_om[D]
+  float qx = state0[0], qy = state0[1];
+  float qyaw = n_q == 3 ? state0[2] : 0.0f;
+  float qdx = state0[n_q], qdy = state0[n_q + 1];
+  float qdyaw = n_q == 3 ? state0[n_q + 2] : 0.0f;
+  const float* dyn0 = state0 + 2 * n_q;
+  float X[kMaxD], Y[kMaxD], YAW[kMaxD], VX[kMaxD], VY[kMaxD], OM[kMaxD], FR[kMaxD];
+#pragma unroll
+  for (int d = 0; d < kMaxD; ++d) {
+    if (d < D) {
+      X[d] = dyn0[2 * d];
+      Y[d] = dyn0[2 * d + 1];
+      YAW[d] = dyn0[2 * D + d];
+      VX[d] = dyn0[3 * D + 2 * d];
+      VY[d] = dyn0[3 * D + 2 * d + 1];
+      OM[d] = dyn0[5 * D + d];
+      FR[d] = dynp[kDynStride * d + 5] * fric_k[k * D + d];
+    } else {
+      X[d] = Y[d] = YAW[d] = VX[d] = VY[d] = OM[d] = FR[d] = 0.0f;
+    }
+  }
+  float ext_rx = 0.0f, ext_ry = 0.0f, ext_bx = 0.0f, ext_by = 0.0f;
+
+  for (int t = 0; t < T; ++t) {
+    const float* u = acts + (static_cast<size_t>(k) * T + t) * n_u;
+    const float u0 = u[0], u1 = u[1], u2 = n_u == 3 ? u[2] : 0.0f;
+    float f_obs_x = 0.0f, f_obs_y = 0.0f;
+
+    for (int sub = 0; sub < substeps; ++sub) {
+      // ---- velocity drive and integration (point_env.step) -------------
+      qdx = qdx + ext_rx * sp[P_WMR_H];
+      qdy = qdy + ext_ry * sp[P_WMR_H];
+      if (boxer) {
+        const float v = sp[P_WHEEL_R] * (u0 + u1) / 2.0f;
+        const float om = sp[P_WHEEL_R] * (u1 - u0) / sp[P_WHEEL_B];
+        const float txv = v * cosf(qyaw), tyv = v * sinf(qyaw);
+        qdx = txv + (qdx - txv) * decay;
+        qdy = tyv + (qdy - tyv) * decay;
+        qdyaw = om + (qdyaw - om) * decay;
+      } else {
+        qdx = u0 + (qdx - u0) * decay;
+        qdy = u1 + (qdy - u1) * decay;
+        if (n_q == 3) qdyaw = u2 + (qdyaw - u2) * decay;
+      }
+      // robot speed cap: a substep never out-runs the contact envelope
+      const float qsp = sqrtf(qdx * qdx + qdy * qdy);
+      const float qcap = fminf(1.0f, 6.0f / fmaxf(qsp, 1e-9f));
+      qdx = qdx * qcap;
+      qdy = qdy * qcap;
+#pragma unroll
+      for (int d = 0; d < kMaxD; ++d) {
+        if (d < D) {
+          if (d == box) {
+            const float im_h = dynp[kDynStride * d + 2] * h;
+            VX[d] = VX[d] + ext_bx * im_h;
+            VY[d] = VY[d] + ext_by * im_h;
+          }
+          const float mu = (FR[d] + 1.0f) * 0.5f;  // PhysX average with the plane
+          const float speed = sqrtf(VX[d] * VX[d] + VY[d] * VY[d]);
+          const float scale = fmaxf(0.0f, 1.0f - mu * kGravity * h / fmaxf(speed, 1e-9f));
+          VX[d] = VX[d] * scale;
+          VY[d] = VY[d] * scale;
+          const float om_scale = fmaxf(
+              0.0f, 1.0f - mu * kGravity * h / fmaxf(fabsf(OM[d]) * dynp[kDynStride * d + 4], 1e-9f));
+          OM[d] = OM[d] * om_scale;
+          const float sp2 = sqrtf(VX[d] * VX[d] + VY[d] * VY[d]);
+          const float cap = fminf(1.0f, sp[P_MAX_SPEED] / fmaxf(sp2, 1e-9f));
+          VX[d] = VX[d] * cap;
+          VY[d] = VY[d] * cap;
+          X[d] = X[d] + VX[d] * h;
+          Y[d] = Y[d] + VY[d] * h;
+          YAW[d] = YAW[d] + OM[d] * h;
+        }
+      }
+      qx = qx + qdx * h;
+      qy = qy + qdy * h;
+      if (n_q == 3) qyaw = qyaw + qdyaw * h;
+
+      for (int it = 0; it < pos_iters; ++it) {
+        // pass 1: robot vs every dynamic box, from the pre-pass robot pose
+        float sqx = 0.0f, sqy = 0.0f, sqdx = 0.0f, sqdy = 0.0f;
+#pragma unroll
+        for (int d = 0; d < kMaxD; ++d) {
+          if (d < D) {
+            const float* bp = dynp + kDynStride * d;
+            const Contact c = circle_vs_obb(qx, qy, rr, X[d], Y[d], cosf(YAW[d]), sinf(YAW[d]), bp[0], bp[1]);
+            const Resolved o = resolve(c.pen, c.nx, c.ny, c.px, c.py, qx, qy, qdx, qdy, 0.0f, wm_r, 0.0f,
+                                       X[d], Y[d], VX[d], VY[d], OM[d], bp[2], bp[3], h,
+                                       (sp[P_ROBOT_FRIC] + FR[d]) / 2.0f, 1.0f);
+            X[d] += o.dbx;
+            Y[d] += o.dby;
+            YAW[d] += o.dyaw_b;
+            VX[d] += o.dvbx;
+            VY[d] += o.dvby;
+            OM[d] += o.dom_b;
+            if (d == obs) {
+              f_obs_x -= o.fx;
+              f_obs_y -= o.fy;
+            }
+            sqx += o.dax;
+            sqy += o.day;
+            sqdx += o.dvax;
+            sqdy += o.dvay;
+          }
+        }
+        qx += sqx;
+        qy += sqy;
+        qdx += sqdx;
+        qdy += sqdy;
+
+        // pass 2: dynamic vs dynamic, every ordered pair from frozen poses
+        if (D > 1) {
+          float dX[kMaxD], dY[kMaxD], dYAW[kMaxD], dVX[kMaxD], dVY[kMaxD], dOM[kMaxD];
+          float C0[kMaxD], S0[kMaxD];
+#pragma unroll
+          for (int d = 0; d < kMaxD; ++d) {
+            dX[d] = dY[d] = dYAW[d] = dVX[d] = dVY[d] = dOM[d] = 0.0f;
+            C0[d] = d < D ? cosf(YAW[d]) : 1.0f;
+            S0[d] = d < D ? sinf(YAW[d]) : 0.0f;
+          }
+#pragma unroll
+          for (int i = 0; i < kMaxD; ++i) {
+#pragma unroll
+            for (int j = 0; j < kMaxD; ++j) {
+              if (i < D && j < D && i != j) {
+                const float* pi = dynp + kDynStride * i;
+                const float* pj = dynp + kDynStride * j;
+                const CornerContacts cc = corners_vs_obb(X[i], Y[i], C0[i], S0[i], pi[0], pi[1],
+                                                         X[j], Y[j], C0[j], S0[j], pj[0], pj[1]);
+#pragma unroll
+                for (int m = 0; m < 4; ++m) {
+                  const Resolved o = resolve(cc.pen[m], cc.nx, cc.ny, cc.wx[m], cc.wy[m],
+                                             X[i], Y[i], VX[i], VY[i], OM[i], pi[2], pi[3],
+                                             X[j], Y[j], VX[j], VY[j], OM[j], pj[2], pj[3], h,
+                                             (FR[i] + FR[j]) / 2.0f, 0.5f);
+                  dX[i] += o.dax;
+                  dY[i] += o.day;
+                  dYAW[i] += o.dyaw_a;
+                  dVX[i] += o.dvax;
+                  dVY[i] += o.dvay;
+                  dOM[i] += o.dom_a;
+                  dX[j] += o.dbx;
+                  dY[j] += o.dby;
+                  dYAW[j] += o.dyaw_b;
+                  dVX[j] += o.dvbx;
+                  dVY[j] += o.dvby;
+                  dOM[j] += o.dom_b;
+                  if (i == obs) {
+                    f_obs_x += o.fx;
+                    f_obs_y += o.fy;
+                  }
+                  if (j == obs) {
+                    f_obs_x -= o.fx;
+                    f_obs_y -= o.fy;
+                  }
+                }
+              }
+            }
+          }
+#pragma unroll
+          for (int d = 0; d < kMaxD; ++d) {
+            X[d] += dX[d];
+            Y[d] += dY[d];
+            YAW[d] += dYAW[d];
+            VX[d] += dVX[d];
+            VY[d] += dVY[d];
+            OM[d] += dOM[d];
+          }
+        }
+
+        // pass 3: each dynamic box vs all statics x 4 corners, full strength
+#pragma unroll
+        for (int d = 0; d < kMaxD; ++d) {
+          if (d < D) {
+            const float* bp = dynp + kDynStride * d;
+            const float c = cosf(YAW[d]), s = sinf(YAW[d]);
+            float ddx = 0.0f, ddy = 0.0f, ddyaw = 0.0f, ddvx = 0.0f, ddvy = 0.0f, ddom = 0.0f;
+#pragma unroll 1
+            for (int si = 0; si < S; ++si) {
+              const float* st = statp + kStatStride * si;
+              const CornerContacts cc = corners_vs_obb(X[d], Y[d], c, s, bp[0], bp[1],
+                                                       st[0], st[1], st[2], st[3], st[4], st[5]);
+              float n_act = 0.0f;
+#pragma unroll
+              for (int m = 0; m < 4; ++m) n_act += cc.pen[m] > 0.0f ? 1.0f : 0.0f;
+              const float relax = 1.0f / fmaxf(n_act, 1.0f);
+#pragma unroll
+              for (int m = 0; m < 4; ++m) {
+                const Resolved o = resolve(cc.pen[m], cc.nx, cc.ny, cc.wx[m], cc.wy[m],
+                                           X[d], Y[d], VX[d], VY[d], OM[d], bp[2], bp[3],
+                                           st[0], st[1], 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, h,
+                                           (FR[d] + st[6]) / 2.0f, relax);
+                ddx += o.dax;
+                ddy += o.day;
+                ddyaw += o.dyaw_a;
+                ddvx += o.dvax;
+                ddvy += o.dvay;
+                ddom += o.dom_a;
+                if (d == obs) {
+                  f_obs_x += o.fx;
+                  f_obs_y += o.fy;
+                }
+              }
+            }
+            X[d] += ddx;
+            Y[d] += ddy;
+            YAW[d] += ddyaw;
+            VX[d] += ddvx;
+            VY[d] += ddvy;
+            OM[d] += ddom;
+          }
+        }
+
+        // pass 4: robot vs all statics, full strength
+        sqx = sqy = sqdx = sqdy = 0.0f;
+#pragma unroll 1
+        for (int si = 0; si < S; ++si) {
+          const float* st = statp + kStatStride * si;
+          const Contact c = circle_vs_obb(qx, qy, rr, st[0], st[1], st[2], st[3], st[4], st[5]);
+          const Resolved o = resolve(c.pen, c.nx, c.ny, c.px, c.py, qx, qy, qdx, qdy, 0.0f, wm_r, 0.0f,
+                                     st[0], st[1], 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, h,
+                                     (sp[P_ROBOT_FRIC] + st[6]) / 2.0f, 1.0f);
+          sqx += o.dax;
+          sqy += o.day;
+          sqdx += o.dvax;
+          sqdy += o.dvay;
+        }
+        qx += sqx;
+        qy += sqy;
+        qdx += sqdx;
+        qdy += sqdy;
+
+        // pass 5: robot vs the dynamic boxes held immovable
+        sqx = sqy = sqdx = sqdy = 0.0f;
+#pragma unroll
+        for (int d = 0; d < kMaxD; ++d) {
+          if (d < D) {
+            const float* bp = dynp + kDynStride * d;
+            const Contact c = circle_vs_obb(qx, qy, rr, X[d], Y[d], cosf(YAW[d]), sinf(YAW[d]), bp[0], bp[1]);
+            const Resolved o = resolve(c.pen, c.nx, c.ny, c.px, c.py, qx, qy, qdx, qdy, 0.0f, wm_r, 0.0f,
+                                       X[d], Y[d], VX[d], VY[d], OM[d], 0.0f, 0.0f, h, 0.0f, 1.0f);
+            sqx += o.dax;
+            sqy += o.day;
+            sqdx += o.dvax;
+            sqdy += o.dvay;
+          }
+        }
+        qx += sqx;
+        qy += sqy;
+        qdx += sqdx;
+        qdy += sqdy;
+      }
+
+      // closed-arena invariant
+      if (sp[P_ARENA] > 0.0f) {
+        qx = clampf(qx, -sp[P_ARENA_LIM], sp[P_ARENA_LIM]);
+        qy = clampf(qy, -sp[P_ARENA_LIM], sp[P_ARENA_LIM]);
+      }
+    }
+
+    // ---- costs (PointObjective.compute) ---------------------------------
+    const float n_norm = static_cast<float>(substeps * pos_iters);
+    const float coll = fabsf(f_obs_x / n_norm) + fabsf(f_obs_y / n_norm);
+    const float motion_cost = coll > 0.1f ? 1000.0f : 0.0f;
+
+    float bx = 0.0f, by = 0.0f;
+#pragma unroll
+    for (int d = 0; d < kMaxD; ++d) {
+      if (d == box) {
+        bx = X[d];
+        by = Y[d];
+      }
+    }
+    const float r2bx = qx - bx, r2by = qy - by;
+    const float b2gx = gx - bx, b2gy = gy - by;
+    const float d_rb = sqrtf(r2bx * r2bx + r2by * r2by);
+    const float d_bg = sqrtf(b2gx * b2gx + b2gy * b2gy);
+    const float dist_cost = d_rb + d_bg * 10.0f;
+    const float cos_theta = (r2bx * b2gx + r2by * b2gy) / fmaxf(d_rb * d_bg, 1e-9f);
+
+    const float ngx = qx - gx, ngy = qy - gy;
+    const float nav = sqrtf(ngx * ngx + ngy * ngy) + motion_cost;
+    const float push_align = (boxer && boxer_align) ? 1.5f * (1.0f + cos_theta) : fmaxf(cos_theta, 0.0f);
+    const float push = 3.0f * dist_cost + 1.0f * push_align;
+
+    // pull: suction (rollout threshold 1.8), velocity and alignment costs
+    const float pdx = bx - qx, pdy = by - qy;
+    const bool towards = (qdx * pdx + qdy * pdy) > 0.0f;
+    const float mag = 1.0f / fmaxf(d_rb, 1e-6f);
+    const float gate = mag > 1.8f ? 1.0f : 0.0f;
+    const float fbx = clampf(-sp[P_KP] * (pdx * mag) * gate, -500.0f, 500.0f);
+    const float fby = clampf(-sp[P_KP] * (pdy * mag) * gate, -500.0f, 500.0f);
+    const float frx = clampf(sp[P_KP] * (pdx * mag) * gate, -500.0f, 500.0f);
+    const float fry = clampf(sp[P_KP] * (pdy * mag) * gate, -500.0f, 500.0f);
+    const bool off = towards || (multi_modal && !mode1);
+    const float vel_cost = (towards && d_rb <= 0.5f) ? 0.6f : 0.0f;
+    // wall crush: max robot-circle penetration into the statics
+    float crush_pen = -INFINITY;
+#pragma unroll 1
+    for (int si = 0; si < S; ++si) {
+      const float* st = statp + kStatStride * si;
+      crush_pen = fmaxf(crush_pen, circle_vs_obb(qx, qy, rr, st[0], st[1], st[2], st[3], st[4], st[5]).pen);
+    }
+    if (sp[P_ARENA] > 0.0f) {
+      if (fmaxf(fabsf(qx), fabsf(qy)) > sp[P_EDGE_LIM]) crush_pen = 1.0f;
+      if (multi_modal && boxer) {
+        const bool goal_in_pocket = fmaxf(fabsf(gx), fabsf(gy)) > sp[P_POCKET_LIM];
+        if (goal_in_pocket && d_bg < 1.0f) crush_pen = 1.0f;
+      }
+    }
+    const float crush = crush_pen > 0.02f ? 1000.0f : 0.0f;
+    const float pull = 3.0f * dist_cost + 3.0f * vel_cost + 7.0f * fmaxf(-cos_theta, 0.0f) + crush;
+    const float push_pull = mode1 ? pull : push;
+
+    float cost;
+    if (task_id == 0.0f) {
+      cost = nav;
+    } else if (task_id == 1.0f) {
+      cost = push;
+    } else if (task_id == 2.0f) {
+      cost = pull;
+    } else {
+      cost = push_pull;
+    }
+    // suction for the NEXT step: pull applies it to every sample (mode-gated
+    // by `off` when multi-modal), push_pull to the pull half only
+    const bool sel = task_id == 2.0f || (task_id == 3.0f && mode1);
+    const bool apply = sel && !off;
+    ext_bx = apply ? fbx : 0.0f;
+    ext_by = apply ? fby : 0.0f;
+    ext_rx = apply ? frx : 0.0f;
+    ext_ry = apply ? fry : 0.0f;
+
+    const size_t o = static_cast<size_t>(k) * T + t;
+    cost_out[o] = cost;
+    traj_out[2 * o] = qx;
+    traj_out[2 * o + 1] = qy;
+  }
+}
+
+}  // namespace
+
+extern "C" int m3p2i_point_rollout(const float* params, const float* task, const float* state0,
+                                   const float* fric_k, const float* acts, float* cost,
+                                   float* traj, int K, int K_total, int T, int D, int S,
+                                   int substeps, int pos_iters, int box, int obs,
+                                   int robot_type, int n_q, int n_u, int multi_modal,
+                                   int boxer_align, int n_params, void* stream) {
+  if (K <= 0 || T <= 0 || D < 1 || D > kMaxD || S < 1 || S > kMaxS ||
+      n_params != N_SCALARS + kDynStride * D + kStatStride * S || box < 0 || box >= D ||
+      obs < 0 || obs >= D) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int blocks = (K + kThreads - 1) / kThreads;
+  const size_t smem = static_cast<size_t>(n_params) * sizeof(float);
+  point_rollout_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      params, task, state0, fric_k, acts, cost, traj, K, K_total, T, D, S, substeps,
+      pos_iters, box, obs, robot_type, n_q, n_u, multi_modal, boxer_align, n_params);
+  return static_cast<int>(cudaGetLastError());
+}

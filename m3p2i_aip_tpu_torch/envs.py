@@ -1,0 +1,146 @@
+"""Environment construction for the point family, in torch.
+
+Port of the point branch of ``m3p2i_aip_tpu/envs.py``: the per-actor YAMLs
+are packed into tensors on one device once, and the scene is exposed as a
+bundle of functions closed over those params.  The K rollouts and the real
+system share one ``step`` (a leading K axis vs none).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from m3p2i_aip_tpu_torch.models import point_env
+from m3p2i_aip_tpu_torch.sim.sim_config import load_env_cfgs
+
+_POINT_ENVS = ("point_env", "heijn_env", "boxer_env")
+
+
+@dataclass
+class Env:
+    """A scene as a bundle of functions (all closed over the params)."""
+
+    env_type: str
+    params: Any
+    nu: int  # action dimension
+    step: Callable  # (state, u, ext) -> state
+    init_state: Callable  # () -> state
+    zero_ext: Callable  # (batch=()) -> ext
+    view: Callable  # (state) -> dict for the host-side task planner (syncs)
+    view_vec: Callable  # (state) -> packed [V] device tensor (no sync)
+    view_unpack: Callable  # ([V] host array) -> same dict as `view`
+    dyn_obs_slot: int = -1  # index into the dynamic-body arrays for "dyn-obs"
+    box_slot: int = -1  # index into the dynamic-body arrays for "box"
+    dyn_obs_step: Any = None  # [D, 2] tensor: +0.01 on the dyn-obs row
+
+    @property
+    def device(self) -> torch.device:
+        return self.params.device
+
+
+def make_env(cfg, device="cpu") -> Env:
+    """Build the point-family scene named by ``cfg.env_type`` on ``device``,
+    with the ``actors`` / ``initial_actor_positions`` spawn overrides and the
+    ``fric_noise`` shorthand (``m3p2i_aip_tpu/envs.py:46``)."""
+    if cfg.env_type not in _POINT_ENVS:
+        raise NotImplementedError(
+            f"env_type {cfg.env_type!r} is not ported yet: see ROADMAP.md "
+            "Queue 1 (panda M8, albert M9)"
+        )
+    actors = load_env_cfgs(cfg.env_type)
+    for name, pos in zip(cfg.actors, cfg.initial_actor_positions):
+        hits = [a for a in actors if a.name == name]
+        if not hits:
+            raise ValueError(f"initial_actor_positions: no actor named {name!r} in {cfg.env_type}")
+        p = list(map(float, pos))
+        hits[0].init_pos = p + hits[0].init_pos[len(p):]
+    if float(getattr(cfg, "fric_noise", 0.0)) > 0.0:
+        for a in actors:
+            if not a.fixed and a.type != "robot":
+                a.noise_percentage_friction = float(cfg.fric_noise)
+    return _make_point_env(cfg, actors, device)
+
+
+def _domain_rng(cfg, actors):
+    """Seeded RNG when any actor requests friction/size randomization."""
+    wants = any(a.noise_percentage_friction or a.noise_sigma_size for a in actors)
+    return np.random.default_rng(cfg.mppi.seed_val) if wants else None
+
+
+def _make_point_env(cfg, actors, device) -> Env:
+    params = point_env.build_params(actors, cfg.sim, rng=_domain_rng(cfg, actors), device=device)
+    names = list(params.actor_names)
+    box_slot = params.dyn_actor_idx.index(names.index("box")) if "box" in names else 0
+    dynobs_slot = params.dyn_actor_idx.index(names.index("dyn-obs")) if "dyn-obs" in names else -1
+    dynobs_actor = params.dyn_actor_idx[dynobs_slot] if dynobs_slot >= 0 else 0
+    D = params.dyn_half.shape[0]
+    dyn_obs_step = torch.zeros(D, 2, dtype=torch.float32, device=params.device)
+    if dynobs_slot >= 0:
+        dyn_obs_step[dynobs_slot] = 0.01
+
+    def view_vec(state):
+        """The planner observations packed into ONE small device tensor:
+        [robot_pos(2), robot_vel(2), box_pos(2), box_quat(4), dynobs_contact(1)]."""
+        cf = torch.sum(torch.abs(state.contact_force[..., dynobs_actor, :2]), dim=-1)
+        return torch.cat(
+            [
+                state.q[..., :2],
+                state.qd[..., :2],
+                state.dyn_pos[..., box_slot, :],
+                point_env.quat_from_yaw(state.dyn_yaw[..., box_slot]),
+                cf[..., None],
+            ],
+            dim=-1,
+        )
+
+    def view_unpack(vec) -> dict:
+        vec = np.asarray(vec)
+        return {
+            "robot_pos": vec[0:2],
+            "robot_vel": vec[2:4],
+            "box_pos": vec[4:6],
+            "box_quat": vec[6:10],
+            "dynobs_contact": float(vec[10]),
+        }
+
+    def view(state):
+        return view_unpack(view_vec(state).cpu().numpy())
+
+    return Env(
+        env_type="point_env",  # planner-facing family; the robot varies via params
+        params=params,
+        nu=point_env.robot_nu(params),
+        step=lambda s, u, e: point_env.step(params, s, u, e),
+        init_state=lambda: point_env.init_state(params),
+        zero_ext=lambda batch=(): point_env.zero_ext(params, batch),
+        view=view,
+        view_vec=view_vec,
+        view_unpack=view_unpack,
+        dyn_obs_slot=dynobs_slot,
+        box_slot=box_slot,
+        dyn_obs_step=dyn_obs_step,
+    )
+
+
+def update_dyn_obs_device(env: Env, state, i: int, period: int = 100):
+    """Oscillate the dynamic obstacle by +-[0.01, 0.01] per tick in a square
+    wave (``isaacgym_wrapper.py:205-220``).  ``i`` is the host tick index, so
+    the phase costs no device round trip."""
+    if env.dyn_obs_slot < 0:
+        return state
+    phase = i % period
+    sign = 1.0 if (period // 4 < phase < 3 * period // 4) else -1.0
+    return replace(state, dyn_pos=state.dyn_pos + sign * env.dyn_obs_step)
+
+
+def command_world_vel(params, q, action):
+    """World-frame commanded base velocity of a point-family robot (the
+    suction alignment gate): wheel speeds go through the diff-drive FK for
+    the boxer; point/heijn actions are already world velocities."""
+    if params.robot_type == "boxer":
+        v = params.wheel_radius * (action[..., 0] + action[..., 1]) * 0.5
+        return v[..., None] * torch.stack([torch.cos(q[..., 2]), torch.sin(q[..., 2])], dim=-1)
+    return action[..., :2]

@@ -1,0 +1,100 @@
+"""Builds and loads the port's CUDA kernels (``csrc/*.cu``).
+
+All kernels go into ONE shared library with a plain C interface, compiled by
+``nvcc`` for ``sm_90a`` at first use and loaded with ``ctypes``.  The library
+is cached in ``m3p2i_aip_tpu_torch/_build/`` under a name derived from the
+sources and flags, so an edited source rebuilds; concurrent processes build
+it once, under a file lock.  Importing this module compiles nothing.
+
+``--use_fast_math`` is deliberately absent: the beta search and the contact
+gates branch on values that approximate ``expf``/``sqrtf``/division can push
+across a threshold.  ``-fmad=false`` keeps the kernels' floating point
+close to the plain PyTorch versions, whose element-wise kernels never fuse a
+multiply into an add.
+"""
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = pathlib.Path(__file__).resolve().parents[1]
+CSRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = ("point_rollout.cu", "multimodal_weights.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+# filled by the first load: seconds spent building (0.0 when cached), the
+# library path, and nvcc's output (ptxas registers / spills per kernel)
+build_info: dict = {}
+
+_lock = threading.Lock()
+_lib = None
+
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "m3p2i_multimodal_weights": [_VP, _VP, _VP, _I, _I, _I, _F, _F, _VP],
+    "m3p2i_point_rollout": [_VP] * 7 + [_I] * 15 + [_VP],
+}
+
+
+def _nvcc() -> str:
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return found
+
+
+def _library_path() -> pathlib.Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update((CSRC_DIR / name).read_bytes())
+    return BUILD_DIR / f"libm3p2i_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _build(target: pathlib.Path) -> None:
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC_DIR / s) for s in SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, target)
+    build_info.update(seconds=time.perf_counter() - t0, log=proc.stdout + proc.stderr)
+
+
+def load_kernels() -> ctypes.CDLL:
+    """The kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        target = _library_path()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        build_info.update(seconds=0.0, log="")
+        with open(BUILD_DIR / "build.lock", "w") as lock_file:
+            fcntl.flock(lock_file, fcntl.LOCK_EX)  # released on close or exit
+            if not target.exists():
+                _build(target)
+        lib = ctypes.CDLL(str(target))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        build_info["path"] = str(target)
+        _lib = lib
+        return _lib

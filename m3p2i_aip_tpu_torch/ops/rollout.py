@@ -1,0 +1,250 @@
+"""The point-family MPPI rollout: plain PyTorch version and the wrapper of
+its CUDA kernel (``csrc/point_rollout.cu``).
+
+Port of ``m3p2i_aip_tpu/ops/pallas_rollout.py`` (``_rollout_kernel`` and its
+factory ``make_point_rollout``).  One call rolls K action sequences through T
+steps of ``models/point_env.step`` from ONE start state, scoring each step
+with ``PointObjective.compute`` and carrying the pull cost's suction force
+into the next step.
+
+``make_point_rollout`` keeps the JAX factory's signature and returns
+``rollout(sim_state_k, acts, task, k0=None) -> (cost_horizon [K, T],
+traj_points [K, T, 2])``: ``acts`` arrive already ``u_scale``-scaled, all K
+states are the broadcast start state except their ``fric_scale`` rows, and
+``k0`` is the global index of the first sample (a later multi-device split
+keeps the mode assignment by global index).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+from m3p2i_aip_tpu_torch.models import point_env
+from m3p2i_aip_tpu_torch.ops import cuda_build
+from m3p2i_aip_tpu_torch.planners.motion_planner.cost_functions import PointObjective
+from m3p2i_aip_tpu_torch.utils.tree import tree_map
+
+# compile-time maxima of the kernel (csrc/point_rollout.cu kMaxD / kMaxS)
+MAX_DYN = 4
+MAX_STAT = 16
+_N_SCALARS = 16  # csrc/point_rollout.cu N_SCALARS
+_ROBOT_TYPES = {"point": 0, "heijn": 1, "boxer": 2}
+
+# Number of CUDA kernel launches made by ``point_rollout`` (CPU calls run the
+# plain version and do not count).
+rollout_launches = 0
+
+
+@dataclass
+class RolloutSpec:
+    """Everything one scene's rollout needs, built once per scene."""
+
+    env_params: point_env.PointEnvParams
+    objective: PointObjective
+    K: int  # total sample count (the mode split is K // 2)
+    T: int
+    n_q: int
+    n_u: int
+    box_slot: int
+    dynobs_slot: int
+    multi_modal: bool
+    boxer_continuous_align: bool
+    params_buf: torch.Tensor  # [N_SCALARS + 6 D + 7 S] kernel constants
+
+    @property
+    def D(self) -> int:
+        return int(self.env_params.dyn_half.shape[0])
+
+    @property
+    def S(self) -> int:
+        return int(self.env_params.stat_pos.shape[0])
+
+
+def _param_buffer(p: point_env.PointEnvParams, kp_suction: float, box_slot: int) -> np.ndarray:
+    """The kernel's constant buffer (layout: ``enum Scalar`` and the dyn /
+    static strides of ``csrc/point_rollout.cu``).  Products and differences
+    of python scalars are formed in double and rounded once, as the JAX
+    package forms them at trace time."""
+    half = p.dyn_half.cpu().numpy()
+    h = p.dt / p.substeps
+    wm_r = 1.0 / p.robot_mass
+    rr = p.robot_radius
+    scalars = np.zeros(_N_SCALARS, np.float64)
+    scalars[:14] = [
+        h,
+        np.exp(-p.drive_rate * p.dt / p.substeps),
+        wm_r * h,
+        wm_r,
+        rr,
+        p.robot_friction,
+        p.max_dyn_speed,
+        kp_suction,
+        p.arena_bound,
+        p.arena_bound - rr,
+        p.arena_bound - rr - 0.05,
+        p.arena_bound - (2.0 * rr + float(half[box_slot, 0])),
+        p.wheel_radius,
+        p.wheel_base,
+    ]
+    dyn = np.stack(
+        [
+            half[:, 0],
+            half[:, 1],
+            p.dyn_inv_mass.cpu().numpy(),
+            p.dyn_inv_inertia.cpu().numpy(),
+            np.mean(half, axis=-1),
+            p.dyn_friction.cpu().numpy(),
+        ],
+        axis=-1,
+    ).astype(np.float32)
+    yaw = p.stat_yaw.cpu().numpy().astype(np.float64)
+    stat = np.concatenate(
+        [
+            p.stat_pos.cpu().numpy(),
+            np.cos(yaw)[:, None],
+            np.sin(yaw)[:, None],
+            p.stat_half.cpu().numpy(),
+            p.stat_friction.cpu().numpy()[:, None],
+        ],
+        axis=-1,
+    ).astype(np.float32)
+    return np.concatenate([scalars.astype(np.float32), dyn.reshape(-1), stat.reshape(-1)])
+
+
+def pack_state(state: point_env.PointEnvState) -> torch.Tensor:
+    """One start state as the kernel's flat row: q, qd, dyn_pos (x0, y0, x1,
+    ...), dyn_yaw, dyn_vel, dyn_om."""
+    return torch.cat(
+        [
+            state.q, state.qd, state.dyn_pos.reshape(-1), state.dyn_yaw,
+            state.dyn_vel.reshape(-1), state.dyn_om,
+        ]
+    )
+
+
+def rollout_inputs(sim_state_k, task, k0=None):
+    """(task_vec, state0, fric_k) of the kernel from the broadcast rollout
+    states, the TaskParams and the global sample offset ``k0``."""
+    state0 = pack_state(tree_map(lambda x: x[0], sim_state_k))
+    k0v = torch.full((1,), 0.0 if k0 is None else float(k0), dtype=torch.float32, device=state0.device)
+    task_vec = torch.cat([task.task_id.to(torch.float32).reshape(1), task.goal[:2], k0v])
+    fric_k = sim_state_k.fric_scale.to(torch.float32).contiguous()
+    return task_vec, state0, fric_k
+
+
+def point_rollout_plain(spec: RolloutSpec, task_vec, state0, fric_k, acts):
+    """The rollout as plain tensor code: a loop over T of the batched
+    ``point_env.step`` and ``PointObjective.compute``.
+
+    ``task_vec`` = [task_id, goal_x, goal_y, k0] (float32, device);
+    ``state0`` the packed start state; ``fric_k`` [K, D]; ``acts`` [K, T, n_u].
+    """
+    p, D, n_q = spec.env_params, spec.D, spec.n_q
+    K = acts.shape[0]
+    o = 2 * n_q
+    state = point_env.PointEnvState(
+        q=state0[:n_q].expand(K, n_q),
+        qd=state0[n_q:o].expand(K, n_q),
+        dyn_pos=state0[o : o + 2 * D].reshape(D, 2).expand(K, D, 2),
+        dyn_yaw=state0[o + 2 * D : o + 3 * D].expand(K, D),
+        dyn_vel=state0[o + 3 * D : o + 5 * D].reshape(D, 2).expand(K, D, 2),
+        dyn_om=state0[o + 5 * D : o + 6 * D].expand(K, D),
+        contact_force=torch.zeros(K, p.num_actors, 3, dtype=acts.dtype, device=acts.device),
+        fric_scale=fric_k,
+    )
+    gk = torch.arange(K, device=acts.device, dtype=torch.float32) + task_vec[3]
+    mode = ((gk >= spec.K // 2) & (gk < spec.K)).to(torch.int32)
+    task = SimpleNamespace(task_id=task_vec[0], goal=task_vec[1:3])
+    ext = point_env.zero_ext(p, (K,))
+    costs, points = [], []
+    for t in range(spec.T):
+        u_t = acts[:, t]
+        state = point_env.step(p, state, u_t, ext)
+        cost, ext = spec.objective.compute(state, u_t, task, mode)
+        costs.append(cost)
+        points.append(state.q[:, :2])
+    return torch.stack(costs, dim=1), torch.stack(points, dim=1)
+
+
+def point_rollout(spec: RolloutSpec, task_vec, state0, fric_k, acts):
+    """The rollout of ``acts`` [K, T, n_u] from ``state0``.
+
+    A CPU tensor runs :func:`point_rollout_plain`; a CUDA tensor launches the
+    kernel on the current stream (one thread per sample) or raises.
+    """
+    global rollout_launches
+    if acts.device.type == "cpu":
+        return point_rollout_plain(spec, task_vec, state0, fric_k, acts)
+    if acts.device.type != "cuda":
+        raise ValueError(f"point_rollout: unsupported device {acts.device}")
+    K, T, n_u = acts.shape
+    D, S = spec.D, spec.S
+    expect = {
+        "task_vec": (task_vec, (4,)),
+        "state0": (state0, (2 * spec.n_q + 6 * D,)),
+        "fric_k": (fric_k, (K, D)),
+        "acts": (acts, (K, spec.T, spec.n_u)),
+        "params_buf": (spec.params_buf, (_N_SCALARS + 6 * D + 7 * S,)),
+    }
+    for name, (x, shape) in expect.items():
+        if tuple(x.shape) != shape:
+            raise ValueError(f"point_rollout: {name} has shape {tuple(x.shape)}, expected {shape}")
+        if x.dtype != torch.float32 or not x.is_contiguous() or x.device != acts.device:
+            raise ValueError(f"point_rollout: {name} must be contiguous float32 on {acts.device}")
+    if D > MAX_DYN or S > MAX_STAT:
+        raise ValueError(f"point_rollout: scene has D={D}, S={S}; the kernel takes D <= {MAX_DYN}, S <= {MAX_STAT}")
+    cost = torch.empty(K, T, dtype=torch.float32, device=acts.device)
+    traj = torch.empty(K, T, 2, dtype=torch.float32, device=acts.device)
+    lib = cuda_build.load_kernels()
+    p = spec.env_params
+    err = lib.m3p2i_point_rollout(
+        spec.params_buf.data_ptr(), task_vec.data_ptr(), state0.data_ptr(),
+        fric_k.data_ptr(), acts.data_ptr(), cost.data_ptr(), traj.data_ptr(),
+        K, spec.K, T, D, S, p.substeps, p.pos_iters, spec.box_slot, spec.dynobs_slot,
+        _ROBOT_TYPES[p.robot_type], spec.n_q, n_u, int(spec.multi_modal),
+        int(spec.boxer_continuous_align), spec.params_buf.numel(),
+        torch.cuda.current_stream(acts.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"point_rollout kernel launch failed: cudaError {err}")
+    rollout_launches += 1
+    return cost, traj
+
+
+def make_point_rollout(
+    env_params: point_env.PointEnvParams,
+    kp_suction: float,
+    K: int,
+    T: int,
+    multi_modal: bool,
+    boxer_continuous_align: bool = True,
+):
+    """The rollout callable of a point-family scene (see module docstring)."""
+    names = list(env_params.actor_names)
+    if "box" not in names or "dyn-obs" not in names:
+        raise ValueError("make_point_rollout: the scene needs a 'box' and a 'dyn-obs' actor")
+    box_slot = env_params.dyn_actor_idx.index(names.index("box"))
+    spec = RolloutSpec(
+        env_params=env_params,
+        objective=PointObjective(env_params, kp_suction, multi_modal, boxer_continuous_align),
+        K=int(K),
+        T=int(T),
+        n_q=point_env.robot_nq(env_params),
+        n_u=point_env.robot_nu(env_params),
+        box_slot=box_slot,
+        dynobs_slot=env_params.dyn_actor_idx.index(names.index("dyn-obs")),
+        multi_modal=bool(multi_modal),
+        boxer_continuous_align=bool(boxer_continuous_align),
+        params_buf=torch.as_tensor(
+            _param_buffer(env_params, kp_suction, box_slot), device=env_params.device
+        ),
+    )
+
+    def rollout(sim_state_k, acts, task, k0=None):
+        return point_rollout(spec, *rollout_inputs(sim_state_k, task, k0), acts.contiguous())
+
+    rollout.spec = spec
+    return rollout

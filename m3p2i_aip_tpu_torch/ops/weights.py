@@ -1,0 +1,76 @@
+"""M3P2I multi-modal importance weights: plain PyTorch version and the
+wrapper of its CUDA kernel (``csrc/multimodal_weights.cu``).
+
+Port of ``m3p2i_aip_tpu/ops/pallas_kernels.py::_weights_kernel`` (and the
+XLA ``MPPI._multi_modal_exp_util`` it replaces): discounted cost-to-go over
+the horizon, a per-group min shift, and three masked adaptive-beta searches
+(mode 0 = ``k < half_K``, mode 1, global).  Each search starts at beta = 1 on
+every call (the reference never persists the tuned betas, mirrored) and
+multiplies beta by 0.9 or 1.2 until eta is in [eta_l, eta_u], at most 64
+times.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from m3p2i_aip_tpu_torch.ops import cuda_build
+
+BETA_ITERS = 64
+
+# Number of CUDA kernel launches made by ``multimodal_weights`` (CPU calls
+# run the plain version and do not count).
+weights_launches = 0
+
+
+def multimodal_weights_plain(cost, gamma, half_K: int, eta_u: float = 10.0, eta_l: float = 3.0):
+    """(w_mode0, w_mode1, w_global), each [K], from [K, T] costs.
+
+    The search runs all 64 rounds with the update masked to out-of-bounds
+    groups: a group inside [eta_l, eta_u] keeps its beta, so this equals the
+    early-exit loop without a host sync per round.
+    """
+    K = cost.shape[0]
+    tc = torch.sum(cost * gamma, dim=-1)  # [K]
+    k = torch.arange(K, device=cost.device)
+    mask = torch.stack([k < half_K, k >= half_K, torch.ones_like(k, dtype=torch.bool)])
+    c3 = torch.where(mask, tc, torch.inf)
+    c3 = c3 - torch.amin(c3, dim=1, keepdim=True)  # per-group min shift
+    beta = torch.ones(3, 1, dtype=cost.dtype, device=cost.device)
+    for _ in range(BETA_ITERS):
+        eta = torch.sum(torch.exp(-c3 / beta), dim=1, keepdim=True)
+        beta = torch.where(eta > eta_u, beta * 0.9, torch.where(eta < eta_l, beta * 1.2, beta))
+    e = torch.exp(-c3 / beta)
+    w = e / torch.sum(e, dim=1, keepdim=True)
+    return w[0], w[1], w[2]
+
+
+def multimodal_weights(cost, gamma, half_K: int, eta_u: float = 10.0, eta_l: float = 3.0):
+    """The multi-modal weights of [K, T] costs under discount ``gamma`` [T].
+
+    A CPU tensor runs :func:`multimodal_weights_plain`; a CUDA tensor launches
+    the kernel on the current stream (one block) or raises.
+    """
+    global weights_launches
+    if cost.device.type == "cpu":
+        return multimodal_weights_plain(cost, gamma, half_K, eta_u, eta_l)
+    if cost.device.type != "cuda":
+        raise ValueError(f"multimodal_weights: unsupported device {cost.device}")
+    if cost.dim() != 2 or gamma.shape != (cost.shape[1],):
+        raise ValueError(f"multimodal_weights: cost {tuple(cost.shape)} / gamma {tuple(gamma.shape)}")
+    for name, x in (("cost", cost), ("gamma", gamma)):
+        if x.dtype != torch.float32 or not x.is_contiguous() or x.device != cost.device:
+            raise ValueError(f"multimodal_weights: {name} must be contiguous float32 on {cost.device}")
+    K, T = cost.shape
+    out = torch.empty(3, K, dtype=torch.float32, device=cost.device)
+    lib = cuda_build.load_kernels()
+    err = lib.m3p2i_multimodal_weights(
+        cost.data_ptr(), gamma.data_ptr(), out.data_ptr(),
+        K, T, int(half_K), ctypes.c_float(eta_u), ctypes.c_float(eta_l),
+        torch.cuda.current_stream(cost.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"multimodal_weights kernel launch failed: cudaError {err}")
+    weights_launches += 1
+    return out[0], out[1], out[2]

@@ -1,0 +1,363 @@
+"""MPPI planner, halton-spline sampling path, in torch.
+
+Port of ``m3p2i_aip_tpu/planners/motion_planner/mppi.py``: the planner state
+lives in an explicit :class:`MPPIState` dataclass of tensors, the cached
+Halton-spline deltas are precomputed once (numpy) and carried in the state,
+the Savitzky-Golay filter is a precomputed [T, T] matrix, and task switches
+arrive as :class:`TaskParams` tensors, never as a host branch.
+
+The K rollouts go through an injected ``rollout(sim_state_k, acts, task)``
+(``ops/rollout.py``: the CUDA kernel for CUDA tensors, its plain version for
+CPU tensors), and the multi-modal weights through ``ops/weights.py``.
+
+Exploration noise: the JAX planner jitters the cached deltas with
+``jax.random`` draws, which torch cannot reproduce.  Here the planner draws
+them from its own ``torch.Generator`` on the device (seeded from
+``mppi.seed_val``), and ``command``/``_command_impl`` also take the noise as
+an input so a test can feed both packages the same numbers.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from m3p2i_aip_tpu_torch.ops.control import discounted_traj_cost, scale_ctrl
+from m3p2i_aip_tpu_torch.ops.filters import savgol_matrix
+from m3p2i_aip_tpu_torch.ops.sampling import gaussian_halton_samples
+from m3p2i_aip_tpu_torch.ops.spline import bspline_interp_matrix
+from m3p2i_aip_tpu_torch.ops.weights import multimodal_weights
+from m3p2i_aip_tpu_torch.utils.tree import tree_map
+
+_NOT_PORTED = "is not ported yet: see ROADMAP.md Queue 1"
+
+
+@dataclass
+class TaskParams:
+    """Per-tick task data, as tensors on the planner's device.
+
+    ``task_id``: 0 navigation, 1 push, 2 pull, 3 push_pull, 4 reach, 5 pick,
+    6 place, 7 ee_reach, 8 reposition, 9 push_reach.
+    """
+
+    task_id: torch.Tensor  # int32 scalar
+    goal: torch.Tensor  # [7] pos(3) + quat(4); 2D goals use [:2]
+    gripper: torch.Tensor  # int32: 0 none, 1 open, 2 close
+    zup_gate: torch.Tensor  # f32 scalar
+
+
+TASK_IDS = {
+    "navigation": 0,
+    "push": 1,
+    "pull": 2,
+    "push_pull": 3,
+    "reach": 4,
+    "pick": 5,
+    "place": 6,
+    "ee_reach": 7,
+    "reposition": 8,
+    "push_reach": 9,
+    "idle": 0,
+    "idle_success": 0,
+    "idle_fail": 0,
+    "reactive_pick": 4,
+}
+
+
+def make_task_params(
+    task: str, goal, gripper_command: str = "none", zup_gate: float = 0.0, device="cpu"
+) -> TaskParams:
+    g = np.zeros(7, dtype=np.float32)
+    goal = np.asarray(goal, dtype=np.float32).reshape(-1)
+    g[: goal.shape[0]] = goal
+    grip = {"none": 0, "open": 1, "close": 2}[gripper_command]
+    return TaskParams(
+        task_id=torch.tensor(TASK_IDS[task], dtype=torch.int32, device=device),
+        goal=torch.as_tensor(g, device=device),
+        gripper=torch.tensor(grip, dtype=torch.int32, device=device),
+        zup_gate=torch.tensor(zup_gate, dtype=torch.float32, device=device),
+    )
+
+
+@dataclass
+class MPPIState:
+    """Planner state threaded through ``command`` calls."""
+
+    mean_action: torch.Tensor  # [T, nu]
+    mean_action_1: torch.Tensor
+    mean_action_2: torch.Tensor
+    best_traj: torch.Tensor
+    best_traj_1: torch.Tensor
+    best_traj_2: torch.Tensor
+    U: torch.Tensor  # [T, nu] simple-mode nominal sequence
+    beta: torch.Tensor  # single-mode adaptive inverse temperature
+    weights: torch.Tensor  # [K] last importance weights
+    cov_action: torch.Tensor  # [nu]
+    cov_action_1: torch.Tensor
+    cov_action_2: torch.Tensor
+    halton_delta: torch.Tensor  # [K, T, nu] seeded Halton-spline deltas
+    fric_scale_k: torch.Tensor  # [K, D] per-sample friction scales
+
+
+class MPPI:
+    """Halton-spline MPPI.  Construction parity: MPPI.__init__ (mppi.py:82-203).
+
+    ``rollout(sim_state_k, acts, task) -> (cost_horizon [K, T], traj [K, T, 2])``
+    rolls out all K samples from the broadcast real state.
+    """
+
+    def __init__(self, cfg, rollout, fric_noise=None, device="cpu"):
+        mcfg = cfg.mppi
+        for bad, what in (
+            (mcfg.mppi_mode == "simple", "mppi_mode=simple (M7)"),
+            (mcfg.sampling_method == "random", "sampling_method=random (M7)"),
+            (mcfg.update_cov or mcfg.update_cov_per_mode, "update_cov / update_cov_per_mode (M7)"),
+            (int(mcfg.refine_iters or 0) > 0, "the refine ladder, refine_iters > 0 (M8)"),
+            (int(mcfg.grad_refine_steps or 0) > 0, "grad_refine_steps > 0 (M8)"),
+        ):
+            if bad:
+                raise NotImplementedError(f"{what} {_NOT_PORTED}")
+        self.device = torch.device(device)
+        self.env_type = cfg.env_type
+        self.multi_modal = bool(cfg.multi_modal)
+        self.cfg = mcfg
+        self.K = mcfg.num_samples
+        self.half_K = self.K // 2
+        self.T = mcfg.horizon
+        self.filter_u = mcfg.filter_u
+        self.sample_null_action = mcfg.sample_null_action
+        self.u_scale = mcfg.u_scale
+
+        noise_sigma = mcfg.noise_sigma or np.identity(int(mcfg.nx / 2)).tolist()
+        self.noise_sigma = np.asarray(noise_sigma, dtype=np.float32)
+        self.nu = self.noise_sigma.shape[0]
+        self.noise_mu = np.asarray(mcfg.noise_mu or [0.0] * self.nu, dtype=np.float32)
+
+        u_max, u_min = mcfg.u_max, mcfg.u_min
+        if u_max and not u_min:
+            u_min = [-v for v in u_max]
+        if u_min and not u_max:
+            u_max = [-v for v in u_min]
+        if u_min is None:  # unbounded controls
+            u_min, u_max = [-np.inf] * self.nu, [np.inf] * self.nu
+        self.u_min = self._t(np.asarray(u_min, np.float32))
+        self.u_max = self._t(np.asarray(u_max, np.float32))
+
+        gamma = mcfg.rollout_var_discount
+        self.gamma_seq = self._t(np.cumprod([1.0] + [gamma] * (self.T - 1)).astype(np.float32))
+        self.fine_noise_scale = mcfg.fine_noise_scale
+        self.exploration_noise = float(mcfg.exploration_noise)
+        self.beta_adapt = (
+            self.env_type in ("panda_env", "boxer_env") if mcfg.beta_adapt is None else bool(mcfg.beta_adapt)
+        )
+        # STORM-lineage constants (mppi.py:168-203)
+        self.knot_scale = 4
+        self.n_knots = self.T // self.knot_scale
+        self.ndims = self.n_knots * self.nu
+        self.degree = 2
+        self.step_size_mean = 0.98
+        self.eta_u = float(mcfg.eta_u_bound)
+        self.eta_l = float(mcfg.eta_l_bound)
+        self.scale_tril = self._t(np.sqrt(np.diagonal(self.noise_sigma)).astype(np.float32))
+        self.seed_val = mcfg.seed_val
+
+        # Savitzky-Golay operator (window 9 order 2, mppi.py:190-193)
+        sgf_window = min(9, self.T if self.T % 2 == 1 else self.T - 1)
+        self._sgf = self._t(savgol_matrix(self.T, sgf_window, 2).astype(np.float32))
+        self.sample_mode = self._t((np.arange(self.K) >= self.half_K).astype(np.int32))
+        self.rollout = rollout
+        self.fric_noise = None if fric_noise is None else np.asarray(fric_noise)
+        self.generator = torch.Generator(device=self.device)
+        self.reseed(self.seed_val)
+
+    def _t(self, x: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(x, device=self.device)
+
+    # ------------------------------------------------------------------ init
+    def _make_halton_spline_deltas(self) -> np.ndarray:
+        """[K, T, nu] Gaussian-Halton knots through the spline basis, the
+        fine-noise quarter of each half-batch, and a zero row at K-1."""
+        knots = gaussian_halton_samples(self.K, self.ndims, scramble=True, seed_val=self.seed_val).astype(
+            np.float32
+        )
+        knots = knots.reshape(self.K, self.nu, self.n_knots)
+        M = bspline_interp_matrix(self.n_knots, self.T, degree=self.degree, smoothing=0.5).astype(np.float32)
+        samples = np.einsum("kun,tn->ktu", knots, M)
+        for start in (0, self.half_K):
+            half = self.half_K if self.K > 1 else self.K
+            fine_lo = start + (3 * half) // 4
+            samples[fine_lo : start + half] *= self.fine_noise_scale
+        samples[-1] = 0.0
+        return samples
+
+    def _make_fric_scales(self) -> np.ndarray:
+        """[K, D] per-sample friction multipliers 1 + U(-pct, pct)."""
+        D = 0 if self.fric_noise is None else int(self.fric_noise.shape[0])
+        if D == 0 or not np.any(self.fric_noise):
+            return np.ones((self.K, max(D, 1)), dtype=np.float32)
+        rng = np.random.default_rng(self.seed_val + 7919)
+        u = rng.uniform(-1.0, 1.0, size=(self.K, D)).astype(np.float32)
+        return 1.0 + u * self.fric_noise[None, :].astype(np.float32)
+
+    @property
+    def fric_inject(self) -> bool:
+        return self.fric_noise is not None and bool(np.any(self.fric_noise))
+
+    def reseed(self, seed_val: int) -> None:
+        """Re-seed the sampler: new Halton deltas and friction scales (taken
+        up by the next ``init_state``)."""
+        self.seed_val = int(seed_val)
+        self._delta = self._t(self._make_halton_spline_deltas())
+        self._fric_scale = self._t(self._make_fric_scales())
+
+    def init_state(self) -> MPPIState:
+        """Fresh planner state; also re-seeds the exploration generator."""
+        self.generator.manual_seed(self.seed_val)
+        z = torch.zeros(self.T, self.nu, dtype=torch.float32, device=self.device)
+        if self.cfg.U_init is not None:
+            U0 = self._t(np.asarray(self.cfg.U_init, np.float32))
+        else:  # the reference samples U from the noise distribution (mppi.py:134)
+            chol = self._t(np.linalg.cholesky(self.noise_sigma).astype(np.float32))
+            eps = torch.randn(self.T, self.nu, generator=self.generator, device=self.device)
+            U0 = self._t(self.noise_mu) + eps @ chol.T
+        cov = self._t(np.diagonal(self.noise_sigma).astype(np.float32))
+        return MPPIState(
+            mean_action=z,
+            mean_action_1=z,
+            mean_action_2=z,
+            best_traj=z,
+            best_traj_1=z,
+            best_traj_2=z,
+            U=U0,
+            beta=torch.ones((), dtype=torch.float32, device=self.device),
+            weights=torch.full((self.K,), 1.0 / self.K, dtype=torch.float32, device=self.device),
+            cov_action=cov,
+            cov_action_1=cov,
+            cov_action_2=cov,
+            halton_delta=self._delta,
+            fric_scale_k=self._fric_scale,
+        )
+
+    # --------------------------------------------------------------- helpers
+    @staticmethod
+    def _shift(seq: torch.Tensor) -> torch.Tensor:
+        """Time-shift an action sequence, repeating the last action."""
+        return torch.cat([seq[1:], seq[-1:]], dim=0)
+
+    @staticmethod
+    def _pick(actions: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """``actions[argmax(w)]`` without a host sync (a 0-dim tensor index
+        would read the index back to the host)."""
+        return torch.index_select(actions, 0, torch.argmax(w).reshape(1))[0]
+
+    # ---------------------------------------------------- weight computation
+    def _exp_util(self, cost_horizon, beta):
+        """Single-mode weights. Parity: MPPI._exp_util (mppi.py:430-456)."""
+        traj_costs = discounted_traj_cost(cost_horizon, self.gamma_seq)
+        total = traj_costs - torch.min(traj_costs)
+        exp_ = torch.exp((-1.0 / beta) * total)
+        eta = torch.sum(exp_)
+        weights = exp_ / eta
+        if self.beta_adapt:
+            beta = torch.where(eta > 20.0, beta * 0.9, torch.where(eta < 10.0, beta * 1.2, beta))
+        return weights, beta
+
+    def _multi_modal_exp_util(self, cost_horizon):
+        """Per-mode + global adaptive-beta weights (m3p2i.py:46-64); beta
+        restarts at 1 on every call, as the reference's does."""
+        return multimodal_weights(cost_horizon, self.gamma_seq, self.half_K, self.eta_u, self.eta_l)
+
+    # ---------------------------------------------------------------- update
+    def _update_halton(self, state: MPPIState, cost_horizon, actions) -> MPPIState:
+        """Distribution update. Parity: _update_distribution (mppi.py:485-503)
+        and _update_multi_modal_distribution (m3p2i.py:66-92)."""
+        keep = 1.0 - self.step_size_mean
+        if self.multi_modal:
+            w0, w1, w = self._multi_modal_exp_util(cost_horizon)
+            new_mean = torch.einsum("k,ktu->tu", w, actions)
+            return dataclasses.replace(
+                state,
+                mean_action=keep * state.mean_action + self.step_size_mean * new_mean,
+                mean_action_1=torch.einsum("k,ktu->tu", w0, actions),
+                mean_action_2=torch.einsum("k,ktu->tu", w1, actions),
+                best_traj_1=self._pick(actions, w0),
+                best_traj_2=self._pick(actions, w1),
+                weights=w,
+            )
+        w, beta = self._exp_util(cost_horizon, state.beta)
+        new_mean = torch.einsum("k,ktu->tu", w, actions)
+        return dataclasses.replace(
+            state,
+            mean_action=keep * state.mean_action + self.step_size_mean * new_mean,
+            best_traj=self._pick(actions, w),
+            weights=w,
+            beta=beta,
+        )
+
+    # --------------------------------------------------------------- command
+    def command(self, state: MPPIState, sim_state, task: TaskParams, noise=None):
+        """One replanning step from the single real-env state.
+
+        Returns (action_sequence [T, nu], new_state, aux dict).
+        """
+        return self._command_impl(state, sim_state, task, noise)
+
+    def _command_impl(self, state: MPPIState, sim_state, task: TaskParams, noise=None):
+        sim_state_k = tree_map(lambda x: x.expand((self.K,) + x.shape), sim_state)
+        if self.fric_inject:
+            sim_state_k = dataclasses.replace(sim_state_k, fric_scale=state.fric_scale_k)
+        state, action, tps = self._command_halton(state, sim_state_k, task, noise)
+        if self.filter_u:
+            action = self._sgf[: action.shape[0], : action.shape[0]] @ action
+        # top-20 rollout positions for visualization (mppi.py:248-254)
+        top_vals, top_idx = torch.topk(state.weights, min(20, self.K))
+        aux = {"weights": state.weights, "top_trajs": tps[top_idx], "top_values": top_vals}
+        return action, state, aux
+
+    def _command_halton(self, state: MPPIState, sim_state_k, task: TaskParams, noise=None):
+        """Shift, jitter, per-mode sampling around the means, elites at 0 and
+        half_K, null action at K-1, rollout, update (mppi.py:751-844).
+        ``noise`` [K, T, nu] replaces the generator's standard-normal draw."""
+        state = dataclasses.replace(
+            state,
+            mean_action=self._shift(state.mean_action),
+            mean_action_1=self._shift(state.mean_action_1),
+            mean_action_2=self._shift(state.mean_action_2),
+            best_traj=self._shift(state.best_traj),
+            best_traj_1=self._shift(state.best_traj_1),
+            best_traj_2=self._shift(state.best_traj_2),
+        )
+        delta = state.halton_delta
+        if self.exploration_noise > 0.0:
+            # per-tick jitter on the cached deltas: breaks deterministic
+            # replanning fixed points (see the JAX planner)
+            if noise is None:
+                noise = torch.randn(delta.shape, generator=self.generator, device=self.device)
+            delta = delta + self.exploration_noise * noise
+            delta[-1] = 0.0  # in place on the fresh sum: keep the pure-mean sample
+        scaled_delta = delta * self.scale_tril
+        if self.multi_modal:
+            mean_m = torch.where(
+                (self.sample_mode == 0)[:, None, None],
+                state.mean_action_1[None],
+                state.mean_action_2[None],
+            )
+            act_seq = mean_m + scaled_delta
+        else:
+            act_seq = state.mean_action[None] + scaled_delta
+        act_seq = scale_ctrl(act_seq, self.u_min, self.u_max, "clamp")
+        # the row writes below go in place into the fresh act_seq
+        if self.multi_modal:
+            act_seq[0] = state.best_traj_1  # per-mode elites (mppi.py:407-409)
+            act_seq[self.half_K] = state.best_traj_2
+        elif self.cfg.sample_best_traj:
+            act_seq[0] = state.best_traj
+        if self.sample_null_action:
+            act_seq[self.K - 1] = 0.0  # braking sample (mppi.py:300-302)
+
+        cost_horizon, tps = self.rollout(sim_state_k, self.u_scale * act_seq, task)
+        state = self._update_halton(state, cost_horizon, act_seq)
+        return state, state.mean_action, tps

@@ -1,0 +1,156 @@
+"""Real-system loop: the single "actuated" env driven by the TAMP planner.
+
+Port of ``m3p2i_aip_tpu/tamp/sim_loop.py`` (point family, serial chunks).
+The same engine runs the rollouts and the real env, in one process.  The
+chunked loop syncs with the device once per chunk: one transfer brings back
+the chunk's per-tick views with the latch scalars.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import torch
+
+from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMP
+
+
+@dataclass
+class TickLog:
+    """Per-run statistics in the reference's log spirit (plot_point.py:26-34)."""
+
+    robot_pos: List = field(default_factory=list)
+    robot_vel: List = field(default_factory=list)
+    box_pos: List = field(default_factory=list)
+    task: List = field(default_factory=list)
+    replan_s: List = field(default_factory=list)
+    sim_s: List = field(default_factory=list)
+    collisions: int = 0
+    steps: int = 0
+    success_step: Optional[int] = None
+
+
+class SimLoop:
+    """Owns the real env state and the TAMP planner; steps them in lock-step."""
+
+    def __init__(self, cfg, tamp: Optional[ReactiveTAMP] = None, device="cpu") -> None:
+        self.cfg = cfg
+        self.tamp = tamp if tamp is not None else ReactiveTAMP(cfg, device=device)
+        self.env = self.tamp.env
+        self.state = self.env.init_state()
+        self.log = TickLog()
+        self._view: Optional[dict] = None  # host copy of the current observation
+
+    def reset(self, seed_val: Optional[int] = None) -> None:
+        """Reset for a fresh seeded run without rebuilding the planner."""
+        if seed_val is not None:
+            self.cfg.mppi.seed_val = seed_val
+            self.tamp.motion_planner.reseed(seed_val)
+        self.tamp.mppi_state = self.tamp.motion_planner.init_state()
+        self.tamp.task_planner.reset_plan()
+        self.tamp.task_success = False
+        self.state = self.env.init_state()
+        self.log = TickLog()
+        self._view = None
+
+    def warmup(self, n: int = 150) -> None:
+        """Settle the scene with zero actions before planning (sim.py:32-33)."""
+        zero_u = torch.zeros(self.env.nu, dtype=torch.float32, device=self.env.device)
+        ext = self.env.zero_ext()
+        for _ in range(n):
+            self.state = self.env.step(self.state, zero_u, ext)
+        self._view = self.env.view(self.state)
+
+    def _record(self, i: int, view: dict, replan_s: float, sim_s: float) -> bool:
+        self.log.steps += 1
+        self.log.replan_s.append(replan_s)
+        self.log.sim_s.append(sim_s)
+        self.log.task.append(self.tamp.task_planner.task)
+        self.log.robot_pos.append(view["robot_pos"])
+        self.log.robot_vel.append(view["robot_vel"])
+        self.log.box_pos.append(view["box_pos"])
+        if view.get("dynobs_contact", 0.0) > 0.1:
+            self.log.collisions += 1
+        if self.tamp.task_success and self.log.success_step is None:
+            self.log.success_step = i
+        return bool(self.tamp.task_success)
+
+    def tick(self, i: int) -> bool:
+        """One control tick with one device->host transfer (the view)."""
+        if self._view is None:
+            self._view = self.env.view(self.state)
+        t0 = time.perf_counter()
+        task_params = self.tamp.tamp_interface_view(self._view)
+        if self.tamp.task_success:
+            return self._record(i, self._view, 0.0, 0.0)
+        _, self.tamp.mppi_state, self.state, vvec = self.tamp.tick_fused(
+            self.tamp.mppi_state, self.state, task_params, i
+        )
+        vvec = vvec.cpu().numpy()
+        t1 = time.perf_counter()
+        self._view = self.env.view_unpack(vvec)
+        # gate on the fresh post-step view, so success is logged at the
+        # crossing tick itself (the chunked latch uses the same convention)
+        self.tamp.task_success = self.tamp.task_planner.check_task_success(self._view)
+        return self._record(i, self._view, t1 - t0, t1 - t0)
+
+    def run_chunked(self, n_steps: int, chunk: int = 10, pipelined: bool = False) -> TickLog:
+        """``chunk`` full replan+step ticks per device round trip.
+
+        The symbolic plan is refreshed between chunks, so a task switch waits
+        at most ``chunk - 1`` ticks; the device latch stops state at the
+        success tick inside a chunk.
+        """
+        if pipelined:
+            raise NotImplementedError("pipelined chunks are not ported yet: see ROADMAP.md Queue 1 (M5)")
+        if self._view is None:
+            self.warmup(0)
+        i = 0
+        while i < n_steps:
+            t0 = time.perf_counter()
+            task_params = self.tamp.tamp_interface_view(self._view)
+            if self.tamp.task_success:
+                self._record(i, self._view, 0.0, 0.0)
+                break
+            ms, rs, views, n_ticks, dev_done = self.tamp.run_chunk(
+                self.tamp.mppi_state, self.state, task_params, i, chunk
+            )
+            if torch.is_tensor(n_ticks):
+                # ONE device->host transfer: the views and the latch scalars together
+                latch = torch.stack([n_ticks.float(), dev_done.float()])
+                packed = torch.cat([views.reshape(-1), latch]).cpu().numpy()
+                views, n_ticks, dev_done = packed[:-2].reshape(chunk, -1), int(packed[-2]), bool(packed[-1])
+            else:  # gates off: the chunk length and "not done" are known on the host
+                views = views.cpu().numpy()
+            t1 = time.perf_counter()
+            self.tamp.mppi_state, self.state = ms, rs
+            done_at = self._drain_chunk(i, views, n_ticks, dev_done, t1 - t0)
+            if done_at is not None:
+                break
+            i += chunk
+        return self.log
+
+    def _drain_chunk(self, i: int, views, n_ticks: int, dev_done: bool, elapsed: float) -> Optional[int]:
+        """Host-side processing of one fetched chunk: unpack views, run the
+        host success check per tick, record log rows.  Returns the success
+        tick index, or None."""
+        per = elapsed / max(n_ticks, 1)
+        done_at = None
+        tp = self.tamp.task_planner
+        for k in range(n_ticks):
+            self._view = self.env.view_unpack(views[k])
+            if hasattr(tp, "observe"):
+                tp.observe(self._view)  # tick-granular stall bookkeeping
+            self.tamp.task_success = tp.check_task_success(self._view)
+            self._record(i + k, self._view, per, 0.0)
+            if self.tamp.task_success:
+                done_at = i + k
+                break
+        if done_at is None and dev_done:
+            # the device latch fired but the host check disagreed at the
+            # float boundary: trust the device (its state is frozen there)
+            self.tamp.task_success = True
+            done_at = i + n_ticks - 1
+            self.log.success_step = done_at
+        return done_at

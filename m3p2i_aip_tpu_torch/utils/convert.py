@@ -1,0 +1,50 @@
+"""Carry the JAX package's parameters and states into the port's types.
+
+Each function takes the JAX pytree as a dict of numpy arrays (its leaves,
+e.g. ``{f.name: np.asarray(getattr(x, f.name)) for f in fields(x)}``) plus,
+for the params, its static fields, and returns the port's dataclass with
+tensors on ``device``.  The port never sees a jax array: whoever calls these
+does the ``np.asarray`` on the JAX side.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from m3p2i_aip_tpu_torch.models.point_env import PointEnvParams, PointEnvState
+from m3p2i_aip_tpu_torch.planners.motion_planner.mppi import MPPIState, TaskParams
+
+_INT_FIELDS = {"task_id", "gripper"}
+
+
+def _tensor(name: str, value, device) -> torch.Tensor:
+    dtype = torch.int32 if name in _INT_FIELDS else torch.float32
+    return torch.as_tensor(np.array(value), dtype=dtype, device=device)
+
+
+def _build(cls, arrays: dict, device, static: dict = ()):
+    names = {f.name for f in dataclasses.fields(cls)}
+    kwargs = {k: _tensor(k, v, device) for k, v in arrays.items() if k in names}
+    kwargs.update({k: v for k, v in dict(static).items() if k in names})
+    return cls(**kwargs)
+
+
+def point_env_params_from_numpy(arrays: dict, static: dict, device="cpu") -> PointEnvParams:
+    """``PointEnvParams`` from the JAX params' array leaves and static fields."""
+    return _build(PointEnvParams, arrays, device, static)
+
+
+def point_env_state_from_numpy(arrays: dict, device="cpu") -> PointEnvState:
+    return _build(PointEnvState, arrays, device)
+
+
+def mppi_state_from_numpy(arrays: dict, device="cpu") -> MPPIState:
+    """``MPPIState``; the JAX PRNG key (``rng``) has no counterpart and is
+    dropped — the port's planner draws from its own ``torch.Generator``."""
+    return _build(MPPIState, arrays, device)
+
+
+def task_params_from_numpy(arrays: dict, device="cpu") -> TaskParams:
+    return _build(TaskParams, arrays, device)

@@ -1,0 +1,46 @@
+"""Suction force model and its real-env gate, in torch.
+
+Port of ``m3p2i_aip_tpu/utils/skill_utils.py:14-60`` (the reference's
+``skill_utils.calculate_suction:59-94`` and
+``check_suction_condition:47-56``).
+"""
+from __future__ import annotations
+
+import torch
+
+
+def calculate_suction(
+    box_pos: torch.Tensor,
+    robot_pos: torch.Tensor,
+    kp_suction: float,
+    threshold: float,
+    clamp: float = 500.0,
+):
+    """Suction pull-force pair between box and robot, batched over [..., 2].
+
+    Magnitude kp/dist along the box->robot line, gated on 1/dist > threshold
+    (1.5 for the real env, 1.8 for rollouts — the reference's intentional
+    difference, mirrored), clamped to +-500, equal and opposite on the robot.
+    Returns (force_on_box, force_on_robot).
+    """
+    dir_vec = box_pos - robot_pos
+    dist = torch.linalg.vector_norm(dir_vec, dim=-1, keepdim=True)
+    magnitude = 1.0 / torch.clamp(dist, min=1e-6)
+    unit_force = dir_vec * magnitude
+    mask = (magnitude > threshold).to(unit_force.dtype)
+    f_box = torch.clamp(-kp_suction * unit_force * mask, -clamp, clamp)
+    f_robot = torch.clamp(kp_suction * unit_force * mask, -clamp, clamp)
+    return f_box, f_robot
+
+
+def check_suction_condition(task: str, suction_active: bool, robot_pos, box_pos, action) -> bool:
+    """Host-side gate for suction in the real-system loop (syncs: not for the
+    chunked path, which uses ``ReactiveTAMP._suction_ext_device``): a
+    pull-family task, suction enabled, robot within 0.6 m of the box, and the
+    action pointing away from the box."""
+    if task not in ("pull", "push_pull") or not suction_active:
+        return False
+    dir_rb = robot_pos - box_pos
+    align = float(torch.sum(action[..., :2] * dir_rb))
+    dist = float(torch.linalg.vector_norm(dir_rb))
+    return dist < 0.6 and align > 0
