@@ -2,10 +2,17 @@
 """GPU smoke run of the PyTorch/CUDA port (``m3p2i_aip_tpu_torch``).
 
 Builds the port's CUDA kernels from ``m3p2i_aip_tpu_torch/csrc``, holds each
-against its plain PyTorch version on the card, then drives the port's main
-path -- the point-robot push_pull multi-modal M3P2I loop at K=200 x T=15 --
-through ``SimLoop.run_chunked``, first with the success gates on (the box
-must reach the corner goal) and then in benchmark mode (gates off).
+against its plain PyTorch version on the card, then drives the port's two
+paths through ``SimLoop.run_chunked``:
+
+* the point-robot push_pull multi-modal M3P2I loop at K=200 x T=15, first
+  with the success gates on (the box must reach the corner goal) and then in
+  benchmark mode (gates off);
+* the panda active-inference pick-place loop (``-cn config_panda``) at
+  K=200 x T=12 with the refine ladder: the table pick-place must grasp the
+  cube and latch success, a short multi-modal shelf run must stay finite,
+  and the replan+step rate is measured with ``scripts/bench_panda.py``'s
+  protocol.
 
 Usage (one CUDA GPU, no arguments):
 
@@ -37,8 +44,9 @@ STARTS = [
     ([-2.6, -2.9], [-1.0, -1.0], [-3.3, -3.2]),
 ]
 WEIGHTS_ATOL, SUM_TOL = 1e-6, 1e-5  # tests/test_pallas.py:131-132
-COST_ATOL, TRAJ_ATOL = 1e-2, 1e-3  # tests/test_pallas.py:259-260
+COST_ATOL, TRAJ_ATOL = 1e-2, 1e-3  # tests/test_pallas.py:259-260 (and :379-384 for the panda)
 TIMED_CALLS = 50
+PANDA_TICKS = 900  # the table pick-place must latch success within this many ticks
 
 
 def _nvidia_smi() -> str:
@@ -65,21 +73,33 @@ def _time_ms(fn, calls: int = TIMED_CALLS, warmup: int = 5) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in pairs]))
 
 
-def phase_weights(mp) -> dict:
-    """K2 against its plain version at K=200, T=15."""
+def _weights_check(mp, cost, label: str) -> float:
+    """K2 against its plain version on one [K, T] cost with planner ``mp``'s
+    discount, halves and eta bounds; returns the max error."""
     from m3p2i_aip_tpu_torch.ops import weights
 
-    rng = np.random.default_rng(0)
-    cost = torch.as_tensor(rng.uniform(0, 50, size=(mp.K, mp.T)).astype(np.float32), device="cuda")
     args = (cost, mp.gamma_seq, mp.half_K, mp.eta_u, mp.eta_l)
     got = weights.multimodal_weights(*args)
     ref = weights.multimodal_weights_plain(*args)
     torch.cuda.synchronize()
     err = max(float(torch.max(torch.abs(g - r))) for g, r in zip(got, ref))
     sums = [float(torch.sum(g)) for g in got]
-    print(f"[weights] max |kernel - plain| = {err:.3e}; sums = {sums}")
-    assert err <= WEIGHTS_ATOL, f"weights kernel disagrees with its plain version: {err}"
-    assert all(abs(s - 1.0) < SUM_TOL for s in sums), sums
+    tc = torch.sum(cost * mp.gamma_seq, dim=-1)
+    print(f"[{label}] cost-to-go in [{float(tc.min()):.1f}, {float(tc.max()):.1f}]; "
+          f"max |kernel - plain| = {err:.3e}; sums = {sums}")
+    assert err <= WEIGHTS_ATOL, f"{label}: weights kernel disagrees with its plain version: {err}"
+    assert all(abs(x - 1.0) < SUM_TOL for x in sums), sums
+    return err
+
+
+def phase_weights(mp) -> dict:
+    """K2 against its plain version at K=200, T=15."""
+    from m3p2i_aip_tpu_torch.ops import weights
+
+    rng = np.random.default_rng(0)
+    cost = torch.as_tensor(rng.uniform(0, 50, size=(mp.K, mp.T)).astype(np.float32), device="cuda")
+    err = _weights_check(mp, cost, "weights")
+    args = (cost, mp.gamma_seq, mp.half_K, mp.eta_u, mp.eta_l)
     ms = _time_ms(lambda: weights.multimodal_weights(*args))
     plain_ms = _time_ms(lambda: weights.multimodal_weights_plain(*args))
     print(f"[weights] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of {TIMED_CALLS})")
@@ -196,6 +216,185 @@ def phase_benchmark(loop, card: str) -> float:
     return hz
 
 
+def phase_panda_rollout() -> tuple:
+    """K3 against its plain version at K=200, T=12 (config_panda physics),
+    from the seven parity starts, for multi_modal False and True; in the
+    multi-modal scene also K2 against its plain version on each case's K3
+    cost horizon, with the panda planner's discount, halves and eta bounds
+    (the shape and cost scale the shelf and benchmark paths give K2)."""
+    from m3p2i_aip_tpu_torch.config.config_store import load_config
+    from m3p2i_aip_tpu_torch.ops import panda_rollout as pr
+    from m3p2i_aip_tpu_torch.ops import weights
+    from m3p2i_aip_tpu_torch.planners.motion_planner.mppi import make_task_params
+    from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMP
+    from m3p2i_aip_tpu_torch.utils.tree import tree_map
+
+    rng = np.random.default_rng(1)
+    cost_err = traj_err = w_err = 0.0
+    timed = w_timed = None
+    for mm in (False, True):
+        tamp = ReactiveTAMP(load_config("config_panda", [f"multi_modal={mm}"]), device="cuda")
+        mp, base = tamp.motion_planner, tamp.env.init_state()
+        spec, K, T = mp.rollout.spec, mp.K, mp.T
+        for name, start, task_name, grip, zup in pr.PARITY_CASES:
+            goal = pr.PARITY_GOAL if task_name == "pick" else [0.0] * 7
+            task = make_task_params(task_name, goal, "none", zup, device="cuda")
+            acts = rng.uniform(-1.5, 1.5, size=(K, T, 9)).astype(np.float32)
+            if grip is not None:
+                acts[..., 7:9] = grip
+            acts = torch.as_tensor(acts, device="cuda")
+            state_k = tree_map(lambda x: x.expand((K,) + x.shape), pr.parity_state(base, start))
+            inputs = pr.rollout_inputs(state_k, task)
+            c_k, t_k = pr.panda_rollout(spec, *inputs, acts)
+            c_p, t_p = pr.panda_rollout_plain(spec, *inputs, acts)
+            torch.cuda.synchronize()
+            ce = float(torch.max(torch.abs(c_k - c_p)))
+            te = float(torch.max(torch.abs(t_k - t_p)))
+            print(f"[panda-rollout] multi_modal={mm} {name}: cost err {ce:.3e}, traj err {te:.3e}")
+            assert torch.isfinite(c_k).all() and torch.isfinite(t_k).all()
+            assert ce <= COST_ATOL and te <= TRAJ_ATOL, f"panda kernel disagrees with its plain version ({name})"
+            cost_err, traj_err = max(cost_err, ce), max(traj_err, te)
+            if timed is None:
+                timed = (spec, inputs, acts)
+            if mm:
+                w_err = max(w_err, _weights_check(mp, c_k, f"panda-weights {name}"))
+                if w_timed is None:
+                    w_timed = (c_k, mp.gamma_seq, mp.half_K, mp.eta_u, mp.eta_l)
+    spec, inputs, acts = timed
+    ms = _time_ms(lambda: pr.panda_rollout(spec, *inputs, acts))
+    plain_ms = _time_ms(lambda: pr.panda_rollout_plain(spec, *inputs, acts), calls=10, warmup=2)
+    w_ms = _time_ms(lambda: weights.multimodal_weights(*w_timed))
+    print(f"[panda-rollout] max cost err {cost_err:.3e}, max traj err {traj_err:.3e}")
+    print(f"[panda-rollout] kernel {ms:.4f} ms (median of {TIMED_CALLS}), plain {plain_ms:.4f} ms (median of 10)")
+    print(f"[panda-weights] max err {w_err:.3e}; kernel {w_ms:.4f} ms at K=200 x T=12 (median of {TIMED_CALLS})")
+    return {"max_abs_err": cost_err, "ms": ms, "plain_ms": plain_ms}, w_err
+
+
+def _count_panda_ticks(loop) -> list:
+    """Wrap the loop's panda chunk entry to count dispatched ticks and keep
+    each chunk's views (read after the run, not inside it)."""
+    record = []
+    run_chunk = loop.tamp.run_chunk_panda
+
+    def counted(ms, rs, stage, zs, length):
+        out = run_chunk(ms, rs, stage, zs, length)
+        record.append((length, out[5]))
+        return out
+
+    loop.tamp.run_chunk_panda = counted
+    return record
+
+
+def phase_panda_main() -> int:
+    """The panda main path: ``config_panda`` (reactive_pick, cube on the
+    table, single mode) through ``SimLoop.run_chunked`` in chunks of 50.  The
+    cube must be grasped, success must latch within PANDA_TICKS, and K3 must
+    launch 1 + refine_iters times per dispatched tick."""
+    from m3p2i_aip_tpu_torch.config.config_store import load_config
+    from m3p2i_aip_tpu_torch.ops import panda_rollout as pr
+    from m3p2i_aip_tpu_torch.ops import weights
+    from m3p2i_aip_tpu_torch.ops.quat_np import general_ori_cube2goal
+    from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
+
+    cfg = load_config("config_panda")
+    loop = SimLoop(cfg, device="cuda")
+    loop.warmup(50)
+    record = _count_panda_ticks(loop)
+    per_tick = 1 + int(cfg.mppi.refine_iters)
+    pr.panda_rollout_launches = 0
+    weights.weights_launches = 0
+    t0 = time.perf_counter()
+    log = loop.run_chunked(PANDA_TICKS, chunk=50)
+    wall = time.perf_counter() - t0
+    launches = pr.panda_rollout_launches
+    dispatched = sum(n for n, _ in record)
+    views = torch.cat([v for _, v in record]).cpu().numpy()
+    print(
+        f"[panda-main] {log.steps} ticks logged, {dispatched} dispatched in {wall:.2f} s; "
+        f"panda_rollout launches {launches}, multimodal_weights launches {weights.weights_launches}"
+    )
+    assert launches == per_tick * dispatched, f"panda_rollout: {launches} launches for {dispatched} ticks"
+    assert weights.weights_launches == 0, "the single-mode panda path launched the weights kernel"
+    assert np.isfinite(views).all(), "non-finite panda views"
+    grasped = np.nonzero(views[:, 21] > 0.5)[0]
+    print(f"[panda-main] first grasped tick {grasped[0] if grasped.size else None}; stages {sorted(set(log.task))}")
+    assert grasped.size > 0, "the cube was never grasped"
+    assert log.success_step is not None, "the panda pick-place did not latch success"
+    loop.settle(150)
+    view = loop._view
+    pos_err = float(np.linalg.norm(view["cube_state"][:2] - view["cube_goal"][:2]))
+    ori_err = float(general_ori_cube2goal(view["cube_state"][3:], view["cube_goal"][3:]))
+    print(f"[panda-main] success tick {log.success_step}; settled cube error: pos {pos_err:.4f} m, ori {ori_err:.4f}")
+    return launches
+
+
+def phase_panda_shelf() -> float:
+    """100 ticks of the multi-modal shelf pick (``multi_modal=True
+    cube_on_shelf=True``): finite, K3 launched 1 + refine_iters and K2
+    launched refine_iters times per dispatched tick (the greedy last rung
+    computes no weights).  The run's own K3 cost horizons are kept, and
+    after the counts are read K2 is held against its plain version on every
+    tenth of them.  Returns that K2 error."""
+    from m3p2i_aip_tpu_torch.config.config_store import load_config
+    from m3p2i_aip_tpu_torch.ops import panda_rollout as pr
+    from m3p2i_aip_tpu_torch.ops import weights
+    from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
+
+    cfg = load_config("config_panda", ["multi_modal=True", "cube_on_shelf=True"])
+    loop = SimLoop(cfg, device="cuda")
+    loop.warmup(50)
+    record = _count_panda_ticks(loop)
+    mp = loop.tamp.motion_planner
+    rollout, costs = mp.rollout, []
+
+    def recording(*args):
+        out = rollout(*args)
+        costs.append(out[0])
+        return out
+
+    mp.rollout = recording
+    iters = int(cfg.mppi.refine_iters)
+    pr.panda_rollout_launches = 0
+    weights.weights_launches = 0
+    log = loop.run_chunked(100, chunk=50)
+    dispatched = sum(n for n, _ in record)
+    views = torch.cat([v for _, v in record]).cpu().numpy()
+    counts = (pr.panda_rollout_launches, weights.weights_launches)
+    mp.rollout = rollout
+    print(f"[panda-shelf] {dispatched} ticks; launches panda_rollout {counts[0]}, multimodal_weights {counts[1]}; "
+          f"stages {sorted(set(log.task))}; cube {views[-1, :3].tolist()}")
+    assert np.isfinite(views).all(), "non-finite shelf views"
+    assert counts == ((1 + iters) * dispatched, iters * dispatched), counts
+    assert len(costs) == counts[0]
+    return max(_weights_check(mp, c, f"panda-shelf K2, rollout {n}") for n, c in list(enumerate(costs))[::10])
+
+
+def phase_panda_bench(card: str) -> float:
+    """The panda replan+step rate, scripts/bench_panda.py:58-77: multi-modal
+    K=200 x T=12, warm-up 50, two warm-up chunks of 200, then 800 timed
+    ticks in chunks of 200 chained from the start state."""
+    from m3p2i_aip_tpu_torch.config.config_store import load_config
+    from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
+
+    loop = SimLoop(load_config("config_panda", ["multi_modal=True"]), device="cuda")
+    loop.warmup(50)
+    tamp, chunk = loop.tamp, 200
+
+    def run(n_ticks):
+        ms, rs, stage, zs = tamp.mppi_state, loop.state, 0, tamp.zup_zs0()
+        for _ in range(n_ticks // chunk):
+            ms, rs, stage, zs, _, views, _, _ = tamp.run_chunk_panda(ms, rs, stage, zs, chunk)
+        torch.cuda.synchronize()
+        return views
+
+    run(2 * chunk)
+    t0 = time.perf_counter()
+    run(4 * chunk)
+    hz = 4 * chunk / (time.perf_counter() - t0)
+    print(f"[panda-bench] {hz:.2f} Hz replan+step, K=200 x T=12, multi-modal, 800 timed ticks ({card})")
+    return hz
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device; this script runs only on a GPU")
@@ -221,9 +420,17 @@ def main() -> None:
     # 3. / 4. each kernel against its plain version
     stats = {"multimodal_weights": phase_weights(tamp.motion_planner), "point_rollout": phase_rollout(tamp)}
     del tamp
-    # 5. / 6. the main path
+    # 5. / 6. the point main path
     loop, launches = phase_main_path(load_config("config_point", MAIN_PATH))
     hz = phase_benchmark(loop, card)
+    del loop
+    # 7. K3 against its plain version; 8. / 9. / 10. the panda path
+    stats["panda_rollout"], w_err = phase_panda_rollout()
+    launches["panda_rollout"] = phase_panda_main()
+    w_err = max(w_err, phase_panda_shelf())
+    k2 = stats["multimodal_weights"]
+    k2["max_abs_err"] = max(k2["max_abs_err"], w_err)  # over the point and the panda shapes and costs
+    panda_hz = phase_panda_bench(card)
 
     sources = {
         "point_rollout": ("m3p2i_aip_tpu_torch/csrc/point_rollout.cu", "m3p2i_aip_tpu/ops/pallas_rollout.py:189"),
@@ -231,12 +438,16 @@ def main() -> None:
             "m3p2i_aip_tpu_torch/csrc/multimodal_weights.cu",
             "m3p2i_aip_tpu/ops/pallas_kernels.py:60",
         ),
+        "panda_rollout": (
+            "m3p2i_aip_tpu_torch/csrc/panda_rollout.cu",
+            "m3p2i_aip_tpu/ops/pallas_panda_rollout.py:185",
+        ),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name], **stats[name]}
         for name, (src, rep) in sources.items()
     ]
-    print(f"[bench] {hz:.2f} Hz on {card}")
+    print(f"[bench] point {hz:.2f} Hz, panda {panda_hz:.2f} Hz on {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,0 +1,608 @@
+// Panda MPPI rollout, hand-written for Hopper (sm_90a).
+//
+// Replaces the TPU kernel m3p2i_aip_tpu/ops/pallas_panda_rollout.py::_panda_kernel
+// (:185; factory make_panda_rollout :676).  Each of the K samples rolls its
+// 9-channel joint-velocity sequence through T control steps of the panda
+// scene (m3p2i_aip_tpu/models/panda_env.py::step): the velocity drive with
+// velocity / acceleration / position limits, matrix FK, grasp attach and
+// detach, gravity, support surfaces (cubeA also stacks on cubeB), contact
+// settling, the static AABB pushout, the held cube following the hand, the
+// arm-probe and cubeA-cubeB contacts; then the reach / pick / place costs
+// (PandaObjective) with the mode split by global sample index and the
+// zup_gate clearance term.  Out per step: the cost and the EE's xy.
+//
+// What bounds it on the H100: latency.  At K = 200 there are 200 independent
+// serial chains of T x substeps steps, each a few thousand dependent flops
+// (FK, seven probes x (S statics + cubeB), the pushout of three bodies), and
+// almost no data (8.6 KB of actions in, 29 KB out).  Seven warps on a 132-SM
+// card: the time is the length of one sample's dependency chain.
+//
+// What the design does about it: one thread per sample with the whole
+// T x substeps nest in registers (joint state, the three bodies, cubeA's
+// orientation and the grasp); nothing touches global memory inside the nest
+// but the per-step action read and the cost / EE write.  The start state is
+// one 56-float vector read by every thread (all K rollouts start from the
+// synced real state).  Scene constants (statics, supports, body constants,
+// dt and friends) come from a small param buffer built once per scene in
+// ops/panda_rollout.py and staged to shared memory.  The FK tables and joint
+// limits are constexpr, and every product with a table entry goes through
+// cdot(), which drops exact zeros and turns +-1 into a sign at compile time
+// (the TPU kernel's trace-time _term / _fold_sum).  Blocks are two warps.
+//
+// Orientation integration: the TPU kernel carries cubeA's orientation as a
+// rotation matrix integrated with Rodrigues, which differs from the XLA
+// step's quaternion integration by O(|w h|^3).  This kernel carries cubeA's
+// QUATERNION and integrates it as panda_env.step does (quat_integrate; the
+// held cube's quaternion through mat_to_quat), so it follows the plain
+// version's arithmetic, tumbling cube included.  The orientation and spin of
+// dyn-obs and cubeB feed no output (their spin only ever turns their own
+// orientation), so the kernel does not carry them.
+//
+// Floating point: built without fast math and with -fmad=false; every
+// expression keeps the operation order of the plain version
+// (ops/panda_rollout.py::panda_rollout_plain over models/panda_env.step), and
+// constants formed from python scalars come in the param buffer, formed in
+// double on the host and rounded once.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kThreads = 64;
+constexpr int kMaxS = 8;  // static AABBs (the supports are the statics + the ground)
+constexpr float kGravity = 9.8f;
+constexpr float kFingertipZ = 0.045f;
+
+// param buffer layout (floats), shared with ops/panda_rollout.py::_param_buffer
+enum Scalar {
+  P_H = 0, P_ONE_M_DECAY, P_H2, P_GRASP, P_PHD, P_SIDE_DX, P_SIDE_DZ, P_TILT,
+  P_MU_G_H, P_BASE_X, P_BASE_Y, P_BASE_Z,
+  N_SCALARS = 16
+};
+constexpr int kBodyStride = 6;  // half x, y, z, mass, gravity flag, r_eff
+constexpr int kStatStride = 6;  // min x, y, z, max x, y, z
+constexpr int kSupStride = 5;   // min x, y, max x, y, top z
+
+// m3p2i_aip_tpu/models/panda_fk.py tables as float32 (roll cos(+-pi/2) of a
+// float32 angle is -4.371139e-08, not 0, exactly as numpy forms it); device
+// constants, folded into the unrolled code where they are indexed by constants
+constexpr float kC = -4.371138828673793e-08f;
+__device__ constexpr float kJointXYZ[7][3] = {
+    {0.0f, 0.0f, 0.333f}, {0.0f, 0.0f, 0.0f}, {0.0f, -0.316f, 0.0f}, {0.0825f, 0.0f, 0.0f},
+    {-0.0825f, 0.384f, 0.0f}, {0.0f, 0.0f, 0.0f}, {0.088f, 0.0f, 0.0f}};
+// roll about x of each joint frame: 0 none, -1 = -pi/2, +1 = +pi/2
+__device__ constexpr int kRollSign[7] = {0, -1, 1, 1, -1, 1, 1};
+__device__ constexpr float kRollNeg[3][3] = {{1.0f, 0.0f, 0.0f}, {0.0f, kC, 1.0f}, {0.0f, -1.0f, kC}};
+__device__ constexpr float kRollPos[3][3] = {{1.0f, 0.0f, 0.0f}, {0.0f, kC, -1.0f}, {0.0f, 1.0f, kC}};
+__device__ constexpr float kHandMat[3][3] = {
+    {0.7071067690849304f, 0.7071067690849304f, 0.0f},
+    {-0.7071067690849304f, 0.7071067690849304f, 0.0f},
+    {0.0f, 0.0f, 1.0f}};
+__device__ constexpr float kHandXYZ[3] = {0.0f, 0.0f, 0.107f};
+__device__ constexpr float kFingerXYZ[3] = {0.0f, 0.0f, 0.0584f};
+__device__ constexpr float kJointLo[9] = {-2.8973f, -1.7628f, -2.8973f, -3.0718f, -2.8973f, -0.0175f, -2.8973f, 0.0f, 0.0f};
+__device__ constexpr float kJointHi[9] = {2.8973f, 1.7628f, 2.8973f, -0.0698f, 2.8973f, 3.7525f, 2.8973f, 0.04f, 0.04f};
+__device__ constexpr float kVelLim[9] = {2.175f, 2.175f, 2.175f, 2.175f, 2.61f, 2.61f, 2.61f, 0.2f, 0.2f};
+__device__ constexpr float kAccLim[9] = {50.0f, 50.0f, 50.0f, 50.0f, 80.0f, 80.0f, 80.0f, 10.0f, 10.0f};
+
+__device__ __forceinline__ float clampf(float v, float lo, float hi) { return fminf(fmaxf(v, lo), hi); }
+
+__device__ __forceinline__ float norm3(float x, float y, float z) { return sqrtf(x * x + y * y + z * z); }
+
+// a * c for a compile-time constant c: +-1 become a sign
+__device__ __forceinline__ float tmul(float a, float c) {
+  return c == 1.0f ? a : (c == -1.0f ? -a : a * c);
+}
+
+// a0 c0 + a1 c1 + a2 c2 over the NONZERO compile-time constants c, in order
+__device__ __forceinline__ float cdot(float a0, float a1, float a2, float c0, float c1, float c2) {
+  float acc = 0.0f;
+  bool any = false;
+  if (c0 != 0.0f) { acc = tmul(a0, c0); any = true; }
+  if (c1 != 0.0f) { acc = any ? acc + tmul(a1, c1) : tmul(a1, c1); any = true; }
+  if (c2 != 0.0f) { acc = any ? acc + tmul(a2, c2) : tmul(a2, c2); }
+  return acc;
+}
+
+// pos += R @ off for a constant offset
+__device__ __forceinline__ void add_rot_const(float pos[3], const float R[3][3], float o0, float o1, float o2) {
+  if (o0 == 0.0f && o1 == 0.0f && o2 == 0.0f) return;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) pos[i] = pos[i] + cdot(R[i][0], R[i][1], R[i][2], o0, o1, o2);
+}
+
+// R = R @ M for a constant matrix M
+__device__ __forceinline__ void mul_const(float R[3][3], const float (&M)[3][3]) {
+  float out[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) out[i][j] = cdot(R[i][0], R[i][1], R[i][2], M[0][j], M[1][j], M[2][j]);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) R[i][j] = out[i][j];
+}
+
+template <int J>
+__device__ __forceinline__ void fk_joint(float pos[3], float R[3][3], float qj) {
+  constexpr float o0 = kJointXYZ[J][0], o1 = kJointXYZ[J][1], o2 = kJointXYZ[J][2];
+  add_rot_const(pos, R, o0, o1, o2);
+  if (kRollSign[J] < 0) mul_const(R, kRollNeg);
+  if (kRollSign[J] > 0) mul_const(R, kRollPos);
+  // R @ Rz(q) with Rz = [[c, -s, 0], [s, c, 0], [0, 0, 1]]
+  const float c = cosf(qj), s = sinf(qj);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float r0 = R[i][0], r1 = R[i][1];
+    R[i][0] = r0 * c + r1 * s;
+    R[i][1] = r0 * (-s) + r1 * c;
+  }
+}
+
+struct Links {
+  float p4[3], p5[3], p6[3];   // link4..link6 origins (the arm probes)
+  float hand[3], H[3][3];      // hand frame
+  float left[3], right[3], ee[3], tip[3];
+};
+
+// panda_fk.fk: 7 joints, the hand, the fingers, the EE midpoint and the tip
+__device__ __forceinline__ void fk(const float q[9], const float* sp, Links& L) {
+  float pos[3] = {sp[P_BASE_X], sp[P_BASE_Y], sp[P_BASE_Z]};
+  float R[3][3] = {{1.0f, 0.0f, 0.0f}, {0.0f, 1.0f, 0.0f}, {0.0f, 0.0f, 1.0f}};
+  fk_joint<0>(pos, R, q[0]);
+  fk_joint<1>(pos, R, q[1]);
+  fk_joint<2>(pos, R, q[2]);
+  fk_joint<3>(pos, R, q[3]);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) L.p4[i] = pos[i];
+  fk_joint<4>(pos, R, q[4]);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) L.p5[i] = pos[i];
+  fk_joint<5>(pos, R, q[5]);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) L.p6[i] = pos[i];
+  fk_joint<6>(pos, R, q[6]);
+  add_rot_const(pos, R, kHandXYZ[0], kHandXYZ[1], kHandXYZ[2]);
+  mul_const(R, kHandMat);
+  float fb[3] = {pos[0], pos[1], pos[2]};
+  add_rot_const(fb, R, kFingerXYZ[0], kFingerXYZ[1], kFingerXYZ[2]);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    L.hand[i] = pos[i];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) L.H[i][j] = R[i][j];
+    L.left[i] = fb[i] + R[i][1] * q[7];
+    L.right[i] = fb[i] - R[i][1] * q[8];
+    L.ee[i] = (L.left[i] + L.right[i]) / 2.0f;
+    L.tip[i] = L.ee[i] + R[i][2] * kFingertipZ;
+  }
+}
+
+// quat.py:16 quat_to_rotmat, (x, y, z, w)
+__device__ __forceinline__ void quat_to_rotmat(const float q[4], float M[3][3]) {
+  const float x = q[0], y = q[1], z = q[2], w = q[3];
+  M[0][0] = 2.0f * (w * w + x * x) - 1.0f;
+  M[0][1] = 2.0f * (x * y - w * z);
+  M[0][2] = 2.0f * (x * z + w * y);
+  M[1][0] = 2.0f * (x * y + w * z);
+  M[1][1] = 2.0f * (w * w + y * y) - 1.0f;
+  M[1][2] = 2.0f * (y * z - w * x);
+  M[2][0] = 2.0f * (x * z - w * y);
+  M[2][1] = 2.0f * (y * z + w * x);
+  M[2][2] = 2.0f * (w * w + z * z) - 1.0f;
+}
+
+__device__ __forceinline__ void quat_normalize(float q[4]) {
+  const float n = fmaxf(sqrtf(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3]), 1e-12f);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) q[i] = q[i] / n;
+}
+
+// quat.py:94 quat_integrate: normalize(q + 0.5 * (om, 0) * q * h)
+__device__ __forceinline__ void quat_integrate(float q[4], const float om[3], float h) {
+  const float aw = 0.0f, ax = om[0], ay = om[1], az = om[2];
+  const float bx = q[0], by = q[1], bz = q[2], bw = q[3];
+  const float m[4] = {
+      aw * bx + ax * bw + ay * bz - az * by,
+      aw * by - ax * bz + ay * bw + az * bx,
+      aw * bz + ax * by - ay * bx + az * bw,
+      aw * bw - ax * bx - ay * by - az * bz,
+  };
+#pragma unroll
+  for (int i = 0; i < 4; ++i) q[i] = q[i] + 0.5f * m[i] * h;
+  quat_normalize(q);
+}
+
+// quat.py:101 mat_to_quat: the branch-free Shepperd selection
+__device__ __forceinline__ void mat_to_quat(const float M[3][3], float q[4]) {
+  const float m00 = M[0][0], m01 = M[0][1], m02 = M[0][2];
+  const float m10 = M[1][0], m11 = M[1][1], m12 = M[1][2];
+  const float m20 = M[2][0], m21 = M[2][1], m22 = M[2][2];
+  const float tr = m00 + m11 + m22;
+  if (tr > 0.0f) {
+    const float s = sqrtf(fmaxf(1.0f + tr, 1e-12f)) * 2.0f;
+    q[0] = (m21 - m12) / s; q[1] = (m02 - m20) / s; q[2] = (m10 - m01) / s; q[3] = 0.25f * s;
+  } else if (m00 >= m11 && m00 >= m22) {
+    const float s = sqrtf(fmaxf(1.0f + m00 - m11 - m22, 1e-12f)) * 2.0f;
+    q[0] = 0.25f * s; q[1] = (m01 + m10) / s; q[2] = (m02 + m20) / s; q[3] = (m21 - m12) / s;
+  } else if (m11 >= m22) {
+    const float s = sqrtf(fmaxf(1.0f - m00 + m11 - m22, 1e-12f)) * 2.0f;
+    q[0] = (m01 + m10) / s; q[1] = 0.25f * s; q[2] = (m12 + m21) / s; q[3] = (m02 - m20) / s;
+  } else {
+    const float s = sqrtf(fmaxf(1.0f - m00 - m11 + m22, 1e-12f)) * 2.0f;
+    q[0] = (m02 + m20) / s; q[1] = (m12 + m21) / s; q[2] = 0.25f * s; q[3] = (m10 - m01) / s;
+  }
+  quat_normalize(q);
+}
+
+// panda_env._sphere_vs_aabb: penetration + outward normal; an inside center
+// pushes out along the least-separation axis, ties sharing the push
+__device__ __forceinline__ float sphere_aabb(const float c[3], float r, const float lo[3], const float hi[3],
+                                             float n[3]) {
+  float diff[3], sep_lo[3], sep_hi[3], sep[3];
+  bool inside = true;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    diff[i] = c[i] - clampf(c[i], lo[i], hi[i]);
+    inside = inside && (c[i] > lo[i]) && (c[i] < hi[i]);
+    sep_lo[i] = c[i] - lo[i];
+    sep_hi[i] = hi[i] - c[i];
+    sep[i] = fminf(sep_lo[i], sep_hi[i]);
+  }
+  const float dist = norm3(diff[0], diff[1], diff[2]);
+  const float min_sep = fminf(fminf(sep[0], sep[1]), sep[2]);
+  if (inside) {
+    float oh[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) oh[i] = sep[i] <= min_sep ? 1.0f : 0.0f;
+    const float cnt = oh[0] + oh[1] + oh[2];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) n[i] = (sep_hi[i] < sep_lo[i] ? 1.0f : -1.0f) * (oh[i] / cnt);
+    return r + min_sep;
+  }
+  const float g = fmaxf(dist, 1e-9f);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) n[i] = diff[i] / g;
+  return r - dist;
+}
+
+// quat.py:188 general_ori_ee2cube_mat, tilt 0: ee z and y each parallel (up
+// to sign) to some cube axis; `axes` holds the cube axes as rows
+__device__ __forceinline__ float min_one_minus_abs_cos(const float v[3], const float axes[3][3]) {
+  float m = INFINITY;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float cosv = fabsf(v[0] * axes[a][0] + v[1] * axes[a][1] + v[2] * axes[a][2]);
+    m = fminf(m, 1.0f - cosv);
+  }
+  return m;
+}
+
+__global__ void __launch_bounds__(kThreads)
+panda_rollout_kernel(const float* __restrict__ params, const float* __restrict__ task,
+                     const float* __restrict__ state0, const float* __restrict__ acts,
+                     float* __restrict__ cost_out, float* __restrict__ traj_out, int K, int K_total,
+                     int T, int S, int substeps, int table_slot, int shelf_slot, int multi_modal,
+                     int n_params) {
+  extern __shared__ float sp[];
+  for (int i = threadIdx.x; i < n_params; i += blockDim.x) sp[i] = params[i];
+  __syncthreads();
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= K) return;
+
+  const int P = S + 1;
+  const float* body = sp + N_SCALARS;
+  const float* stat = body + 3 * kBodyStride;
+  const float* sup = stat + kStatStride * S;
+  const float h = sp[P_H];
+
+  // task: [task_id, goal pos (3), goal quat (4, xyzw), k0, zup_gate]
+  const float task_id = task[0];
+  const float goal[3] = {task[1], task[2], task[3]};
+  float GR[3][3];
+  {
+    const float gq[4] = {task[4], task[5], task[6], task[7]};
+    quat_to_rotmat(gq, GR);
+  }
+  const float gk = static_cast<float>(k) + task[8];  // global sample index
+  const bool mode1 = gk >= static_cast<float>(K_total / 2) && gk < static_cast<float>(K_total);
+  const float zup_gate = task[9];
+
+  // start state, 56 floats (ops/panda_rollout.py::pack_state): q, qd,
+  // body pos [3][3], body vel [3][3], cubeA om, cubeA quat, attached,
+  // attach pos, attach rot [3][3]
+  float q[9], qd[9], Pb[3][3], Vb[3][3], omA[3], quatA[4], apos[3], aR[3][3];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    q[i] = state0[i];
+    qd[i] = state0[9 + i];
+  }
+#pragma unroll
+  for (int b = 0; b < 3; ++b)
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      Pb[b][i] = state0[18 + 3 * b + i];
+      Vb[b][i] = state0[27 + 3 * b + i];
+    }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) omA[i] = state0[36 + i];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) quatA[i] = state0[39 + i];
+  float att = state0[43];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    apos[i] = state0[44 + i];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) aR[i][j] = state0[47 + 3 * i + j];
+  }
+
+  const float half_w = body[kBodyStride * 1 + 0];
+  const float held_finger = half_w * 0.96f;
+  const float release_gap = 2.0f * half_w + 0.005f;
+  const float* hB = body + kBodyStride * 2;  // cubeB half sizes
+  Links L;
+
+  for (int t = 0; t < T; ++t) {
+    const float* u = acts + (static_cast<size_t>(k) * T + t) * 9;
+    float ucl[9];
+#pragma unroll
+    for (int c = 0; c < 9; ++c) ucl[c] = fminf(fmaxf(u[c], -kVelLim[c]), kVelLim[c]);
+    const bool closing = u[7] < 0.0f;
+    // contact-force channels the motion cost reads (x, y): table, shelf, cubeB
+    float tbl[2] = {0.0f, 0.0f}, shf[2] = {0.0f, 0.0f}, cbf[2] = {0.0f, 0.0f};
+
+    for (int sub = 0; sub < substeps; ++sub) {
+      // ---- joint velocity drive + integrate + limits --------------------
+#pragma unroll
+      for (int c = 0; c < 9; ++c) {
+        const float dv = (ucl[c] - qd[c]) * sp[P_ONE_M_DECAY];
+        const float acc_h = kAccLim[c] * h;
+        qd[c] = qd[c] + clampf(dv, -acc_h, acc_h);
+        q[c] = clampf(q[c] + qd[c] * h, kJointLo[c], kJointHi[c]);
+      }
+      if (att > 0.5f) {  // the fingers rest ON the gripped cube
+        q[7] = fmaxf(q[7], held_finger);
+        q[8] = fmaxf(q[8], held_finger);
+      }
+      fk(q, sp, L);
+
+      // ---- grasp attach / detach ----------------------------------------
+      const float cube[3] = {Pb[1][0], Pb[1][1], Pb[1][2]};  // substep start
+      const bool near = norm3(L.tip[0] - cube[0], L.tip[1] - cube[1], L.tip[2] - cube[2]) < sp[P_GRASP];
+      if (att < 0.5f && closing && near) {
+        float RA[3][3];
+        quat_to_rotmat(quatA, RA);
+        const float d[3] = {cube[0] - L.hand[0], cube[1] - L.hand[1], cube[2] - L.hand[2]};
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          apos[j] = d[0] * L.H[0][j] + d[1] * L.H[1][j] + d[2] * L.H[2][j];
+#pragma unroll
+          for (int i = 0; i < 3; ++i) aR[j][i] = L.H[0][j] * RA[0][i] + L.H[1][j] * RA[1][i] + L.H[2][j] * RA[2][i];
+        }
+        att = 1.0f;
+      }
+      // only an OPENING gripper that has cleared the cube width releases
+      if (!closing && q[7] + q[8] > release_gap) att = 0.0f;
+
+      // ---- bodies: gravity, integrate, support, settling, pushout --------
+      quat_integrate(quatA, omA, h);
+      // the statics' pushout forces, summed over the bodies (table, shelf)
+      // and cubeB's, summed over the statics, before they are accumulated
+      float fsum_tbl[2] = {0.0f, 0.0f}, fsum_shf[2] = {0.0f, 0.0f}, fsum_cb[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int b = 0; b < 3; ++b) {
+        const float* bc = body + kBodyStride * b;
+        const bool grav = bc[4] > 0.5f;
+        Vb[b][2] = Vb[b][2] + (0.0f + (-kGravity * bc[4])) * h;
+        float np[3];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) np[i] = Pb[b][i] + Vb[b][i] * h;
+        // support: the highest surface under the footprint, below the body
+        const float old_bottom = Pb[b][2] - bc[2] + 1e-3f;
+        float sup_h = -INFINITY;
+        for (int p = 0; p < P; ++p) {
+          const float* sv = sup + kSupStride * p;
+          const bool over = np[0] >= sv[0] && np[0] <= sv[2] && np[1] >= sv[1] && np[1] <= sv[3];
+          if (over && sv[4] <= old_bottom) sup_h = fmaxf(sup_h, sv[4]);
+        }
+        if (b == 1) {  // cubeA rests on cubeB's top face too
+          const float cb_top = Pb[2][2] + hB[2];
+          const bool over_b = fabsf(np[0] - Pb[2][0]) <= hB[0] && fabsf(np[1] - Pb[2][1]) <= hB[1];
+          if (over_b && cb_top <= Pb[1][2] - bc[2] + 1e-3f) sup_h = fmaxf(sup_h, cb_top);
+        }
+        const float rest_z = sup_h + bc[2];
+        const bool landing = np[2] <= rest_z && grav;
+        if (landing) {
+          np[2] = rest_z;
+          Vb[b][2] = 0.0f;
+          const float speed = sqrtf(Vb[b][0] * Vb[b][0] + Vb[b][1] * Vb[b][1]);
+          const float scale = fmaxf(1.0f - sp[P_MU_G_H] / fmaxf(speed, 1e-9f), 0.0f);
+          Vb[b][0] = Vb[b][0] * scale;
+          Vb[b][1] = Vb[b][1] * scale;
+          if (b == 1) {  // contact settling: turn the body z-axis toward world z
+            const float x = quatA[0], y = quatA[1], z = quatA[2], w = quatA[3];
+            const float ux = 2.0f * (x * z + w * y), uy = 2.0f * (y * z - w * x);
+            const float uz = 2.0f * (w * w + z * z) - 1.0f;
+            const bool flat = uz > 0.5f;
+            omA[0] = omA[0] * 0.8f + (flat ? 5.0f * uy : 0.0f);
+            omA[1] = omA[1] * 0.8f + (flat ? 5.0f * (-ux) : 0.0f);
+            omA[2] = omA[2] * 0.8f + 0.0f;
+          }
+        }
+        // lateral pushout vs the statics (the body as a sphere of r_eff)
+        float corr[3] = {0.0f, 0.0f, 0.0f};
+        for (int s = 0; s < S; ++s) {
+          const float* st = stat + kStatStride * s;
+          float n[3];
+          const float pen = sphere_aabb(np, bc[5], st, st + 3, n);
+          float cs[3] = {0.0f, 0.0f, 0.0f};
+          if (pen > 0.0f && fabsf(n[2]) < 0.9f) {
+#pragma unroll
+            for (int i = 0; i < 3; ++i) cs[i] = pen * n[i];
+          }
+#pragma unroll
+          for (int i = 0; i < 3; ++i) corr[i] = s == 0 ? cs[i] : corr[i] + cs[i];
+          const float fx = cs[0] / sp[P_H2] * bc[3], fy = cs[1] / sp[P_H2] * bc[3];
+          if (s == table_slot) {
+            fsum_tbl[0] = b == 0 ? fx : fsum_tbl[0] + fx;
+            fsum_tbl[1] = b == 0 ? fy : fsum_tbl[1] + fy;
+          }
+          if (s == shelf_slot) {
+            fsum_shf[0] = b == 0 ? fx : fsum_shf[0] + fx;
+            fsum_shf[1] = b == 0 ? fy : fsum_shf[1] + fy;
+          }
+          if (b == 2) {
+            fsum_cb[0] = s == 0 ? fx : fsum_cb[0] + fx;
+            fsum_cb[1] = s == 0 ? fy : fsum_cb[1] + fy;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 3; ++i) Pb[b][i] = np[i] + corr[i];
+      }
+      tbl[0] = tbl[0] - fsum_tbl[0];
+      tbl[1] = tbl[1] - fsum_tbl[1];
+      shf[0] = shf[0] - fsum_shf[0];
+      shf[1] = shf[1] - fsum_shf[1];
+      cbf[0] = cbf[0] + fsum_cb[0];
+      cbf[1] = cbf[1] + fsum_cb[1];
+
+      // ---- the attached cube follows the hand ----------------------------
+      if (att > 0.5f) {
+        float HR[3][3];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          const float hv = L.H[i][0] * apos[0] + L.H[i][1] * apos[1] + L.H[i][2] * apos[2];
+          const float held = L.hand[i] + hv;
+          Vb[1][i] = (held - cube[i]) / h;  // against the substep-start position
+          Pb[1][i] = held;
+#pragma unroll
+          for (int j = 0; j < 3; ++j) HR[i][j] = L.H[i][0] * aR[0][j] + L.H[i][1] * aR[1][j] + L.H[i][2] * aR[2][j];
+        }
+        mat_to_quat(HR, quatA);
+      }
+
+      // ---- arm collision sensing: probe spheres vs statics and cubeB -----
+      const float cb_lo[3] = {Pb[2][0] - hB[0], Pb[2][1] - hB[1], Pb[2][2] - hB[2]};
+      const float cb_hi[3] = {Pb[2][0] + hB[0], Pb[2][1] + hB[1], Pb[2][2] + hB[2]};
+      const float* probes[7] = {L.p4, L.p5, L.p6, L.hand, L.left, L.right, L.tip};
+#pragma unroll
+      for (int pi = 0; pi < 7; ++pi) {
+        const float* pr = probes[pi];
+        for (int s = 0; s < S; ++s) {
+          if (s != table_slot && s != shelf_slot) continue;  // no cost reads the others
+          const float* st = stat + kStatStride * s;
+          float n[3];
+          const float hit = fmaxf(sphere_aabb(pr, 0.05f, st, st + 3, n), 0.0f);
+          const float fx = (hit * n[0]) * 2000.0f, fy = (hit * n[1]) * 2000.0f;
+          if (s == table_slot) {
+            tbl[0] = tbl[0] - fx;
+            tbl[1] = tbl[1] - fy;
+          } else {
+            shf[0] = shf[0] - fx;
+            shf[1] = shf[1] - fy;
+          }
+        }
+        float n[3];
+        const float hit_b = fmaxf(sphere_aabb(pr, 0.04f, cb_lo, cb_hi, n), 0.0f);
+        cbf[0] = cbf[0] - (hit_b * n[0]) * 2000.0f;
+        cbf[1] = cbf[1] - (hit_b * n[1]) * 2000.0f;
+      }
+      // held or free cubeA vs cubeB: pushes cubeB, records the force
+      {
+        float n[3];
+        const float hit = fmaxf(sphere_aabb(Pb[1], body[kBodyStride * 1 + 5], cb_lo, cb_hi, n), 0.0f);
+        cbf[0] = cbf[0] - hit * n[0] * 2000.0f;
+        cbf[1] = cbf[1] - hit * n[1] * 2000.0f;
+        const float on = hit > 0.0f ? 1.0f : 0.0f;
+        Pb[2][0] = Pb[2][0] + -on * n[0] * hit * 0.5f;
+        Pb[2][1] = Pb[2][1] + -on * n[1] * hit * 0.5f;
+      }
+    }
+
+    // ---- costs (PandaObjective.compute) on the post-step state -----------
+    const float nsub = static_cast<float>(substeps);
+    const float fx = tbl[0] / nsub + 4.0f * (shf[0] / nsub) + cbf[0] / nsub;
+    const float fy = tbl[1] / nsub + 4.0f * (shf[1] / nsub) + cbf[1] / nsub;
+    const float motion = fabsf(fx) + fabsf(fy) > 0.1f ? 1000.0f : 0.0f;
+
+    float RA[3][3], axes[3][3];
+    quat_to_rotmat(quatA, RA);
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int i = 0; i < 3; ++i) axes[a][i] = RA[i][a];
+    const float ee_y[3] = {L.H[0][1], L.H[1][1], L.H[2][1]};
+    const float ee_z[3] = {L.H[0][2], L.H[1][2], L.H[2][2]};
+    const float* cA = Pb[1];
+
+    float cost;
+    const float idx = clampf(task_id - 4.0f, 0.0f, 2.0f);
+    if (idx == 0.0f) {  // reach
+      float g[3] = {cA[0], cA[1], cA[2] + sp[P_PHD]};
+      float cost_z = min_one_minus_abs_cos(ee_z, axes);
+      if (multi_modal && mode1) {  // tilted side grasp
+        g[0] = cA[0] + sp[P_SIDE_DX];
+        g[2] = cA[2] + sp[P_SIDE_DZ];
+        int sel = 0;
+        float best = fabsf(axes[0][0]);
+        if (fabsf(axes[1][0]) > best) { sel = 1; best = fabsf(axes[1][0]); }
+        if (fabsf(axes[2][0]) > best) sel = 2;
+        cost_z = fabsf(sp[P_TILT] - (ee_z[0] * axes[sel][0] + ee_z[1] * axes[sel][1] + ee_z[2] * axes[sel][2]));
+      }
+      const float tilt_cost = cost_z + min_one_minus_abs_cos(ee_y, axes);
+      cost = 10.0f * norm3(L.ee[0] - g[0], L.ee[1] - g[1], L.ee[2] - g[2]) + 3.0f * tilt_cost;
+    } else if (idx == 1.0f) {  // pick
+      const float goal_cost = norm3(goal[0] - cA[0], goal[1] - cA[1], goal[2] - cA[2]);
+      float ori = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {  // goal axes x and y: best |cos| over the cube axes
+        float m = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+          m = fmaxf(m, fabsf(GR[0][i] * RA[0][j] + GR[1][i] * RA[1][j] + GR[2][i] * RA[2][j]));
+        ori = i == 0 ? 1.0f - m : ori + (1.0f - m);
+      }
+      const float regrasp = 10.0f * norm3(L.ee[0] - cA[0], L.ee[1] - cA[1], L.ee[2] - cA[2]) * (1.0f - att);
+      // z-up clearance: height deficit of the cube wedged beside a static
+      const float* hA = body + kBodyStride * 1;
+      float zup = 0.0f;
+      for (int s = 0; s < S; ++s) {
+        const float* st = stat + kStatStride * s;
+        const bool overlap = cA[0] > st[0] - hA[0] && cA[0] < st[3] + hA[0] && cA[1] > st[1] - hA[1] &&
+                             cA[1] < st[4] + hA[1];
+        const bool wedged = (cA[2] - hA[2] - 0.02f) < st[5];
+        const float needed = fmaxf(st[5] + hA[2] + 0.02f - cA[2], 0.0f);
+        zup = fmaxf(zup, overlap && wedged ? needed : 0.0f);
+      }
+      cost = 10.0f * goal_cost + 15.0f * ori + regrasp + motion + 30.0f * zup * att * zup_gate;
+    } else {  // place
+      cost = 2.0f * (1.0f - norm3(L.left[0] - L.right[0], L.left[1] - L.right[1], L.left[2] - L.right[2]));
+    }
+
+    const size_t o = static_cast<size_t>(k) * T + t;
+    cost_out[o] = cost;
+    traj_out[2 * o] = L.ee[0];
+    traj_out[2 * o + 1] = L.ee[1];
+  }
+}
+
+}  // namespace
+
+extern "C" int m3p2i_panda_rollout(const float* params, const float* task, const float* state0,
+                                   const float* acts, float* cost, float* traj, int K, int K_total,
+                                   int T, int S, int substeps, int table_slot, int shelf_slot,
+                                   int multi_modal, int n_params, void* stream) {
+  if (K <= 0 || T <= 0 || substeps <= 0 || S < 1 || S > kMaxS || table_slot < 0 || table_slot >= S ||
+      shelf_slot < 0 || shelf_slot >= S || table_slot == shelf_slot ||
+      n_params != N_SCALARS + 3 * kBodyStride + kStatStride * S + kSupStride * (S + 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int blocks = (K + kThreads - 1) / kThreads;
+  const size_t smem = static_cast<size_t>(n_params) * sizeof(float);
+  panda_rollout_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      params, task, state0, acts, cost, traj, K, K_total, T, S, substeps, table_slot, shelf_slot,
+      multi_modal, n_params);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,9 +1,9 @@
-"""Environment construction for the point family, in torch.
+"""Environment construction for the point family and the panda, in torch.
 
-Port of the point branch of ``m3p2i_aip_tpu/envs.py``: the per-actor YAMLs
-are packed into tensors on one device once, and the scene is exposed as a
-bundle of functions closed over those params.  The K rollouts and the real
-system share one ``step`` (a leading K axis vs none).
+Port of the point and panda branches of ``m3p2i_aip_tpu/envs.py``: the
+per-actor YAMLs are packed into tensors on one device once, and the scene is
+exposed as a bundle of functions closed over those params.  The K rollouts
+and the real system share one ``step`` (a leading K axis vs none).
 """
 from __future__ import annotations
 
@@ -13,7 +13,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from m3p2i_aip_tpu_torch.models import point_env
+from m3p2i_aip_tpu_torch.models import panda_env, panda_fk, point_env
+from m3p2i_aip_tpu_torch.ops.quat import mat_to_quat
 from m3p2i_aip_tpu_torch.sim.sim_config import load_env_cfgs
 
 _POINT_ENVS = ("point_env", "heijn_env", "boxer_env")
@@ -32,6 +33,7 @@ class Env:
     view: Callable  # (state) -> dict for the host-side task planner (syncs)
     view_vec: Callable  # (state) -> packed [V] device tensor (no sync)
     view_unpack: Callable  # ([V] host array) -> same dict as `view`
+    traj_point: Callable  # (state) -> [..., 2] point for trajectory views
     dyn_obs_slot: int = -1  # index into the dynamic-body arrays for "dyn-obs"
     box_slot: int = -1  # index into the dynamic-body arrays for "box"
     dyn_obs_step: Any = None  # [D, 2] tensor: +0.01 on the dyn-obs row
@@ -42,13 +44,12 @@ class Env:
 
 
 def make_env(cfg, device="cpu") -> Env:
-    """Build the point-family scene named by ``cfg.env_type`` on ``device``,
-    with the ``actors`` / ``initial_actor_positions`` spawn overrides and the
+    """Build the scene named by ``cfg.env_type`` on ``device``, with the
+    ``actors`` / ``initial_actor_positions`` spawn overrides and the
     ``fric_noise`` shorthand (``m3p2i_aip_tpu/envs.py:46``)."""
-    if cfg.env_type not in _POINT_ENVS:
+    if cfg.env_type not in _POINT_ENVS + ("panda_env",):
         raise NotImplementedError(
-            f"env_type {cfg.env_type!r} is not ported yet: see ROADMAP.md "
-            "Queue 1 (panda M8, albert M9)"
+            f"env_type {cfg.env_type!r} is not ported yet: see ROADMAP.md Queue 1 (albert M9)"
         )
     actors = load_env_cfgs(cfg.env_type)
     for name, pos in zip(cfg.actors, cfg.initial_actor_positions):
@@ -61,6 +62,8 @@ def make_env(cfg, device="cpu") -> Env:
         for a in actors:
             if not a.fixed and a.type != "robot":
                 a.noise_percentage_friction = float(cfg.fric_noise)
+    if cfg.env_type == "panda_env":
+        return _make_panda_env(cfg, actors, device)
     return _make_point_env(cfg, actors, device)
 
 
@@ -119,9 +122,61 @@ def _make_point_env(cfg, actors, device) -> Env:
         view=view,
         view_vec=view_vec,
         view_unpack=view_unpack,
+        traj_point=lambda s: s.q[..., :2],
         dyn_obs_slot=dynobs_slot,
         box_slot=box_slot,
         dyn_obs_step=dyn_obs_step,
+    )
+
+
+def _make_panda_env(cfg, actors, device) -> Env:
+    """The panda scene (``m3p2i_aip_tpu/envs.py:218``).  Its dyn-obs plate
+    never moves (the reference's panda offsets are zero), so the scene has
+    no dyn-obs slot for ``update_dyn_obs_device``."""
+    params = panda_env.build_params(actors, cfg.sim, cube_on_shelf=cfg.cube_on_shelf, device=device)
+
+    def view_vec(state):
+        """The AIF planner's observations in ONE device tensor:
+        [cube_state(7), cube_goal(7), ee_state(7), attached(1)]."""
+        links = panda_fk.fk(state.q, params.base_pos)
+        lf_pos, lf_rot = links["leftfinger"]
+        ee_pos = (lf_pos + links["rightfinger"][0]) / 2.0
+        return torch.cat(
+            [
+                state.body_pos[..., 1, :],
+                state.body_quat[..., 1, :],
+                state.body_pos[..., 2, :],
+                state.body_quat[..., 2, :],
+                ee_pos,
+                mat_to_quat(lf_rot),
+                state.attached[..., None],
+            ],
+            dim=-1,
+        )
+
+    def view_unpack(vec) -> dict:
+        vec = np.asarray(vec)
+        return {
+            "cube_state": vec[0:7],
+            "cube_goal": vec[7:14],
+            "ee_state": vec[14:21],
+            "attached": float(vec[21]),
+        }
+
+    def view(state):
+        return view_unpack(view_vec(state).cpu().numpy())
+
+    return Env(
+        env_type="panda_env",
+        params=params,
+        nu=9,
+        step=lambda s, u, e: panda_env.step(params, s, u, e),
+        init_state=lambda: panda_env.init_state(params),
+        zero_ext=lambda batch=(): panda_env.zero_ext(params, batch),
+        view=view,
+        view_vec=view_vec,
+        view_unpack=view_unpack,
+        traj_point=lambda s: panda_fk.fk(s.q, params.base_pos)["ee"][0][..., :2],
     )
 
 

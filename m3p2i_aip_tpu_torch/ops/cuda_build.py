@@ -27,7 +27,7 @@ import time
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("point_rollout.cu", "multimodal_weights.cu")
+SOURCES = ("point_rollout.cu", "multimodal_weights.cu", "panda_rollout.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
@@ -46,6 +46,7 @@ _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "m3p2i_multimodal_weights": [_VP, _VP, _VP, _I, _I, _I, _F, _F, _VP],
     "m3p2i_point_rollout": [_VP] * 7 + [_I] * 15 + [_VP],
+    "m3p2i_panda_rollout": [_VP] * 6 + [_I] * 9 + [_VP],
 }
 
 

@@ -30,9 +30,16 @@ def multimodal_weights_plain(cost, gamma, half_K: int, eta_u: float = 10.0, eta_
     The search runs all 64 rounds with the update masked to out-of-bounds
     groups: a group inside [eta_l, eta_u] keeps its beta, so this equals the
     early-exit loop without a host sync per round.
+
+    The cost-to-go is summed in horizon order, one multiply and one add a
+    step, as the kernel sums it: on panda costs the search drives beta down
+    to ~1e-3 where samples tie, and there a few ulps of cost-to-go from
+    another summation order move the weights by 1e-5.
     """
     K = cost.shape[0]
-    tc = torch.sum(cost * gamma, dim=-1)  # [K]
+    tc = cost[:, 0] * gamma[0]  # [K]
+    for t in range(1, cost.shape[1]):
+        tc = tc + cost[:, t] * gamma[t]
     k = torch.arange(K, device=cost.device)
     mask = torch.stack([k < half_K, k >= half_K, torch.ones_like(k, dtype=torch.bool)])
     c3 = torch.where(mask, tc, torch.inf)

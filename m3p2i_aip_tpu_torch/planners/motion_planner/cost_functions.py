@@ -1,7 +1,7 @@
-"""Task-indexed running costs over the point-env state, in torch.
+"""Task-indexed running costs over the point-env and panda states, in torch.
 
-Port of ``PointObjective`` (``m3p2i_aip_tpu/planners/motion_planner/
-cost_functions.py:40-215``).  Every cost is a pure function
+Port of ``PointObjective`` and ``PandaObjective`` (``m3p2i_aip_tpu/planners/
+motion_planner/cost_functions.py:40-360``).  Every cost is a pure function
 ``(state, u, task, mode) -> (cost, ext_forces)`` over a leading sample axis;
 the returned suction forces thread into the NEXT dynamics step, as the
 reference's pull cost mutating the live sim did.  The reference's half-batch
@@ -15,7 +15,10 @@ from __future__ import annotations
 
 import torch
 
+from m3p2i_aip_tpu_torch.models import panda_env as pa
+from m3p2i_aip_tpu_torch.models import panda_fk
 from m3p2i_aip_tpu_torch.models import point_env as pe
+from m3p2i_aip_tpu_torch.ops.quat import general_ori_cube2goal, general_ori_ee2cube_mat
 from m3p2i_aip_tpu_torch.sim import pbd2d
 from m3p2i_aip_tpu_torch.utils.skill_utils import calculate_suction
 
@@ -156,3 +159,106 @@ class PointObjective:
             dyn=torch.where(sel[..., None, None], ext_pull.dyn, 0.0),
         )
         return cost, ext
+
+
+class PandaObjective:
+    """reach / pick / place costs for the panda (``cost_functions.py:217``).
+
+    Kept deviation of the JAX package: every rollout aims at its OWN cube
+    state, where the reference indexes env 0's (all rollouts share the synced
+    start state anyway).  ``compute`` returns (cost [...], zero ext forces).
+    """
+
+    tilt_cos_theta = 0.5
+    cubeA_slot, cubeB_slot = 1, 2  # panda_env.DYN_NAMES order
+
+    def __init__(self, params: pa.PandaEnvParams, pre_height_diff: float, multi_modal: bool):
+        self.params = params
+        self.pre_height_diff = float(pre_height_diff)
+        self.multi_modal = bool(multi_modal)
+        names = list(params.actor_names)
+        self.table_actor = names.index("table")
+        self.shelf_actor = names.index("shelf_stand")
+        self.cubeB_actor = names.index("cubeB")
+
+    @classmethod
+    def from_cfg(cls, params: pa.PandaEnvParams, cfg) -> "PandaObjective":
+        return cls(params, float(cfg.pre_height_diff), bool(cfg.multi_modal))
+
+    def _motion_cost(self, state):
+        """Binarized table / shelf (x4) / cubeB contact (cost_functions.py:244)."""
+        cf = state.contact_force
+        f = cf[..., self.table_actor, :] + 4.0 * cf[..., self.shelf_actor, :] + cf[..., self.cubeB_actor, :]
+        coll = torch.sum(torch.abs(f[..., :2]), dim=-1)
+        return torch.where(coll > 0.1, 1000.0, 0.0)
+
+    def _reach(self, state, links, mode):
+        ee_pos, ee_rot = links["ee"]
+        cube_pos = state.body_pos[..., self.cubeA_slot, :]
+        cube_quat = state.body_quat[..., self.cubeA_slot, :]
+        phd = self.pre_height_diff
+        top_goal = torch.cat([cube_pos[..., :2], cube_pos[..., 2:] + phd], dim=-1)
+        tilt0 = general_ori_ee2cube_mat(ee_rot, cube_quat, tilt_value=0.0)
+        if self.multi_modal:
+            # both grasp modes: top grasp (mode 0), tilted side grasp (mode 1)
+            tilt = self.tilt_cos_theta
+            side_goal = torch.stack(
+                [cube_pos[..., 0] + (-phd * tilt), cube_pos[..., 1], cube_pos[..., 2] + phd * (1 - tilt**2) ** 0.5],
+                dim=-1,
+            )
+            m0 = mode == 0
+            goal = torch.where(m0[..., None], top_goal, side_goal)
+            tilt_cost = torch.where(m0, tilt0, general_ori_ee2cube_mat(ee_rot, cube_quat, tilt_value=tilt))
+        else:
+            goal, tilt_cost = top_goal, tilt0
+        return 10.0 * torch.linalg.vector_norm(ee_pos - goal, dim=-1) + 3.0 * tilt_cost
+
+    def _zup_clearance(self, state):
+        """Height deficit of the cube wedged beside (or dragging on) a static
+        AABB: live only while the stall gate is on (cost_functions.py:308)."""
+        cube = state.body_pos[..., self.cubeA_slot, None, :]  # [..., 1, 3]
+        half = self.params.body_half[self.cubeA_slot]
+        lo, hi = self.params.stat_min, self.params.stat_max
+        overlap = (
+            (cube[..., 0] > lo[:, 0] - half[0])
+            & (cube[..., 0] < hi[:, 0] + half[0])
+            & (cube[..., 1] > lo[:, 1] - half[1])
+            & (cube[..., 1] < hi[:, 1] + half[1])
+        )
+        wedged = (cube[..., 2] - half[2] - 0.02) < hi[:, 2]
+        needed = torch.clamp(hi[:, 2] + half[2] + 0.02 - cube[..., 2], min=0.0)
+        return torch.amax(torch.where(overlap & wedged, needed, 0.0), dim=-1)
+
+    def _pick(self, state, links, task):
+        cube_pos = state.body_pos[..., self.cubeA_slot, :]
+        cube_quat = state.body_quat[..., self.cubeA_slot, :]
+        goal_cost = torch.linalg.vector_norm(task.goal[:3] - cube_pos, dim=-1)
+        ori_cost = general_ori_cube2goal(cube_quat, task.goal[3:7])
+        # re-grasp term, zero while the cube is held
+        ee_pos = links["ee"][0]
+        regrasp = 10.0 * torch.linalg.vector_norm(ee_pos - cube_pos, dim=-1) * (1.0 - state.attached)
+        return (
+            10.0 * goal_cost
+            + 15.0 * ori_cost
+            + regrasp
+            + self._motion_cost(state)
+            + 30.0 * self._zup_clearance(state) * state.attached * task.zup_gate
+        )
+
+    def _place(self, links):
+        gripper_dist = torch.linalg.vector_norm(links["leftfinger"][0] - links["rightfinger"][0], dim=-1)
+        return 2.0 * (1.0 - gripper_dist)
+
+    def compute(self, state: pa.PandaEnvState, u, task, mode, links=None):
+        """Task dispatch: ids 4/5/6 -> reach/pick/place (clipped); all three
+        are evaluated and one is picked per the task id, with no host branch.
+        ``links`` takes an FK of ``state.q`` already at hand."""
+        if links is None:
+            links = panda_fk.fk(state.q, self.params.base_pos)
+        idx = torch.clamp(task.task_id - 4, 0, 2)
+        cost = torch.where(
+            idx == 0,
+            self._reach(state, links, mode),
+            torch.where(idx == 1, self._pick(state, links, task), self._place(links)),
+        )
+        return cost, pa.zero_ext(self.params, cost.shape)

@@ -7,8 +7,12 @@ the Savitzky-Golay filter is a precomputed [T, T] matrix, and task switches
 arrive as :class:`TaskParams` tensors, never as a host branch.
 
 The K rollouts go through an injected ``rollout(sim_state_k, acts, task)``
-(``ops/rollout.py``: the CUDA kernel for CUDA tensors, its plain version for
-CPU tensors), and the multi-modal weights through ``ops/weights.py``.
+(``ops/rollout.py`` or ``ops/panda_rollout.py``: the CUDA kernel for CUDA
+tensors, its plain version for CPU tensors), and the multi-modal weights
+through ``ops/weights.py``.  After the first update, ``refine_iters`` more
+rollouts re-sample the cached deltas at a shrinking scale around the new
+means (the annealed refine ladder); the last rung optionally picks the argmin
+sample instead of the weighted mean.
 
 Exploration noise: the JAX planner jitters the cached deltas with
 ``jax.random`` draws, which torch cannot reproduce.  Here the planner draws
@@ -115,8 +119,7 @@ class MPPI:
             (mcfg.mppi_mode == "simple", "mppi_mode=simple (M7)"),
             (mcfg.sampling_method == "random", "sampling_method=random (M7)"),
             (mcfg.update_cov or mcfg.update_cov_per_mode, "update_cov / update_cov_per_mode (M7)"),
-            (int(mcfg.refine_iters or 0) > 0, "the refine ladder, refine_iters > 0 (M8)"),
-            (int(mcfg.grad_refine_steps or 0) > 0, "grad_refine_steps > 0 (M8)"),
+            (int(mcfg.grad_refine_steps or 0) > 0, "grad_refine_steps > 0 (ROADMAP M8: not ported)"),
         ):
             if bad:
                 raise NotImplementedError(f"{what} {_NOT_PORTED}")
@@ -163,6 +166,10 @@ class MPPI:
         self.eta_l = float(mcfg.eta_l_bound)
         self.scale_tril = self._t(np.sqrt(np.diagonal(self.noise_sigma)).astype(np.float32))
         self.seed_val = mcfg.seed_val
+        self.refine_iters = int(mcfg.refine_iters or 0)
+        self.refine_scale = float(mcfg.refine_scale)
+        self.refine_decay = float(mcfg.refine_decay)
+        self.refine_greedy = bool(mcfg.refine_greedy)
 
         # Savitzky-Golay operator (window 9 order 2, mppi.py:190-193)
         sgf_window = min(9, self.T if self.T % 2 == 1 else self.T - 1)
@@ -248,10 +255,23 @@ class MPPI:
         return torch.cat([seq[1:], seq[-1:]], dim=0)
 
     @staticmethod
-    def _pick(actions: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        """``actions[argmax(w)]`` without a host sync (a 0-dim tensor index
-        would read the index back to the host)."""
-        return torch.index_select(actions, 0, torch.argmax(w).reshape(1))[0]
+    def _take(actions: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """``actions[idx]`` for a 0-dim device index without a host sync (a
+        0-dim tensor index would read the index back to the host)."""
+        return torch.index_select(actions, 0, idx.reshape(1))[0]
+
+    def _pick(self, actions: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        return self._take(actions, torch.argmax(w))
+
+    def _gripper_override(self, acts: torch.Tensor, task: TaskParams) -> torch.Tensor:
+        """Panda gripper channels 7 and 8 forced to +1.5 (open) or -1.5
+        (close) by the task's gripper command (mppi.py:498).  Writes in place
+        into ``acts``, which callers pass freshly made."""
+        if self.nu < 9:
+            return acts
+        val = torch.where(task.gripper == 1, 1.5, torch.where(task.gripper == 2, -1.5, 0.0))
+        acts[..., 7:9] = torch.where(task.gripper > 0, val, acts[..., 7:9])
+        return acts
 
     # ---------------------------------------------------- weight computation
     def _exp_util(self, cost_horizon, beta):
@@ -355,9 +375,61 @@ class MPPI:
             act_seq[self.half_K] = state.best_traj_2
         elif self.cfg.sample_best_traj:
             act_seq[0] = state.best_traj
+        act_seq = self._gripper_override(act_seq, task)
         if self.sample_null_action:
             act_seq[self.K - 1] = 0.0  # braking sample (mppi.py:300-302)
 
         cost_horizon, tps = self.rollout(sim_state_k, self.u_scale * act_seq, task)
         state = self._update_halton(state, cost_horizon, act_seq)
+        state = self._sample_refine(state, sim_state_k, task)
         return state, state.mean_action, tps
+
+    def _sample_refine(self, state: MPPIState, sim_state_k, task: TaskParams) -> MPPIState:
+        """The annealed refine ladder (mppi.py:846): ``refine_iters`` rollouts
+        of the cached deltas (no jitter) at scale refine_scale x
+        refine_decay^i around the current means, each followed by the full
+        distribution update, so a persistent single-mode beta adapts once per
+        rung.  The last rung is the greedy argmin pick when
+        ``refine_greedy``.  No null-action overwrite here: the K-1 zero-delta
+        row stays the pure mean, so a rung never ranks the incumbent plan out
+        of its own update."""
+        for i in range(self.refine_iters):
+            delta = state.halton_delta * (self.refine_scale * self.refine_decay**i * self.scale_tril)
+            if self.multi_modal:
+                mean_m = torch.where(
+                    (self.sample_mode == 0)[:, None, None], state.mean_action_1[None], state.mean_action_2[None]
+                )
+                act_seq = mean_m + delta
+            else:
+                act_seq = state.mean_action[None] + delta
+            act_seq = scale_ctrl(act_seq, self.u_min, self.u_max, "clamp")
+            if self.multi_modal:
+                # keep the per-mode elites, and ride the pure per-mode means at
+                # slots 1 / half_K + 1 so the greedy pick is monotone per mode
+                act_seq[0] = state.best_traj_1
+                act_seq[self.half_K] = state.best_traj_2
+                act_seq[1] = state.mean_action_1
+                act_seq[self.half_K + 1] = state.mean_action_2
+            elif self.cfg.sample_best_traj:
+                act_seq[0] = state.best_traj
+            act_seq = self._gripper_override(act_seq, task)
+            cost_horizon, _ = self.rollout(sim_state_k, self.u_scale * act_seq, task)
+            if self.refine_greedy and i == self.refine_iters - 1:
+                state = self._greedy_pick(state, cost_horizon, act_seq)
+            else:
+                state = self._update_halton(state, cost_horizon, act_seq)
+        return state
+
+    def _greedy_pick(self, state: MPPIState, cost_horizon, actions) -> MPPIState:
+        """The mean plan(s) become the argmin sample, per mode when
+        multi-modal (mppi.py:906)."""
+        traj_costs = discounted_traj_cost(cost_horizon, self.gamma_seq)
+        if self.multi_modal:
+            m0 = self.sample_mode == 0
+            return dataclasses.replace(
+                state,
+                mean_action=self._take(actions, torch.argmin(traj_costs)),
+                mean_action_1=self._take(actions, torch.argmin(torch.where(m0, traj_costs, torch.inf))),
+                mean_action_2=self._take(actions, torch.argmin(torch.where(~m0, traj_costs, torch.inf))),
+            )
+        return dataclasses.replace(state, mean_action=self._take(actions, torch.argmin(traj_costs)))

@@ -1,13 +1,20 @@
-"""REACTIVE_TAMP orchestrator, point family: task planner + objective + M3P2I.
+"""REACTIVE_TAMP orchestrator: task planner + objective + M3P2I.
 
-Port of the point parts of ``m3p2i_aip_tpu/tamp/reactive_tamp.py``.  One
-control tick is dyn-obs motion, a K-sample replan, the real-env suction
+Port of the point and panda parts of ``m3p2i_aip_tpu/tamp/reactive_tamp.py``.
+One point tick is dyn-obs motion, a K-sample replan, the real-env suction
 decision and the real-env step, all as tensor work on one device; a chunk
 runs ``length`` ticks with no host sync inside and returns the per-tick
-observation views in one tensor.  The success gate inside a chunk is a
+observation views in one tensor.  The point success gate inside a chunk is a
 device-side done latch that freezes the planner and real-env state with
 ``torch.where`` (``_run_chunk_impl``), so chunked task times equal per-tick
 task times.
+
+The panda chunk (``_run_chunk_panda_impl``) runs the active-inference
+reach -> pick -> place decision on the device every tick
+(``_panda_gate_device``, with the wedged-pick stall detector
+``_zup_update``), so a stage switch needs no host sync either.  After
+success the panda chunk keeps planning and stepping the env with the action
+zeroed, as the JAX chunk does; it does not freeze the state.
 """
 from __future__ import annotations
 
@@ -18,21 +25,29 @@ import numpy as np
 import torch
 
 from m3p2i_aip_tpu_torch.envs import Env, command_world_vel, make_env, update_dyn_obs_device
+from m3p2i_aip_tpu_torch.models import panda_fk
+from m3p2i_aip_tpu_torch.ops.panda_rollout import make_panda_rollout
+from m3p2i_aip_tpu_torch.ops.quat import general_ori_cube2goal
 from m3p2i_aip_tpu_torch.ops.rollout import make_point_rollout
-from m3p2i_aip_tpu_torch.planners.motion_planner.cost_functions import PointObjective
+from m3p2i_aip_tpu_torch.planners.motion_planner.cost_functions import PandaObjective, PointObjective
 from m3p2i_aip_tpu_torch.planners.motion_planner.m3p2i import M3P2I
 from m3p2i_aip_tpu_torch.planners.motion_planner.mppi import TaskParams, make_task_params
-from m3p2i_aip_tpu_torch.planners.task_planner.task_planner import set_task_planner
+from m3p2i_aip_tpu_torch.planners.task_planner.task_planner import (
+    ZUP_IMPROVE_M,
+    ZUP_RELEASE_M,
+    ZUP_STALL_TICKS,
+    set_task_planner,
+)
 from m3p2i_aip_tpu_torch.utils import skill_utils
 from m3p2i_aip_tpu_torch.utils.tree import tree_where
 
 
-def build_task_planner(cfg, env: Env, objective: PointObjective):
+def build_task_planner(cfg, env: Env, objective):
     """The host-side symbolic planner of one seeded run, with the pocket-
-    endgame latches armed from the scene's arena (reactive_tamp.py:58)."""
+    endgame latches armed from a point scene's arena (reactive_tamp.py:58)."""
     tp = set_task_planner(cfg)
     p = env.params
-    if p.arena_bound > 0.0 and hasattr(tp, "configure_pocket_endgame"):
+    if env.env_type == "point_env" and p.arena_bound > 0.0 and hasattr(tp, "configure_pocket_endgame"):
         half_x = float(p.dyn_half[objective.box_dyn_slot, 0])
         tp.configure_pocket_endgame(
             float(p.arena_bound) - 2.0 * float(p.robot_radius) - half_x,
@@ -51,27 +66,28 @@ class ReactiveTAMP:
             torch.backends.cudnn.allow_tf32 = False
         self.cfg = cfg
         self.env = env if env is not None else make_env(cfg, self.device)
-        if self.env.env_type != "point_env":
-            raise NotImplementedError(
-                f"env_type {self.env.env_type!r} is not ported yet: see ROADMAP.md Queue 1"
+        K, T, multi_modal = cfg.mppi.num_samples, cfg.mppi.horizon, bool(cfg.multi_modal)
+        noise = None
+        if self.env.env_type == "panda_env":
+            self.objective = PandaObjective.from_cfg(self.env.params, cfg)
+            rollout = make_panda_rollout(self.env.params, float(cfg.pre_height_diff), K, T, multi_modal)
+        else:
+            self.objective = PointObjective.from_cfg(self.env.params, cfg)
+            rollout = make_point_rollout(
+                self.env.params,
+                float(cfg.kp_suction),
+                K,
+                T,
+                multi_modal,
+                boxer_continuous_align=bool(cfg.mppi.boxer_continuous_align),
             )
-        self.objective = PointObjective.from_cfg(self.env.params, cfg)
+            # per-sample friction randomization: active when an actor YAML
+            # sets noise_percentage_friction > 0
+            noise = self.env.params.dyn_fric_noise.cpu().numpy()
         self.task_planner = build_task_planner(cfg, self.env, self.objective)
         self.task_success = False
-
-        # per-sample friction randomization: active when an actor YAML sets
-        # noise_percentage_friction > 0
-        noise = self.env.params.dyn_fric_noise.cpu().numpy()
-        rollout = make_point_rollout(
-            self.env.params,
-            float(cfg.kp_suction),
-            cfg.mppi.num_samples,
-            cfg.mppi.horizon,
-            bool(cfg.multi_modal),
-            boxer_continuous_align=bool(cfg.mppi.boxer_continuous_align),
-        )
         self.motion_planner = M3P2I(
-            cfg, rollout, fric_noise=noise if np.any(noise) else None, device=self.device
+            cfg, rollout, fric_noise=noise if noise is not None and np.any(noise) else None, device=self.device
         )
         self.mppi_state = self.motion_planner.init_state()
         # on-device success gate for chunks (False = benchmark mode: every
@@ -86,22 +102,23 @@ class ReactiveTAMP:
         return the (cached) device TaskParams.  Parity: tamp_interface
         (reactive_tamp.py:75-81)."""
         self.task_planner.update_plan(view)
-        self.motion_planner.update_gripper_command(self.task_planner.task)
+        gripper = self.motion_planner.update_gripper_command(self.task_planner.task)
         self.task_success = self.task_planner.check_task_success(view)
+        grip = gripper if self.env.env_type == "panda_env" else "none"
         zup = float(getattr(self.task_planner, "zup_gate", 0.0))
         # the symbolic plan changes rarely: skip the host->device copies on
         # unchanged ticks
-        key = (self.task_planner.task, tuple(np.ravel(self.task_planner.curr_goal)), zup)
+        key = (self.task_planner.task, tuple(np.ravel(self.task_planner.curr_goal)), grip, zup)
         if self._tp_key != key:
             self._tp_key = key
             self._tp_cached = make_task_params(
-                self.task_planner.task, self.task_planner.curr_goal, "none", zup, device=self.device
+                self.task_planner.task, self.task_planner.curr_goal, grip, zup, device=self.device
             )
         return self._tp_cached
 
     @property
     def multi_modal_suction(self) -> bool:
-        return bool(self.cfg.multi_modal)
+        return bool(self.cfg.multi_modal) and self.env.env_type == "point_env"
 
     def _suction_ext_device(self, mppi_state, real_state, task: TaskParams, action):
         """Real-env suction as tensor work (skill_utils.py:36-56 and the
@@ -109,7 +126,7 @@ class ReactiveTAMP:
         arbitration reads the PRE-command weights, as the reference's
         get_suction reports the preference from before ``command``."""
         ext = self.env.zero_ext()
-        if not (bool(self.cfg.suction_active) or self.multi_modal_suction):
+        if self.env.env_type != "point_env" or not (bool(self.cfg.suction_active) or self.multi_modal_suction):
             return ext
         box_slot = self.env.box_slot
         box_pos = real_state.dyn_pos[box_slot]
@@ -180,3 +197,88 @@ class ReactiveTAMP:
 
     def run_chunk(self, mppi_state, real_state, task, i0: int, length: int):
         return self._run_chunk_impl(mppi_state, real_state, task, i0, length, self.device_gate)
+
+    # ----------------------------------------------- on-device panda AIF gate
+    def zup_zs0(self) -> torch.Tensor:
+        """Initial [best_d, stall_n, gate, latch_d] carry of the wedged-pick
+        stall detector (thresholds shared with the host planner's mirror)."""
+        return torch.tensor([1e9, 0.0, 0.0, 0.0], dtype=torch.float32, device=self.device)
+
+    @staticmethod
+    def _zup_update(zs, d, in_pick, att):
+        """One stall-detector step on device scalars (reactive_tamp.py:479):
+        the gate turns on after ZUP_STALL_TICKS attached pick ticks without a
+        ZUP_IMPROVE_M gain toward the place goal, and off after ZUP_RELEASE_M
+        of progress past the latch."""
+        best, n, gate, latch = zs[0], zs[1], zs[2], zs[3]
+        improved = d < best - ZUP_IMPROVE_M
+        best = torch.minimum(best, d)
+        active = in_pick & (att > 0.5)
+        n = torch.where(active & ~improved, n + 1.0, 0.0)
+        was_on = gate > 0.5
+        turn_on = n >= float(ZUP_STALL_TICKS)
+        latch = torch.where(active & turn_on & ~was_on, d, latch)
+        release = d < latch - ZUP_RELEASE_M
+        gate = torch.where(active & ((was_on & ~release) | turn_on), 1.0, 0.0)
+        best = torch.where(in_pick, best, 1e9)
+        return torch.stack([best, n, gate, latch])
+
+    def _panda_gate_device(self, real_state, stage, zs):
+        """The PLANNER_AIF_PANDA decision as device tensors
+        (reactive_tamp.py:497): a 3-stage latch reach -> pick -> place on
+        the geometric thresholds with the pick/place hysteresis, the stall
+        detector, and the TaskParams built from device tensors (no host
+        read).  Returns (TaskParams, new_stage, success, new_zs)."""
+        p = self.env.params
+        ee = panda_fk.fk(real_state.q, p.base_pos)["ee"][0]
+        cube, cube_q = real_state.body_pos[1], real_state.body_quat[1]
+        goal_pos, goal_q = real_state.body_pos[2], real_state.body_quat[2]
+        th = float(self.cfg.pre_height_diff) + 0.005
+        pre_place = torch.cat([goal_pos[:2], goal_pos[2:] + th, goal_q])
+        reach_cost = torch.linalg.vector_norm(ee - cube)
+        dist_cost = torch.linalg.vector_norm(pre_place[:2] - cube[:2])
+        # the host passes (goal quat, cube quat) in this order (task_planner.py:94-98)
+        ori_cost = general_ori_cube2goal(goal_q, cube_q)
+        new_stage = torch.where(
+            (dist_cost + ori_cost < 0.03) | (stage >= 2),
+            2,
+            torch.where((reach_cost < th) | (stage >= 1), 1, 0),
+        ).to(torch.int32)
+        zs = self._zup_update(zs, torch.linalg.vector_norm(pre_place[:3] - cube), new_stage == 1, real_state.attached)
+        task = TaskParams(
+            task_id=(4 + new_stage).to(torch.int32),
+            goal=pre_place,
+            # reach / place -> open (1), pick -> close (2) (m3p2i.py:22-28)
+            gripper=torch.where(new_stage == 1, 2, 1).to(torch.int32),
+            zup_gate=zs[2],
+        )
+        success = (new_stage == 2) & (dist_cost < 0.04)
+        return task, new_stage, success, zs
+
+    def _run_chunk_panda_impl(self, mppi_state, real_state, stage, zs, length: int):
+        """``length`` panda ticks with no host sync: the AIF gate, the replan
+        and the real-env step per tick.  A latched success zeroes the action
+        but keeps planning and stepping (reactive_tamp.py:566).  Returns
+        (mppi_state, real_state, stage, zs, done, views [length, 22],
+        stages [length], dones [length])."""
+        done = torch.zeros((), dtype=torch.bool, device=self.device)
+        ext = self.env.zero_ext()
+        views, stages, dones = [], [], []
+        for _ in range(length):
+            task, stage, succ, zs = self._panda_gate_device(real_state, stage, zs)
+            done = done | succ
+            action_seq, mppi_state, _ = self.motion_planner._command_impl(mppi_state, real_state, task)
+            action = torch.where(done, 0.0, action_seq[0])
+            real_state = self.env.step(real_state, action, ext)
+            views.append(self.env.view_vec(real_state))
+            stages.append(stage)
+            dones.append(done)
+        return (
+            mppi_state, real_state, stage, zs, done,
+            torch.stack(views), torch.stack(stages), torch.stack(dones),
+        )
+
+    def run_chunk_panda(self, mppi_state, real_state, stage, zs, length: int):
+        stage = torch.as_tensor(stage, dtype=torch.int32, device=self.device)
+        zs = torch.as_tensor(zs, dtype=torch.float32, device=self.device)
+        return self._run_chunk_panda_impl(mppi_state, real_state, stage, zs, length)

@@ -1,19 +1,23 @@
 """Real-system loop: the single "actuated" env driven by the TAMP planner.
 
-Port of ``m3p2i_aip_tpu/tamp/sim_loop.py`` (point family, serial chunks).
-The same engine runs the rollouts and the real env, in one process.  The
-chunked loop syncs with the device once per chunk: one transfer brings back
-the chunk's per-tick views with the latch scalars.
+Port of ``m3p2i_aip_tpu/tamp/sim_loop.py`` (point family and panda, serial
+chunks).  The same engine runs the rollouts and the real env, in one
+process.  The chunked loop syncs with the device once per chunk: one
+transfer brings back the chunk's per-tick views with the latch scalars.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass, field
 from typing import List, Optional
 
 import torch
 
+from m3p2i_aip_tpu_torch.models.panda_env import DYN_NAMES
 from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMP
+
+_STAGE_TASK = ("reach", "pick", "place")
 
 
 @dataclass
@@ -41,6 +45,8 @@ class SimLoop:
         self.state = self.env.init_state()
         self.log = TickLog()
         self._view: Optional[dict] = None  # host copy of the current observation
+        self._panda_stage = 0  # the panda AIF stage and stall carry persist
+        self._panda_zs = None  # across run_chunked calls (reactive scenarios)
 
     def reset(self, seed_val: Optional[int] = None) -> None:
         """Reset for a fresh seeded run without rebuilding the planner."""
@@ -53,6 +59,8 @@ class SimLoop:
         self.state = self.env.init_state()
         self.log = TickLog()
         self._view = None
+        self._panda_stage = 0
+        self._panda_zs = None
 
     def warmup(self, n: int = 150) -> None:
         """Settle the scene with zero actions before planning (sim.py:32-33)."""
@@ -67,11 +75,12 @@ class SimLoop:
         self.log.replan_s.append(replan_s)
         self.log.sim_s.append(sim_s)
         self.log.task.append(self.tamp.task_planner.task)
-        self.log.robot_pos.append(view["robot_pos"])
-        self.log.robot_vel.append(view["robot_vel"])
-        self.log.box_pos.append(view["box_pos"])
-        if view.get("dynobs_contact", 0.0) > 0.1:
-            self.log.collisions += 1
+        if self.env.env_type == "point_env":
+            self.log.robot_pos.append(view["robot_pos"])
+            self.log.robot_vel.append(view["robot_vel"])
+            self.log.box_pos.append(view["box_pos"])
+            if view.get("dynobs_contact", 0.0) > 0.1:
+                self.log.collisions += 1
         if self.tamp.task_success and self.log.success_step is None:
             self.log.success_step = i
         return bool(self.tamp.task_success)
@@ -106,6 +115,8 @@ class SimLoop:
             raise NotImplementedError("pipelined chunks are not ported yet: see ROADMAP.md Queue 1 (M5)")
         if self._view is None:
             self.warmup(0)
+        if self.env.env_type == "panda_env":
+            return self._run_chunked_panda(n_steps, chunk)
         i = 0
         while i < n_steps:
             t0 = time.perf_counter()
@@ -154,3 +165,71 @@ class SimLoop:
             done_at = i + n_ticks - 1
             self.log.success_step = done_at
         return done_at
+
+    def _run_chunked_panda(self, n_steps: int, chunk: int) -> TickLog:
+        """Chunked panda execution (sim_loop.py:386): the AIF gate runs on
+        the device inside the chunk, so stage switches are exact per tick.
+        The stage and the stall carry persist on the loop, so a run
+        interrupted to perturb the scene resumes its plan.  Every chunk runs
+        its full length (the done latch zeroes the action); the log stops at
+        the success tick."""
+        stage = self._panda_stage
+        zs = self.tamp.zup_zs0() if self._panda_zs is None else self._panda_zs
+        i = 0
+        while i < n_steps:
+            t0 = time.perf_counter()
+            ms, rs, stage, zs, _, views, stages, dones = self.tamp.run_chunk_panda(
+                self.tamp.mppi_state, self.state, stage, zs, chunk
+            )
+            # ONE device->host transfer: views, stages and latches together
+            packed = torch.cat([views.reshape(-1), stages.float(), dones.float()]).cpu().numpy()
+            t1 = time.perf_counter()
+            nv = views.shape[-1]
+            views = packed[: chunk * nv].reshape(chunk, nv)
+            stages = packed[chunk * nv : chunk * (nv + 1)].astype(int)
+            dones = packed[chunk * (nv + 1) :] > 0.5
+            self.tamp.mppi_state, self.state = ms, rs
+            self._panda_stage, self._panda_zs = stage, zs  # device tensors
+            per = (t1 - t0) / chunk
+            done_at = None
+            for k in range(chunk):
+                self._view = self.env.view_unpack(views[k])
+                self.tamp.task_planner.task = _STAGE_TASK[stages[k]]  # keep the log's task in step
+                self._record(i + k, self._view, per, 0.0)
+                if dones[k]:
+                    done_at = i + k
+                    break  # stop at the success tick so _view and the log match it
+            if done_at is not None:
+                self.tamp.task_success = True
+                self.log.success_step = done_at
+                break
+            i += chunk
+        return self.log
+
+    def settle(self, n: int = 100) -> None:
+        """Free-run ``n`` zero-action env steps and refresh the view
+        (sim_loop.py:215): the reference's logged rows come from a released,
+        settled cube.  The panda keeps the place stage's OPEN gripper command,
+        or the fingers never travel and the cube never releases."""
+        zero_u = torch.zeros(self.env.nu, dtype=torch.float32, device=self.env.device)
+        if self.env.env_type == "panda_env":
+            zero_u[7:9] = 1.5
+        ext = self.env.zero_ext()
+        for _ in range(n):
+            self.state = self.env.step(self.state, zero_u, ext)
+        self._view = self.env.view(self.state)
+
+    def perturb_body(self, name: str, dpos) -> None:
+        """Displace a named dynamic body of the real env (sim_loop.py:241):
+        the scripted form of the reference's interactive cube shove, for
+        the reactive scenarios."""
+        if self.env.env_type == "panda_env":
+            pos = self.state.body_pos.clone()
+            pos[DYN_NAMES.index(name)] += torch.as_tensor(dpos, dtype=torch.float32, device=pos.device)
+            self.state = dataclasses.replace(self.state, body_pos=pos)
+        else:
+            slot = self.env.params.dyn_actor_idx.index(list(self.env.params.actor_names).index(name))
+            pos = self.state.dyn_pos.clone()
+            pos[slot] += torch.as_tensor(dpos[:2], dtype=torch.float32, device=pos.device)
+            self.state = dataclasses.replace(self.state, dyn_pos=pos)
+        self._view = self.env.view(self.state)

@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from m3p2i_aip_tpu_torch.models.panda_env import PandaEnvParams, PandaEnvState
 from m3p2i_aip_tpu_torch.models.point_env import PointEnvParams, PointEnvState
 from m3p2i_aip_tpu_torch.planners.motion_planner.mppi import MPPIState, TaskParams
 
@@ -38,6 +39,16 @@ def point_env_params_from_numpy(arrays: dict, static: dict, device="cpu") -> Poi
 
 def point_env_state_from_numpy(arrays: dict, device="cpu") -> PointEnvState:
     return _build(PointEnvState, arrays, device)
+
+
+def panda_env_params_from_numpy(arrays: dict, static: dict, device="cpu") -> PandaEnvParams:
+    """``PandaEnvParams`` from the JAX params' array leaves and static fields
+    (the drive limits, which the JAX params do not carry, are filled in)."""
+    return _build(PandaEnvParams, arrays, device, static)
+
+
+def panda_env_state_from_numpy(arrays: dict, device="cpu") -> PandaEnvState:
+    return _build(PandaEnvState, arrays, device)
 
 
 def mppi_state_from_numpy(arrays: dict, device="cpu") -> MPPIState:

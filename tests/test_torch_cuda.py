@@ -6,8 +6,9 @@ Runs only with ``M3P2I_TEST_CUDA=1`` on a machine with a CUDA GPU:
 
 Elsewhere every test skips (the kernels have no CPU mode; their plain
 versions are what the CPU suite holds against the JAX package).  Bars: the
-weights at atol 1e-6 with sums within 1e-5, the rollout at cost atol 1e-2
-and trajectory atol 1e-3 (tests/test_pallas.py:131-132, :259-260).
+weights at atol 1e-6 with sums within 1e-5, the point and panda rollouts at
+cost atol 1e-2 and trajectory atol 1e-3 (tests/test_pallas.py:131-132,
+:259-260, :379-384).
 """
 import dataclasses
 import os
@@ -17,8 +18,11 @@ import pytest
 import torch
 
 from m3p2i_aip_tpu_torch.config.config_store import load_config
+from m3p2i_aip_tpu_torch.envs import make_env
+from m3p2i_aip_tpu_torch.ops import panda_rollout as pr
 from m3p2i_aip_tpu_torch.ops import rollout as ro
 from m3p2i_aip_tpu_torch.ops import weights
+from m3p2i_aip_tpu_torch.planners.motion_planner.mppi import make_task_params
 from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMP
 from m3p2i_aip_tpu_torch.utils.tree import tree_map
 
@@ -79,9 +83,50 @@ def test_rollout_kernel_matches_plain(cuda, config_name):
         assert float(torch.max(torch.abs(t_k - t_p))) <= 1e-3, q0
 
 
+@pytest.mark.parametrize("multi_modal", [False, True])
+def test_panda_rollout_kernel_matches_plain(cuda, multi_modal):
+    """K3 on the seven parity starts; in the multi-modal scene also K2 on
+    each K3 cost horizon with the panda planner's constants."""
+    tamp = ReactiveTAMP(load_config("config_panda", [f"multi_modal={multi_modal}"]), device=cuda)
+    mp = tamp.motion_planner
+    spec, K, T = mp.rollout.spec, mp.K, mp.T
+    rng = np.random.default_rng(1)
+    base = tamp.env.init_state()
+    for name, start, task_name, grip, zup in pr.PARITY_CASES:
+        state = pr.parity_state(base, start)
+        goal = pr.PARITY_GOAL if task_name == "pick" else [0.0] * 7
+        task = make_task_params(task_name, goal, "none", zup, device=cuda)
+        acts = rng.uniform(-1.5, 1.5, size=(K, T, 9)).astype(np.float32)
+        if grip is not None:
+            acts[..., 7:9] = grip
+        acts = torch.as_tensor(acts, device=cuda)
+        inputs = pr.rollout_inputs(tree_map(lambda x: x.expand((K,) + x.shape), state), task)
+        before = pr.panda_rollout_launches
+        c_k, t_k = pr.panda_rollout(spec, *inputs, acts)
+        assert pr.panda_rollout_launches == before + 1
+        c_p, t_p = pr.panda_rollout_plain(spec, *inputs, acts)
+        assert float(torch.max(torch.abs(c_k - c_p))) <= 1e-2, name
+        assert float(torch.max(torch.abs(t_k - t_p))) <= 1e-3, name
+        if multi_modal:
+            args = (c_k, mp.gamma_seq, mp.half_K, mp.eta_u, mp.eta_l)
+            for g, r in zip(weights.multimodal_weights(*args), weights.multimodal_weights_plain(*args)):
+                assert float(torch.max(torch.abs(g - r))) <= 1e-6, name
+                assert abs(float(torch.sum(g)) - 1.0) < 1e-5, name
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     cost = torch.rand(15, 40, device=cuda).T  # not contiguous
     with pytest.raises(ValueError):
         weights.multimodal_weights(cost, torch.ones(15, device=cuda), 20)
     with pytest.raises(ValueError):
         weights.multimodal_weights(torch.rand(40, 15, device=cuda, dtype=torch.float64), torch.ones(15, device=cuda), 20)
+    cfg = load_config("config_panda")
+    env = make_env(cfg, device=cuda)
+    spec = pr.make_panda_rollout(env.params, cfg.pre_height_diff, 8, 4, False).spec
+    sk = tree_map(lambda x: x.expand((8,) + x.shape), env.init_state())
+    task_vec, state0 = pr.rollout_inputs(sk, make_task_params("reach", [0.0] * 7, device=cuda))
+    acts = torch.zeros(9, 4, 8, device=cuda).permute(2, 1, 0)  # not contiguous
+    with pytest.raises(ValueError):
+        pr.panda_rollout(spec, task_vec, state0, acts)
+    with pytest.raises(ValueError):
+        pr.panda_rollout(spec, task_vec, state0[:-1], acts.contiguous())
