@@ -2,7 +2,7 @@
 """GPU smoke run of the PyTorch/CUDA port (``m3p2i_aip_tpu_torch``).
 
 Builds the port's CUDA kernels from ``m3p2i_aip_tpu_torch/csrc``, holds each
-against its plain PyTorch version on the card, then drives the port's two
+against its plain PyTorch version on the card, then drives the port's three
 paths through ``SimLoop.run_chunked``:
 
 * the point-robot push_pull multi-modal M3P2I loop at K=200 x T=15, first
@@ -12,7 +12,19 @@ paths through ``SimLoop.run_chunked``:
   K=200 x T=12 with the refine ladder: the table pick-place must grasp the
   cube and latch success, a short multi-modal shelf run must stay finite,
   and the replan+step rate is measured with ``scripts/bench_panda.py``'s
-  protocol.
+  protocol;
+* the albert mobile manipulator (``-cn config_albert``) at K=128 x T=12
+  with the softmax-only refine ladder: the ee_reach must latch success
+  within 150 ticks with the base driven, the push_reach must push the box to
+  its goal within 500 ticks, the replan+step rate is measured with
+  ``scripts/bench_albert.py``'s protocol, and one tick is broken down into
+  its pieces (host clock) and its device kernels (``torch.profiler``).
+
+Each kernel's entry in the kernel table carries its bound: the least time
+the card could take for the same work, the larger of the bytes it must move
+over 3.35 TB/s and the f32 operations it does over 67 TFLOP/s (the H100 SXM
+data-sheet peaks), the operations reckoned from the kernel's code at this
+run's shapes.
 
 Usage (one CUDA GPU, no arguments):
 
@@ -47,6 +59,18 @@ WEIGHTS_ATOL, SUM_TOL = 1e-6, 1e-5  # tests/test_pallas.py:131-132
 COST_ATOL, TRAJ_ATOL = 1e-2, 1e-3  # tests/test_pallas.py:259-260 (and :379-384 for the panda)
 TIMED_CALLS = 50
 PANDA_TICKS = 900  # the table pick-place must latch success within this many ticks
+ALBERT_ATOL = 1e-4  # K4 vs its plain version, cost and trajectory (tests/test_pallas.py:818-821)
+EE_REACH_TICKS, PUSH_REACH_TICKS = 150, 500  # tests/test_albert.py:37, :193
+PUSH_REACH = ["task=push_reach", "goal=[3.0,0.0,0.6]"]
+
+# H100 SXM data-sheet peaks: device memory rate and f32 rate outside the tensor cores
+PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
+# f32 operations reckoned from the kernels' code, counting each add, multiply,
+# compare or select, division, square root, sine, cosine and exponential as
+# one (so the bound is a lower bound: a transcendental costs the card more)
+CIRCLE_CONTACT_OPS = 55 + 90  # circle_vs_obb + resolve (csrc/pbd2d.cuh)
+CORNER_CONTACT_OPS = 120 + 4 * 90  # corners_vs_obb + four resolves (point_rollout.cu)
+PANDA_FK_OPS = 330  # seven joints with a sin/cos each, the hand, the fingers (panda_fk.cuh)
 
 
 def _nvidia_smi() -> str:
@@ -71,6 +95,71 @@ def _time_ms(fn, calls: int = TIMED_CALLS, warmup: int = 5) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+
+
+def _bytes(*tensors) -> int:
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
+def _bound(n_bytes: int, n_ops: float) -> dict:
+    """The least time the card could take: bytes moved once over the memory
+    rate, or f32 operations over the f32 rate, whichever is longer."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / PEAK_F32_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _point_rollout_ops(spec, K: int) -> float:
+    """K1: per position iteration the five Jacobi passes (robot vs boxes,
+    box pairs, boxes vs statics, robot vs statics, robot vs held boxes);
+    per substep the drive, ground friction and integration; per step the
+    costs with the wall-crush probe."""
+    D, S, p = spec.D, spec.S, spec.env_params
+    per_iter = (
+        2 * D * (2 + CIRCLE_CONTACT_OPS) + D * (D - 1) * (2 + CORNER_CONTACT_OPS)
+        + D * S * (CORNER_CONTACT_OPS + 10) + S * CIRCLE_CONTACT_OPS
+    )
+    per_sub = 40 + 40 * D + p.pos_iters * per_iter + 4
+    return K * spec.T * (p.substeps * per_sub + 150 + 55 * S)
+
+
+def _weights_ops(cost, mp) -> float:
+    """K2: the cost-to-go, the group minima, and the three beta searches for
+    as many rounds as this cost needs (replayed here: the kernel stops when
+    all three groups are inside [eta_l, eta_u]), then the three softmaxes."""
+    K, T = cost.shape
+    tc = torch.sum(cost * mp.gamma_seq, dim=-1)
+    k = torch.arange(K, device=cost.device)
+    mask = torch.stack([k < mp.half_K, k >= mp.half_K, torch.ones_like(k, dtype=torch.bool)])
+    c3 = torch.where(mask, tc, torch.inf)
+    c3 = c3 - torch.amin(c3, dim=1, keepdim=True)
+    beta = torch.ones(3, 1, device=cost.device)
+    rounds = 0
+    for rounds in range(1, 65):
+        eta = torch.sum(torch.exp(-c3 / beta), dim=1, keepdim=True)
+        high, low = eta > mp.eta_u, eta < mp.eta_l
+        if not bool(torch.any(high | low)):
+            break
+        beta = torch.where(high, beta * 0.9, torch.where(low, beta * 1.2, beta))
+    return 2 * K * T + 6 * K + rounds * 3 * K * 4 + 3 * K * 4
+
+
+def _panda_rollout_ops(spec, K: int) -> float:
+    """K3: per substep the 9-joint drive, the FK, the grasp test, the cube's
+    quaternion, three bodies against the supports and statics, the held cube,
+    and the seven arm probes against the table, shelf and cubeB; per step the
+    costs."""
+    S = spec.S
+    bodies = 3 * (28 + 8 * (S + 1) + 57 * S)
+    per_sub = 108 + PANDA_FK_OPS + 10 + 35 + bodies + 60 + 7 * 3 * 45 + 55
+    return K * spec.T * (spec.env_params.substeps * per_sub + 200)
+
+
+def _albert_rollout_ops(spec, K: int) -> float:
+    """K4: per substep the base and arm drive with the clip, and with a box
+    its ground friction, integration and two base-vs-box contact passes; per
+    step the base-composed FK and the costs."""
+    per_sub = 87 + (26 + 2 * (2 + CIRCLE_CONTACT_OPS) if spec.env_params.has_box else 0)
+    return K * spec.T * (spec.env_params.substeps * per_sub + 2 + PANDA_FK_OPS + 60)
 
 
 def _weights_check(mp, cost, label: str) -> float:
@@ -102,8 +191,9 @@ def phase_weights(mp) -> dict:
     args = (cost, mp.gamma_seq, mp.half_K, mp.eta_u, mp.eta_l)
     ms = _time_ms(lambda: weights.multimodal_weights(*args))
     plain_ms = _time_ms(lambda: weights.multimodal_weights_plain(*args))
-    print(f"[weights] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of {TIMED_CALLS})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    bound = _bound(_bytes(cost, mp.gamma_seq) + 3 * cost.shape[0] * 4, _weights_ops(cost, mp))
+    print(f"[weights] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of {TIMED_CALLS}); bound {bound}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None}
 
 
 def phase_rollout(tamp) -> dict:
@@ -155,9 +245,11 @@ def phase_rollout(tamp) -> dict:
     inputs, acts = timed
     ms = _time_ms(lambda: ro.point_rollout(spec, *inputs, acts))
     plain_ms = _time_ms(lambda: ro.point_rollout_plain(spec, *inputs, acts), calls=TIMED_CALLS, warmup=2)
+    K, T = acts.shape[:2]
+    bound = _bound(_bytes(spec.params_buf, *inputs, acts) + K * T * 3 * 4, _point_rollout_ops(spec, K))
     print(f"[rollout] max cost err {cost_err:.3e}, max traj err {traj_err:.3e}")
-    print(f"[rollout] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of {TIMED_CALLS})")
-    return {"max_abs_err": cost_err, "ms": ms, "plain_ms": plain_ms}
+    print(f"[rollout] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of {TIMED_CALLS}); bound {bound}")
+    return {"max_abs_err": cost_err, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None}
 
 
 def phase_main_path(cfg) -> tuple:
@@ -264,10 +356,13 @@ def phase_panda_rollout() -> tuple:
     ms = _time_ms(lambda: pr.panda_rollout(spec, *inputs, acts))
     plain_ms = _time_ms(lambda: pr.panda_rollout_plain(spec, *inputs, acts), calls=10, warmup=2)
     w_ms = _time_ms(lambda: weights.multimodal_weights(*w_timed))
+    K, T = acts.shape[:2]
+    bound = _bound(_bytes(spec.params_buf, *inputs, acts) + K * T * 3 * 4, _panda_rollout_ops(spec, K))
     print(f"[panda-rollout] max cost err {cost_err:.3e}, max traj err {traj_err:.3e}")
-    print(f"[panda-rollout] kernel {ms:.4f} ms (median of {TIMED_CALLS}), plain {plain_ms:.4f} ms (median of 10)")
+    print(f"[panda-rollout] kernel {ms:.4f} ms (median of {TIMED_CALLS}), plain {plain_ms:.4f} ms (median of 10); "
+          f"bound {bound}")
     print(f"[panda-weights] max err {w_err:.3e}; kernel {w_ms:.4f} ms at K=200 x T=12 (median of {TIMED_CALLS})")
-    return {"max_abs_err": cost_err, "ms": ms, "plain_ms": plain_ms}, w_err
+    return {"max_abs_err": cost_err, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None}, w_err
 
 
 def _count_panda_ticks(loop) -> list:
@@ -395,6 +490,203 @@ def phase_panda_bench(card: str) -> float:
     return hz
 
 
+def phase_albert_rollout() -> dict:
+    """K4 against its plain version at K=128 x T=12 (config_albert physics)
+    on the five starts and tasks of ``albert_rollout.PARITY_CASES``, each
+    call launching the kernel once."""
+    from m3p2i_aip_tpu_torch.config.config_store import load_config
+    from m3p2i_aip_tpu_torch.ops import albert_rollout as ar
+    from m3p2i_aip_tpu_torch.planners.motion_planner.mppi import make_task_params
+    from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMP
+    from m3p2i_aip_tpu_torch.utils.tree import tree_map
+
+    tamp = ReactiveTAMP(load_config("config_albert"), device="cuda")
+    mp = tamp.motion_planner
+    spec, K, T = mp.rollout.spec, mp.K, mp.T
+    rng = np.random.default_rng(2)
+    cost_err = traj_err = 0.0
+    timed = None
+    for name, start, task_name, goal in ar.PARITY_CASES:
+        task = make_task_params(task_name, goal, device="cuda")
+        acts = rng.uniform(-1.5, 1.5, size=(K, T, 13)).astype(np.float32)
+        acts[..., 11:13] *= 8.0  # the wheels at the config's +-12 authority, so the box moves
+        acts = torch.as_tensor(acts, device="cuda")
+        state_k = tree_map(lambda x: x.expand((K,) + x.shape), ar.parity_state(tamp.env.params, start))
+        inputs = ar.rollout_inputs(state_k, task)
+        before = ar.albert_rollout_launches
+        c_k, t_k = ar.albert_rollout(spec, *inputs, acts)
+        assert ar.albert_rollout_launches == before + 1
+        c_p, t_p = ar.albert_rollout_plain(spec, *inputs, acts)
+        torch.cuda.synchronize()
+        ce = float(torch.max(torch.abs(c_k - c_p)))
+        te = float(torch.max(torch.abs(t_k - t_p)))
+        print(f"[albert-rollout] {name}: cost err {ce:.3e}, traj err {te:.3e} "
+              f"(cost in [{float(c_p.min()):.2f}, {float(c_p.max()):.2f}])")
+        assert torch.isfinite(c_k).all() and torch.isfinite(t_k).all()
+        assert ce <= ALBERT_ATOL and te <= ALBERT_ATOL, f"albert kernel disagrees with its plain version ({name})"
+        cost_err, traj_err = max(cost_err, ce), max(traj_err, te)
+        if timed is None:
+            timed = (inputs, acts)
+    inputs, acts = timed
+    ms = _time_ms(lambda: ar.albert_rollout(spec, *inputs, acts))
+    plain_ms = _time_ms(lambda: ar.albert_rollout_plain(spec, *inputs, acts), calls=10, warmup=2)
+    bound = _bound(_bytes(spec.params_buf, *inputs, acts) + K * T * 3 * 4, _albert_rollout_ops(spec, K))
+    print(f"[albert-rollout] max cost err {cost_err:.3e}, max traj err {traj_err:.3e}")
+    print(f"[albert-rollout] kernel {ms:.4f} ms (median of {TIMED_CALLS}), plain {plain_ms:.4f} ms (median of 10); "
+          f"bound {bound}")
+    return {"max_abs_err": max(cost_err, traj_err), "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None}
+
+
+def _albert_gated_run(label: str, overrides: list, n_ticks: int):
+    """One gated albert run through ``run_chunked(n_ticks, chunk=10)`` with
+    the launch counts set to 0 just before and read just after: K4 launched
+    1 + refine_iters times per dispatched tick, K2 never, every view finite,
+    success latched.  The chunk entry records each chunk's length and views
+    (read after the run, not inside it).  Returns (cfg, views, log, K4
+    launches)."""
+    from m3p2i_aip_tpu_torch.config.config_store import load_config
+    from m3p2i_aip_tpu_torch.ops import albert_rollout as ar
+    from m3p2i_aip_tpu_torch.ops import weights
+    from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
+
+    cfg = load_config("config_albert", overrides)
+    loop = SimLoop(cfg, device="cuda")
+    loop.warmup(20)
+    record = []
+    run_chunk = loop.tamp.run_chunk
+
+    def counted(ms, rs, task, i0, length):
+        out = run_chunk(ms, rs, task, i0, length)
+        record.append((length, out[2]))
+        return out
+
+    loop.tamp.run_chunk = counted
+    view0 = loop.env.view_vec(loop.state).cpu().numpy()
+    ar.albert_rollout_launches = 0
+    weights.weights_launches = 0
+    t0 = time.perf_counter()
+    log = loop.run_chunked(n_ticks, chunk=10)
+    wall = time.perf_counter() - t0
+    launches, w_launches = ar.albert_rollout_launches, weights.weights_launches
+    dispatched = sum(n for n, _ in record)
+    views = np.concatenate([view0[None]] + [v.cpu().numpy() for _, v in record])
+    print(f"[{label}] {log.steps} ticks logged, {dispatched} dispatched in {wall:.2f} s; "
+          f"albert_rollout launches {launches}, multimodal_weights launches {w_launches}; "
+          f"success tick {log.success_step}; tasks {sorted(set(log.task))}")
+    assert dispatched > 0
+    assert launches == (1 + int(cfg.mppi.refine_iters)) * dispatched, f"{label}: {launches} K4 launches"
+    assert w_launches == 0, f"{label}: the single-mode albert path launched the weights kernel"
+    assert np.isfinite(views).all(), f"{label}: non-finite views"
+    assert log.success_step is not None and log.success_step < n_ticks, f"{label}: no success in {n_ticks} ticks"
+    return cfg, views[: log.success_step + 2], log, launches
+
+
+def phase_albert_main() -> int:
+    """The albert main path: ``config_albert`` defaults (ee_reach to
+    [2, 2, 0.8], K=128 x T=12) through ``SimLoop.run_chunked`` in chunks of
+    10 (scripts/run_experiments.py:107).  Success within 150 ticks, and the
+    base must have driven more than 0.8 m (tests/test_albert.py:37-47)."""
+    cfg, views, log, launches = _albert_gated_run("albert-main", [], EE_REACH_TICKS)
+    ee_err = float(np.linalg.norm(views[-1, 6:9] - np.asarray(cfg.goal, np.float32)))
+    base = float(np.linalg.norm(views[-1, 0:2]))
+    print(f"[albert-main] ee error at success {ee_err:.4f} m, base driven to {base:.3f} m from the origin")
+    assert base > 0.8, f"the base did not drive: {base:.3f} m"
+    return launches
+
+
+def phase_albert_push() -> None:
+    """The albert push_reach to [3, 0, 0.6]: success within 500 ticks
+    (tests/test_albert.py:193), the box finite and moved toward the goal."""
+    cfg, views, log, _ = _albert_gated_run("albert-push", PUSH_REACH, PUSH_REACH_TICKS)
+    goal = np.asarray(cfg.goal, np.float32)[:2]
+    d0, d1 = (float(np.linalg.norm(views[i, 9:11] - goal)) for i in (0, -1))
+    hover = float(np.linalg.norm(views[-1, 6:9] - np.r_[views[-1, 9:11], cfg.goal[2]]))
+    print(f"[albert-push] box-to-goal {d0:.3f} -> {d1:.4f} m; ee hover error at success {hover:.4f} m")
+    assert d1 < d0 and d1 <= 0.1 + 1e-6, "the box did not reach the goal"
+
+
+def phase_albert_bench(card: str) -> float:
+    """The albert replan+step rate, scripts/bench_albert.py's protocol:
+    push_reach to [3, 0, 0.6], warm-up 20, both gates off, two warm-up chunks
+    of 100, then 400 timed ticks in chunks of 100."""
+    from m3p2i_aip_tpu_torch.config.config_store import load_config
+    from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
+
+    loop = SimLoop(load_config("config_albert", PUSH_REACH), device="cuda")
+    loop.warmup(20)
+    loop.tamp.task_planner.check_task_success = lambda view: False
+    loop.tamp.device_gate = False
+    chunk = 100
+    for _ in range(2):
+        loop.run_chunked(chunk, chunk=chunk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(4):
+        loop.run_chunked(chunk, chunk=chunk)
+    hz = 4 * chunk / (time.perf_counter() - t0)
+    print(f"[albert-bench] {hz:.2f} Hz replan+step, K=128 x T=12, push_reach, 400 timed ticks ({card})")
+    return hz
+
+
+def _host_ms(fn, calls: int = 10) -> float:
+    """Median host time of one call that ends in a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+def phase_albert_breakdown(card: str) -> None:
+    """One benchmark-mode push_reach tick in pieces: medians of 10 calls on
+    the host clock with a synchronize (the real-env step on one state, the
+    planner with its four K4 launches, the view, a whole tick, a 20-tick
+    chunk per tick), then ``torch.profiler`` over a 20-tick chunk: device
+    kernels per tick, device time per tick, K4's share, the idle share."""
+    from m3p2i_aip_tpu_torch.config.config_store import load_config
+    from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
+
+    loop = SimLoop(load_config("config_albert", PUSH_REACH), device="cuda")
+    loop.warmup(20)
+    tamp, env = loop.tamp, loop.env
+    task = tamp.tamp_interface_view(loop._view)
+    ms, rs = tamp.mppi_state, loop.state
+    zero_u, ext = torch.zeros(env.nu, device="cuda"), env.zero_ext()
+    pieces = {
+        "real-env albert.step": lambda: env.step(rs, zero_u, ext),
+        "planner _command_impl": lambda: tamp.motion_planner._command_impl(ms, rs, task),
+        "view_vec": lambda: env.view_vec(rs),
+        "whole tick": lambda: tamp._run_chunk_impl(ms, rs, task, 0, 1, gate=False),
+        "chunk of 20, per tick": lambda: tamp._run_chunk_impl(ms, rs, task, 0, 20, gate=False),
+    }
+    for name, fn in pieces.items():
+        t = _host_ms(fn, calls=5 if "20" in name else 10)
+        print(f"[albert-breakdown] {name}: {t / (20 if '20' in name else 1):.3f} ms ({card})")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    n = 20
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tamp._run_chunk_impl(ms, rs, task, 0, n, gate=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        print("[albert-breakdown] torch.profiler recorded no device kernels: device time not measured")
+        return
+    dev_us = sum(e.time_range.elapsed_us() for e in kernels)
+    k4_us = sum(e.time_range.elapsed_us() for e in kernels if "albert_rollout" in e.name)
+    print(f"[albert-breakdown] profiler over {n} ticks: {len(kernels) / n:.0f} device kernels a tick, "
+          f"{dev_us / n / 1e3:.3f} ms device time a tick (K4 {k4_us / n / 1e3:.3f} ms), "
+          f"profiled wall {wall / n * 1e3:.3f} ms a tick, device idle {100 * (1 - dev_us / 1e6 / wall):.1f}% ({card})")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device; this script runs only on a GPU")
@@ -431,6 +723,12 @@ def main() -> None:
     k2 = stats["multimodal_weights"]
     k2["max_abs_err"] = max(k2["max_abs_err"], w_err)  # over the point and the panda shapes and costs
     panda_hz = phase_panda_bench(card)
+    # 11. K4 against its plain version; 12. - 15. the albert path
+    stats["albert_rollout"] = phase_albert_rollout()
+    launches["albert_rollout"] = phase_albert_main()
+    phase_albert_push()
+    albert_hz = phase_albert_bench(card)
+    phase_albert_breakdown(card)
 
     sources = {
         "point_rollout": ("m3p2i_aip_tpu_torch/csrc/point_rollout.cu", "m3p2i_aip_tpu/ops/pallas_rollout.py:189"),
@@ -442,12 +740,16 @@ def main() -> None:
             "m3p2i_aip_tpu_torch/csrc/panda_rollout.cu",
             "m3p2i_aip_tpu/ops/pallas_panda_rollout.py:185",
         ),
+        "albert_rollout": (
+            "m3p2i_aip_tpu_torch/csrc/albert_rollout.cu",
+            "m3p2i_aip_tpu/ops/pallas_albert_rollout.py:55",
+        ),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name], **stats[name]}
         for name, (src, rep) in sources.items()
     ]
-    print(f"[bench] point {hz:.2f} Hz, panda {panda_hz:.2f} Hz on {card}")
+    print(f"[bench] point {hz:.2f} Hz, panda {panda_hz:.2f} Hz, albert {albert_hz:.2f} Hz on {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

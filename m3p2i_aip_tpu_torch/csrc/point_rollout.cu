@@ -42,6 +42,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "pbd2d.cuh"
+
 namespace {
 
 constexpr int kMaxD = 4;   // dynamic boxes
@@ -57,50 +59,6 @@ enum Scalar {
 };
 constexpr int kDynStride = 6;   // hx, hy, inv_mass, inv_inertia, ang_rad, friction
 constexpr int kStatStride = 7;  // x, y, cos, sin, hx, hy, friction
-
-struct Contact {
-  float pen, nx, ny, px, py;
-};
-
-// Corrections of one contact projection (pbd2d.resolve_contact).
-struct Resolved {
-  float dax, day, dyaw_a, dvax, dvay, dom_a;
-  float dbx, dby, dyaw_b, dvbx, dvby, dom_b;
-  float fx, fy;  // equivalent force on A
-};
-
-__device__ __forceinline__ float sgn_pos(float v) { return v >= 0.0f ? 1.0f : -1.0f; }
-
-__device__ __forceinline__ float clampf(float v, float lo, float hi) {
-  return fminf(fmaxf(v, lo), hi);
-}
-
-// Circle (center cx, cy; radius r) vs oriented box; normal pushes the circle.
-__device__ Contact circle_vs_obb(float cx, float cy, float r, float bx, float by,
-                                 float bc, float bs, float hx, float hy) {
-  const float dx = cx - bx, dy = cy - by;
-  const float lx = bc * dx + bs * dy;
-  const float ly = -bs * dx + bc * dy;
-  const float clx = clampf(lx, -hx, hx);
-  const float cly = clampf(ly, -hy, hy);
-  const bool inside = fabsf(lx) < hx && fabsf(ly) < hy;
-  const bool use_x = fabsf(lx) / hx >= fabsf(ly) / hy;
-  const float sgx = sgn_pos(lx), sgy = sgn_pos(ly);
-  const float sx = inside ? (use_x ? sgx * hx : lx) : clx;
-  const float sy = inside ? (use_x ? ly : sgy * hy) : cly;
-  const float ddx = lx - sx, ddy = ly - sy;
-  const float dist = sqrtf(ddx * ddx + ddy * ddy);
-  const float guard = fmaxf(dist, 1e-9f);
-  const float nlx = inside ? (use_x ? sgx : 0.0f) : ddx / guard;
-  const float nly = inside ? (use_x ? 0.0f : sgy) : ddy / guard;
-  Contact c;
-  c.pen = inside ? r + dist : r - dist;
-  c.nx = bc * nlx - bs * nly;
-  c.ny = bs * nlx + bc * nly;
-  c.px = bx + (bc * sx - bs * sy);
-  c.py = by + (bs * sx + bc * sy);
-  return c;
-}
 
 // The four corners of box A against box B's dominant face (chosen from A's
 // center): penetrations, world corner points, one world normal.
@@ -140,56 +98,6 @@ __device__ CornerContacts corners_vs_obb(float ax, float ay, float ac, float as,
     cc.wy[i] = wy;
   }
   return cc;
-}
-
-// One Jacobi projection of a single contact (masked when pen <= 0).
-__device__ Resolved resolve(float pen, float nx, float ny, float px, float py,
-                            float ax, float ay, float avx, float avy, float aom,
-                            float wm_a, float wi_a, float bx, float by, float bvx,
-                            float bvy, float bom, float wm_b, float wi_b, float h,
-                            float friction, float relax) {
-  const bool active = pen > 0.0f;
-  const float d = active ? pen : 0.0f;
-  const float rax = px - ax, ray = py - ay;
-  const float rbx = px - bx, rby = py - by;
-  const float ca = rax * ny - ray * nx;
-  const float cb = rbx * ny - rby * nx;
-  const float w_sum = wm_a + wi_a * (ca * ca) + wm_b + wi_b * (cb * cb);
-  const float w_guard = fmaxf(w_sum, 1e-9f);
-  const float lam = relax * d / w_guard;
-
-  Resolved o;
-  o.dax = (wm_a * lam) * nx;
-  o.day = (wm_a * lam) * ny;
-  o.dyaw_a = wi_a * lam * ca;
-  o.dbx = -(wm_b * lam) * nx;
-  o.dby = -(wm_b * lam) * ny;
-  o.dyaw_b = -wi_b * lam * cb;
-
-  // velocity solve: restitution 0 on the normal, Coulomb friction tangential
-  const float vrx = (avx - aom * ray) - (bvx - bom * rby);
-  const float vry = (avy + aom * rax) - (bvy + bom * rbx);
-  const float vn = vrx * nx + vry * ny;
-  const float jn = (active && vn < 0.0f) ? -vn / w_guard : 0.0f;
-  const float tx = -ny, ty = nx;
-  const float ta = rax * ty - ray * tx;
-  const float tb = rbx * ty - rby * tx;
-  const float wt_sum = wm_a + wi_a * (ta * ta) + wm_b + wi_b * (tb * tb);
-  const float vt = vrx * tx + vry * ty;
-  const float jt_un = -vt / fmaxf(wt_sum, 1e-9f);
-  const float jt_max = friction * (jn + lam / h);
-  const float jt = active ? clampf(jt_un, -jt_max, jt_max) : 0.0f;
-
-  o.dvax = (wm_a * jn) * nx + (wm_a * jt) * tx;
-  o.dvay = (wm_a * jn) * ny + (wm_a * jt) * ty;
-  o.dom_a = wi_a * jn * ca + wi_a * jt * ta;
-  o.dvbx = -(wm_b * jn) * nx - (wm_b * jt) * tx;
-  o.dvby = -(wm_b * jn) * ny - (wm_b * jt) * ty;
-  o.dom_b = -wi_b * jn * cb - wi_b * jt * tb;
-  const float f = (jn + lam / h) / h;
-  o.fx = f * nx;
-  o.fy = f * ny;
-  return o;
 }
 
 __global__ void __launch_bounds__(kThreads)

@@ -1,6 +1,7 @@
-"""Environment construction for the point family and the panda, in torch.
+"""Environment construction for the point family, the panda and the albert,
+in torch.
 
-Port of the point and panda branches of ``m3p2i_aip_tpu/envs.py``: the
+Port of ``m3p2i_aip_tpu/envs.py`` (without the Isaac-layout dof/root views): the
 per-actor YAMLs are packed into tensors on one device once, and the scene is
 exposed as a bundle of functions closed over those params.  The K rollouts
 and the real system share one ``step`` (a leading K axis vs none).
@@ -13,7 +14,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from m3p2i_aip_tpu_torch.models import panda_env, panda_fk, point_env
+from m3p2i_aip_tpu_torch.models import albert, panda_env, panda_fk, point_env
 from m3p2i_aip_tpu_torch.ops.quat import mat_to_quat
 from m3p2i_aip_tpu_torch.sim.sim_config import load_env_cfgs
 
@@ -43,14 +44,12 @@ class Env:
         return self.params.device
 
 
-def make_env(cfg, device="cpu") -> Env:
+def make_env(cfg, device="cuda") -> Env:
     """Build the scene named by ``cfg.env_type`` on ``device``, with the
     ``actors`` / ``initial_actor_positions`` spawn overrides and the
     ``fric_noise`` shorthand (``m3p2i_aip_tpu/envs.py:46``)."""
-    if cfg.env_type not in _POINT_ENVS + ("panda_env",):
-        raise NotImplementedError(
-            f"env_type {cfg.env_type!r} is not ported yet: see ROADMAP.md Queue 1 (albert M9)"
-        )
+    if cfg.env_type not in _POINT_ENVS + ("panda_env", "albert_env"):
+        raise ValueError(f"unknown env_type {cfg.env_type!r}")
     actors = load_env_cfgs(cfg.env_type)
     for name, pos in zip(cfg.actors, cfg.initial_actor_positions):
         hits = [a for a in actors if a.name == name]
@@ -64,6 +63,8 @@ def make_env(cfg, device="cpu") -> Env:
                 a.noise_percentage_friction = float(cfg.fric_noise)
     if cfg.env_type == "panda_env":
         return _make_panda_env(cfg, actors, device)
+    if cfg.env_type == "albert_env":
+        return _make_albert_env(cfg, actors, device)
     return _make_point_env(cfg, actors, device)
 
 
@@ -177,6 +178,45 @@ def _make_panda_env(cfg, actors, device) -> Env:
         view_vec=view_vec,
         view_unpack=view_unpack,
         traj_point=lambda s: panda_fk.fk(s.q, params.base_pos)["ee"][0][..., :2],
+    )
+
+
+def _make_albert_env(cfg, actors, device) -> Env:
+    """The albert mobile manipulator (``m3p2i_aip_tpu/envs.py:162``): a
+    diff-drive base + panda arm, with a pushable box when the scene ships
+    one.  It takes no external forces and has no dyn-obs."""
+    params = albert.build_params(actors, cfg.sim, device=device)
+
+    def view_vec(state):
+        """[base_pose(3), base_vel(3), ee_pos(3), box_pos(2)] in one device
+        tensor (the box rows park at 1e3 in a boxless scene)."""
+        ee_pos = albert.fk(state)["ee"][0]
+        return torch.cat([state.q[..., :3], state.qd[..., :3], ee_pos, state.box_pos], dim=-1)
+
+    def view_unpack(vec) -> dict:
+        vec = np.asarray(vec)
+        return {
+            "robot_pos": vec[0:2],
+            "robot_yaw": float(vec[2]),
+            "robot_vel": vec[3:5],
+            "ee_pos": vec[6:9],
+            "box_pos": vec[9:11],
+        }
+
+    def view(state):
+        return view_unpack(view_vec(state).cpu().numpy())
+
+    return Env(
+        env_type="albert_env",
+        params=params,
+        nu=13,
+        step=lambda s, u, e: albert.step(params, s, u),
+        init_state=lambda: albert.init_state(params),
+        zero_ext=lambda batch=(): albert.zero_ext(batch, params.device),
+        view=view,
+        view_vec=view_vec,
+        view_unpack=view_unpack,
+        traj_point=lambda s: s.q[..., :2],
     )
 
 

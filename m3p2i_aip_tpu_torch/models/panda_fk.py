@@ -86,9 +86,11 @@ def _tables(device: torch.device, dtype: torch.dtype) -> dict:
     }
 
 
-def fk(q: torch.Tensor, base_pos: torch.Tensor) -> dict:
+def fk(q: torch.Tensor, base_pos: torch.Tensor, base_rot: torch.Tensor | None = None) -> dict:
     """Forward kinematics of joint positions q [..., 9] (``panda_fk.py:113``).
 
+    The chain starts at ``base_pos`` [..., 3] with the rotation ``base_rot``
+    [..., 3, 3] (identity when None; the albert passes its base yaw).
     Returns a dict of (pos [..., 3], rot [..., 3, 3]) for 'link1'..'link7',
     'hand', 'leftfinger', 'rightfinger', 'ee' (the finger midpoint) and
     'fingertip' (the grasp point between the fingertips).
@@ -96,7 +98,7 @@ def fk(q: torch.Tensor, base_pos: torch.Tensor) -> dict:
     tb = _tables(q.device, q.dtype)
     batch = q.shape[:-1]
     pos = base_pos.to(q.dtype).expand(batch + (3,))
-    rot = tb["eye"].expand(batch + (3, 3))
+    rot = tb["eye"].expand(batch + (3, 3)) if base_rot is None else base_rot
     links = {}
     for j in range(7):
         pos = pos + torch.matmul(rot, tb["joint_xyz"][j])

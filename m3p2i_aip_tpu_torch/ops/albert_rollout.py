@@ -1,0 +1,222 @@
+"""The albert MPPI rollout: plain PyTorch version and the wrapper of its CUDA
+kernel (``csrc/albert_rollout.cu``).
+
+Port of ``m3p2i_aip_tpu/ops/pallas_albert_rollout.py`` (``_albert_kernel``
+:55 and its factory ``make_albert_rollout`` :290).  One call rolls K
+13-channel action sequences through T steps of ``models/albert.step`` from
+ONE start state, scoring each step with ``AlbertObjective.compute`` and
+recording the base's xy.
+
+``make_albert_rollout`` returns ``rollout(sim_state_k, acts, task, k0=None)
+-> (cost_horizon [K, T], traj_points [K, T, 2])``: ``acts`` arrive already
+``u_scale``-scaled and all K states are the broadcast start state.  The
+albert is single-mode, so ``k0`` only rides along in the task vector.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+from m3p2i_aip_tpu_torch.models import albert
+from m3p2i_aip_tpu_torch.ops import cuda_build
+from m3p2i_aip_tpu_torch.planners.motion_planner.cost_functions import AlbertObjective
+from m3p2i_aip_tpu_torch.utils.tree import tree_map
+
+STATE_LEN = 30  # q(12), qd(12), box x, y, yaw, vx, vy, om
+TASK_LEN = 5  # task_id, goal x, y, z, k0
+N_U = 13
+_N_SCALARS = 16  # csrc/albert_rollout.cu N_SCALARS
+
+# Number of CUDA kernel launches made by ``albert_rollout`` (CPU calls run the
+# plain version and do not count).
+albert_rollout_launches = 0
+
+# The five start cases that hold the rollout to its references
+# (tests/test_pallas.py:748-769): (name, start, task, goal).
+PARITY_CASES = (
+    ("ee_reach", "base", "ee_reach", (2.0, 2.0, 0.6)),
+    ("ee_reach_rotated_base", "bent", "ee_reach", (1.0, -1.5, 0.9)),
+    ("push_reach_contact", "contact", "push_reach", (3.0, 0.0, 0.6)),
+    ("reposition_keep_out", "contact", "reposition", (0.5, -0.5)),
+    ("navigation", "base", "navigation", (1.5, 1.0)),
+)
+
+
+def parity_overrides(start: str, q, qd, box_init) -> dict:
+    """The fields a parity ``start`` sets on the scene's init state, as numpy
+    arrays, from numpy copies of that state's q, qd and the scene's box_init
+    (each package applies them to its own state)."""
+    q, qd = np.array(q, dtype=np.float32), np.array(qd, dtype=np.float32)
+    if start == "contact":  # base beside the box, driving into it
+        q[0] = float(box_init[0]) - 0.56
+        qd[0] = 0.8
+        return {
+            "q": q, "qd": qd,
+            "box_vel": np.array([0.1, -0.05], np.float32),
+            "box_om": np.float32(0.4),
+        }
+    if start == "bent":  # arm bent mid-range, base rotated
+        q[2], q[4], q[6] = 0.9, -1.2, 0.7
+        qd[11] = 0.5
+        return {"q": q, "qd": qd}
+    if start != "base":
+        raise ValueError(f"unknown parity start {start!r}")
+    return {}
+
+
+def parity_state(params: albert.AlbertParams, start: str) -> albert.AlbertState:
+    """The port's parity ``start`` state from its scene's init state."""
+    base = albert.init_state(params)
+    overrides = parity_overrides(start, base.q.cpu().numpy(), base.qd.cpu().numpy(), params.box_init.cpu().numpy())
+    return replace(base, **{k: torch.as_tensor(v, device=params.device) for k, v in overrides.items()})
+
+
+@dataclass
+class AlbertRolloutSpec:
+    """Everything one scene's rollout needs, built once per scene."""
+
+    env_params: albert.AlbertParams
+    objective: AlbertObjective
+    K: int
+    T: int
+    params_buf: torch.Tensor  # [_N_SCALARS] kernel constants, see _param_buffer
+
+
+def _param_buffer(p: albert.AlbertParams, objective: AlbertObjective) -> np.ndarray:
+    """The kernel's constant buffer (layout: ``enum Scalar`` of
+    ``csrc/albert_rollout.cu``).  Python scalars (h, the drive decay, the
+    wheel geometry, the cost radii) are formed in double and rounded once, as
+    the plain version's python-scalar arithmetic is; the box constants are
+    formed in float32 by the same tensor expressions ``albert.step`` uses."""
+    scalars = np.zeros(_N_SCALARS, np.float32)
+    scalars[:6] = [
+        p.dt / p.substeps,
+        np.exp(-p.drive_rate * p.dt / p.substeps),
+        albert.WHEEL_RADIUS,
+        albert.WHEEL_BASE,
+        1.0 / p.base_mass,
+        p.base_radius,
+    ]
+    if p.has_box:
+        half = p.box_half.cpu()
+        fric = p.box_friction.cpu()
+        scalars[6:13] = [
+            float((fric + 1.0) * 0.5),
+            float(torch.mean(half)),
+            float((0.05 + fric) / 2),
+            float(half[0]),
+            float(half[1]),
+            float(p.box_inv_mass),
+            float(p.box_inv_inertia),
+        ]
+    scalars[13:16] = [objective.approach_r, objective.hover_gate_r, objective.clearance_r]
+    return scalars
+
+
+def pack_state(state: albert.AlbertState) -> torch.Tensor:
+    """One start state as the kernel's flat [30] row (``pallas_albert_rollout
+    .py:365-389``): q(12), qd(12), box x, y, yaw, vx, vy, om."""
+    return torch.cat(
+        [state.q, state.qd, state.box_pos, state.box_yaw.reshape(1), state.box_vel, state.box_om.reshape(1)]
+    )
+
+
+def unpack_state(state0: torch.Tensor, K: int) -> albert.AlbertState:
+    """The K broadcast states of a packed row."""
+    return albert.AlbertState(
+        q=state0[0:12].expand(K, 12),
+        qd=state0[12:24].expand(K, 12),
+        box_pos=state0[24:26].expand(K, 2),
+        box_yaw=state0[26].expand(K),
+        box_vel=state0[27:29].expand(K, 2),
+        box_om=state0[29].expand(K),
+    )
+
+
+def rollout_inputs(sim_state_k, task, k0=None):
+    """(task_vec [5], state0 [30]) of the kernel from the broadcast rollout
+    states, the TaskParams and the global sample offset ``k0``.
+    task_vec = [task_id, goal x, y, z, k0]."""
+    state0 = pack_state(tree_map(lambda x: x[0], sim_state_k))
+    k0v = torch.full((1,), 0.0 if k0 is None else float(k0), dtype=torch.float32, device=state0.device)
+    task_vec = torch.cat([task.task_id.to(torch.float32).reshape(1), task.goal[:3].to(torch.float32), k0v])
+    return task_vec, state0
+
+
+def albert_rollout_plain(spec: AlbertRolloutSpec, task_vec, state0, acts):
+    """The rollout as plain tensor code: a loop over T of the batched
+    ``albert.step`` and ``AlbertObjective.compute`` (the EE from
+    ``albert.fk``).  ``task_vec`` [5] and ``state0`` [30] as
+    :func:`rollout_inputs` makes them; ``acts`` [K, T, 13]."""
+    p = spec.env_params
+    state = unpack_state(state0, acts.shape[0])
+    task = SimpleNamespace(task_id=task_vec[0], goal=task_vec[1:4])
+    costs, points = [], []
+    for t in range(spec.T):
+        u_t = acts[:, t]
+        state = albert.step(p, state, u_t)
+        ee = albert.fk(state)["ee"][0]
+        cost, _ = spec.objective.compute(state, u_t, task, None, ee_pos=ee)
+        costs.append(cost)
+        points.append(state.q[:, :2])
+    return torch.stack(costs, dim=1), torch.stack(points, dim=1)
+
+
+def albert_rollout(spec: AlbertRolloutSpec, task_vec, state0, acts):
+    """The rollout of ``acts`` [K, T, 13] from ``state0``.
+
+    A CPU tensor runs :func:`albert_rollout_plain`; a CUDA tensor launches
+    the kernel on the current stream (one thread per sample) or raises.
+    """
+    global albert_rollout_launches
+    if acts.device.type == "cpu":
+        return albert_rollout_plain(spec, task_vec, state0, acts)
+    if acts.device.type != "cuda":
+        raise ValueError(f"albert_rollout: unsupported device {acts.device}")
+    K = acts.shape[0]
+    expect = {
+        "task_vec": (task_vec, (TASK_LEN,)),
+        "state0": (state0, (STATE_LEN,)),
+        "acts": (acts, (K, spec.T, N_U)),
+        "params_buf": (spec.params_buf, (_N_SCALARS,)),
+    }
+    for name, (x, shape) in expect.items():
+        if tuple(x.shape) != shape:
+            raise ValueError(f"albert_rollout: {name} has shape {tuple(x.shape)}, expected {shape}")
+        if x.dtype != torch.float32 or not x.is_contiguous() or x.device != acts.device:
+            raise ValueError(f"albert_rollout: {name} must be contiguous float32 on {acts.device}")
+    cost = torch.empty(K, spec.T, dtype=torch.float32, device=acts.device)
+    traj = torch.empty(K, spec.T, 2, dtype=torch.float32, device=acts.device)
+    lib = cuda_build.load_kernels()
+    err = lib.m3p2i_albert_rollout(
+        spec.params_buf.data_ptr(), task_vec.data_ptr(), state0.data_ptr(), acts.data_ptr(),
+        cost.data_ptr(), traj.data_ptr(), K, spec.T, spec.env_params.substeps,
+        int(spec.env_params.has_box), spec.params_buf.numel(),
+        torch.cuda.current_stream(acts.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"albert_rollout kernel launch failed: cudaError {err}")
+    albert_rollout_launches += 1
+    return cost, traj
+
+
+def make_albert_rollout(env_params: albert.AlbertParams, objective: AlbertObjective, K: int, T: int):
+    """The rollout callable of an albert scene (see module docstring).
+    ``objective`` supplies the contact-envelope radii, so the kernel's and the
+    plain version's costs share them."""
+    spec = AlbertRolloutSpec(
+        env_params=env_params,
+        objective=objective,
+        K=int(K),
+        T=int(T),
+        params_buf=torch.as_tensor(_param_buffer(env_params, objective), device=env_params.device),
+    )
+
+    def rollout(sim_state_k, acts, task, k0=None):
+        return albert_rollout(spec, *rollout_inputs(sim_state_k, task, k0), acts.contiguous())
+
+    rollout.spec = spec
+    return rollout

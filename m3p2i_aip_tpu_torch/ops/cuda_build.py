@@ -1,10 +1,12 @@
 """Builds and loads the port's CUDA kernels (``csrc/*.cu``).
 
 All kernels go into ONE shared library with a plain C interface, compiled by
-``nvcc`` for ``sm_90a`` at first use and loaded with ``ctypes``.  The library
-is cached in ``m3p2i_aip_tpu_torch/_build/`` under a name derived from the
-sources and flags, so an edited source rebuilds; concurrent processes build
-it once, under a file lock.  Importing this module compiles nothing.
+``nvcc`` for ``sm_90a`` at first use and loaded with ``ctypes``: one ``nvcc``
+per source, all started together, then one link.  The library is cached in
+``m3p2i_aip_tpu_torch/_build/`` under a name derived from the sources, the
+shared headers and the flags, so an edited source rebuilds; concurrent
+processes build it once, under a file lock.  Importing this module compiles
+nothing.
 
 ``--use_fast_math`` is deliberately absent: the beta search and the contact
 gates branch on values that approximate ``expf``/``sqrtf``/division can push
@@ -27,11 +29,12 @@ import time
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("point_rollout.cu", "multimodal_weights.cu", "panda_rollout.cu")
+SOURCES = ("point_rollout.cu", "multimodal_weights.cu", "panda_rollout.cu", "albert_rollout.cu")
+HEADERS = ("pbd2d.cuh", "panda_fk.cuh")  # device code shared by the sources
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -47,6 +50,7 @@ _SIGNATURES = {
     "m3p2i_multimodal_weights": [_VP, _VP, _VP, _I, _I, _I, _F, _F, _VP],
     "m3p2i_point_rollout": [_VP] * 7 + [_I] * 15 + [_VP],
     "m3p2i_panda_rollout": [_VP] * 6 + [_I] * 9 + [_VP],
+    "m3p2i_albert_rollout": [_VP] * 6 + [_I] * 5 + [_VP],
 }
 
 
@@ -62,20 +66,37 @@ def _nvcc() -> str:
 
 def _library_path() -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC_DIR / name).read_bytes())
     return BUILD_DIR / f"libm3p2i_kernels_{h.hexdigest()[:16]}.so"
 
 
 def _build(target: pathlib.Path) -> None:
+    nvcc, t0 = _nvcc(), time.perf_counter()
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC_DIR / s) for s in SOURCES)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    objs = [tmp.with_name(f"{tmp.name}.{pathlib.Path(s).stem}.o") for s in SOURCES]
+    procs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC_DIR / src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for src, obj in zip(SOURCES, objs)
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    link = None
+    if all(p.returncode == 0 for p in procs):
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp), *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        logs.append(link.stdout)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    log = "".join(logs)
+    if link is None or link.returncode != 0:
+        raise RuntimeError(f"nvcc failed:\n{log}")
     os.replace(tmp, target)
-    build_info.update(seconds=time.perf_counter() - t0, log=proc.stdout + proc.stderr)
+    build_info.update(seconds=time.perf_counter() - t0, log=log)
 
 
 def load_kernels() -> ctypes.CDLL:

@@ -113,7 +113,7 @@ class MPPI:
     rolls out all K samples from the broadcast real state.
     """
 
-    def __init__(self, cfg, rollout, fric_noise=None, device="cpu"):
+    def __init__(self, cfg, rollout, fric_noise=None, device="cuda"):
         mcfg = cfg.mppi
         for bad, what in (
             (mcfg.mppi_mode == "simple", "mppi_mode=simple (M7)"),

@@ -1,8 +1,9 @@
 """REACTIVE_TAMP orchestrator: task planner + objective + M3P2I.
 
-Port of the point and panda parts of ``m3p2i_aip_tpu/tamp/reactive_tamp.py``.
-One point tick is dyn-obs motion, a K-sample replan, the real-env suction
-decision and the real-env step, all as tensor work on one device; a chunk
+Port of ``m3p2i_aip_tpu/tamp/reactive_tamp.py`` (without the RPC server).
+One point-family or albert tick is dyn-obs motion, a K-sample replan, the
+real-env suction decision and the real-env step, all as tensor work on one
+device (the albert has no dyn-obs and no suction); a chunk
 runs ``length`` ticks with no host sync inside and returns the per-tick
 observation views in one tensor.  The point success gate inside a chunk is a
 device-side done latch that freezes the planner and real-env state with
@@ -26,10 +27,15 @@ import torch
 
 from m3p2i_aip_tpu_torch.envs import Env, command_world_vel, make_env, update_dyn_obs_device
 from m3p2i_aip_tpu_torch.models import panda_fk
+from m3p2i_aip_tpu_torch.ops.albert_rollout import make_albert_rollout
 from m3p2i_aip_tpu_torch.ops.panda_rollout import make_panda_rollout
 from m3p2i_aip_tpu_torch.ops.quat import general_ori_cube2goal
 from m3p2i_aip_tpu_torch.ops.rollout import make_point_rollout
-from m3p2i_aip_tpu_torch.planners.motion_planner.cost_functions import PandaObjective, PointObjective
+from m3p2i_aip_tpu_torch.planners.motion_planner.cost_functions import (
+    AlbertObjective,
+    PandaObjective,
+    PointObjective,
+)
 from m3p2i_aip_tpu_torch.planners.motion_planner.m3p2i import M3P2I
 from m3p2i_aip_tpu_torch.planners.motion_planner.mppi import TaskParams, make_task_params
 from m3p2i_aip_tpu_torch.planners.task_planner.task_planner import (
@@ -44,21 +50,27 @@ from m3p2i_aip_tpu_torch.utils.tree import tree_where
 
 def build_task_planner(cfg, env: Env, objective):
     """The host-side symbolic planner of one seeded run, with the pocket-
-    endgame latches armed from a point scene's arena (reactive_tamp.py:58)."""
+    endgame latches armed from a point scene's arena (reactive_tamp.py:58).
+    On the albert's open floor only the stall latch is armed, with the
+    reposition standoff kept outside the cost's keep-out radius."""
     tp = set_task_planner(cfg)
     p = env.params
-    if env.env_type == "point_env" and p.arena_bound > 0.0 and hasattr(tp, "configure_pocket_endgame"):
+    if not hasattr(tp, "configure_pocket_endgame"):
+        return tp
+    if env.env_type == "point_env" and p.arena_bound > 0.0:
         half_x = float(p.dyn_half[objective.box_dyn_slot, 0])
         tp.configure_pocket_endgame(
             float(p.arena_bound) - 2.0 * float(p.robot_radius) - half_x,
             proximity_latch=(p.robot_type == "boxer"),
             min_clearance=float(p.robot_radius) + half_x + 0.1,
         )
+    elif env.env_type == "albert_env":
+        tp.configure_pocket_endgame(10.0, proximity_latch=False, min_clearance=objective.clearance_r)
     return tp
 
 
 class ReactiveTAMP:
-    def __init__(self, cfg, env: Optional[Env] = None, device="cpu") -> None:
+    def __init__(self, cfg, env: Optional[Env] = None, device="cuda") -> None:
         self.device = torch.device(device)
         if self.device.type == "cuda":
             # fp32 throughout: no TF32 in matmuls or convolutions
@@ -71,6 +83,9 @@ class ReactiveTAMP:
         if self.env.env_type == "panda_env":
             self.objective = PandaObjective.from_cfg(self.env.params, cfg)
             rollout = make_panda_rollout(self.env.params, float(cfg.pre_height_diff), K, T, multi_modal)
+        elif self.env.env_type == "albert_env":
+            self.objective = AlbertObjective(self.env.params)
+            rollout = make_albert_rollout(self.env.params, self.objective, K, T)
         else:
             self.objective = PointObjective.from_cfg(self.env.params, cfg)
             rollout = make_point_rollout(
@@ -144,9 +159,14 @@ class ReactiveTAMP:
 
     def _point_success_device(self, real_state, task: TaskParams):
         """PLANNER_SIMPLE's success gate as a device bool: navigation = robot
-        strictly within 0.1 m, push family = box within 0.1 m inclusive."""
+        strictly within 0.1 m, push family = box within 0.1 m inclusive.  On
+        the albert, push_reach gates on its box and ee_reach never latches
+        here (the host checks it per tick when the chunk drains)."""
         goal2 = task.goal[:2]
         nav_ok = torch.linalg.vector_norm(real_state.q[:2] - goal2) < 0.1
+        if self.env.env_type == "albert_env":
+            box_ok = torch.linalg.vector_norm(real_state.box_pos - goal2) <= 0.1
+            return torch.where(task.task_id == 0, nav_ok, (task.task_id == 9) & box_ok)
         box_ok = torch.linalg.vector_norm(real_state.dyn_pos[self.env.box_slot] - goal2) <= 0.1
         push_family = (task.task_id >= 1) & (task.task_id <= 3)
         return torch.where(task.task_id == 0, nav_ok, push_family & box_ok)

@@ -1,7 +1,7 @@
 """Real-system loop: the single "actuated" env driven by the TAMP planner.
 
-Port of ``m3p2i_aip_tpu/tamp/sim_loop.py`` (point family and panda, serial
-chunks).  The same engine runs the rollouts and the real env, in one
+Port of ``m3p2i_aip_tpu/tamp/sim_loop.py`` (point family, panda and albert,
+serial chunks).  The same engine runs the rollouts and the real env, in one
 process.  The chunked loop syncs with the device once per chunk: one
 transfer brings back the chunk's per-tick views with the latch scalars.
 """
@@ -38,7 +38,7 @@ class TickLog:
 class SimLoop:
     """Owns the real env state and the TAMP planner; steps them in lock-step."""
 
-    def __init__(self, cfg, tamp: Optional[ReactiveTAMP] = None, device="cpu") -> None:
+    def __init__(self, cfg, tamp: Optional[ReactiveTAMP] = None, device="cuda") -> None:
         self.cfg = cfg
         self.tamp = tamp if tamp is not None else ReactiveTAMP(cfg, device=device)
         self.env = self.tamp.env
@@ -227,6 +227,9 @@ class SimLoop:
             pos = self.state.body_pos.clone()
             pos[DYN_NAMES.index(name)] += torch.as_tensor(dpos, dtype=torch.float32, device=pos.device)
             self.state = dataclasses.replace(self.state, body_pos=pos)
+        elif self.env.env_type == "albert_env":  # the scene's one dynamic body: its box
+            dxy = torch.as_tensor(dpos[:2], dtype=torch.float32, device=self.state.box_pos.device)
+            self.state = dataclasses.replace(self.state, box_pos=self.state.box_pos + dxy)
         else:
             slot = self.env.params.dyn_actor_idx.index(list(self.env.params.actor_names).index(name))
             pos = self.state.dyn_pos.clone()

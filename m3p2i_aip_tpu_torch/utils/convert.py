@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from m3p2i_aip_tpu_torch.models.albert import AlbertParams, AlbertState
 from m3p2i_aip_tpu_torch.models.panda_env import PandaEnvParams, PandaEnvState
 from m3p2i_aip_tpu_torch.models.point_env import PointEnvParams, PointEnvState
 from m3p2i_aip_tpu_torch.planners.motion_planner.mppi import MPPIState, TaskParams
@@ -49,6 +50,15 @@ def panda_env_params_from_numpy(arrays: dict, static: dict, device="cpu") -> Pan
 
 def panda_env_state_from_numpy(arrays: dict, device="cpu") -> PandaEnvState:
     return _build(PandaEnvState, arrays, device)
+
+
+def albert_params_from_numpy(arrays: dict, static: dict, device="cpu") -> AlbertParams:
+    """``AlbertParams`` from the JAX params' array leaves and static fields."""
+    return _build(AlbertParams, arrays, device, static)
+
+
+def albert_state_from_numpy(arrays: dict, device="cpu") -> AlbertState:
+    return _build(AlbertState, arrays, device)
 
 
 def mppi_state_from_numpy(arrays: dict, device="cpu") -> MPPIState:

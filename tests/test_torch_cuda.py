@@ -8,7 +8,8 @@ Elsewhere every test skips (the kernels have no CPU mode; their plain
 versions are what the CPU suite holds against the JAX package).  Bars: the
 weights at atol 1e-6 with sums within 1e-5, the point and panda rollouts at
 cost atol 1e-2 and trajectory atol 1e-3 (tests/test_pallas.py:131-132,
-:259-260, :379-384).
+:259-260, :379-384), the albert rollout at atol 1e-4 in both
+(tests/test_pallas.py:818-821).
 """
 import dataclasses
 import os
@@ -19,6 +20,7 @@ import torch
 
 from m3p2i_aip_tpu_torch.config.config_store import load_config
 from m3p2i_aip_tpu_torch.envs import make_env
+from m3p2i_aip_tpu_torch.ops import albert_rollout as ar
 from m3p2i_aip_tpu_torch.ops import panda_rollout as pr
 from m3p2i_aip_tpu_torch.ops import rollout as ro
 from m3p2i_aip_tpu_torch.ops import weights
@@ -114,6 +116,28 @@ def test_panda_rollout_kernel_matches_plain(cuda, multi_modal):
                 assert abs(float(torch.sum(g)) - 1.0) < 1e-5, name
 
 
+def test_albert_rollout_kernel_matches_plain(cuda):
+    """K4 on the five parity cases at the shipped K=128 x T=12."""
+    tamp = ReactiveTAMP(load_config("config_albert"), device=cuda)
+    mp = tamp.motion_planner
+    spec, K, T = mp.rollout.spec, mp.K, mp.T
+    assert (K, T) == (128, 12)
+    rng = np.random.default_rng(2)
+    for name, start, task_name, goal in ar.PARITY_CASES:
+        task = make_task_params(task_name, goal, device=cuda)
+        acts = rng.uniform(-1.5, 1.5, size=(K, T, 13)).astype(np.float32)
+        acts[..., 11:13] *= 8.0  # the wheels at the config's +-12 authority
+        acts = torch.as_tensor(acts, device=cuda)
+        state = ar.parity_state(tamp.env.params, start)
+        inputs = ar.rollout_inputs(tree_map(lambda x: x.expand((K,) + x.shape), state), task)
+        before = ar.albert_rollout_launches
+        c_k, t_k = ar.albert_rollout(spec, *inputs, acts)
+        assert ar.albert_rollout_launches == before + 1
+        c_p, t_p = ar.albert_rollout_plain(spec, *inputs, acts)
+        assert float(torch.max(torch.abs(c_k - c_p))) <= 1e-4, name
+        assert float(torch.max(torch.abs(t_k - t_p))) <= 1e-4, name
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     cost = torch.rand(15, 40, device=cuda).T  # not contiguous
     with pytest.raises(ValueError):
@@ -130,3 +154,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         pr.panda_rollout(spec, task_vec, state0, acts)
     with pytest.raises(ValueError):
         pr.panda_rollout(spec, task_vec, state0[:-1], acts.contiguous())
+    cfg = load_config("config_albert")
+    tamp = ReactiveTAMP(cfg, device=cuda)
+    spec = ar.make_albert_rollout(tamp.env.params, tamp.objective, 8, 4).spec
+    sk = tree_map(lambda x: x.expand((8,) + x.shape), tamp.env.init_state())
+    task_vec, state0 = ar.rollout_inputs(sk, make_task_params("ee_reach", [2.0, 2.0, 0.8], device=cuda))
+    acts = torch.zeros(13, 4, 8, device=cuda).permute(2, 1, 0)  # not contiguous
+    with pytest.raises(ValueError):
+        ar.albert_rollout(spec, task_vec, state0, acts)
+    with pytest.raises(ValueError):
+        ar.albert_rollout(spec, task_vec, state0[:-1], acts.contiguous())
+    with pytest.raises(ValueError):
+        ar.albert_rollout(spec, task_vec, state0, acts.contiguous().double())

@@ -18,6 +18,8 @@ import m3p2i_aip_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+for name in ("models.albert", "ops.albert_rollout", "models.panda_env", "ops.panda_rollout", "ops.rollout"):
+    assert pkg.__name__ + "." + name in names, name
 leaked = sorted(m for m in sys.modules if m == "m3p2i_aip_tpu" or m.startswith("m3p2i_aip_tpu."))
 assert not leaked, leaked
 print(len(names))
@@ -36,7 +38,7 @@ def test_port_imports_with_jax_blocked():
 
 
 def test_port_covers_the_mirrored_layout():
-    """Every subpackage of the JAX layout that slice 1 ports is present."""
+    """Every subpackage of the JAX layout that the port mirrors is present."""
     proc = _probe()
     assert proc.returncode == 0, proc.stderr
     for sub in ("config", "sim", "models", "ops", "planners/motion_planner", "planners/task_planner", "tamp", "utils"):

@@ -145,7 +145,7 @@ def test_fk_matches_jax_package(scene):
 def test_build_params_matches_jax_package(scene):
     """The port builds the same panda scene from the same YAMLs."""
     jenv, _ = scene
-    params = make_env(load_config("config_panda", ["multi_modal=True"])).params
+    params = make_env(load_config("config_panda", ["multi_modal=True"]), device="cpu").params
     for name, ref in _leaves(jenv.params).items():
         np.testing.assert_array_equal(getattr(params, name).numpy(), ref, err_msg=name)
     for name, ref in _static(jenv.params).items():

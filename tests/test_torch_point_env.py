@@ -73,7 +73,7 @@ def test_build_params_matches_jax_package(envs):
     """The port builds the same scene from the same YAMLs (static yaws may
     differ by one f32 ulp: numpy's and XLA's atan2 round differently)."""
     jenv, _, _ = envs
-    params = make_env(load_config("config_point", OVERRIDES)).params
+    params = make_env(load_config("config_point", OVERRIDES), device="cpu").params
     for name, ref in _leaves(jenv.params).items():
         np.testing.assert_allclose(getattr(params, name).numpy(), ref, atol=2e-7, rtol=0, err_msg=name)
     for name, ref in _static(jenv.params).items():
