@@ -18,7 +18,18 @@ paths through ``SimLoop.run_chunked``:
   within 150 ticks with the base driven, the push_reach must push the box to
   its goal within 500 ticks, the replan+step rate is measured with
   ``scripts/bench_albert.py``'s protocol, and one tick is broken down into
-  its pieces (host clock) and its device kernels (``torch.profiler``).
+  its pieces (host clock) and its device kernels (``torch.profiler``);
+* batched seed evaluation (``BatchSimLoop``): the four batched kernels
+  (K1b-K4b, one launch per rollout per tick for the whole batch) against
+  their plain versions and against serial single-kernel launches on four
+  seeds, and timed at B=20; three n=20 batches (seeds 0-19, gates on: the
+  point push_pull hybrid, the panda multi-modal table pick-place with its
+  settle, the albert ee_reach), each of which must succeed on at least 18
+  seeds with the batched kernels launched once per rollout per tick and the
+  single kernels not at all; three seeds batched against three serial runs
+  (point and panda: equal tick counts and success ticks, positions within
+  1e-4); and the B=20 point batch's rate in benchmark mode beside the serial
+  rate, with a profile of one batched tick.
 
 Each kernel's entry in the kernel table carries its bound: the least time
 the card could take for the same work, the larger of the bytes it must move
@@ -32,8 +43,8 @@ Usage (one CUDA GPU, no arguments):
 
 Every check is an assert or a raise, so any failure exits non-zero.  There
 is no CPU path: without a CUDA device the script exits 1 and prints no
-result.  On success the last two lines of stdout are the kernel table and
-``{"ok": true, "device": {...}}``.
+result.  On success the last three lines of stdout are the kernel table, the card's
+name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -62,6 +73,14 @@ PANDA_TICKS = 900  # the table pick-place must latch success within this many ti
 ALBERT_ATOL = 1e-4  # K4 vs its plain version, cost and trajectory (tests/test_pallas.py:818-821)
 EE_REACH_TICKS, PUSH_REACH_TICKS = 150, 500  # tests/test_albert.py:37, :193
 PUSH_REACH = ["task=push_reach", "goal=[3.0,0.0,0.6]"]
+BENCH_CHUNK = 50  # the point and panda benchmark phases: 2 warm-up chunks, then 4 timed chunks
+N_SEEDS = 20  # the n=20 protocol of RESULTS.md
+CHECK_SEEDS = 4  # seeds of the batched kernels' checks against their plain versions
+SERIAL_ATOL = 1e-5  # a batched kernel against its single kernel per seed (tests/test_pallas.py:475, :610)
+BATCH_PARITY_ATOL = 1e-4  # batched runs against serial runs (tests/test_batch_loop.py:44-78)
+MIN_SUCCESS = 18  # of N_SEEDS, per n=20 batch
+# four point tasks for the batched checks: (name, goal)
+POINT_TASKS = [("push_pull", [-3.75, -3.75]), ("pull", [1.0, 3.0]), ("push", [-1.0, -1.0]), ("navigation", [1.5, 1.0])]
 
 # H100 SXM data-sheet peaks: device memory rate and f32 rate outside the tensor cores
 PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
@@ -244,11 +263,11 @@ def phase_rollout(tamp) -> dict:
             timed = (inputs, acts)
     inputs, acts = timed
     ms = _time_ms(lambda: ro.point_rollout(spec, *inputs, acts))
-    plain_ms = _time_ms(lambda: ro.point_rollout_plain(spec, *inputs, acts), calls=TIMED_CALLS, warmup=2)
+    plain_ms = _time_ms(lambda: ro.point_rollout_plain(spec, *inputs, acts), calls=5, warmup=1)
     K, T = acts.shape[:2]
     bound = _bound(_bytes(spec.params_buf, *inputs, acts) + K * T * 3 * 4, _point_rollout_ops(spec, K))
     print(f"[rollout] max cost err {cost_err:.3e}, max traj err {traj_err:.3e}")
-    print(f"[rollout] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of {TIMED_CALLS}); bound {bound}")
+    print(f"[rollout] kernel {ms:.4f} ms (median of {TIMED_CALLS}), plain {plain_ms:.4f} ms (median of 5); bound {bound}")
     return {"max_abs_err": cost_err, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None}
 
 
@@ -293,10 +312,10 @@ def phase_main_path(cfg) -> tuple:
 
 def phase_benchmark(loop, card: str) -> float:
     """Benchmark mode (bench.py:40-41): both gates off, 2 warm-up chunks of
-    200, then 800 timed ticks in chunks of 200."""
+    BENCH_CHUNK, then 4 timed chunks."""
     loop.tamp.task_planner.check_task_success = lambda view: False
     loop.tamp.device_gate = False
-    chunk = 200
+    chunk = BENCH_CHUNK
     for _ in range(2):
         loop.run_chunked(chunk, chunk=chunk)
     torch.cuda.synchronize()
@@ -304,7 +323,7 @@ def phase_benchmark(loop, card: str) -> float:
     for _ in range(4):
         loop.run_chunked(chunk, chunk=chunk)
     hz = 4 * chunk / (time.perf_counter() - t0)
-    print(f"[bench] {hz:.2f} Hz replan+step, K=200 x T=15 ({card})")
+    print(f"[bench] {hz:.2f} Hz replan+step, K=200 x T=15, {4 * chunk} timed ticks ({card})")
     return hz
 
 
@@ -465,15 +484,16 @@ def phase_panda_shelf() -> float:
 
 
 def phase_panda_bench(card: str) -> float:
-    """The panda replan+step rate, scripts/bench_panda.py:58-77: multi-modal
-    K=200 x T=12, warm-up 50, two warm-up chunks of 200, then 800 timed
-    ticks in chunks of 200 chained from the start state."""
+    """The panda replan+step rate, scripts/bench_panda.py:58-77's protocol
+    at a shorter depth: multi-modal K=200 x T=12, warm-up 50, two warm-up
+    chunks of BENCH_CHUNK, then 4 timed chunks chained from the start
+    state."""
     from m3p2i_aip_tpu_torch.config.config_store import load_config
     from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
 
     loop = SimLoop(load_config("config_panda", ["multi_modal=True"]), device="cuda")
     loop.warmup(50)
-    tamp, chunk = loop.tamp, 200
+    tamp, chunk = loop.tamp, BENCH_CHUNK
 
     def run(n_ticks):
         ms, rs, stage, zs = tamp.mppi_state, loop.state, 0, tamp.zup_zs0()
@@ -486,7 +506,7 @@ def phase_panda_bench(card: str) -> float:
     t0 = time.perf_counter()
     run(4 * chunk)
     hz = 4 * chunk / (time.perf_counter() - t0)
-    print(f"[panda-bench] {hz:.2f} Hz replan+step, K=200 x T=12, multi-modal, 800 timed ticks ({card})")
+    print(f"[panda-bench] {hz:.2f} Hz replan+step, K=200 x T=12, multi-modal, {4 * chunk} timed ticks ({card})")
     return hz
 
 
@@ -687,6 +707,406 @@ def phase_albert_breakdown(card: str) -> None:
           f"profiled wall {wall / n * 1e3:.3f} ms a tick, device idle {100 * (1 - dev_us / 1e6 / wall):.1f}% ({card})")
 
 
+# ------------------------------------------------------------------------
+# batched seed evaluation: K1b-K4b and BatchSimLoop
+
+def _launch_counters() -> list:
+    """(module, attribute) of every kernel wrapper's launch count."""
+    from m3p2i_aip_tpu_torch.ops import albert_rollout as ar
+    from m3p2i_aip_tpu_torch.ops import panda_rollout as pr
+    from m3p2i_aip_tpu_torch.ops import rollout as ro
+    from m3p2i_aip_tpu_torch.ops import weights
+
+    return [
+        (ro, "rollout_launches"), (ro, "rollout_batched_launches"),
+        (weights, "weights_launches"), (weights, "weights_batched_launches"),
+        (pr, "panda_rollout_launches"), (pr, "panda_rollout_batched_launches"),
+        (ar, "albert_rollout_launches"), (ar, "albert_rollout_batched_launches"),
+    ]
+
+
+def _zero_launches() -> None:
+    for mod, name in _launch_counters():
+        setattr(mod, name, 0)
+
+
+def _read_launches() -> dict:
+    return {name: getattr(mod, name) for mod, name in _launch_counters()}
+
+
+def _stack_rows(rows, acts) -> tuple:
+    """One batched input tuple from B single-seed (task_vec, state0, ...) rows."""
+    return tuple(torch.stack(xs) for xs in zip(*rows)) + (acts,)
+
+
+def _batched_check(label: str, batched, plain, single, inputs, cost_atol: float, traj_atol: float) -> float:
+    """A batched rollout kernel against its batched plain version (at the
+    single kernel's bars) and against one single launch per seed on the
+    same inputs (at SERIAL_ATOL); returns the max error against plain."""
+    c_k, t_k = batched(*inputs)
+    c_p, t_p = plain(*inputs)
+    torch.cuda.synchronize()
+    ce = float(torch.max(torch.abs(c_k - c_p)))
+    te = float(torch.max(torch.abs(t_k - t_p)))
+    se = 0.0
+    for b in range(c_k.shape[0]):
+        c_s, t_s = single(*(x[b] for x in inputs))
+        se = max(se, float(torch.max(torch.abs(c_k[b] - c_s))), float(torch.max(torch.abs(t_k[b] - t_s))))
+    print(f"[{label}] B={c_k.shape[0]}: vs plain cost err {ce:.3e}, traj err {te:.3e}; "
+          f"vs {c_k.shape[0]} single launches max err {se:.3e}")
+    assert torch.isfinite(c_k).all() and torch.isfinite(t_k).all()
+    assert ce <= cost_atol and te <= traj_atol, f"{label}: batched kernel disagrees with its plain version"
+    assert se <= SERIAL_ATOL, f"{label}: batched kernel disagrees with its single kernel: {se}"
+    return max(ce, te)
+
+
+def _batched_weights_check(mp, cost, label: str) -> float:
+    """K2b against its plain version and against one K2 launch per seed on
+    [B, K, T] costs; returns the max error against plain."""
+    from m3p2i_aip_tpu_torch.ops import weights
+
+    args = (cost, mp.gamma_seq, mp.half_K, mp.eta_u, mp.eta_l)
+    got = weights.multimodal_weights_batched(*args)
+    ref = weights.multimodal_weights_batched_plain(*args)
+    torch.cuda.synchronize()
+    err = max(float(torch.max(torch.abs(g - r))) for g, r in zip(got, ref))
+    sums = max(float(torch.max(torch.abs(torch.sum(g, dim=-1) - 1.0))) for g in got)
+    se = 0.0
+    for b in range(cost.shape[0]):
+        single = weights.multimodal_weights(cost[b].contiguous(), *args[1:])
+        se = max(se, *(float(torch.max(torch.abs(g[b] - s))) for g, s in zip(got, single)))
+    print(f"[{label}] B={cost.shape[0]}: vs plain max err {err:.3e}, max |sum - 1| {sums:.3e}; "
+          f"vs single launches {se:.3e}")
+    assert err <= WEIGHTS_ATOL and sums < SUM_TOL, f"{label}: batched weights disagree with their plain version"
+    assert se <= SERIAL_ATOL, f"{label}: batched weights disagree with the single kernel: {se}"
+    return err
+
+
+def _time_batched(label: str, kernel, plain, inputs, n_bytes: int, n_ops: float, plain_calls: int) -> dict:
+    """Kernel and plain-version times at the inputs' width, and the bound."""
+    ms = _time_ms(lambda: kernel(*inputs))
+    plain_ms = _time_ms(lambda: plain(*inputs), calls=plain_calls, warmup=0)
+    bound = _bound(n_bytes, n_ops)
+    print(f"[{label}] kernel {ms:.4f} ms (median of {TIMED_CALLS}), plain {plain_ms:.4f} ms "
+          f"(median of {plain_calls}); bound {bound}")
+    return {"ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None}
+
+
+def _point_batch_inputs(tamp, B: int, rng) -> tuple:
+    """K1b inputs of B seeds at the planner's K x T: seed b starts from
+    STARTS[b % 6] with its own per-sample friction draw and runs
+    POINT_TASKS[b % 4]."""
+    from dataclasses import replace
+
+    from m3p2i_aip_tpu_torch.ops import rollout as ro
+    from m3p2i_aip_tpu_torch.planners.motion_planner.mppi import make_task_params
+    from m3p2i_aip_tpu_torch.utils.tree import tree_map
+
+    mp, env = tamp.motion_planner, tamp.env
+    rows = []
+    for b in range(B):
+        entry = STARTS[b % len(STARTS)]
+        state = replace(env.init_state(), q=torch.tensor(entry[0], device="cuda"), qd=torch.tensor(entry[1], device="cuda"))
+        if len(entry) == 3:
+            pos = state.dyn_pos.clone()
+            pos[env.box_slot] = torch.tensor(entry[2], device="cuda")
+            state = replace(state, dyn_pos=pos)
+        sk = tree_map(lambda x: x.expand((mp.K,) + x.shape), state)
+        fric = rng.uniform(0.7, 1.3, size=(mp.K, state.fric_scale.shape[0])).astype(np.float32)
+        sk = replace(sk, fric_scale=torch.as_tensor(fric, device="cuda"))
+        name, goal = POINT_TASKS[b % len(POINT_TASKS)]
+        rows.append(ro.rollout_inputs(sk, make_task_params(name, goal, device="cuda")))
+    acts = torch.as_tensor(rng.uniform(-3, 3, size=(B, mp.K, mp.T, env.nu)).astype(np.float32), device="cuda")
+    return _stack_rows(rows, acts)
+
+
+def phase_point_batched() -> tuple:
+    """K1b and K2b at the point main path's K=200 x T=15: against their
+    plain versions and single launches on CHECK_SEEDS seeds, then timed at
+    B=N_SEEDS (K2b on K1b's own costs)."""
+    from m3p2i_aip_tpu_torch.config.config_store import load_config
+    from m3p2i_aip_tpu_torch.ops import rollout as ro
+    from m3p2i_aip_tpu_torch.ops import weights
+    from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMP
+
+    tamp = ReactiveTAMP(load_config("config_point", MAIN_PATH), device="cuda")
+    mp, spec = tamp.motion_planner, tamp.motion_planner.rollout.spec
+    rng = np.random.default_rng(10)
+    fns = (
+        lambda *a: ro.point_rollout_batched(spec, *a),
+        lambda *a: ro.point_rollout_batched_plain(spec, *a),
+        lambda *a: ro.point_rollout(spec, *a),
+    )
+    inputs = _point_batch_inputs(tamp, CHECK_SEEDS, rng)
+    k1b_err = _batched_check("point-batched K1b", *fns, inputs, COST_ATOL, TRAJ_ATOL)
+    k2b_err = _batched_weights_check(mp, fns[0](*inputs)[0], "point-batched K2b")
+
+    inputs = _point_batch_inputs(tamp, N_SEEDS, rng)
+    B, K, T = inputs[-1].shape[:3]
+    k1b = _time_batched(
+        f"point-batched K1b at B={B}", fns[0], fns[1], inputs,
+        _bytes(spec.params_buf, *inputs) + B * K * T * 3 * 4, _point_rollout_ops(spec, B * K), plain_calls=1,
+    )
+    cost = fns[0](*inputs)[0]
+    k2b_err = max(k2b_err, _batched_weights_check(mp, cost, f"point-batched K2b on K1b's B={B} costs"))
+    args = (cost, mp.gamma_seq, mp.half_K, mp.eta_u, mp.eta_l)
+    k2b = _time_batched(
+        f"point-batched K2b at B={B}", weights.multimodal_weights_batched, weights.multimodal_weights_batched_plain,
+        args, _bytes(cost, mp.gamma_seq) + 3 * B * K * 4, sum(_weights_ops(c, mp) for c in cost), plain_calls=5,
+    )
+    return {"max_abs_err": k1b_err, **k1b}, {"max_abs_err": k2b_err, **k2b}
+
+
+def phase_panda_batched() -> tuple:
+    """K3b at the panda's K=200 x T=12 (multi-modal scene): seed b takes
+    panda_rollout.PARITY_CASES[b % 7]; against its plain version and single
+    launches on CHECK_SEEDS seeds (and K2b on their costs), then timed at
+    B=N_SEEDS.  Returns (K3b stats, K2b error)."""
+    from m3p2i_aip_tpu_torch.config.config_store import load_config
+    from m3p2i_aip_tpu_torch.ops import panda_rollout as pr
+    from m3p2i_aip_tpu_torch.planners.motion_planner.mppi import make_task_params
+    from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMP
+    from m3p2i_aip_tpu_torch.utils.tree import tree_map
+
+    tamp = ReactiveTAMP(load_config("config_panda", ["multi_modal=True"]), device="cuda")
+    mp, base = tamp.motion_planner, tamp.env.init_state()
+    spec, K, T = mp.rollout.spec, mp.K, mp.T
+    rng = np.random.default_rng(11)
+
+    def inputs_of(B: int) -> tuple:
+        rows, acts = [], []
+        for b in range(B):
+            name, start, task_name, grip, zup = pr.PARITY_CASES[b % len(pr.PARITY_CASES)]
+            goal = pr.PARITY_GOAL if task_name == "pick" else [0.0] * 7
+            sk = tree_map(lambda x: x.expand((K,) + x.shape), pr.parity_state(base, start))
+            rows.append(pr.rollout_inputs(sk, make_task_params(task_name, goal, "none", zup, device="cuda")))
+            a = rng.uniform(-1.5, 1.5, size=(K, T, 9)).astype(np.float32)
+            if grip is not None:
+                a[..., 7:9] = grip
+            acts.append(a)
+        return _stack_rows(rows, torch.as_tensor(np.stack(acts), device="cuda"))
+
+    fns = (
+        lambda *a: pr.panda_rollout_batched(spec, *a),
+        lambda *a: pr.panda_rollout_batched_plain(spec, *a),
+        lambda *a: pr.panda_rollout(spec, *a),
+    )
+    inputs = inputs_of(CHECK_SEEDS)
+    err = _batched_check("panda-batched K3b", *fns, inputs, COST_ATOL, TRAJ_ATOL)
+    w_err = _batched_weights_check(mp, fns[0](*inputs)[0], "panda-batched K2b")
+    inputs = inputs_of(N_SEEDS)
+    B = inputs[-1].shape[0]
+    stats = _time_batched(
+        f"panda-batched K3b at B={B}", fns[0], fns[1], inputs,
+        _bytes(spec.params_buf, *inputs) + B * K * T * 3 * 4, _panda_rollout_ops(spec, B * K), plain_calls=1,
+    )
+    return {"max_abs_err": err, **stats}, w_err
+
+
+def phase_albert_batched() -> dict:
+    """K4b at the albert's K=128 x T=12: seed b takes
+    albert_rollout.PARITY_CASES[b % 5]; against its plain version and single
+    launches on CHECK_SEEDS seeds, then timed at B=N_SEEDS."""
+    from m3p2i_aip_tpu_torch.config.config_store import load_config
+    from m3p2i_aip_tpu_torch.ops import albert_rollout as ar
+    from m3p2i_aip_tpu_torch.planners.motion_planner.mppi import make_task_params
+    from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMP
+    from m3p2i_aip_tpu_torch.utils.tree import tree_map
+
+    tamp = ReactiveTAMP(load_config("config_albert"), device="cuda")
+    mp = tamp.motion_planner
+    spec, K, T = mp.rollout.spec, mp.K, mp.T
+    rng = np.random.default_rng(12)
+
+    def inputs_of(B: int) -> tuple:
+        rows = []
+        for b in range(B):
+            name, start, task_name, goal = ar.PARITY_CASES[b % len(ar.PARITY_CASES)]
+            sk = tree_map(lambda x: x.expand((K,) + x.shape), ar.parity_state(tamp.env.params, start))
+            rows.append(ar.rollout_inputs(sk, make_task_params(task_name, goal, device="cuda")))
+        acts = rng.uniform(-1.5, 1.5, size=(B, K, T, 13)).astype(np.float32)
+        acts[..., 11:13] *= 8.0  # the wheels at the config's +-12 authority, so the box moves
+        return _stack_rows(rows, torch.as_tensor(acts, device="cuda"))
+
+    fns = (
+        lambda *a: ar.albert_rollout_batched(spec, *a),
+        lambda *a: ar.albert_rollout_batched_plain(spec, *a),
+        lambda *a: ar.albert_rollout(spec, *a),
+    )
+    err = _batched_check("albert-batched K4b", *fns, inputs_of(CHECK_SEEDS), ALBERT_ATOL, ALBERT_ATOL)
+    inputs = inputs_of(N_SEEDS)
+    B = inputs[-1].shape[0]
+    stats = _time_batched(
+        f"albert-batched K4b at B={B}", fns[0], fns[1], inputs,
+        _bytes(spec.params_buf, *inputs) + B * K * T * 3 * 4, _albert_rollout_ops(spec, B * K), plain_calls=1,
+    )
+    return {"max_abs_err": err, **stats}
+
+
+def _count_batch_ticks(batch) -> list:
+    """Wrap the batch's chunk entry to record each dispatched chunk length."""
+    record = []
+    name = "_run_chunk_panda_impl" if batch.is_panda else "_run_chunk_impl"
+    chunk_fn = getattr(batch.tamp, name)
+
+    def counted(*args, **kwargs):
+        record.append(args[4])  # the chunk length of either entry
+        return chunk_fn(*args, **kwargs)
+
+    setattr(batch.tamp, name, counted)
+    return record
+
+
+def phase_seed_batch(label: str, config_name: str, overrides: list, chunk: int, max_ticks: int, per_tick: dict):
+    """One n=20 batch through ``BatchSimLoop`` (seeds 0-19, warm-up 20, gates
+    on), as ``run_experiments parallel_seeds=True`` runs it: every launch
+    count set to 0 just before ``run_chunked`` and read just after; each
+    batched kernel in ``per_tick`` launched that many times per dispatched
+    tick for the whole batch, every other kernel never.  The panda batch
+    settles 150 steps before its rows are logged.  Prints the success count
+    and the row statistics of ``analysis.summarize``; returns the counts."""
+    from m3p2i_aip_tpu_torch.analysis import finalize_albert_row, finalize_panda_row, finalize_point_row, summarize
+    from m3p2i_aip_tpu_torch.config.config_store import load_config
+    from m3p2i_aip_tpu_torch.tamp.batch_loop import BatchSimLoop
+
+    cfg = load_config(config_name, overrides)
+    batch = BatchSimLoop(cfg, list(range(N_SEEDS)), device="cuda")
+    batch.warmup(20)
+    record = _count_batch_ticks(batch)
+    _zero_launches()
+    t_start = time.time()
+    t0 = time.perf_counter()
+    logs = batch.run_chunked(max_ticks, chunk=chunk)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_launches()
+    dispatched = sum(record)
+    print(f"[{label}] {len(record)} chunks, {dispatched} batched ticks dispatched for {N_SEEDS} seeds in {wall:.2f} s; "
+          f"launches {counts}")
+    for name, n in counts.items():
+        want = per_tick.get(name, 0) * dispatched
+        assert n == want, f"{label}: {name} launched {n} times, expected {want}"
+    family = {"panda_env": "panda", "albert_env": "albert"}.get(cfg.env_type, "point")
+    if family == "panda":
+        batch.settle(150)
+    rows = []
+    for b, log in enumerate(logs):
+        view = batch.views[b]
+        if family == "panda":
+            rows.append(finalize_panda_row(view))
+        elif family == "albert":
+            rows.append(finalize_albert_row(log, view, cfg.goal, dt=cfg.sim.dt))
+        else:
+            rows.append(finalize_point_row(log, view, cfg.goal, t_start, dt=cfg.sim.dt))
+    rows = np.stack(rows)
+    assert np.isfinite(rows).all(), f"{label}: non-finite rows"
+    ok = [log.success_step is not None for log in logs]
+    steps = [log.success_step for log in logs]
+    stats = {k: (round(m, 4), round(s, 4)) for k, (m, s) in summarize(rows, family).items()}
+    print(f"[{label}] success {sum(ok)}/{N_SEEDS}; success ticks {steps}; stats (mean, std) {stats}")
+    if family != "panda":
+        done = [s for s in steps if s is not None]
+        print(f"[{label}] task time {np.mean(done) * cfg.sim.dt:.4f} ± {np.std(done) * cfg.sim.dt:.4f} s "
+              f"over the {len(done)} successful seeds")
+    assert sum(ok) >= MIN_SUCCESS, f"{label}: only {sum(ok)}/{N_SEEDS} seeds succeeded"
+    return counts
+
+
+def phase_batch_vs_serial(label: str, config_name: str, overrides: list, chunk: int, max_ticks: int) -> None:
+    """Seeds 0-2 through ``BatchSimLoop`` against three serial
+    ``SimLoop.run_chunked`` runs at the same chunk size (warm-up 20 each):
+    equal tick counts and success ticks, positions within 1e-4."""
+    from m3p2i_aip_tpu_torch.config.config_store import load_config
+    from m3p2i_aip_tpu_torch.tamp.batch_loop import BatchSimLoop
+    from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
+
+    seeds = [0, 1, 2]
+    cfg = load_config(config_name, overrides)
+    serial, loop = [], None
+    for s in seeds:
+        cfg.mppi.seed_val = s
+        if loop is None:
+            loop = SimLoop(cfg, device="cuda")
+        else:
+            loop.reset(s)
+        loop.warmup(20)
+        serial.append((loop.run_chunked(max_ticks, chunk=chunk), loop._view))
+    batch = BatchSimLoop(load_config(config_name, overrides), seeds, device="cuda")
+    batch.warmup(20)
+    logs = batch.run_chunked(max_ticks, chunk=chunk)
+    worst = 0.0
+    for b, (slog, sview) in enumerate(serial):
+        blog, bview = logs[b], batch.views[b]
+        assert (blog.steps, blog.success_step) == (slog.steps, slog.success_step), (
+            f"{label} seed {b}: batched {blog.steps} ticks / success {blog.success_step}, "
+            f"serial {slog.steps} / {slog.success_step}"
+        )
+        assert blog.task == slog.task, f"{label} seed {b}: task sequences differ"
+        pairs = [(np.asarray(getattr(blog, n)), np.asarray(getattr(slog, n))) for n in ("robot_pos", "box_pos")]
+        pairs += [(np.asarray(bview[k]), np.asarray(v)) for k, v in sview.items()]
+        err = max(float(np.max(np.abs(x - y))) if x.size else 0.0 for x, y in pairs)
+        worst = max(worst, err)
+        print(f"[{label}] seed {b}: {blog.steps} ticks, success tick {blog.success_step} in both; "
+              f"max position difference {err:.3e}")
+    assert worst <= BATCH_PARITY_ATOL, f"{label}: batched and serial positions differ by {worst}"
+
+
+def phase_batch_bench(card: str, serial_hz: float) -> None:
+    """The B=20 point batch in benchmark mode (gates off, warm-up 50): the
+    same 2 warm-up + 4 timed chunks of BENCH_CHUNK as the serial benchmark,
+    each chunk's views fetched to the host, in batched ticks and seed-ticks
+    per second beside the serial rate; then ``torch.profiler`` over a
+    10-tick batched chunk: device kernels and device time per tick, the
+    batched kernels' share, the idle share."""
+    from m3p2i_aip_tpu_torch.config.config_store import load_config
+    from m3p2i_aip_tpu_torch.tamp.batch_loop import BatchSimLoop
+
+    batch = BatchSimLoop(load_config("config_point", MAIN_PATH), list(range(N_SEEDS)), device="cuda")
+    batch.warmup(50)
+    for b, tp in enumerate(batch.planners):
+        tp.update_plan(batch.views[b])
+    task = batch._stacked_task_params()
+    tamp = batch.tamp
+
+    def run(n_chunks: int, chunk: int, i0: int = 0):
+        ms, rs = batch.mppi_state, batch.state
+        for c in range(n_chunks):
+            ms, rs, views, _, _ = tamp._run_chunk_impl(ms, rs, task, i0 + c * chunk, chunk, gate=False)
+            views.cpu()  # the host fetch of each chunk, as the serial run_chunked does
+        batch.mppi_state, batch.state = ms, rs
+
+    run(2, BENCH_CHUNK)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(4, BENCH_CHUNK, 2 * BENCH_CHUNK)
+    wall = time.perf_counter() - t0
+    ticks = 4 * BENCH_CHUNK
+    hz = ticks / wall
+    print(f"[batch-bench] B={N_SEEDS}: {hz:.2f} batched ticks/s = {hz * N_SEEDS:.2f} seed-ticks/s "
+          f"({wall / ticks * 1e3:.3f} ms a batched tick, {ticks} timed ticks); serial {serial_hz:.2f} ticks/s; "
+          f"ratio {hz * N_SEEDS / serial_hz:.2f}x ({card})")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    n = 10
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tamp._run_chunk_impl(batch.mppi_state, batch.state, task, 0, n, gate=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        print("[batch-bench] torch.profiler recorded no device kernels: device time not measured")
+        return
+    dev_us = sum(e.time_range.elapsed_us() for e in kernels)
+    k1b_us = sum(e.time_range.elapsed_us() for e in kernels if "point_rollout" in e.name)
+    k2b_us = sum(e.time_range.elapsed_us() for e in kernels if "multimodal_weights" in e.name)
+    print(f"[batch-bench] profiler over {n} batched ticks: {len(kernels) / n:.0f} device kernels a tick, "
+          f"{dev_us / n / 1e3:.3f} ms device time a tick (K1b {k1b_us / n / 1e3:.3f} ms, K2b {k2b_us / n / 1e3:.3f} ms), "
+          f"profiled wall {wall / n * 1e3:.3f} ms a tick, device idle {100 * (1 - dev_us / 1e6 / wall):.1f}% ({card})")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device; this script runs only on a GPU")
@@ -729,6 +1149,32 @@ def main() -> None:
     phase_albert_push()
     albert_hz = phase_albert_bench(card)
     phase_albert_breakdown(card)
+    # 16. - 18. the batched kernels against their plain versions and single launches, timed at B=20
+    stats["point_rollout_batched"], stats["multimodal_weights_batched"] = phase_point_batched()
+    stats["panda_rollout_batched"], w_err = phase_panda_batched()
+    k2b = stats["multimodal_weights_batched"]
+    k2b["max_abs_err"] = max(k2b["max_abs_err"], w_err)
+    stats["albert_rollout_batched"] = phase_albert_batched()
+    # 19. - 21. the three n=20 batches through BatchSimLoop
+    point_counts = phase_seed_batch(
+        "batch-point", "config_point", MAIN_PATH, 4, 300,
+        {"rollout_batched_launches": 1, "weights_batched_launches": 1},
+    )
+    panda_counts = phase_seed_batch(
+        "batch-panda", "config_panda", ["multi_modal=True"], 10, 600,
+        {"panda_rollout_batched_launches": 4, "weights_batched_launches": 3},
+    )
+    albert_counts = phase_seed_batch("batch-albert", "config_albert", [], 10, 300, {"albert_rollout_batched_launches": 4})
+    launches["point_rollout_batched"] = point_counts["rollout_batched_launches"]
+    launches["multimodal_weights_batched"] = (
+        point_counts["weights_batched_launches"] + panda_counts["weights_batched_launches"]
+    )
+    launches["panda_rollout_batched"] = panda_counts["panda_rollout_batched_launches"]
+    launches["albert_rollout_batched"] = albert_counts["albert_rollout_batched_launches"]
+    # 22. / 23. three seeds batched against three serial runs; 24. the batch's rate
+    phase_batch_vs_serial("batch-vs-serial point", "config_point", MAIN_PATH, 4, 300)
+    phase_batch_vs_serial("batch-vs-serial panda", "config_panda", ["multi_modal=True"], 10, 600)
+    phase_batch_bench(card, hz)
 
     sources = {
         "point_rollout": ("m3p2i_aip_tpu_torch/csrc/point_rollout.cu", "m3p2i_aip_tpu/ops/pallas_rollout.py:189"),
@@ -743,6 +1189,22 @@ def main() -> None:
         "albert_rollout": (
             "m3p2i_aip_tpu_torch/csrc/albert_rollout.cu",
             "m3p2i_aip_tpu/ops/pallas_albert_rollout.py:55",
+        ),
+        "point_rollout_batched": (
+            "m3p2i_aip_tpu_torch/csrc/point_rollout.cu",
+            "m3p2i_aip_tpu/ops/pallas_rollout.py:802",
+        ),
+        "multimodal_weights_batched": (
+            "m3p2i_aip_tpu_torch/csrc/multimodal_weights.cu",
+            "m3p2i_aip_tpu/ops/pallas_kernels.py:173",
+        ),
+        "panda_rollout_batched": (
+            "m3p2i_aip_tpu_torch/csrc/panda_rollout.cu",
+            "m3p2i_aip_tpu/ops/pallas_panda_rollout.py:851",
+        ),
+        "albert_rollout_batched": (
+            "m3p2i_aip_tpu_torch/csrc/albert_rollout.cu",
+            "m3p2i_aip_tpu/ops/pallas_albert_rollout.py:425",
         ),
     }
     kernels = [

@@ -1,0 +1,64 @@
+"""Offline statistics over logged runs: the reference's plot_* formulas.
+
+Port of ``m3p2i_aip_tpu/analysis/stats.py`` (without its box plot).  The
+orientation error is the port's numpy ``general_ori_cube2goal``
+(``ops/quat_np.py``), batched over runs.  Parity: ``plot/plot_point.py:37-45``
+(position error against the goal and orientation error against the identity
+quaternion) and ``plot/plot_panda.py:23-29`` (cube-vs-goal pose errors).
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+
+from m3p2i_aip_tpu_torch.ops.quat_np import general_ori_cube2goal
+
+
+def _batched_ori_cost(quats: np.ndarray, goals: np.ndarray) -> np.ndarray:
+    return general_ori_cube2goal(np.asarray(quats, dtype=np.float32), np.asarray(goals, dtype=np.float32))
+
+
+def point_costs(data: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(pos_cost, quat_cost) per run. Parity: plot_point.compute_cost:37-45."""
+    n = data.shape[0]
+    goal_quat = np.tile(np.asarray([0.0, 0, 0, 1]), (n, 1))
+    quat_cost = _batched_ori_cost(data[:, 8:12], goal_quat)
+    pos_cost = np.linalg.norm(data[:, 5:7] - data[:, 12:14], axis=1)
+    return pos_cost, quat_cost
+
+
+def panda_costs(data: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(pos_cost, quat_cost) per run. Parity: plot_panda.compute_cost:23-29."""
+    quat_cost = _batched_ori_cost(data[:, 4:8], data[:, 11:15])
+    pos_cost = np.linalg.norm(data[:, 1:3] - data[:, 8:10], axis=1)
+    return pos_cost, quat_cost
+
+
+def mean_std(x: np.ndarray, label: str = "") -> Tuple[float, float]:
+    m, s = float(np.mean(x)), float(np.std(x))
+    if label:
+        print(label, format(m, ".4f"), "±", format(s, ".4f"))
+    return m, s
+
+
+def summarize(data: np.ndarray, env: str = "point") -> Dict[str, Tuple[float, float]]:
+    """mean±std of pos/ori error (+ collisions and task time for point runs)."""
+    if env == "point":
+        pos, quat = point_costs(data)
+        return {
+            "pos_error": mean_std(pos),
+            "ori_error": mean_std(quat),
+            "collisions": mean_std(data[:, 17]),
+            "task_time": mean_std(data[:, 18]),
+        }
+    if env == "albert":
+        # 11-col albert schema (run_logger.finalize_albert_row)
+        pos = np.linalg.norm(data[:, 1:4] - data[:, 6:9], axis=1)
+        return {
+            "ee_pos_error": mean_std(pos),
+            "success": mean_std(data[:, 9]),
+            "task_time": mean_std(data[:, 10]),
+        }
+    pos, quat = panda_costs(data)
+    return {"pos_error": mean_std(pos), "ori_error": mean_std(quat)}

@@ -10,6 +10,16 @@
 // and the ee_reach / push_reach / reposition / navigation costs
 // (AlbertObjective).  Out per step: the cost and the base's xy.
 //
+// The entry point takes B seeds at once, so it also replaces the TPU kernel's
+// grid=(B,) call
+// (pallas_albert_rollout.py:425, built by _get_batched_call :414 for the
+// custom_vmap rule :455-474 that the multi-seed runner reaches under
+// jax.vmap): seed b rolls its own K samples from its own start state and
+// task, and every per-seed operand carries a seed stride (task [B, 5],
+// state0 [B, 30], acts [B, K, T, 13], cost [B, K, T], traj [B, K, T, 2]).
+// The seed is blockIdx.y; a single rollout is the B = 1 launch of the same
+// body.
+//
 // What bounds it on the H100: latency.  At K = 128 there are 128 independent
 // serial chains of T x substeps steps, each a few hundred dependent flops
 // (the drive, two contact projections, a 7-joint FK with 8 sin/cos pairs),
@@ -27,7 +37,7 @@
 // the chain starts from the sample's own base frame, Rz(yaw) at
 // [x, y, 0.4], so the first joint's products are not folded.  The contact
 // primitives are the point kernel's (pbd2d.cuh).  Blocks are two warps, so
-// K = 128 is two blocks.
+// K = 128 is two blocks, and a batch of B seeds is B rows of two.
 //
 // Semantics kept from the plain version (ops/albert_rollout.py, over
 // models/albert.step and AlbertObjective.compute), where the TPU kernel
@@ -108,6 +118,13 @@ albert_rollout_kernel(const float* __restrict__ params, const float* __restrict_
   __syncthreads();
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= K) return;
+  // seed b = blockIdx.y: its task, start state and samples
+  const size_t b = blockIdx.y;
+  task += b * 5;
+  state0 += b * kStateLen;
+  acts += b * K * T * kNu;
+  cost_out += b * K * T;
+  traj_out += b * K * T * 2;
 
   const float h = sp[P_H], decay = sp[P_DECAY];
   // task: [task_id, goal x, y, z, k0]; k0 is unused (the albert is single-mode)
@@ -213,14 +230,14 @@ albert_rollout_kernel(const float* __restrict__ params, const float* __restrict_
 }  // namespace
 
 extern "C" int m3p2i_albert_rollout(const float* params, const float* task, const float* state0,
-                                    const float* acts, float* cost, float* traj, int K, int T,
-                                    int substeps, int has_box, int n_params, void* stream) {
-  if (K <= 0 || T <= 0 || substeps <= 0 || n_params != N_SCALARS) {
+                                    const float* acts, float* cost, float* traj, int B, int K,
+                                    int T, int substeps, int has_box, int n_params, void* stream) {
+  if (B <= 0 || B > 65535 || K <= 0 || T <= 0 || substeps <= 0 || n_params != N_SCALARS) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   static_assert(kStateLen == 30, "ops/albert_rollout.py STATE_LEN");
-  const int blocks = (K + kThreads - 1) / kThreads;
-  albert_rollout_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((K + kThreads - 1) / kThreads, B);
+  albert_rollout_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       params, task, state0, acts, cost, traj, K, T, substeps, has_box);
   return static_cast<int>(cudaGetLastError());
 }

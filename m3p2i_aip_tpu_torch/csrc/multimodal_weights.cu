@@ -10,6 +10,15 @@
 // or by 1.2 while eta < eta_l, for at most 64 iterations.  Output: the three
 // normalised weight vectors, rows of out[3, K].
 //
+// The entry point takes B seeds at once, so it also replaces the TPU kernel's
+// grid=(B,) call
+// (pallas_kernels.py:173, the custom_vmap rule _mmw_vmap :157, which the
+// multi-seed runner reaches under jax.vmap): cost [B, K, T], one shared
+// gamma [T], out [B, 3, K].  Block b solves seed b alone, with its own tc[K]
+// in shared memory, its own three betas and its own early-exit flag, so a
+// seed's beta search stops when that seed's three etas are in bounds and
+// never waits on another seed.  A single seed's weights are the B = 1 launch.
+//
 // What bounds it on the H100: nothing the card is short of.  At K = 200,
 // T = 15 it reads 12 KB and does a few hundred thousand flops, so it is
 // bound by latency: the chain of dependent block reductions in the beta
@@ -21,7 +30,8 @@
 // 64 rounds.  The three groups share each round (one three-wide block sum),
 // and one thread decides the round's betas in shared memory, so all threads
 // take the early exit together and never diverge on it.  K up to 1024 runs
-// one sample per thread; a larger K strides.
+// one sample per thread; a larger K strides.  A batch of B seeds is B such
+// blocks, one per seed, on B SMs.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -74,11 +84,14 @@ __device__ __forceinline__ bool in_group(int g, int k, int half_K) {
   return g == 2 || (g == 0 ? k < half_K : k >= half_K);
 }
 
-__global__ void multimodal_weights_kernel(const float* __restrict__ cost,   // [K, T]
+__global__ void multimodal_weights_kernel(const float* __restrict__ cost,   // [B, K, T]
                                           const float* __restrict__ gamma,  // [T]
-                                          float* __restrict__ out,          // [3, K]
+                                          float* __restrict__ out,          // [B, 3, K]
                                           int K, int T, int half_K,
                                           float eta_u, float eta_l) {
+  // block b: seed b's [K, T] costs and [3, K] weights
+  cost += static_cast<size_t>(blockIdx.x) * K * T;
+  out += static_cast<size_t>(blockIdx.x) * 3 * K;
   extern __shared__ float tc[];  // [K] discounted cost-to-go
   __shared__ float scratch[3 * 32];
   __shared__ float mins[3];
@@ -159,15 +172,15 @@ __global__ void multimodal_weights_kernel(const float* __restrict__ cost,   // [
 
 }  // namespace
 
-extern "C" int m3p2i_multimodal_weights(const float* cost, const float* gamma,
-                                        float* out, int K, int T, int half_K,
-                                        float eta_u, float eta_l, void* stream) {
-  if (K <= 0 || T <= 0) return static_cast<int>(cudaErrorInvalidValue);
+extern "C" int m3p2i_multimodal_weights(const float* cost, const float* gamma, float* out, int B,
+                                        int K, int T, int half_K, float eta_u, float eta_l,
+                                        void* stream) {
+  if (B <= 0 || B > 65535 || K <= 0 || T <= 0) return static_cast<int>(cudaErrorInvalidValue);
   int threads = ((K + 31) / 32) * 32;
   if (threads > kMaxThreads) threads = kMaxThreads;
   const size_t smem = static_cast<size_t>(K) * sizeof(float);
   if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  multimodal_weights_kernel<<<1, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  multimodal_weights_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       cost, gamma, out, K, T, half_K, eta_u, eta_l);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,6 +11,16 @@
 // (PandaObjective) with the mode split by global sample index and the
 // zup_gate clearance term.  Out per step: the cost and the EE's xy.
 //
+// The entry point takes B seeds at once, so it also replaces the TPU kernel's
+// grid=(B,) call
+// (pallas_panda_rollout.py:851, built by _get_batched_call :836 for the
+// custom_vmap rule :881-900 that the multi-seed runner reaches under
+// jax.vmap): seed b rolls its own K samples from its own start state and
+// task, and every per-seed operand carries a seed stride (task [B, 10],
+// state0 [B, 56], acts [B, K, T, 9], cost [B, K, T], traj [B, K, T, 2]).
+// The seed is blockIdx.y; a single rollout is the B = 1 launch of the same
+// body, and a batched call never shards K (each seed's k0 is 0).
+//
 // What bounds it on the H100: latency.  At K = 200 there are 200 independent
 // serial chains of T x substeps steps, each a few thousand dependent flops
 // (FK, seven probes x (S statics + cubeB), the pushout of three bodies), and
@@ -27,7 +37,8 @@
 // ops/panda_rollout.py and staged to shared memory.  The FK tables and joint
 // limits are constexpr, and every product with a table entry goes through
 // cdot(), which drops exact zeros and turns +-1 into a sign at compile time
-// (the TPU kernel's trace-time _term / _fold_sum).  Blocks are two warps.
+// (the TPU kernel's trace-time _term / _fold_sum).  Blocks are two warps;
+// a batch of B seeds is B rows of such blocks.
 //
 // Orientation integration: the TPU kernel carries cubeA's orientation as a
 // rotation matrix integrated with Rodrigues, which differs from the XLA
@@ -223,6 +234,13 @@ panda_rollout_kernel(const float* __restrict__ params, const float* __restrict__
   __syncthreads();
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= K) return;
+  // seed b = blockIdx.y: its task, start state and samples
+  const size_t b = blockIdx.y;
+  task += b * 10;
+  state0 += b * 56;
+  acts += b * K * T * 9;
+  cost_out += b * K * T;
+  traj_out += b * K * T * 2;
 
   const int P = S + 1;
   const float* body = sp + N_SCALARS;
@@ -523,17 +541,18 @@ panda_rollout_kernel(const float* __restrict__ params, const float* __restrict__
 }  // namespace
 
 extern "C" int m3p2i_panda_rollout(const float* params, const float* task, const float* state0,
-                                   const float* acts, float* cost, float* traj, int K, int K_total,
-                                   int T, int S, int substeps, int table_slot, int shelf_slot,
-                                   int multi_modal, int n_params, void* stream) {
-  if (K <= 0 || T <= 0 || substeps <= 0 || S < 1 || S > kMaxS || table_slot < 0 || table_slot >= S ||
+                                   const float* acts, float* cost, float* traj, int B, int K,
+                                   int K_total, int T, int S, int substeps, int table_slot,
+                                   int shelf_slot, int multi_modal, int n_params, void* stream) {
+  if (B <= 0 || B > 65535 || K <= 0 || T <= 0 || substeps <= 0 || S < 1 || S > kMaxS ||
+      table_slot < 0 || table_slot >= S ||
       shelf_slot < 0 || shelf_slot >= S || table_slot == shelf_slot ||
       n_params != N_SCALARS + 3 * kBodyStride + kStatStride * S + kSupStride * (S + 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int blocks = (K + kThreads - 1) / kThreads;
+  const dim3 grid((K + kThreads - 1) / kThreads, B);
   const size_t smem = static_cast<size_t>(n_params) * sizeof(float);
-  panda_rollout_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  panda_rollout_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       params, task, state0, acts, cost, traj, K, K_total, T, S, substeps, table_slot, shelf_slot,
       multi_modal, n_params);
   return static_cast<int>(cudaGetLastError());

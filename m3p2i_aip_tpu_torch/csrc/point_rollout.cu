@@ -10,6 +10,17 @@
 // (PointObjective.compute) with the mode split by global sample index, and
 // the suction force of the pull cost carried into the next step.
 //
+// The entry point takes B seeds at once, so it also replaces the TPU kernel's
+// grid=(B,) call
+// (pallas_rollout.py:802, built by _get_batched_call :785 for the
+// custom_vmap rule :832-851 that the multi-seed runner reaches under
+// jax.vmap): seed b rolls its own K samples from its own start state, task
+// and friction scales, and every per-seed operand carries a seed stride
+// (task [B, 4], state0 [B, n_state], fric_k [B, K, D], acts [B, K, T, n_u],
+// cost [B, K, T], traj [B, K, T, 2]).  The seed is blockIdx.y; a single
+// rollout is the B = 1 launch of the same body.  As in the JAX rule, a
+// batched call never shards K, so each seed's global offset k0 is 0.
+//
 // What bounds it on the H100: latency.  At K = 200 there are 200 independent
 // serial chains of ~T * substeps * pos_iters * (5 passes) contact solves, a
 // few thousand dependent flops each, and no data to speak of (2.5 KB of
@@ -24,7 +35,8 @@
 // cost/trajectory write.  The scene constants (statics, per-box constants)
 // come from a small param buffer built once per scene in make_point_rollout
 // and staged to shared memory, so there is no per-scene build.  Blocks are
-// two warps, which spreads the seven warps over four SMs.
+// two warps, which spreads the seven warps over four SMs; a batch of B
+// seeds is B rows of such blocks (B x 4 blocks at K = 200).
 //
 // Semantics kept from the TPU kernel (and the XLA step it mirrors):
 //   * every contact pass is Jacobi: pass 1 takes all D contacts from the
@@ -113,6 +125,14 @@ point_rollout_kernel(const float* __restrict__ params, const float* __restrict__
   __syncthreads();
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= K) return;
+  // seed b = blockIdx.y: its task, start state, friction scales and samples
+  const size_t b = blockIdx.y;
+  task += b * 4;
+  state0 += b * (2 * n_q + 6 * D);
+  fric_k += b * K * D;
+  acts += b * K * T * n_u;
+  cost_out += b * K * T;
+  traj_out += b * K * T * 2;
 
   const float h = sp[P_H], decay = sp[P_DECAY], wm_r = sp[P_WMR], rr = sp[P_RR];
   const float* dynp = sp + N_SCALARS;
@@ -469,19 +489,19 @@ point_rollout_kernel(const float* __restrict__ params, const float* __restrict__
 }  // namespace
 
 extern "C" int m3p2i_point_rollout(const float* params, const float* task, const float* state0,
-                                   const float* fric_k, const float* acts, float* cost,
-                                   float* traj, int K, int K_total, int T, int D, int S,
-                                   int substeps, int pos_iters, int box, int obs,
-                                   int robot_type, int n_q, int n_u, int multi_modal,
-                                   int boxer_align, int n_params, void* stream) {
-  if (K <= 0 || T <= 0 || D < 1 || D > kMaxD || S < 1 || S > kMaxS ||
+                                   const float* fric_k, const float* acts, float* cost, float* traj,
+                                   int B, int K, int K_total, int T, int D, int S, int substeps,
+                                   int pos_iters, int box, int obs, int robot_type, int n_q,
+                                   int n_u, int multi_modal, int boxer_align, int n_params,
+                                   void* stream) {
+  if (B <= 0 || B > 65535 || K <= 0 || T <= 0 || D < 1 || D > kMaxD || S < 1 || S > kMaxS ||
       n_params != N_SCALARS + kDynStride * D + kStatStride * S || box < 0 || box >= D ||
       obs < 0 || obs >= D) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int blocks = (K + kThreads - 1) / kThreads;
+  const dim3 grid((K + kThreads - 1) / kThreads, B);
   const size_t smem = static_cast<size_t>(n_params) * sizeof(float);
-  point_rollout_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  point_rollout_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       params, task, state0, fric_k, acts, cost, traj, K, K_total, T, D, S, substeps,
       pos_iters, box, obs, robot_type, n_q, n_u, multi_modal, boxer_align, n_params);
   return static_cast<int>(cudaGetLastError());

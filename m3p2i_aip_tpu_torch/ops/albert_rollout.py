@@ -5,7 +5,11 @@ Port of ``m3p2i_aip_tpu/ops/pallas_albert_rollout.py`` (``_albert_kernel``
 :55 and its factory ``make_albert_rollout`` :290).  One call rolls K
 13-channel action sequences through T steps of ``models/albert.step`` from
 ONE start state, scoring each step with ``AlbertObjective.compute`` and
-recording the base's xy.
+recording the base's xy.  With a leading seed axis (``sim_state_k`` fields
+[B, K, ...], ``acts`` [B, K, T, 13], a batched TaskParams) the same callable
+rolls B seeds out in ONE launch of the batched kernel
+(``albert_rollout_batched``, the port of the TPU kernel's ``grid=(B,)``
+call, ``pallas_albert_rollout.py:425``).
 
 ``make_albert_rollout`` returns ``rollout(sim_state_k, acts, task, k0=None)
 -> (cost_horizon [K, T], traj_points [K, T, 2])``: ``acts`` arrive already
@@ -30,9 +34,11 @@ TASK_LEN = 5  # task_id, goal x, y, z, k0
 N_U = 13
 _N_SCALARS = 16  # csrc/albert_rollout.cu N_SCALARS
 
-# Number of CUDA kernel launches made by ``albert_rollout`` (CPU calls run the
-# plain version and do not count).
+# Number of CUDA kernel launches made by ``albert_rollout`` and by
+# ``albert_rollout_batched`` (CPU calls run the plain versions and do not
+# count).
 albert_rollout_launches = 0
+albert_rollout_batched_launches = 0
 
 # The five start cases that hold the rollout to its references
 # (tests/test_pallas.py:748-769): (name, start, task, goal).
@@ -117,10 +123,12 @@ def _param_buffer(p: albert.AlbertParams, objective: AlbertObjective) -> np.ndar
 
 
 def pack_state(state: albert.AlbertState) -> torch.Tensor:
-    """One start state as the kernel's flat [30] row (``pallas_albert_rollout
-    .py:365-389``): q(12), qd(12), box x, y, yaw, vx, vy, om."""
+    """A start state as the kernel's flat [30] row (``pallas_albert_rollout
+    .py:365-389``; one row per seed of a batched state): q(12), qd(12), box
+    x, y, yaw, vx, vy, om."""
     return torch.cat(
-        [state.q, state.qd, state.box_pos, state.box_yaw.reshape(1), state.box_vel, state.box_om.reshape(1)]
+        [state.q, state.qd, state.box_pos, state.box_yaw[..., None], state.box_vel, state.box_om[..., None]],
+        dim=-1,
     )
 
 
@@ -138,11 +146,16 @@ def unpack_state(state0: torch.Tensor, K: int) -> albert.AlbertState:
 
 def rollout_inputs(sim_state_k, task, k0=None):
     """(task_vec [5], state0 [30]) of the kernel from the broadcast rollout
-    states, the TaskParams and the global sample offset ``k0``.
+    states, the TaskParams and the global sample offset ``k0``, or, for
+    states and a task with a leading seed axis, [B, 5] and [B, 30].
     task_vec = [task_id, goal x, y, z, k0]."""
-    state0 = pack_state(tree_map(lambda x: x[0], sim_state_k))
-    k0v = torch.full((1,), 0.0 if k0 is None else float(k0), dtype=torch.float32, device=state0.device)
-    task_vec = torch.cat([task.task_id.to(torch.float32).reshape(1), task.goal[:3].to(torch.float32), k0v])
+    nb = sim_state_k.q.dim() - 2  # the seed dims in front of the K axis
+    state0 = pack_state(tree_map(lambda x: x.select(nb, 0), sim_state_k))
+    lead = state0.shape[:-1]
+    k0v = torch.full(lead + (1,), 0.0 if k0 is None else float(k0), dtype=torch.float32, device=state0.device)
+    task_vec = torch.cat(
+        [task.task_id.to(torch.float32)[..., None], task.goal[..., :3].to(torch.float32), k0v], dim=-1
+    )
     return task_vec, state0
 
 
@@ -165,41 +178,83 @@ def albert_rollout_plain(spec: AlbertRolloutSpec, task_vec, state0, acts):
     return torch.stack(costs, dim=1), torch.stack(points, dim=1)
 
 
-def albert_rollout(spec: AlbertRolloutSpec, task_vec, state0, acts):
-    """The rollout of ``acts`` [K, T, 13] from ``state0``.
-
-    A CPU tensor runs :func:`albert_rollout_plain`; a CUDA tensor launches
-    the kernel on the current stream (one thread per sample) or raises.
-    """
-    global albert_rollout_launches
-    if acts.device.type == "cpu":
-        return albert_rollout_plain(spec, task_vec, state0, acts)
-    if acts.device.type != "cuda":
-        raise ValueError(f"albert_rollout: unsupported device {acts.device}")
-    K = acts.shape[0]
+def _check_batch(fn: str, spec: AlbertRolloutSpec, task_vec, state0, acts) -> None:
+    """Raise unless B seeds' inputs have the kernel's shapes and are
+    contiguous float32 tensors on one device."""
+    if acts.dim() != 4:
+        raise ValueError(f"{fn}: acts has shape {tuple(acts.shape)}, expected [B, K, T, {N_U}]")
+    B, K = acts.shape[:2]
     expect = {
-        "task_vec": (task_vec, (TASK_LEN,)),
-        "state0": (state0, (STATE_LEN,)),
-        "acts": (acts, (K, spec.T, N_U)),
+        "task_vec": (task_vec, (B, TASK_LEN)),
+        "state0": (state0, (B, STATE_LEN)),
+        "acts": (acts, (B, K, spec.T, N_U)),
         "params_buf": (spec.params_buf, (_N_SCALARS,)),
     }
     for name, (x, shape) in expect.items():
         if tuple(x.shape) != shape:
-            raise ValueError(f"albert_rollout: {name} has shape {tuple(x.shape)}, expected {shape}")
+            raise ValueError(f"{fn}: {name} has shape {tuple(x.shape)}, expected {shape}")
         if x.dtype != torch.float32 or not x.is_contiguous() or x.device != acts.device:
-            raise ValueError(f"albert_rollout: {name} must be contiguous float32 on {acts.device}")
-    cost = torch.empty(K, spec.T, dtype=torch.float32, device=acts.device)
-    traj = torch.empty(K, spec.T, 2, dtype=torch.float32, device=acts.device)
+            raise ValueError(f"{fn}: {name} must be contiguous float32 on {acts.device}")
+
+
+def _launch(fn: str, spec: AlbertRolloutSpec, task_vec, state0, acts):
+    """ONE launch of the kernel on the current stream for B seeds' inputs
+    (the seed on the grid's y axis); raises on anything it does not take."""
+    if acts.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {acts.device}")
+    _check_batch(fn, spec, task_vec, state0, acts)
+    B, K = acts.shape[:2]
+    cost = torch.empty(B, K, spec.T, dtype=torch.float32, device=acts.device)
+    traj = torch.empty(B, K, spec.T, 2, dtype=torch.float32, device=acts.device)
     lib = cuda_build.load_kernels()
     err = lib.m3p2i_albert_rollout(
         spec.params_buf.data_ptr(), task_vec.data_ptr(), state0.data_ptr(), acts.data_ptr(),
-        cost.data_ptr(), traj.data_ptr(), K, spec.T, spec.env_params.substeps,
+        cost.data_ptr(), traj.data_ptr(), B, K, spec.T, spec.env_params.substeps,
         int(spec.env_params.has_box), spec.params_buf.numel(),
         torch.cuda.current_stream(acts.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"albert_rollout kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"{fn} kernel launch failed: cudaError {err}")
+    return cost, traj
+
+
+def albert_rollout(spec: AlbertRolloutSpec, task_vec, state0, acts):
+    """The rollout of ``acts`` [K, T, 13] from ``state0``.
+
+    A CPU tensor runs :func:`albert_rollout_plain`; a CUDA tensor launches
+    the kernel on the current stream (one thread per sample; the batched
+    kernel's body with one seed) or raises.
+    """
+    global albert_rollout_launches
+    if acts.device.type == "cpu":
+        return albert_rollout_plain(spec, task_vec, state0, acts)
+    cost, traj = _launch("albert_rollout", spec, task_vec[None], state0[None], acts[None])
     albert_rollout_launches += 1
+    return cost[0], traj[0]
+
+
+def albert_rollout_batched_plain(spec: AlbertRolloutSpec, task_vec, state0, acts):
+    """B seeds' rollouts as plain tensor code: :func:`albert_rollout_plain`
+    per seed, stacked.  ``task_vec`` [B, 5], ``state0`` [B, 30], ``acts``
+    [B, K, T, 13]."""
+    outs = [albert_rollout_plain(spec, *args) for args in zip(task_vec, state0, acts)]
+    return torch.stack([c for c, _ in outs]), torch.stack([t for _, t in outs])
+
+
+def albert_rollout_batched(spec: AlbertRolloutSpec, task_vec, state0, acts):
+    """The rollouts of B seeds' ``acts`` [B, K, T, 13] from their own
+    ``state0`` [B, 30] and tasks [B, 5].
+
+    The inputs are checked on either device; then a CPU tensor runs
+    :func:`albert_rollout_batched_plain` and a CUDA tensor launches the
+    kernel ONCE for the whole batch or raises.
+    """
+    global albert_rollout_batched_launches
+    if acts.device.type == "cpu":
+        _check_batch("albert_rollout_batched", spec, task_vec, state0, acts)
+        return albert_rollout_batched_plain(spec, task_vec, state0, acts)
+    cost, traj = _launch("albert_rollout_batched", spec, task_vec, state0, acts)
+    albert_rollout_batched_launches += 1
     return cost, traj
 
 
@@ -216,7 +271,8 @@ def make_albert_rollout(env_params: albert.AlbertParams, objective: AlbertObject
     )
 
     def rollout(sim_state_k, acts, task, k0=None):
-        return albert_rollout(spec, *rollout_inputs(sim_state_k, task, k0), acts.contiguous())
+        wrapper = albert_rollout_batched if acts.dim() == 4 else albert_rollout  # a leading seed axis?
+        return wrapper(spec, *rollout_inputs(sim_state_k, task, k0), acts.contiguous())
 
     rollout.spec = spec
     return rollout

@@ -17,6 +17,11 @@ The kernel carries cubeA's orientation as a quaternion, as ``panda_env.step``
 does (the TPU kernel used a rotation matrix and Rodrigues), and does not
 carry the orientation or spin of dyn-obs and cubeB, which feed no output:
 its packed start state is the 56 floats of :func:`pack_state`.
+
+With a leading seed axis (``sim_state_k`` fields [B, K, ...], ``acts``
+[B, K, T, 9], a batched TaskParams) the same callable rolls B seeds out in
+ONE launch of the batched kernel (``panda_rollout_batched``, the port of the
+TPU kernel's ``grid=(B,)`` call, ``pallas_panda_rollout.py:851``).
 """
 from __future__ import annotations
 
@@ -35,9 +40,11 @@ MAX_STAT = 8  # csrc/panda_rollout.cu kMaxS
 STATE_LEN = 56  # pack_state
 _N_SCALARS = 16  # csrc/panda_rollout.cu N_SCALARS
 
-# Number of CUDA kernel launches made by ``panda_rollout`` (CPU calls run the
-# plain version and do not count).
+# Number of CUDA kernel launches made by ``panda_rollout`` and by
+# ``panda_rollout_batched`` (CPU calls run the plain versions and do not
+# count).
 panda_rollout_launches = 0
+panda_rollout_batched_launches = 0
 
 # The seven start cases that hold the rollout to its references
 # (tests/test_pallas.py:335-363): (name, start, task, gripper action or None,
@@ -137,14 +144,16 @@ def _param_buffer(p: panda_env.PandaEnvParams, pre_height_diff: float) -> np.nda
 
 
 def pack_state(state: panda_env.PandaEnvState) -> torch.Tensor:
-    """One start state as the kernel's flat [56] row: q, qd, body_pos (3x3),
-    body_vel (3x3), cubeA om, cubeA quat, attached, attach_pos, attach_rot."""
+    """A start state as the kernel's flat [56] row (one row per seed of a
+    batched state): q, qd, body_pos (3x3), body_vel (3x3), cubeA om, cubeA
+    quat, attached, attach_pos, attach_rot."""
     return torch.cat(
         [
-            state.q, state.qd, state.body_pos.reshape(-1), state.body_vel.reshape(-1),
-            state.body_om[1], state.body_quat[1], state.attached.reshape(1),
-            state.attach_pos, state.attach_rot.reshape(-1),
-        ]
+            state.q, state.qd, state.body_pos.flatten(-2), state.body_vel.flatten(-2),
+            state.body_om[..., 1, :], state.body_quat[..., 1, :], state.attached[..., None],
+            state.attach_pos, state.attach_rot.flatten(-2),
+        ],
+        dim=-1,
     )
 
 
@@ -172,15 +181,19 @@ def unpack_state(state0: torch.Tensor, K: int, p: panda_env.PandaEnvParams) -> p
 
 def rollout_inputs(sim_state_k, task, k0=None):
     """(task_vec [10], state0 [56]) of the kernel from the broadcast rollout
-    states, the TaskParams and the global sample offset ``k0``.  task_vec =
-    [task_id, goal pos (3), goal quat (4, xyzw), k0, zup_gate]."""
-    state0 = pack_state(tree_map(lambda x: x[0], sim_state_k))
-    k0v = torch.full((1,), 0.0 if k0 is None else float(k0), dtype=torch.float32, device=state0.device)
+    states, the TaskParams and the global sample offset ``k0``, or, for
+    states and a task with a leading seed axis, [B, 10] and [B, 56].
+    task_vec = [task_id, goal pos (3), goal quat (4, xyzw), k0, zup_gate]."""
+    nb = sim_state_k.q.dim() - 2  # the seed dims in front of the K axis
+    state0 = pack_state(tree_map(lambda x: x.select(nb, 0), sim_state_k))
+    lead = state0.shape[:-1]
+    k0v = torch.full(lead + (1,), 0.0 if k0 is None else float(k0), dtype=torch.float32, device=state0.device)
     task_vec = torch.cat(
         [
-            task.task_id.to(torch.float32).reshape(1), task.goal.to(torch.float32), k0v,
-            task.zup_gate.to(torch.float32).reshape(1),
-        ]
+            task.task_id.to(torch.float32)[..., None], task.goal.to(torch.float32), k0v,
+            task.zup_gate.to(torch.float32)[..., None],
+        ],
+        dim=-1,
     )
     return task_vec, state0
 
@@ -208,44 +221,86 @@ def panda_rollout_plain(spec: PandaRolloutSpec, task_vec, state0, acts):
     return torch.stack(costs, dim=1), torch.stack(points, dim=1)
 
 
-def panda_rollout(spec: PandaRolloutSpec, task_vec, state0, acts):
-    """The rollout of ``acts`` [K, T, 9] from ``state0``.
-
-    A CPU tensor runs :func:`panda_rollout_plain`; a CUDA tensor launches the
-    kernel on the current stream (one thread per sample) or raises.
-    """
-    global panda_rollout_launches
-    if acts.device.type == "cpu":
-        return panda_rollout_plain(spec, task_vec, state0, acts)
-    if acts.device.type != "cuda":
-        raise ValueError(f"panda_rollout: unsupported device {acts.device}")
-    K = acts.shape[0]
+def _check_batch(fn: str, spec: PandaRolloutSpec, task_vec, state0, acts) -> None:
+    """Raise unless B seeds' inputs have the kernel's shapes and are
+    contiguous float32 tensors on one device."""
+    if acts.dim() != 4:
+        raise ValueError(f"{fn}: acts has shape {tuple(acts.shape)}, expected [B, K, T, 9]")
+    B, K = acts.shape[:2]
     S = spec.S
     expect = {
-        "task_vec": (task_vec, (10,)),
-        "state0": (state0, (STATE_LEN,)),
-        "acts": (acts, (K, spec.T, 9)),
+        "task_vec": (task_vec, (B, 10)),
+        "state0": (state0, (B, STATE_LEN)),
+        "acts": (acts, (B, K, spec.T, 9)),
         "params_buf": (spec.params_buf, (_N_SCALARS + 3 * 6 + 6 * S + 5 * (S + 1),)),
     }
     for name, (x, shape) in expect.items():
         if tuple(x.shape) != shape:
-            raise ValueError(f"panda_rollout: {name} has shape {tuple(x.shape)}, expected {shape}")
+            raise ValueError(f"{fn}: {name} has shape {tuple(x.shape)}, expected {shape}")
         if x.dtype != torch.float32 or not x.is_contiguous() or x.device != acts.device:
-            raise ValueError(f"panda_rollout: {name} must be contiguous float32 on {acts.device}")
-    if S > MAX_STAT:
-        raise ValueError(f"panda_rollout: scene has S={S} statics; the kernel takes S <= {MAX_STAT}")
-    cost = torch.empty(K, spec.T, dtype=torch.float32, device=acts.device)
-    traj = torch.empty(K, spec.T, 2, dtype=torch.float32, device=acts.device)
+            raise ValueError(f"{fn}: {name} must be contiguous float32 on {acts.device}")
+
+
+def _launch(fn: str, spec: PandaRolloutSpec, task_vec, state0, acts):
+    """ONE launch of the kernel on the current stream for B seeds' inputs
+    (the seed on the grid's y axis); raises on anything it does not take."""
+    if acts.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {acts.device}")
+    _check_batch(fn, spec, task_vec, state0, acts)
+    if spec.S > MAX_STAT:
+        raise ValueError(f"{fn}: scene has S={spec.S} statics; the kernel takes S <= {MAX_STAT}")
+    B, K = acts.shape[:2]
+    cost = torch.empty(B, K, spec.T, dtype=torch.float32, device=acts.device)
+    traj = torch.empty(B, K, spec.T, 2, dtype=torch.float32, device=acts.device)
     lib = cuda_build.load_kernels()
     err = lib.m3p2i_panda_rollout(
         spec.params_buf.data_ptr(), task_vec.data_ptr(), state0.data_ptr(), acts.data_ptr(),
-        cost.data_ptr(), traj.data_ptr(), K, spec.K, spec.T, S, spec.env_params.substeps,
+        cost.data_ptr(), traj.data_ptr(), B, K, spec.K, spec.T, spec.S, spec.env_params.substeps,
         spec.table_slot, spec.shelf_slot, int(spec.multi_modal), spec.params_buf.numel(),
         torch.cuda.current_stream(acts.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"panda_rollout kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"{fn} kernel launch failed: cudaError {err}")
+    return cost, traj
+
+
+def panda_rollout(spec: PandaRolloutSpec, task_vec, state0, acts):
+    """The rollout of ``acts`` [K, T, 9] from ``state0``.
+
+    A CPU tensor runs :func:`panda_rollout_plain`; a CUDA tensor launches the
+    kernel on the current stream (one thread per sample; the batched
+    kernel's body with one seed) or raises.
+    """
+    global panda_rollout_launches
+    if acts.device.type == "cpu":
+        return panda_rollout_plain(spec, task_vec, state0, acts)
+    cost, traj = _launch("panda_rollout", spec, task_vec[None], state0[None], acts[None])
     panda_rollout_launches += 1
+    return cost[0], traj[0]
+
+
+def panda_rollout_batched_plain(spec: PandaRolloutSpec, task_vec, state0, acts):
+    """B seeds' rollouts as plain tensor code: :func:`panda_rollout_plain`
+    per seed, stacked.  ``task_vec`` [B, 10], ``state0`` [B, 56], ``acts``
+    [B, K, T, 9]."""
+    outs = [panda_rollout_plain(spec, *args) for args in zip(task_vec, state0, acts)]
+    return torch.stack([c for c, _ in outs]), torch.stack([t for _, t in outs])
+
+
+def panda_rollout_batched(spec: PandaRolloutSpec, task_vec, state0, acts):
+    """The rollouts of B seeds' ``acts`` [B, K, T, 9] from their own
+    ``state0`` [B, 56] and tasks [B, 10].
+
+    The inputs are checked on either device; then a CPU tensor runs
+    :func:`panda_rollout_batched_plain` and a CUDA tensor launches the
+    kernel ONCE for the whole batch or raises.
+    """
+    global panda_rollout_batched_launches
+    if acts.device.type == "cpu":
+        _check_batch("panda_rollout_batched", spec, task_vec, state0, acts)
+        return panda_rollout_batched_plain(spec, task_vec, state0, acts)
+    cost, traj = _launch("panda_rollout_batched", spec, task_vec, state0, acts)
+    panda_rollout_batched_launches += 1
     return cost, traj
 
 
@@ -265,7 +320,8 @@ def make_panda_rollout(env_params: panda_env.PandaEnvParams, pre_height_diff: fl
     )
 
     def rollout(sim_state_k, acts, task, k0=None):
-        return panda_rollout(spec, *rollout_inputs(sim_state_k, task, k0), acts.contiguous())
+        wrapper = panda_rollout_batched if acts.dim() == 4 else panda_rollout  # a leading seed axis?
+        return wrapper(spec, *rollout_inputs(sim_state_k, task, k0), acts.contiguous())
 
     rollout.spec = spec
     return rollout

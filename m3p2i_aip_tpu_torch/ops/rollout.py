@@ -13,6 +13,13 @@ traj_points [K, T, 2])``: ``acts`` arrive already ``u_scale``-scaled, all K
 states are the broadcast start state except their ``fric_scale`` rows, and
 ``k0`` is the global index of the first sample (a later multi-device split
 keeps the mode assignment by global index).
+
+With a leading seed axis (``sim_state_k`` fields [B, K, ...], ``acts``
+[B, K, T, n_u], a batched TaskParams) the same callable rolls B seeds out in
+ONE launch of the batched kernel (``point_rollout_batched``, the port of
+the TPU kernel's ``grid=(B,)`` call, ``pallas_rollout.py:802``) and returns
+[B, K, T] costs and [B, K, T, 2] points.  A batched call never shards K:
+the multi-seed runner leaves ``k0`` at 0 for every seed.
 """
 from __future__ import annotations
 
@@ -33,9 +40,11 @@ MAX_STAT = 16
 _N_SCALARS = 16  # csrc/point_rollout.cu N_SCALARS
 _ROBOT_TYPES = {"point": 0, "heijn": 1, "boxer": 2}
 
-# Number of CUDA kernel launches made by ``point_rollout`` (CPU calls run the
-# plain version and do not count).
+# Number of CUDA kernel launches made by ``point_rollout`` and by
+# ``point_rollout_batched`` (CPU calls run the plain versions and do not
+# count).
 rollout_launches = 0
+rollout_batched_launches = 0
 
 
 @dataclass
@@ -115,22 +124,27 @@ def _param_buffer(p: point_env.PointEnvParams, kp_suction: float, box_slot: int)
 
 
 def pack_state(state: point_env.PointEnvState) -> torch.Tensor:
-    """One start state as the kernel's flat row: q, qd, dyn_pos (x0, y0, x1,
-    ...), dyn_yaw, dyn_vel, dyn_om."""
+    """A start state as the kernel's flat row: q, qd, dyn_pos (x0, y0, x1,
+    ...), dyn_yaw, dyn_vel, dyn_om (one row per seed of a batched state)."""
     return torch.cat(
         [
-            state.q, state.qd, state.dyn_pos.reshape(-1), state.dyn_yaw,
-            state.dyn_vel.reshape(-1), state.dyn_om,
-        ]
+            state.q, state.qd, state.dyn_pos.flatten(-2), state.dyn_yaw,
+            state.dyn_vel.flatten(-2), state.dyn_om,
+        ],
+        dim=-1,
     )
 
 
 def rollout_inputs(sim_state_k, task, k0=None):
     """(task_vec, state0, fric_k) of the kernel from the broadcast rollout
-    states, the TaskParams and the global sample offset ``k0``."""
-    state0 = pack_state(tree_map(lambda x: x[0], sim_state_k))
-    k0v = torch.full((1,), 0.0 if k0 is None else float(k0), dtype=torch.float32, device=state0.device)
-    task_vec = torch.cat([task.task_id.to(torch.float32).reshape(1), task.goal[:2], k0v])
+    states, the TaskParams and the global sample offset ``k0``: [4],
+    [n_state] and [K, D], or, for states and a task with a leading seed
+    axis, [B, 4], [B, n_state] and [B, K, D]."""
+    nb = sim_state_k.q.dim() - 2  # the seed dims in front of the K axis
+    state0 = pack_state(tree_map(lambda x: x.select(nb, 0), sim_state_k))
+    lead = state0.shape[:-1]
+    k0v = torch.full(lead + (1,), 0.0 if k0 is None else float(k0), dtype=torch.float32, device=state0.device)
+    task_vec = torch.cat([task.task_id.to(torch.float32)[..., None], task.goal[..., :2], k0v], dim=-1)
     fric_k = sim_state_k.fric_scale.to(torch.float32).contiguous()
     return task_vec, state0, fric_k
 
@@ -169,48 +183,91 @@ def point_rollout_plain(spec: RolloutSpec, task_vec, state0, fric_k, acts):
     return torch.stack(costs, dim=1), torch.stack(points, dim=1)
 
 
-def point_rollout(spec: RolloutSpec, task_vec, state0, fric_k, acts):
-    """The rollout of ``acts`` [K, T, n_u] from ``state0``.
-
-    A CPU tensor runs :func:`point_rollout_plain`; a CUDA tensor launches the
-    kernel on the current stream (one thread per sample) or raises.
-    """
-    global rollout_launches
-    if acts.device.type == "cpu":
-        return point_rollout_plain(spec, task_vec, state0, fric_k, acts)
-    if acts.device.type != "cuda":
-        raise ValueError(f"point_rollout: unsupported device {acts.device}")
-    K, T, n_u = acts.shape
+def _check_batch(fn: str, spec: RolloutSpec, task_vec, state0, fric_k, acts) -> None:
+    """Raise unless B seeds' inputs have the kernel's shapes and are
+    contiguous float32 tensors on one device."""
+    if acts.dim() != 4:
+        raise ValueError(f"{fn}: acts has shape {tuple(acts.shape)}, expected [B, K, T, n_u]")
+    B, K = acts.shape[:2]
     D, S = spec.D, spec.S
     expect = {
-        "task_vec": (task_vec, (4,)),
-        "state0": (state0, (2 * spec.n_q + 6 * D,)),
-        "fric_k": (fric_k, (K, D)),
-        "acts": (acts, (K, spec.T, spec.n_u)),
+        "task_vec": (task_vec, (B, 4)),
+        "state0": (state0, (B, 2 * spec.n_q + 6 * D)),
+        "fric_k": (fric_k, (B, K, D)),
+        "acts": (acts, (B, K, spec.T, spec.n_u)),
         "params_buf": (spec.params_buf, (_N_SCALARS + 6 * D + 7 * S,)),
     }
     for name, (x, shape) in expect.items():
         if tuple(x.shape) != shape:
-            raise ValueError(f"point_rollout: {name} has shape {tuple(x.shape)}, expected {shape}")
+            raise ValueError(f"{fn}: {name} has shape {tuple(x.shape)}, expected {shape}")
         if x.dtype != torch.float32 or not x.is_contiguous() or x.device != acts.device:
-            raise ValueError(f"point_rollout: {name} must be contiguous float32 on {acts.device}")
+            raise ValueError(f"{fn}: {name} must be contiguous float32 on {acts.device}")
+
+
+def _launch(fn: str, spec: RolloutSpec, task_vec, state0, fric_k, acts):
+    """ONE launch of the kernel on the current stream for B seeds' inputs
+    (the seed on the grid's y axis); raises on anything it does not take."""
+    if acts.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {acts.device}")
+    _check_batch(fn, spec, task_vec, state0, fric_k, acts)
+    B, K, T, n_u = acts.shape
+    D, S = spec.D, spec.S
     if D > MAX_DYN or S > MAX_STAT:
-        raise ValueError(f"point_rollout: scene has D={D}, S={S}; the kernel takes D <= {MAX_DYN}, S <= {MAX_STAT}")
-    cost = torch.empty(K, T, dtype=torch.float32, device=acts.device)
-    traj = torch.empty(K, T, 2, dtype=torch.float32, device=acts.device)
+        raise ValueError(f"{fn}: scene has D={D}, S={S}; the kernel takes D <= {MAX_DYN}, S <= {MAX_STAT}")
+    cost = torch.empty(B, K, T, dtype=torch.float32, device=acts.device)
+    traj = torch.empty(B, K, T, 2, dtype=torch.float32, device=acts.device)
     lib = cuda_build.load_kernels()
     p = spec.env_params
     err = lib.m3p2i_point_rollout(
         spec.params_buf.data_ptr(), task_vec.data_ptr(), state0.data_ptr(),
         fric_k.data_ptr(), acts.data_ptr(), cost.data_ptr(), traj.data_ptr(),
-        K, spec.K, T, D, S, p.substeps, p.pos_iters, spec.box_slot, spec.dynobs_slot,
+        B, K, spec.K, T, D, S, p.substeps, p.pos_iters, spec.box_slot, spec.dynobs_slot,
         _ROBOT_TYPES[p.robot_type], spec.n_q, n_u, int(spec.multi_modal),
         int(spec.boxer_continuous_align), spec.params_buf.numel(),
         torch.cuda.current_stream(acts.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"point_rollout kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"{fn} kernel launch failed: cudaError {err}")
+    return cost, traj
+
+
+def point_rollout(spec: RolloutSpec, task_vec, state0, fric_k, acts):
+    """The rollout of ``acts`` [K, T, n_u] from ``state0``.
+
+    A CPU tensor runs :func:`point_rollout_plain`; a CUDA tensor launches the
+    kernel on the current stream (one thread per sample; the batched
+    kernel's body with one seed) or raises.
+    """
+    global rollout_launches
+    if acts.device.type == "cpu":
+        return point_rollout_plain(spec, task_vec, state0, fric_k, acts)
+    cost, traj = _launch("point_rollout", spec, task_vec[None], state0[None], fric_k[None], acts[None])
     rollout_launches += 1
+    return cost[0], traj[0]
+
+
+def point_rollout_batched_plain(spec: RolloutSpec, task_vec, state0, fric_k, acts):
+    """B seeds' rollouts as plain tensor code: :func:`point_rollout_plain`
+    per seed, stacked.  ``task_vec`` [B, 4], ``state0`` [B, n_state],
+    ``fric_k`` [B, K, D], ``acts`` [B, K, T, n_u]."""
+    outs = [point_rollout_plain(spec, *args) for args in zip(task_vec, state0, fric_k, acts)]
+    return torch.stack([c for c, _ in outs]), torch.stack([t for _, t in outs])
+
+
+def point_rollout_batched(spec: RolloutSpec, task_vec, state0, fric_k, acts):
+    """The rollouts of B seeds' ``acts`` [B, K, T, n_u] from their own
+    ``state0`` [B, n_state], tasks [B, 4] and friction scales [B, K, D].
+
+    The inputs are checked on either device; then a CPU tensor runs
+    :func:`point_rollout_batched_plain` and a CUDA tensor launches the
+    kernel ONCE for the whole batch or raises.
+    """
+    global rollout_batched_launches
+    if acts.device.type == "cpu":
+        _check_batch("point_rollout_batched", spec, task_vec, state0, fric_k, acts)
+        return point_rollout_batched_plain(spec, task_vec, state0, fric_k, acts)
+    cost, traj = _launch("point_rollout_batched", spec, task_vec, state0, fric_k, acts)
+    rollout_batched_launches += 1
     return cost, traj
 
 
@@ -244,7 +301,8 @@ def make_point_rollout(
     )
 
     def rollout(sim_state_k, acts, task, k0=None):
-        return point_rollout(spec, *rollout_inputs(sim_state_k, task, k0), acts.contiguous())
+        wrapper = point_rollout_batched if acts.dim() == 4 else point_rollout  # a leading seed axis?
+        return wrapper(spec, *rollout_inputs(sim_state_k, task, k0), acts.contiguous())
 
     rollout.spec = spec
     return rollout

@@ -8,6 +8,11 @@ the horizon, a per-group min shift, and three masked adaptive-beta searches
 every call (the reference never persists the tuned betas, mirrored) and
 multiplies beta by 0.9 or 1.2 until eta is in [eta_l, eta_u], at most 64
 times.
+
+The batched pair (``multimodal_weights_batched`` and its plain version) is
+the port of the kernel's ``grid=(B,)`` call (``pallas_kernels.py:173``, the
+``custom_vmap`` rule ``_mmw_vmap``): [B, K, T] costs of B seeds, one shared
+discount, and each seed's own beta search and early exit.
 """
 from __future__ import annotations
 
@@ -19,9 +24,11 @@ from m3p2i_aip_tpu_torch.ops import cuda_build
 
 BETA_ITERS = 64
 
-# Number of CUDA kernel launches made by ``multimodal_weights`` (CPU calls
-# run the plain version and do not count).
+# Number of CUDA kernel launches made by ``multimodal_weights`` and by
+# ``multimodal_weights_batched`` (CPU calls run the plain versions and do
+# not count).
 weights_launches = 0
+weights_batched_launches = 0
 
 
 def multimodal_weights_plain(cost, gamma, half_K: int, eta_u: float = 10.0, eta_l: float = 3.0):
@@ -53,31 +60,69 @@ def multimodal_weights_plain(cost, gamma, half_K: int, eta_u: float = 10.0, eta_
     return w[0], w[1], w[2]
 
 
+def _check_batch(fn: str, cost, gamma) -> None:
+    """Raise unless [B, K, T] costs and a [T] discount are contiguous
+    float32 tensors on one device."""
+    if cost.dim() != 3 or gamma.shape != (cost.shape[2],):
+        raise ValueError(f"{fn}: cost {tuple(cost.shape)} / gamma {tuple(gamma.shape)}")
+    for name, x in (("cost", cost), ("gamma", gamma)):
+        if x.dtype != torch.float32 or not x.is_contiguous() or x.device != cost.device:
+            raise ValueError(f"{fn}: {name} must be contiguous float32 on {cost.device}")
+
+
+def _launch(fn: str, cost, gamma, half_K: int, eta_u: float, eta_l: float):
+    """ONE launch of the kernel on the current stream for B seeds' [B, K, T]
+    costs (one block per seed); returns [B, 3, K] or raises."""
+    if cost.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {cost.device}")
+    _check_batch(fn, cost, gamma)
+    B, K, T = cost.shape
+    out = torch.empty(B, 3, K, dtype=torch.float32, device=cost.device)
+    lib = cuda_build.load_kernels()
+    err = lib.m3p2i_multimodal_weights(
+        cost.data_ptr(), gamma.data_ptr(), out.data_ptr(),
+        B, K, T, int(half_K), ctypes.c_float(eta_u), ctypes.c_float(eta_l),
+        torch.cuda.current_stream(cost.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{fn} kernel launch failed: cudaError {err}")
+    return out
+
+
 def multimodal_weights(cost, gamma, half_K: int, eta_u: float = 10.0, eta_l: float = 3.0):
     """The multi-modal weights of [K, T] costs under discount ``gamma`` [T].
 
     A CPU tensor runs :func:`multimodal_weights_plain`; a CUDA tensor launches
-    the kernel on the current stream (one block) or raises.
+    the kernel on the current stream (one block: the batched kernel with one
+    seed) or raises.
     """
     global weights_launches
     if cost.device.type == "cpu":
         return multimodal_weights_plain(cost, gamma, half_K, eta_u, eta_l)
-    if cost.device.type != "cuda":
-        raise ValueError(f"multimodal_weights: unsupported device {cost.device}")
-    if cost.dim() != 2 or gamma.shape != (cost.shape[1],):
-        raise ValueError(f"multimodal_weights: cost {tuple(cost.shape)} / gamma {tuple(gamma.shape)}")
-    for name, x in (("cost", cost), ("gamma", gamma)):
-        if x.dtype != torch.float32 or not x.is_contiguous() or x.device != cost.device:
-            raise ValueError(f"multimodal_weights: {name} must be contiguous float32 on {cost.device}")
-    K, T = cost.shape
-    out = torch.empty(3, K, dtype=torch.float32, device=cost.device)
-    lib = cuda_build.load_kernels()
-    err = lib.m3p2i_multimodal_weights(
-        cost.data_ptr(), gamma.data_ptr(), out.data_ptr(),
-        K, T, int(half_K), ctypes.c_float(eta_u), ctypes.c_float(eta_l),
-        torch.cuda.current_stream(cost.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"multimodal_weights kernel launch failed: cudaError {err}")
+    out = _launch("multimodal_weights", cost[None], gamma, half_K, eta_u, eta_l)[0]
     weights_launches += 1
     return out[0], out[1], out[2]
+
+
+def multimodal_weights_batched_plain(cost, gamma, half_K: int, eta_u: float = 10.0, eta_l: float = 3.0):
+    """(w_mode0, w_mode1, w_global), each [B, K], from [B, K, T] costs: the
+    single plain version per seed, stacked."""
+    per_seed = [multimodal_weights_plain(c, gamma, half_K, eta_u, eta_l) for c in cost]
+    return tuple(torch.stack(ws) for ws in zip(*per_seed))
+
+
+def multimodal_weights_batched(cost, gamma, half_K: int, eta_u: float = 10.0, eta_l: float = 3.0):
+    """The multi-modal weights of B seeds' [B, K, T] costs under one
+    discount ``gamma`` [T].
+
+    The inputs are checked on either device; then a CPU tensor runs
+    :func:`multimodal_weights_batched_plain` and a CUDA tensor launches the
+    kernel once for the whole batch (one block per seed) or raises.
+    """
+    global weights_batched_launches
+    if cost.device.type == "cpu":
+        _check_batch("multimodal_weights_batched", cost, gamma)
+        return multimodal_weights_batched_plain(cost, gamma, half_K, eta_u, eta_l)
+    out = _launch("multimodal_weights_batched", cost, gamma, half_K, eta_u, eta_l)
+    weights_batched_launches += 1
+    return out[:, 0], out[:, 1], out[:, 2]

@@ -19,6 +19,18 @@ Exploration noise: the JAX planner jitters the cached deltas with
 them from its own ``torch.Generator`` on the device (seeded from
 ``mppi.seed_val``), and ``command``/``_command_impl`` also take the noise as
 an input so a test can feed both packages the same numbers.
+
+Seed batches: every planner step is written over leading dims, so an
+``MPPIState`` whose fields carry a leading seed axis B (``init_state_batch``)
+plans B seeded runs at once, one batched rollout launch per rollout.  The
+real state then carries the same leading B, and ``TaskParams`` fields are
+[B]-leading.  Seed b's exploration noise comes from its own generator,
+seeded as the serial planner seeds its one, so seed b draws exactly what a
+serial run with seed b draws.  The two contractions of the planner (the
+K-sample weighted means and the Savitzky-Golay filter) accumulate in
+float64 and round once to float32: a float32 matmul on the GPU sums in an
+order that depends on how many seeds share the call, and those last-bit
+differences grow, over a closed-loop run, into different trajectories.
 """
 from __future__ import annotations
 
@@ -33,8 +45,8 @@ from m3p2i_aip_tpu_torch.ops.control import discounted_traj_cost, scale_ctrl
 from m3p2i_aip_tpu_torch.ops.filters import savgol_matrix
 from m3p2i_aip_tpu_torch.ops.sampling import gaussian_halton_samples
 from m3p2i_aip_tpu_torch.ops.spline import bspline_interp_matrix
-from m3p2i_aip_tpu_torch.ops.weights import multimodal_weights
-from m3p2i_aip_tpu_torch.utils.tree import tree_map
+from m3p2i_aip_tpu_torch.ops.weights import multimodal_weights, multimodal_weights_batched
+from m3p2i_aip_tpu_torch.utils.tree import tree_map, tree_stack
 
 _NOT_PORTED = "is not ported yet: see ROADMAP.md Queue 1"
 
@@ -47,10 +59,10 @@ class TaskParams:
     6 place, 7 ee_reach, 8 reposition, 9 push_reach.
     """
 
-    task_id: torch.Tensor  # int32 scalar
-    goal: torch.Tensor  # [7] pos(3) + quat(4); 2D goals use [:2]
-    gripper: torch.Tensor  # int32: 0 none, 1 open, 2 close
-    zup_gate: torch.Tensor  # f32 scalar
+    task_id: torch.Tensor  # int32 scalar ([B] in a seed batch)
+    goal: torch.Tensor  # [7] pos(3) + quat(4); 2D goals use [:2] ([B, 7])
+    gripper: torch.Tensor  # int32: 0 none, 1 open, 2 close ([B])
+    zup_gate: torch.Tensor  # f32 scalar ([B])
 
 
 TASK_IDS = {
@@ -88,7 +100,8 @@ def make_task_params(
 
 @dataclass
 class MPPIState:
-    """Planner state threaded through ``command`` calls."""
+    """Planner state threaded through ``command`` calls.  In a seed batch
+    every field carries a leading B (``beta`` is [B])."""
 
     mean_action: torch.Tensor  # [T, nu]
     mean_action_1: torch.Tensor
@@ -173,11 +186,12 @@ class MPPI:
 
         # Savitzky-Golay operator (window 9 order 2, mppi.py:190-193)
         sgf_window = min(9, self.T if self.T % 2 == 1 else self.T - 1)
-        self._sgf = self._t(savgol_matrix(self.T, sgf_window, 2).astype(np.float32))
+        self._sgf = self._t(savgol_matrix(self.T, sgf_window, 2).astype(np.float32)).double()
         self.sample_mode = self._t((np.arange(self.K) >= self.half_K).astype(np.int32))
         self.rollout = rollout
         self.fric_noise = None if fric_noise is None else np.asarray(fric_noise)
         self.generator = torch.Generator(device=self.device)
+        self.seed_generators: list = []  # one per seed of a batch (init_state_batch)
         self.reseed(self.seed_val)
 
     def _t(self, x: np.ndarray) -> torch.Tensor:
@@ -220,15 +234,18 @@ class MPPI:
         self._delta = self._t(self._make_halton_spline_deltas())
         self._fric_scale = self._t(self._make_fric_scales())
 
-    def init_state(self) -> MPPIState:
-        """Fresh planner state; also re-seeds the exploration generator."""
-        self.generator.manual_seed(self.seed_val)
+    def init_state(self, generator: Optional[torch.Generator] = None) -> MPPIState:
+        """Fresh planner state; also re-seeds the exploration generator (the
+        planner's own, or ``generator``) with the planner's seed."""
+        if generator is None:
+            generator = self.generator
+        generator.manual_seed(self.seed_val)
         z = torch.zeros(self.T, self.nu, dtype=torch.float32, device=self.device)
         if self.cfg.U_init is not None:
             U0 = self._t(np.asarray(self.cfg.U_init, np.float32))
         else:  # the reference samples U from the noise distribution (mppi.py:134)
             chol = self._t(np.linalg.cholesky(self.noise_sigma).astype(np.float32))
-            eps = torch.randn(self.T, self.nu, generator=self.generator, device=self.device)
+            eps = torch.randn(self.T, self.nu, generator=generator, device=self.device)
             U0 = self._t(self.noise_mu) + eps @ chol.T
         cov = self._t(np.diagonal(self.noise_sigma).astype(np.float32))
         return MPPIState(
@@ -248,20 +265,52 @@ class MPPI:
             fric_scale_k=self._fric_scale,
         )
 
+    def init_state_batch(self, seeds) -> MPPIState:
+        """The stacked planner states of a seed batch: seed b's Halton deltas,
+        friction scales and U0 draw are those of ``reseed(seeds[b])`` +
+        ``init_state()``, and ``seed_generators[b]`` carries on from that
+        draw, so each seed's per-tick noise is a serial run's."""
+        states, self.seed_generators = [], []
+        for s in seeds:
+            self.reseed(int(s))
+            gen = torch.Generator(device=self.device)
+            states.append(self.init_state(gen))
+            self.seed_generators.append(gen)
+        return tree_stack(states)
+
+    def _exploration_draw(self, shape) -> torch.Tensor:
+        """A standard-normal [..., K, T, nu] draw: from the planner's
+        generator, or with a leading seed axis one [K, T, nu] draw from each
+        seed's generator, stacked."""
+        if len(shape) == 3:
+            return torch.randn(shape, generator=self.generator, device=self.device)
+        if len(self.seed_generators) != shape[0]:
+            raise ValueError(f"a batch of {shape[0]} seeds needs init_state_batch with as many seeds")
+        return torch.stack(
+            [torch.randn(shape[1:], generator=g, device=self.device) for g in self.seed_generators]
+        )
+
     # --------------------------------------------------------------- helpers
     @staticmethod
     def _shift(seq: torch.Tensor) -> torch.Tensor:
-        """Time-shift an action sequence, repeating the last action."""
-        return torch.cat([seq[1:], seq[-1:]], dim=0)
+        """Time-shift [..., T, nu] action sequences, repeating the last action."""
+        return torch.cat([seq[..., 1:, :], seq[..., -1:, :]], dim=-2)
 
     @staticmethod
     def _take(actions: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-        """``actions[idx]`` for a 0-dim device index without a host sync (a
-        0-dim tensor index would read the index back to the host)."""
-        return torch.index_select(actions, 0, idx.reshape(1))[0]
+        """``actions[..., idx, :, :]`` for a device index per leading slice
+        (``actions`` [..., K, T, nu], ``idx`` [...]) without a host sync (a
+        tensor index would read the index back to the host)."""
+        return torch.take_along_dim(actions, idx[..., None, None, None], dim=-3).squeeze(-3)
 
     def _pick(self, actions: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        return self._take(actions, torch.argmax(w))
+        return self._take(actions, torch.argmax(w, dim=-1))
+
+    @staticmethod
+    def _weighted_mean(w: torch.Tensor, actions: torch.Tensor) -> torch.Tensor:
+        """sum_k w[..., k] actions[..., k, :, :], accumulated in float64 and
+        rounded once, so a seed's mean is the same bits alone or in a batch."""
+        return torch.einsum("...k,...ktu->...tu", w.double(), actions.double()).float()
 
     def _gripper_override(self, acts: torch.Tensor, task: TaskParams) -> torch.Tensor:
         """Panda gripper channels 7 and 8 forced to +1.5 (open) or -1.5
@@ -269,26 +318,29 @@ class MPPI:
         into ``acts``, which callers pass freshly made."""
         if self.nu < 9:
             return acts
-        val = torch.where(task.gripper == 1, 1.5, torch.where(task.gripper == 2, -1.5, 0.0))
-        acts[..., 7:9] = torch.where(task.gripper > 0, val, acts[..., 7:9])
+        grip = task.gripper.reshape(task.gripper.shape + (1, 1, 1))  # over [K, T, 2]
+        val = torch.where(grip == 1, 1.5, torch.where(grip == 2, -1.5, 0.0))
+        acts[..., 7:9] = torch.where(grip > 0, val, acts[..., 7:9])
         return acts
 
     # ---------------------------------------------------- weight computation
     def _exp_util(self, cost_horizon, beta):
         """Single-mode weights. Parity: MPPI._exp_util (mppi.py:430-456)."""
         traj_costs = discounted_traj_cost(cost_horizon, self.gamma_seq)
-        total = traj_costs - torch.min(traj_costs)
-        exp_ = torch.exp((-1.0 / beta) * total)
-        eta = torch.sum(exp_)
-        weights = exp_ / eta
+        total = traj_costs - torch.amin(traj_costs, dim=-1, keepdim=True)
+        exp_ = torch.exp((-1.0 / beta[..., None]) * total)
+        eta = torch.sum(exp_, dim=-1)
+        weights = exp_ / eta[..., None]
         if self.beta_adapt:
             beta = torch.where(eta > 20.0, beta * 0.9, torch.where(eta < 10.0, beta * 1.2, beta))
         return weights, beta
 
     def _multi_modal_exp_util(self, cost_horizon):
         """Per-mode + global adaptive-beta weights (m3p2i.py:46-64); beta
-        restarts at 1 on every call, as the reference's does."""
-        return multimodal_weights(cost_horizon, self.gamma_seq, self.half_K, self.eta_u, self.eta_l)
+        restarts at 1 on every call, as the reference's does.  [B, K, T] costs
+        of a seed batch go through the batched weights."""
+        weights_fn = multimodal_weights_batched if cost_horizon.dim() == 3 else multimodal_weights
+        return weights_fn(cost_horizon, self.gamma_seq, self.half_K, self.eta_u, self.eta_l)
 
     # ---------------------------------------------------------------- update
     def _update_halton(self, state: MPPIState, cost_horizon, actions) -> MPPIState:
@@ -297,18 +349,18 @@ class MPPI:
         keep = 1.0 - self.step_size_mean
         if self.multi_modal:
             w0, w1, w = self._multi_modal_exp_util(cost_horizon)
-            new_mean = torch.einsum("k,ktu->tu", w, actions)
+            new_mean = self._weighted_mean(w, actions)
             return dataclasses.replace(
                 state,
                 mean_action=keep * state.mean_action + self.step_size_mean * new_mean,
-                mean_action_1=torch.einsum("k,ktu->tu", w0, actions),
-                mean_action_2=torch.einsum("k,ktu->tu", w1, actions),
+                mean_action_1=self._weighted_mean(w0, actions),
+                mean_action_2=self._weighted_mean(w1, actions),
                 best_traj_1=self._pick(actions, w0),
                 best_traj_2=self._pick(actions, w1),
                 weights=w,
             )
         w, beta = self._exp_util(cost_horizon, state.beta)
-        new_mean = torch.einsum("k,ktu->tu", w, actions)
+        new_mean = self._weighted_mean(w, actions)
         return dataclasses.replace(
             state,
             mean_action=keep * state.mean_action + self.step_size_mean * new_mean,
@@ -319,28 +371,37 @@ class MPPI:
 
     # --------------------------------------------------------------- command
     def command(self, state: MPPIState, sim_state, task: TaskParams, noise=None):
-        """One replanning step from the single real-env state.
+        """One replanning step from the single real-env state (or, for a
+        batched ``state``, from each seed's real-env state).
 
-        Returns (action_sequence [T, nu], new_state, aux dict).
+        Returns (action_sequence [T, nu], new_state, aux dict); [B, T, nu]
+        for a seed batch.
         """
         return self._command_impl(state, sim_state, task, noise)
 
     def _command_impl(self, state: MPPIState, sim_state, task: TaskParams, noise=None):
-        sim_state_k = tree_map(lambda x: x.expand((self.K,) + x.shape), sim_state)
+        nb = state.mean_action.dim() - 2  # leading seed dims: 0, or 1 in a batch
+        sim_state_k = tree_map(
+            lambda x: x.unsqueeze(nb).expand(x.shape[:nb] + (self.K,) + x.shape[nb:]), sim_state
+        )
         if self.fric_inject:
             sim_state_k = dataclasses.replace(sim_state_k, fric_scale=state.fric_scale_k)
         state, action, tps = self._command_halton(state, sim_state_k, task, noise)
         if self.filter_u:
-            action = self._sgf[: action.shape[0], : action.shape[0]] @ action
+            T = action.shape[-2]
+            action = (self._sgf[:T, :T] @ action.double()).float()  # float64, as _weighted_mean
         # top-20 rollout positions for visualization (mppi.py:248-254)
         top_vals, top_idx = torch.topk(state.weights, min(20, self.K))
-        aux = {"weights": state.weights, "top_trajs": tps[top_idx], "top_values": top_vals}
+        top_trajs = torch.take_along_dim(tps, top_idx[..., None, None], dim=-3)
+        aux = {"weights": state.weights, "top_trajs": top_trajs, "top_values": top_vals}
         return action, state, aux
 
     def _command_halton(self, state: MPPIState, sim_state_k, task: TaskParams, noise=None):
         """Shift, jitter, per-mode sampling around the means, elites at 0 and
         half_K, null action at K-1, rollout, update (mppi.py:751-844).
-        ``noise`` [K, T, nu] replaces the generator's standard-normal draw."""
+        ``noise`` [..., K, T, nu] replaces the generators' standard-normal
+        draw.  Sample rows are written as [..., k, :, :], so a leading seed
+        axis passes through."""
         state = dataclasses.replace(
             state,
             mean_action=self._shift(state.mean_action),
@@ -355,29 +416,29 @@ class MPPI:
             # per-tick jitter on the cached deltas: breaks deterministic
             # replanning fixed points (see the JAX planner)
             if noise is None:
-                noise = torch.randn(delta.shape, generator=self.generator, device=self.device)
+                noise = self._exploration_draw(delta.shape)
             delta = delta + self.exploration_noise * noise
-            delta[-1] = 0.0  # in place on the fresh sum: keep the pure-mean sample
+            delta[..., -1, :, :] = 0.0  # in place on the fresh sum: keep the pure-mean sample
         scaled_delta = delta * self.scale_tril
         if self.multi_modal:
             mean_m = torch.where(
                 (self.sample_mode == 0)[:, None, None],
-                state.mean_action_1[None],
-                state.mean_action_2[None],
+                state.mean_action_1[..., None, :, :],
+                state.mean_action_2[..., None, :, :],
             )
             act_seq = mean_m + scaled_delta
         else:
-            act_seq = state.mean_action[None] + scaled_delta
+            act_seq = state.mean_action[..., None, :, :] + scaled_delta
         act_seq = scale_ctrl(act_seq, self.u_min, self.u_max, "clamp")
         # the row writes below go in place into the fresh act_seq
         if self.multi_modal:
-            act_seq[0] = state.best_traj_1  # per-mode elites (mppi.py:407-409)
-            act_seq[self.half_K] = state.best_traj_2
+            act_seq[..., 0, :, :] = state.best_traj_1  # per-mode elites (mppi.py:407-409)
+            act_seq[..., self.half_K, :, :] = state.best_traj_2
         elif self.cfg.sample_best_traj:
-            act_seq[0] = state.best_traj
+            act_seq[..., 0, :, :] = state.best_traj
         act_seq = self._gripper_override(act_seq, task)
         if self.sample_null_action:
-            act_seq[self.K - 1] = 0.0  # braking sample (mppi.py:300-302)
+            act_seq[..., self.K - 1, :, :] = 0.0  # braking sample (mppi.py:300-302)
 
         cost_horizon, tps = self.rollout(sim_state_k, self.u_scale * act_seq, task)
         state = self._update_halton(state, cost_horizon, act_seq)
@@ -397,21 +458,23 @@ class MPPI:
             delta = state.halton_delta * (self.refine_scale * self.refine_decay**i * self.scale_tril)
             if self.multi_modal:
                 mean_m = torch.where(
-                    (self.sample_mode == 0)[:, None, None], state.mean_action_1[None], state.mean_action_2[None]
+                    (self.sample_mode == 0)[:, None, None],
+                    state.mean_action_1[..., None, :, :],
+                    state.mean_action_2[..., None, :, :],
                 )
                 act_seq = mean_m + delta
             else:
-                act_seq = state.mean_action[None] + delta
+                act_seq = state.mean_action[..., None, :, :] + delta
             act_seq = scale_ctrl(act_seq, self.u_min, self.u_max, "clamp")
             if self.multi_modal:
                 # keep the per-mode elites, and ride the pure per-mode means at
                 # slots 1 / half_K + 1 so the greedy pick is monotone per mode
-                act_seq[0] = state.best_traj_1
-                act_seq[self.half_K] = state.best_traj_2
-                act_seq[1] = state.mean_action_1
-                act_seq[self.half_K + 1] = state.mean_action_2
+                act_seq[..., 0, :, :] = state.best_traj_1
+                act_seq[..., self.half_K, :, :] = state.best_traj_2
+                act_seq[..., 1, :, :] = state.mean_action_1
+                act_seq[..., self.half_K + 1, :, :] = state.mean_action_2
             elif self.cfg.sample_best_traj:
-                act_seq[0] = state.best_traj
+                act_seq[..., 0, :, :] = state.best_traj
             act_seq = self._gripper_override(act_seq, task)
             cost_horizon, _ = self.rollout(sim_state_k, self.u_scale * act_seq, task)
             if self.refine_greedy and i == self.refine_iters - 1:
@@ -428,8 +491,8 @@ class MPPI:
             m0 = self.sample_mode == 0
             return dataclasses.replace(
                 state,
-                mean_action=self._take(actions, torch.argmin(traj_costs)),
-                mean_action_1=self._take(actions, torch.argmin(torch.where(m0, traj_costs, torch.inf))),
-                mean_action_2=self._take(actions, torch.argmin(torch.where(~m0, traj_costs, torch.inf))),
+                mean_action=self._take(actions, torch.argmin(traj_costs, dim=-1)),
+                mean_action_1=self._take(actions, torch.argmin(torch.where(m0, traj_costs, torch.inf), dim=-1)),
+                mean_action_2=self._take(actions, torch.argmin(torch.where(~m0, traj_costs, torch.inf), dim=-1)),
             )
-        return dataclasses.replace(state, mean_action=self._take(actions, torch.argmin(traj_costs)))
+        return dataclasses.replace(state, mean_action=self._take(actions, torch.argmin(traj_costs, dim=-1)))

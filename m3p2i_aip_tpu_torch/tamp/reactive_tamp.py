@@ -16,6 +16,13 @@ reach -> pick -> place decision on the device every tick
 ``_zup_update``), so a stage switch needs no host sync either.  After
 success the panda chunk keeps planning and stepping the env with the action
 zeroed, as the JAX chunk does; it does not freeze the state.
+
+Seed batches (``tamp/batch_loop.py``): every device-side piece here is
+written over leading dims, so the same chunk functions run B seeded runs at
+once when the planner state, the real state and the TaskParams carry a
+leading seed axis B.  The done latch is then [B] and freezes each seed on
+its own; a ``done0`` pre-latch lets a batch keep dispatching while single
+seeds have finished, as the JAX package's vmapped chunks do.
 """
 from __future__ import annotations
 
@@ -140,34 +147,35 @@ class ReactiveTAMP:
         real-env branch of calculate_suction, threshold 1.5).  The pull-vs-push
         arbitration reads the PRE-command weights, as the reference's
         get_suction reports the preference from before ``command``."""
-        ext = self.env.zero_ext()
+        ext = self.env.zero_ext(real_state.q.shape[:-1])
         if self.env.env_type != "point_env" or not (bool(self.cfg.suction_active) or self.multi_modal_suction):
             return ext
         box_slot = self.env.box_slot
-        box_pos = real_state.dyn_pos[box_slot]
-        robot_pos = real_state.q[:2]
+        box_pos = real_state.dyn_pos[..., box_slot, :]
+        robot_pos = real_state.q[..., :2]
         on = (task.task_id == 2) | (task.task_id == 3)
         if self.multi_modal_suction:
             w, half_K = mppi_state.weights, self.motion_planner.half_K
-            on = on & (torch.sum(w[half_K:]) > torch.sum(w[:half_K]))
+            on = on & (torch.sum(w[..., half_K:], dim=-1) > torch.sum(w[..., :half_K], dim=-1))
         dir_rb = robot_pos - box_pos
         cmd_vel = command_world_vel(self.env.params, real_state.q, action)
-        on = on & (torch.sum(cmd_vel * dir_rb) > 0) & (torch.linalg.vector_norm(dir_rb) < 0.6)
+        on = on & (torch.sum(cmd_vel * dir_rb, dim=-1) > 0) & (torch.linalg.vector_norm(dir_rb, dim=-1) < 0.6)
+        on = on[..., None]  # over the xy of each force
         f_box, f_robot = skill_utils.calculate_suction(box_pos, robot_pos, float(self.cfg.kp_suction), threshold=1.5)
-        rows = [torch.where(on, f_box, 0.0) if d == box_slot else ext.dyn[d] for d in range(ext.dyn.shape[0])]
-        return dataclasses.replace(ext, robot=torch.where(on, f_robot, 0.0), dyn=torch.stack(rows))
+        rows = [torch.where(on, f_box, 0.0) if d == box_slot else ext.dyn[..., d, :] for d in range(ext.dyn.shape[-2])]
+        return dataclasses.replace(ext, robot=torch.where(on, f_robot, 0.0), dyn=torch.stack(rows, dim=-2))
 
     def _point_success_device(self, real_state, task: TaskParams):
         """PLANNER_SIMPLE's success gate as a device bool: navigation = robot
         strictly within 0.1 m, push family = box within 0.1 m inclusive.  On
         the albert, push_reach gates on its box and ee_reach never latches
         here (the host checks it per tick when the chunk drains)."""
-        goal2 = task.goal[:2]
-        nav_ok = torch.linalg.vector_norm(real_state.q[:2] - goal2) < 0.1
+        goal2 = task.goal[..., :2]
+        nav_ok = torch.linalg.vector_norm(real_state.q[..., :2] - goal2, dim=-1) < 0.1
         if self.env.env_type == "albert_env":
-            box_ok = torch.linalg.vector_norm(real_state.box_pos - goal2) <= 0.1
+            box_ok = torch.linalg.vector_norm(real_state.box_pos - goal2, dim=-1) <= 0.1
             return torch.where(task.task_id == 0, nav_ok, (task.task_id == 9) & box_ok)
-        box_ok = torch.linalg.vector_norm(real_state.dyn_pos[self.env.box_slot] - goal2) <= 0.1
+        box_ok = torch.linalg.vector_norm(real_state.dyn_pos[..., self.env.box_slot, :] - goal2, dim=-1) <= 0.1
         push_family = (task.task_id >= 1) & (task.task_id <= 3)
         return torch.where(task.task_id == 0, nav_ok, push_family & box_ok)
 
@@ -176,7 +184,7 @@ class ReactiveTAMP:
         real_state = update_dyn_obs_device(self.env, real_state, i)
         pre_state = mppi_state  # the PRE-command weights drive the arbitration
         action_seq, mppi_state, aux = self.motion_planner._command_impl(mppi_state, real_state, task)
-        action = action_seq[0]
+        action = action_seq[..., 0, :]
         ext = self._suction_ext_device(pre_state, real_state, task, action)
         real_state = self.env.step(real_state, action, ext)
         return action, mppi_state, real_state, aux
@@ -188,29 +196,33 @@ class ReactiveTAMP:
 
     def _run_chunk_impl(self, mppi_state, real_state, task, i0: int, length: int, gate: bool = True, done0=None):
         """``length`` ticks with no host sync.  Returns (mppi_state,
-        real_state, views [length, nv], n_ticks, done).
+        real_state, views [length, nv], n_ticks, done); for a seed batch
+        views [B, length, nv], n_ticks [B] and done [B].
 
         With ``gate`` on, a device done latch (pre-set by ``done0``) freezes
         both states with ``torch.where`` from the tick the success gate
         fires, exactly as the JAX while-loop stops there; the remaining ticks
         still run, masked, and their view rows stay zero.  ``n_ticks``
-        counts the ticks up to and including the latching one.
+        counts the ticks up to and including the latching one.  In a batch
+        the latch is per seed, and a seed entered with ``done0`` set runs no
+        tick and keeps its state.
         """
+        lead = mppi_state.mean_action.shape[:-2]  # () or (B,)
         nv = self.env.view_vec(real_state).shape[-1]
-        views = torch.zeros(length, nv, dtype=torch.float32, device=self.device)
+        views = torch.zeros(lead + (length, nv), dtype=torch.float32, device=self.device)
         if not gate:
             for k in range(length):
                 _, mppi_state, real_state, _ = self._tick(mppi_state, real_state, task, i0 + k)
-                views[k] = self.env.view_vec(real_state)  # in place into the chunk buffer
+                views[..., k, :] = self.env.view_vec(real_state)  # in place into the chunk buffer
             return mppi_state, real_state, views, length, False
-        done = torch.zeros((), dtype=torch.bool, device=self.device) if done0 is None else done0
-        n_ticks = torch.zeros((), dtype=torch.int32, device=self.device)
+        done = torch.zeros(lead, dtype=torch.bool, device=self.device) if done0 is None else done0
+        n_ticks = torch.zeros(lead, dtype=torch.int32, device=self.device)
         for k in range(length):
             active = ~done
             _, ms, rs, _ = self._tick(mppi_state, real_state, task, i0 + k)
             mppi_state = tree_where(active, ms, mppi_state)
             real_state = tree_where(active, rs, real_state)
-            views[k] = torch.where(active, self.env.view_vec(real_state), 0.0)  # in place
+            views[..., k, :] = torch.where(active[..., None], self.env.view_vec(real_state), 0.0)  # in place
             n_ticks = n_ticks + active.to(torch.int32)
             done = done | (active & self._point_success_device(real_state, task))
         return mppi_state, real_state, views, n_ticks, done
@@ -230,7 +242,7 @@ class ReactiveTAMP:
         the gate turns on after ZUP_STALL_TICKS attached pick ticks without a
         ZUP_IMPROVE_M gain toward the place goal, and off after ZUP_RELEASE_M
         of progress past the latch."""
-        best, n, gate, latch = zs[0], zs[1], zs[2], zs[3]
+        best, n, gate, latch = zs[..., 0], zs[..., 1], zs[..., 2], zs[..., 3]
         improved = d < best - ZUP_IMPROVE_M
         best = torch.minimum(best, d)
         active = in_pick & (att > 0.5)
@@ -241,7 +253,7 @@ class ReactiveTAMP:
         release = d < latch - ZUP_RELEASE_M
         gate = torch.where(active & ((was_on & ~release) | turn_on), 1.0, 0.0)
         best = torch.where(in_pick, best, 1e9)
-        return torch.stack([best, n, gate, latch])
+        return torch.stack([best, n, gate, latch], dim=-1)
 
     def _panda_gate_device(self, real_state, stage, zs):
         """The PLANNER_AIF_PANDA decision as device tensors
@@ -251,12 +263,12 @@ class ReactiveTAMP:
         read).  Returns (TaskParams, new_stage, success, new_zs)."""
         p = self.env.params
         ee = panda_fk.fk(real_state.q, p.base_pos)["ee"][0]
-        cube, cube_q = real_state.body_pos[1], real_state.body_quat[1]
-        goal_pos, goal_q = real_state.body_pos[2], real_state.body_quat[2]
+        cube, cube_q = real_state.body_pos[..., 1, :], real_state.body_quat[..., 1, :]
+        goal_pos, goal_q = real_state.body_pos[..., 2, :], real_state.body_quat[..., 2, :]
         th = float(self.cfg.pre_height_diff) + 0.005
-        pre_place = torch.cat([goal_pos[:2], goal_pos[2:] + th, goal_q])
-        reach_cost = torch.linalg.vector_norm(ee - cube)
-        dist_cost = torch.linalg.vector_norm(pre_place[:2] - cube[:2])
+        pre_place = torch.cat([goal_pos[..., :2], goal_pos[..., 2:] + th, goal_q], dim=-1)
+        reach_cost = torch.linalg.vector_norm(ee - cube, dim=-1)
+        dist_cost = torch.linalg.vector_norm(pre_place[..., :2] - cube[..., :2], dim=-1)
         # the host passes (goal quat, cube quat) in this order (task_planner.py:94-98)
         ori_cost = general_ori_cube2goal(goal_q, cube_q)
         new_stage = torch.where(
@@ -264,38 +276,46 @@ class ReactiveTAMP:
             2,
             torch.where((reach_cost < th) | (stage >= 1), 1, 0),
         ).to(torch.int32)
-        zs = self._zup_update(zs, torch.linalg.vector_norm(pre_place[:3] - cube), new_stage == 1, real_state.attached)
+        zs = self._zup_update(
+            zs, torch.linalg.vector_norm(pre_place[..., :3] - cube, dim=-1), new_stage == 1, real_state.attached
+        )
         task = TaskParams(
             task_id=(4 + new_stage).to(torch.int32),
             goal=pre_place,
             # reach / place -> open (1), pick -> close (2) (m3p2i.py:22-28)
             gripper=torch.where(new_stage == 1, 2, 1).to(torch.int32),
-            zup_gate=zs[2],
+            zup_gate=zs[..., 2],
         )
         success = (new_stage == 2) & (dist_cost < 0.04)
         return task, new_stage, success, zs
 
-    def _run_chunk_panda_impl(self, mppi_state, real_state, stage, zs, length: int):
+    def _run_chunk_panda_impl(self, mppi_state, real_state, stage, zs, length: int, done0=None):
         """``length`` panda ticks with no host sync: the AIF gate, the replan
         and the real-env step per tick.  A latched success zeroes the action
-        but keeps planning and stepping (reactive_tamp.py:566).  Returns
-        (mppi_state, real_state, stage, zs, done, views [length, 22],
-        stages [length], dones [length])."""
-        done = torch.zeros((), dtype=torch.bool, device=self.device)
-        ext = self.env.zero_ext()
+        but keeps planning and stepping (reactive_tamp.py:566).  ``done0``
+        pre-latches the gate, so a chunk entered already done keeps its
+        zero-action freeze: a finished seed of a batch never resumes
+        planning, even if its cube later drifts past the success threshold
+        (reactive_tamp.py:547-578).  Returns (mppi_state, real_state, stage,
+        zs, done, views [length, 22], stages [length], dones [length]); for a
+        seed batch (``stage`` [B], ``zs`` [B, 4]) done is [B] and the
+        per-tick outputs are [B, length, ...]."""
+        lead = stage.shape
+        done = torch.zeros(lead, dtype=torch.bool, device=self.device) if done0 is None else done0
+        ext = self.env.zero_ext(lead)
         views, stages, dones = [], [], []
         for _ in range(length):
             task, stage, succ, zs = self._panda_gate_device(real_state, stage, zs)
             done = done | succ
             action_seq, mppi_state, _ = self.motion_planner._command_impl(mppi_state, real_state, task)
-            action = torch.where(done, 0.0, action_seq[0])
+            action = torch.where(done[..., None], 0.0, action_seq[..., 0, :])
             real_state = self.env.step(real_state, action, ext)
             views.append(self.env.view_vec(real_state))
             stages.append(stage)
             dones.append(done)
         return (
             mppi_state, real_state, stage, zs, done,
-            torch.stack(views), torch.stack(stages), torch.stack(dones),
+            torch.stack(views, dim=-2), torch.stack(stages, dim=-1), torch.stack(dones, dim=-1),
         )
 
     def run_chunk_panda(self, mppi_state, real_state, stage, zs, length: int):

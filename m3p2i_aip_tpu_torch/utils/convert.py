@@ -5,6 +5,11 @@ e.g. ``{f.name: np.asarray(getattr(x, f.name)) for f in fields(x)}``) plus,
 for the params, its static fields, and returns the port's dataclass with
 tensors on ``device``.  The port never sees a jax array: whoever calls these
 does the ``np.asarray`` on the JAX side.
+
+The state functions are shape-agnostic: the leaves of a JAX batch (the
+vmapped states of ``m3p2i_aip_tpu/tamp/batch_loop.py``, every leaf with a
+leading seed axis B) become the port's batched states, as
+``tamp/batch_loop.py`` holds them.
 """
 from __future__ import annotations
 
@@ -62,8 +67,9 @@ def albert_state_from_numpy(arrays: dict, device="cpu") -> AlbertState:
 
 
 def mppi_state_from_numpy(arrays: dict, device="cpu") -> MPPIState:
-    """``MPPIState``; the JAX PRNG key (``rng``) has no counterpart and is
-    dropped — the port's planner draws from its own ``torch.Generator``."""
+    """``MPPIState`` (a single or a [B]-leading batched one); the JAX PRNG
+    key (``rng``) has no counterpart and is dropped — the port's planner
+    draws from its own ``torch.Generator`` (one per seed in a batch)."""
     return _build(MPPIState, arrays, device)
 
 

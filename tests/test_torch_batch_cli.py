@@ -1,0 +1,38 @@
+"""The port's experiment runner (``m3p2i_aip_tpu_torch/scripts/
+run_experiments.py``) on the CPU at tiny K and T: ``parallel_seeds=True``
+runs the seeds as one ``BatchSimLoop`` batch and writes one .npy row per
+run in the reference's schema; the sharded mode and a batch with domain
+noise are refused."""
+import numpy as np
+import pytest
+
+from m3p2i_aip_tpu_torch.scripts import run_experiments
+
+TINY = ["mppi.num_samples=8", "mppi.horizon=4", "n_steps=4", "n_runs=2", "chunked=2", "device=cpu"]
+
+
+@pytest.mark.parametrize(
+    "family, argv, cols",
+    [
+        ("point", ["task=push_pull", "multi_modal=True", "goal=[-3.75,-3.75]"], 19),
+        ("albert", ["-cn", "config_albert"], 11),
+    ],
+)
+def test_parallel_seeds_writes_rows(tmp_path, capsys, family, argv, cols):
+    out = tmp_path / f"{family}.npy"
+    run_experiments.main([*argv, *TINY, "parallel_seeds=True", f"out={out}"])
+    rows = np.load(out)
+    assert rows.shape == (2, cols)
+    assert np.isfinite(rows).all()
+    printed = capsys.readouterr().out
+    assert "run 1: success=" in printed and "success rate:" in printed
+
+
+def test_parallel_seeds_shard_is_refused(tmp_path):
+    with pytest.raises(NotImplementedError, match="M11"):
+        run_experiments.main([*TINY, "parallel_seeds=shard", f"out={tmp_path / 'x.npy'}"])
+
+
+def test_parallel_seeds_refuses_domain_noise(tmp_path):
+    with pytest.raises(SystemExit, match="parallel_seeds"):
+        run_experiments.main([*TINY, "fric_noise=0.4", "parallel_seeds=True", f"out={tmp_path / 'x.npy'}"])

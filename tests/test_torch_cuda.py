@@ -166,3 +166,108 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         ar.albert_rollout(spec, task_vec, state0[:-1], acts.contiguous())
     with pytest.raises(ValueError):
         ar.albert_rollout(spec, task_vec, state0, acts.contiguous().double())
+
+
+# ------------------------------------------------- batched kernels K1b-K4b
+# B = 4 seeds with their own start states and tasks; each batched kernel is
+# held against its batched plain version at its single kernel's bars, and
+# against B single launches on the same inputs at 1e-5 (the bodies are the
+# same, so 0 is expected; tests/test_pallas.py:475, :610).
+SERIAL_ATOL = 1e-5
+
+
+def _check_batched(batched, plain, single, inputs, cost_atol, traj_atol, counter):
+    """Launch ``batched`` once, compare with ``plain`` and with ``single``
+    per seed; ``counter`` reads the batched launch count."""
+    before = counter()
+    c_k, t_k = batched(*inputs)
+    assert counter() == before + 1
+    c_p, t_p = plain(*inputs)
+    assert float(torch.max(torch.abs(c_k - c_p))) <= cost_atol
+    assert float(torch.max(torch.abs(t_k - t_p))) <= traj_atol
+    for b in range(c_k.shape[0]):
+        c_s, t_s = single(*(x[b] for x in inputs))
+        assert float(torch.max(torch.abs(c_k[b] - c_s))) <= SERIAL_ATOL, b
+        assert float(torch.max(torch.abs(t_k[b] - t_s))) <= SERIAL_ATOL, b
+
+
+def test_batched_weights_kernel_matches_plain_and_single(cuda):
+    rng = np.random.default_rng(5)
+    scale = np.asarray([50.0, 0.5, 5.0, 200.0], np.float32)[:, None, None]  # beta rounds differ per seed
+    cost = torch.as_tensor((rng.uniform(0, 1, size=(4, 200, 15)) * scale).astype(np.float32), device=cuda)
+    gamma = torch.as_tensor(np.cumprod([1.0] + [0.95] * 14).astype(np.float32), device=cuda)
+    before = weights.weights_batched_launches
+    got = weights.multimodal_weights_batched(cost, gamma, 100)
+    assert weights.weights_batched_launches == before + 1
+    ref = weights.multimodal_weights_batched_plain(cost, gamma, 100)
+    for g, r in zip(got, ref):
+        assert float(torch.max(torch.abs(g - r))) <= 1e-6
+        assert float(torch.max(torch.abs(torch.sum(g, dim=-1) - 1.0))) < 1e-5
+    for b in range(4):
+        for g, s in zip(got, weights.multimodal_weights(cost[b], gamma, 100)):
+            assert float(torch.max(torch.abs(g[b] - s))) <= SERIAL_ATOL, b
+
+
+def test_batched_point_kernel_matches_plain_and_single(cuda):
+    tamp = ReactiveTAMP(
+        load_config("config_point", ["task=push_pull", "multi_modal=True", "goal=[-3.75,-3.75]"]), device=cuda
+    )
+    mp, env = tamp.motion_planner, tamp.env
+    spec = mp.rollout.spec
+    rng = np.random.default_rng(6)
+    rows = []
+    for (q0, qd0), (task_name, goal) in zip(
+        STARTS + [([-3.3, -3.3], [-6.0, -6.0])],
+        [("push_pull", [-3.75, -3.75]), ("pull", [1.0, 3.0]), ("push", [-1.0, -1.0]), ("navigation", [1.5, 1.0])],
+    ):
+        state = dataclasses.replace(env.init_state(), q=torch.tensor(q0, device=cuda), qd=torch.tensor(qd0, device=cuda))
+        sk = tree_map(lambda x: x.expand((mp.K,) + x.shape), state)
+        fric = torch.as_tensor(rng.uniform(0.7, 1.3, size=(mp.K, 2)).astype(np.float32), device=cuda)
+        sk = dataclasses.replace(sk, fric_scale=fric)
+        rows.append(ro.rollout_inputs(sk, make_task_params(task_name, goal, device=cuda)))
+    acts = torch.as_tensor(rng.uniform(-3, 3, size=(4, mp.K, mp.T, env.nu)).astype(np.float32), device=cuda)
+    inputs = tuple(torch.stack(xs) for xs in zip(*rows)) + (acts,)
+    _check_batched(
+        lambda *a: ro.point_rollout_batched(spec, *a), lambda *a: ro.point_rollout_batched_plain(spec, *a),
+        lambda *a: ro.point_rollout(spec, *a), inputs, 1e-2, 1e-3, lambda: ro.rollout_batched_launches,
+    )
+
+
+def test_batched_panda_kernel_matches_plain_and_single(cuda):
+    tamp = ReactiveTAMP(load_config("config_panda", ["multi_modal=True"]), device=cuda)
+    mp = tamp.motion_planner
+    spec, K, T = mp.rollout.spec, mp.K, mp.T
+    rng = np.random.default_rng(7)
+    base = tamp.env.init_state()
+    rows, acts = [], []
+    for name, start, task_name, grip, zup in pr.PARITY_CASES[1:5]:
+        goal = pr.PARITY_GOAL if task_name == "pick" else [0.0] * 7
+        sk = tree_map(lambda x: x.expand((K,) + x.shape), pr.parity_state(base, start))
+        rows.append(pr.rollout_inputs(sk, make_task_params(task_name, goal, "none", zup, device=cuda)))
+        a = rng.uniform(-1.5, 1.5, size=(K, T, 9)).astype(np.float32)
+        if grip is not None:
+            a[..., 7:9] = grip
+        acts.append(a)
+    inputs = tuple(torch.stack(xs) for xs in zip(*rows)) + (torch.as_tensor(np.stack(acts), device=cuda),)
+    _check_batched(
+        lambda *a: pr.panda_rollout_batched(spec, *a), lambda *a: pr.panda_rollout_batched_plain(spec, *a),
+        lambda *a: pr.panda_rollout(spec, *a), inputs, 1e-2, 1e-3, lambda: pr.panda_rollout_batched_launches,
+    )
+
+
+def test_batched_albert_kernel_matches_plain_and_single(cuda):
+    tamp = ReactiveTAMP(load_config("config_albert"), device=cuda)
+    mp = tamp.motion_planner
+    spec, K, T = mp.rollout.spec, mp.K, mp.T
+    rng = np.random.default_rng(8)
+    rows = []
+    for name, start, task_name, goal in ar.PARITY_CASES[:4]:
+        sk = tree_map(lambda x: x.expand((K,) + x.shape), ar.parity_state(tamp.env.params, start))
+        rows.append(ar.rollout_inputs(sk, make_task_params(task_name, goal, device=cuda)))
+    acts = rng.uniform(-1.5, 1.5, size=(4, K, T, 13)).astype(np.float32)
+    acts[..., 11:13] *= 8.0
+    inputs = tuple(torch.stack(xs) for xs in zip(*rows)) + (torch.as_tensor(acts, device=cuda),)
+    _check_batched(
+        lambda *a: ar.albert_rollout_batched(spec, *a), lambda *a: ar.albert_rollout_batched_plain(spec, *a),
+        lambda *a: ar.albert_rollout(spec, *a), inputs, 1e-4, 1e-4, lambda: ar.albert_rollout_batched_launches,
+    )

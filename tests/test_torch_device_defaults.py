@@ -1,6 +1,6 @@
 """The port's entry points run on the card unless the caller asks for the CPU.
 
-``SimLoop``, ``ReactiveTAMP``, ``make_env`` and ``M3P2I`` default to
+``SimLoop``, ``BatchSimLoop``, ``ReactiveTAMP``, ``make_env`` and ``M3P2I`` default to
 ``device="cuda"``; on a host without CUDA a call that names no device raises
 instead of quietly running on the CPU.
 """
@@ -13,11 +13,13 @@ from m3p2i_aip_tpu_torch.config.config_store import load_config
 from m3p2i_aip_tpu_torch.envs import make_env
 from m3p2i_aip_tpu_torch.planners.motion_planner.m3p2i import M3P2I
 from m3p2i_aip_tpu_torch.planners.motion_planner.mppi import MPPI
+from m3p2i_aip_tpu_torch.tamp.batch_loop import BatchSimLoop
 from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMP
 from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
 
 ENTRY_POINTS = {
     "SimLoop": (SimLoop.__init__, lambda cfg: SimLoop(cfg)),
+    "BatchSimLoop": (BatchSimLoop.__init__, lambda cfg: BatchSimLoop(cfg, [0, 1])),
     "ReactiveTAMP": (ReactiveTAMP.__init__, lambda cfg: ReactiveTAMP(cfg)),
     "make_env": (make_env, lambda cfg: make_env(cfg)),
     "M3P2I": (MPPI.__init__, lambda cfg: M3P2I(cfg, rollout=None)),

@@ -18,7 +18,10 @@ import m3p2i_aip_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-for name in ("models.albert", "ops.albert_rollout", "models.panda_env", "ops.panda_rollout", "ops.rollout"):
+for name in (
+    "models.albert", "ops.albert_rollout", "models.panda_env", "ops.panda_rollout", "ops.rollout",
+    "tamp.batch_loop", "analysis.run_logger", "analysis.stats", "scripts.run_experiments",
+):
     assert pkg.__name__ + "." + name in names, name
 leaked = sorted(m for m in sys.modules if m == "m3p2i_aip_tpu" or m.startswith("m3p2i_aip_tpu."))
 assert not leaked, leaked
@@ -41,6 +44,9 @@ def test_port_covers_the_mirrored_layout():
     """Every subpackage of the JAX layout that the port mirrors is present."""
     proc = _probe()
     assert proc.returncode == 0, proc.stderr
-    for sub in ("config", "sim", "models", "ops", "planners/motion_planner", "planners/task_planner", "tamp", "utils"):
+    for sub in (
+        "config", "sim", "models", "ops", "planners/motion_planner", "planners/task_planner", "tamp", "utils",
+        "analysis", "scripts",
+    ):
         assert os.path.isfile(os.path.join(_REPO, "m3p2i_aip_tpu_torch", sub, "__init__.py")), sub
     assert int(proc.stdout.strip()) >= 25
