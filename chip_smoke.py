@@ -31,11 +31,19 @@ paths through ``SimLoop.run_chunked``:
   1e-4); and the B=20 point batch's rate in benchmark mode beside the serial
   rate, with a profile of one batched tick.
 
+The point kernel's time depends on its data (it skips the projections of
+contacts that are not live), so the inputs the point main path and the
+n=20 point batch gave K1 and K1b are recorded, each timed, and the slowest
+held against the plain version and timed beside the random-action inputs;
+then a rollout-scaling phase times K1 at K = 200, 1000 and 4000 and K1b at
+B = 1, 4 and 20 on both kinds of input (kernel times only, each with its
+waves).
+
 Each kernel's entry in the kernel table carries its bound: the least time
 the card could take for the same work, the larger of the bytes it must move
 over 3.35 TB/s and the f32 operations it does over 67 TFLOP/s (the H100 SXM
 data-sheet peaks), the operations reckoned from the kernel's code at this
-run's shapes.
+run's shapes (for the point rollout, from this run's live contacts too).
 
 Usage (one CUDA GPU, no arguments):
 
@@ -48,7 +56,9 @@ name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -76,7 +86,12 @@ PUSH_REACH = ["task=push_reach", "goal=[3.0,0.0,0.6]"]
 BENCH_CHUNK = 50  # the point and panda benchmark phases: 2 warm-up chunks, then 4 timed chunks
 N_SEEDS = 20  # the n=20 protocol of RESULTS.md
 CHECK_SEEDS = 4  # seeds of the batched kernels' checks against their plain versions
-SERIAL_ATOL = 1e-5  # a batched kernel against its single kernel per seed (tests/test_pallas.py:475, :610)
+SERIAL_ATOL = 0.0  # a batched kernel against its single kernel per seed: the same body, so the same bits
+SCALING_K = (200, 1000, 4000)  # K1's sample counts in the rollout-scaling phase (T=15)
+SCALING_B = (1, 4, 20)  # K1b's seed counts there (K=200 x T=15)
+# K1 / K1b on a recorded closed-loop input: the share of samples that may lie
+# beyond COST_ATOL / TRAJ_ATOL, since such an input can sit on a contact gate
+CLOSED_LOOP_BEYOND = 0.01
 BATCH_PARITY_ATOL = 1e-4  # batched runs against serial runs (tests/test_batch_loop.py:44-78)
 MIN_SUCCESS = 18  # of N_SEEDS, per n=20 batch
 # four point tasks for the batched checks: (name, goal)
@@ -87,8 +102,9 @@ PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
 # f32 operations reckoned from the kernels' code, counting each add, multiply,
 # compare or select, division, square root, sine, cosine and exponential as
 # one (so the bound is a lower bound: a transcendental costs the card more)
-CIRCLE_CONTACT_OPS = 55 + 90  # circle_vs_obb + resolve (csrc/pbd2d.cuh)
-CORNER_CONTACT_OPS = 120 + 4 * 90  # corners_vs_obb + four resolves (point_rollout.cu)
+CIRCLE_TEST_OPS, CORNER_TEST_OPS = 55, 120  # circle_vs_obb (csrc/pbd2d.cuh), corners_vs_obb (point_rollout.cu)
+RESOLVE_OPS = 90  # the projection of one contact or corner (resolve, csrc/pbd2d.cuh)
+CIRCLE_CONTACT_OPS = CIRCLE_TEST_OPS + RESOLVE_OPS  # a contact the albert kernel always projects
 PANDA_FK_OPS = 330  # seven joints with a sin/cos each, the hand, the fingers (panda_fk.cuh)
 
 
@@ -127,18 +143,64 @@ def _bound(n_bytes: int, n_ops: float) -> dict:
     return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def _point_rollout_ops(spec, K: int) -> float:
-    """K1: per position iteration the five Jacobi passes (robot vs boxes,
-    box pairs, boxes vs statics, robot vs statics, robot vs held boxes);
-    per substep the drive, ground friction and integration; per step the
-    costs with the wall-crush probe."""
+def _point_rollout_ops(spec, K: int, live: int) -> float:
+    """K1 on K samples: per position iteration the contact tests of the five
+    Jacobi passes (robot vs boxes, box pairs, boxes vs statics, robot vs
+    statics, robot vs held boxes) for every contact; per substep the drive,
+    ground friction and integration; per step the costs with the
+    wall-crush probe; and one projection for each of the ``live`` contacts
+    (pen > 0, counted by ``_live_contacts`` on the same inputs), since a
+    contact that is not live projects to zero and needs no projection."""
     D, S, p = spec.D, spec.S, spec.env_params
     per_iter = (
-        2 * D * (2 + CIRCLE_CONTACT_OPS) + D * (D - 1) * (2 + CORNER_CONTACT_OPS)
-        + D * S * (CORNER_CONTACT_OPS + 10) + S * CIRCLE_CONTACT_OPS
+        2 * D * (2 + CIRCLE_TEST_OPS) + D * (D - 1) * (2 + CORNER_TEST_OPS)
+        + D * S * (CORNER_TEST_OPS + 10) + S * CIRCLE_TEST_OPS
     )
     per_sub = 40 + 40 * D + p.pos_iters * per_iter + 4
-    return K * spec.T * (p.substeps * per_sub + 150 + 55 * S)
+    return K * spec.T * (p.substeps * per_sub + 150 + 55 * S) + RESOLVE_OPS * live
+
+
+@contextlib.contextmanager
+def _live_contacts():
+    """Inside the block, each contact that the plain point rollout projects
+    live (pen > 0: a robot-circle contact or one corner of a box) is
+    counted; the yielded list holds one device count per projection call
+    (``_total`` sums them)."""
+    from m3p2i_aip_tpu_torch.sim import pbd2d
+
+    resolve, live = pbd2d.resolve_contact, []
+
+    def counted(contact, *args, **kwargs):
+        live.append(torch.count_nonzero(contact.pen > 0))
+        return resolve(contact, *args, **kwargs)
+
+    pbd2d.resolve_contact = counted
+    try:
+        yield live
+    finally:
+        pbd2d.resolve_contact = resolve
+
+
+def _total(live: list) -> int:
+    return int(torch.stack(live).sum()) if live else 0
+
+
+@contextlib.contextmanager
+def _recorded(mod, name: str):
+    """Inside the block, each call of the wrapper ``mod.name(spec, *tensors)``
+    is recorded into the yielded list as (spec, copies of its tensors); the
+    call itself goes through unchanged, launch count included."""
+    fn, calls = getattr(mod, name), []
+
+    def recording(spec, *args):
+        calls.append((spec, tuple(x.clone() for x in args)))
+        return fn(spec, *args)
+
+    setattr(mod, name, recording)
+    try:
+        yield calls
+    finally:
+        setattr(mod, name, fn)
 
 
 def _weights_ops(cost, mp) -> float:
@@ -251,7 +313,8 @@ def phase_rollout(tamp) -> dict:
         acts = torch.as_tensor(rng.uniform(-3, 3, size=(mp.K, mp.T, env.nu)).astype(np.float32), device="cuda")
         inputs = ro.rollout_inputs(sk, task, k0)
         c_k, t_k = ro.point_rollout(spec, *inputs, acts)
-        c_p, t_p = ro.point_rollout_plain(spec, *inputs, acts)
+        with _live_contacts() as live:
+            c_p, t_p = ro.point_rollout_plain(spec, *inputs, acts)
         torch.cuda.synchronize()
         ce = float(torch.max(torch.abs(c_k - c_p)))
         te = float(torch.max(torch.abs(t_k - t_p)))
@@ -260,20 +323,173 @@ def phase_rollout(tamp) -> dict:
         assert ce <= COST_ATOL and te <= TRAJ_ATOL, f"rollout kernel disagrees with its plain version in case {n}"
         cost_err, traj_err = max(cost_err, ce), max(traj_err, te)
         if timed is None:
-            timed = (inputs, acts)
-    inputs, acts = timed
+            timed = (inputs, acts, _total(live))
+    inputs, acts, n_live = timed
     ms = _time_ms(lambda: ro.point_rollout(spec, *inputs, acts))
     plain_ms = _time_ms(lambda: ro.point_rollout_plain(spec, *inputs, acts), calls=5, warmup=1)
     K, T = acts.shape[:2]
-    bound = _bound(_bytes(spec.params_buf, *inputs, acts) + K * T * 3 * 4, _point_rollout_ops(spec, K))
-    print(f"[rollout] max cost err {cost_err:.3e}, max traj err {traj_err:.3e}")
+    bound = _bound(_bytes(spec.params_buf, *inputs, acts) + K * T * 3 * 4, _point_rollout_ops(spec, K, n_live))
+    print(f"[rollout] max cost err {cost_err:.3e}, max traj err {traj_err:.3e}; "
+          f"case 0 (timed) projects {n_live} live contacts")
     print(f"[rollout] kernel {ms:.4f} ms (median of {TIMED_CALLS}), plain {plain_ms:.4f} ms (median of 5); bound {bound}")
     return {"max_abs_err": cost_err, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None}
 
 
+def _point_launch_shape() -> dict:
+    """The point kernel's team width and block (its source's constants), its
+    registers and spill stores a thread (the build's ptxas report), and the
+    blocks an SM holds at that register count: an H100 SM has 64K
+    registers, allocated 256 a warp, and holds at most 64 warps and 32
+    blocks (the kernel's few hundred bytes of shared memory a block bind
+    nothing)."""
+    from m3p2i_aip_tpu_torch.ops import cuda_build
+
+    src = (cuda_build.CSRC_DIR / "point_rollout.cu").read_text()
+    team, threads = (int(re.search(rf"constexpr int {n} = (\d+);", src).group(1)) for n in ("kTeam", "kThreads"))
+    m = re.search(
+        r"for \S*point_rollout_kernel\S*\n[^\n]*?(\d+) bytes spill stores[^\n]*\n[^\n]*?Used (\d+) registers",
+        cuda_build.build_info["log"],
+    )
+    assert m is not None, "the build log holds no ptxas report of the point kernel"
+    spill, regs = int(m.group(1)), int(m.group(2))
+    warps = threads // 32
+    per_sm = min(32, 64 // warps, 65536 // (-(-regs * 32 // 256) * 256 * warps))
+    return {"team": team, "threads": threads, "samples": threads // team, "registers": regs, "spill": spill,
+            "per_wave": per_sm * torch.cuda.get_device_properties(0).multi_processor_count}
+
+
+def _slowest(calls, kernel) -> tuple:
+    """Each recorded (spec, inputs) call of a point kernel wrapper timed
+    (CUDA events, median of 5 calls): the median over the calls, and the
+    slowest call."""
+    times = [_time_ms(lambda: kernel(spec, *args), calls=5, warmup=1) for spec, args in calls]
+    return float(np.median(times)), calls[int(np.argmax(times))]
+
+
+def _closed_loop_check(label: str, spec, inputs, out) -> int:
+    """A point kernel's (cost, traj) ``out`` [B, K, ...] on B seeds'
+    recorded closed-loop ``inputs`` against the plain version, sample by
+    sample; returns the live contacts the plain version counted.
+
+    A closed-loop input can be ill-conditioned: a sample whose box sits on a
+    contact gate (pen = 0, n_active) takes the other branch after a one-ulp
+    difference in any earlier operation, and its trajectory parts from
+    there.  So at most CLOSED_LOOP_BEYOND of the samples may lie beyond the
+    bars; where any does, the plain version is run again with the worst
+    seed's actions one ulp up, to show how far it moves by itself."""
+    from m3p2i_aip_tpu_torch.ops import rollout as ro
+
+    c_k, t_k = out
+    with _live_contacts() as live:
+        c_p, t_p = ro.point_rollout_batched_plain(spec, *inputs)
+    ce = torch.abs(c_k - c_p).amax(-1)
+    te = torch.abs(t_k - t_p).amax((-2, -1))
+    beyond = (ce > COST_ATOL) | (te > TRAJ_ATOL)
+    n_beyond, within = int(beyond.sum()), ~beyond
+    print(f"[{label}] vs plain: {n_beyond} of {beyond.numel()} samples beyond the bars; within them max cost err "
+          f"{float(ce[within].max()):.3e}, traj err {float(te[within].max()):.3e}; overall max cost err "
+          f"{float(ce.max()):.3e}, traj err {float(te.max()):.3e}")
+    if n_beyond:
+        b = int(te.amax(-1).argmax())
+        x = [v[b] for v in inputs]
+        x[-1] = torch.nextafter(x[-1], torch.full_like(x[-1], torch.inf))
+        c_n, t_n = ro.point_rollout_plain(spec, *x)
+        ce_n, te_n = torch.abs(c_n - c_p[b]).amax(-1), torch.abs(t_n - t_p[b]).amax((-2, -1))
+        n_moved = int(((ce_n > COST_ATOL) | (te_n > TRAJ_ATOL)).sum())
+        print(f"[{label}] the plain version with seed {b}'s actions one ulp up moves {n_moved} of its "
+              f"{ce_n.numel()} samples beyond the bars, by up to cost {float(ce_n.max()):.3e}, traj {float(te_n.max()):.3e}")
+    assert torch.isfinite(c_k).all() and torch.isfinite(t_k).all()
+    assert n_beyond <= CLOSED_LOOP_BEYOND * beyond.numel(), f"{label}: kernel disagrees with its plain version"
+    return _total(live)
+
+
+def phase_closed_loop(card: str, main_calls: list, batch_calls: list) -> tuple:
+    """K1 and K1b on the inputs the closed loops gave them: every K1 input of
+    the gated main path (one a tick) and every K1b input of the n=20 point
+    batch (one a batched tick) timed; the slowest of each (the most live
+    contacts to project) held against its plain version sample by sample
+    (``_closed_loop_check``, which counts its live contacts for the bound;
+    K1b also against single launches, exactly) and timed with TIMED_CALLS.
+    Returns the two kernels' closed-loop keys and the two slowest inputs."""
+    from m3p2i_aip_tpu_torch.ops import rollout as ro
+
+    med1, (spec, k1_in) = _slowest(main_calls, ro.point_rollout)
+    out = tuple(x[None] for x in ro.point_rollout(spec, *k1_in))
+    live1 = _closed_loop_check(f"closed-loop K1, slowest of {len(main_calls)} main-path ticks", spec,
+                               tuple(x[None] for x in k1_in), out)
+    med1b, (spec_b, k1b_in) = _slowest(batch_calls, ro.point_rollout_batched)
+    c_k, t_k = ro.point_rollout_batched(spec_b, *k1b_in)
+    live1b = _closed_loop_check(f"closed-loop K1b, slowest of {len(batch_calls)} batched ticks", spec_b, k1b_in,
+                                (c_k, t_k))
+    se = 0.0
+    for b in range(c_k.shape[0]):
+        c_s, t_s = ro.point_rollout(spec_b, *(x[b] for x in k1b_in))
+        se = max(se, float(torch.max(torch.abs(c_k[b] - c_s))), float(torch.max(torch.abs(t_k[b] - t_s))))
+    print(f"[closed-loop K1b] vs {c_k.shape[0]} single launches max err {se:.3e}")
+    assert se <= SERIAL_ATOL, f"closed-loop K1b disagrees with its single kernel: {se}"
+
+    entries = []
+    for name, sp, inputs, med, n_live in (("K1", spec, k1_in, med1, live1), ("K1b", spec_b, k1b_in, med1b, live1b)):
+        kernel = ro.point_rollout if name == "K1" else ro.point_rollout_batched
+        ms = _time_ms(lambda: kernel(sp, *inputs))
+        n, T = inputs[-1].shape[:-2].numel(), inputs[-1].shape[-2]
+        bound = _bound(_bytes(sp.params_buf, *inputs) + n * T * 3 * 4, _point_rollout_ops(sp, n, n_live))
+        print(f"[closed-loop {name}] {tuple(inputs[-1].shape[:-2])} samples: slowest input {ms:.4f} ms (median of "
+              f"{TIMED_CALLS}), {n_live} live contacts, bound {bound}; median over the recorded inputs "
+              f"{med:.4f} ms ({card})")
+        entries.append({"closed_loop_ms": ms, "closed_loop_median_ms": med, "closed_loop_bound_ms": bound["bound_ms"]})
+    return entries[0], entries[1], (spec, k1_in), (spec_b, k1b_in)
+
+
+def phase_rollout_scaling(card: str, k1_loop: tuple, k1b_loop: tuple) -> None:
+    """K1 at K in SCALING_K (T=15; the K=200 samples tiled) and K1b at B in
+    SCALING_B (K=200; the first B seeds), on random-action inputs (few live
+    contacts) and on the slowest closed-loop inputs: kernel times only
+    (CUDA events, medians of TIMED_CALLS), each with its blocks and waves,
+    after the kernel's team width, registers and spills."""
+    from dataclasses import replace
+
+    from m3p2i_aip_tpu_torch.config.config_store import load_config
+    from m3p2i_aip_tpu_torch.ops import rollout as ro
+    from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMP
+    from m3p2i_aip_tpu_torch.utils.tree import tree_map
+
+    shape = _point_launch_shape()
+    print(f"[rollout-scaling] team {shape['team']} lanes a sample, {shape['threads']} threads ({shape['samples']} "
+          f"samples) a block, {shape['registers']} registers and {shape['spill']} bytes of spill stores a thread, "
+          f"{shape['per_wave']} blocks a wave ({card})")
+    tamp = ReactiveTAMP(load_config("config_point", MAIN_PATH), device="cuda")
+    env, spec = tamp.env, tamp.motion_planner.rollout.spec
+    rng = np.random.default_rng(13)
+    state = replace(env.init_state(), q=torch.tensor(STARTS[0][0], device="cuda"),
+                    qd=torch.tensor(STARTS[0][1], device="cuda"))
+    sk = tree_map(lambda x: x.expand((spec.K,) + x.shape), state)
+    fric = rng.uniform(0.7, 1.3, size=(spec.K, state.fric_scale.shape[0])).astype(np.float32)
+    sk = replace(sk, fric_scale=torch.as_tensor(fric, device="cuda"))
+    acts = torch.as_tensor(rng.uniform(-3, 3, size=(spec.K, spec.T, env.nu)).astype(np.float32), device="cuda")
+    random_k1 = (spec, ro.rollout_inputs(sk, tamp.tamp_interface_view(env.view(state))) + (acts,))
+    random_k1b = (spec, _point_batch_inputs(tamp, max(SCALING_B), rng))
+    for kind, (sp, (task, state0, fric_k, acts)), (sp_b, inputs_b) in (
+        ("random-action", random_k1, random_k1b), ("closed-loop", k1_loop, k1b_loop)
+    ):
+        for K in SCALING_K:
+            n = K // acts.shape[0]
+            tiled = (task, state0, fric_k.repeat(n, 1), acts.repeat(n, 1, 1))
+            ms = _time_ms(lambda: ro.point_rollout(replace(sp, K=K), *tiled))
+            blocks = -(-K // shape["samples"])
+            print(f"[rollout-scaling] {kind} K1 K={K} x T={sp.T}: {ms:.4f} ms, {blocks} blocks, "
+                  f"{-(-blocks // shape['per_wave'])} wave(s) ({card})")
+        for B in SCALING_B:
+            ms = _time_ms(lambda: ro.point_rollout_batched(sp_b, *(x[:B] for x in inputs_b)))
+            blocks = B * -(-sp_b.K // shape["samples"])
+            print(f"[rollout-scaling] {kind} K1b B={B} x K={sp_b.K} x T={sp_b.T}: {ms:.4f} ms, {blocks} blocks, "
+                  f"{-(-blocks // shape['per_wave'])} wave(s) ({card})")
+
+
 def phase_main_path(cfg) -> tuple:
     """The main path with both gates on: the box must reach the goal, and
-    both kernels must launch once per dispatched tick."""
+    both kernels must launch once per dispatched tick.  Returns the loop,
+    the launch counts and K1's recorded inputs."""
     from m3p2i_aip_tpu_torch.ops import rollout as ro
     from m3p2i_aip_tpu_torch.ops import weights
     from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
@@ -292,7 +508,8 @@ def phase_main_path(cfg) -> tuple:
     ro.rollout_launches = 0
     weights.weights_launches = 0
     t0 = time.perf_counter()
-    log = loop.run_chunked(1000, chunk=50)
+    with _recorded(ro, "point_rollout") as calls:
+        log = loop.run_chunked(1000, chunk=50)
     wall = time.perf_counter() - t0
     launches = {"point_rollout": ro.rollout_launches, "multimodal_weights": weights.weights_launches}
     loop.tamp.run_chunk = run_chunk
@@ -307,7 +524,7 @@ def phase_main_path(cfg) -> tuple:
     final = float(np.linalg.norm(box[-1] - goal))
     print(f"[main] success tick {log.success_step}, final box-to-goal distance {final:.4f} m")
     assert log.success_step is not None and final <= 0.1, "the box did not reach the goal"
-    return loop, launches
+    return loop, launches, calls
 
 
 def phase_benchmark(loop, card: str) -> float:
@@ -822,7 +1039,8 @@ def _point_batch_inputs(tamp, B: int, rng) -> tuple:
 
 def phase_point_batched() -> tuple:
     """K1b and K2b at the point main path's K=200 x T=15: against their
-    plain versions and single launches on CHECK_SEEDS seeds, then timed at
+    plain versions and single launches on CHECK_SEEDS seeds, K1b also at
+    B=N_SEEDS (counting its live contacts for the bound), then timed at
     B=N_SEEDS (K2b on K1b's own costs)."""
     from m3p2i_aip_tpu_torch.config.config_store import load_config
     from m3p2i_aip_tpu_torch.ops import rollout as ro
@@ -843,9 +1061,12 @@ def phase_point_batched() -> tuple:
 
     inputs = _point_batch_inputs(tamp, N_SEEDS, rng)
     B, K, T = inputs[-1].shape[:3]
+    with _live_contacts() as live:
+        k1b_err = max(k1b_err, _batched_check("point-batched K1b", *fns, inputs, COST_ATOL, TRAJ_ATOL))
     k1b = _time_batched(
         f"point-batched K1b at B={B}", fns[0], fns[1], inputs,
-        _bytes(spec.params_buf, *inputs) + B * K * T * 3 * 4, _point_rollout_ops(spec, B * K), plain_calls=1,
+        _bytes(spec.params_buf, *inputs) + B * K * T * 3 * 4, _point_rollout_ops(spec, B * K, _total(live)),
+        plain_calls=1,
     )
     cost = fns[0](*inputs)[0]
     k2b_err = max(k2b_err, _batched_weights_check(mp, cost, f"point-batched K2b on K1b's B={B} costs"))
@@ -1112,6 +1333,7 @@ def main() -> None:
         sys.exit("chip_smoke.py: no CUDA device; this script runs only on a GPU")
     from m3p2i_aip_tpu_torch.config.config_store import load_config
     from m3p2i_aip_tpu_torch.ops import cuda_build
+    from m3p2i_aip_tpu_torch.ops import rollout as ro
     from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMP
 
     # 1. device
@@ -1133,7 +1355,7 @@ def main() -> None:
     stats = {"multimodal_weights": phase_weights(tamp.motion_planner), "point_rollout": phase_rollout(tamp)}
     del tamp
     # 5. / 6. the point main path
-    loop, launches = phase_main_path(load_config("config_point", MAIN_PATH))
+    loop, launches, k1_calls = phase_main_path(load_config("config_point", MAIN_PATH))
     hz = phase_benchmark(loop, card)
     del loop
     # 7. K3 against its plain version; 8. / 9. / 10. the panda path
@@ -1156,10 +1378,11 @@ def main() -> None:
     k2b["max_abs_err"] = max(k2b["max_abs_err"], w_err)
     stats["albert_rollout_batched"] = phase_albert_batched()
     # 19. - 21. the three n=20 batches through BatchSimLoop
-    point_counts = phase_seed_batch(
-        "batch-point", "config_point", MAIN_PATH, 4, 300,
-        {"rollout_batched_launches": 1, "weights_batched_launches": 1},
-    )
+    with _recorded(ro, "point_rollout_batched") as k1b_calls:
+        point_counts = phase_seed_batch(
+            "batch-point", "config_point", MAIN_PATH, 4, 300,
+            {"rollout_batched_launches": 1, "weights_batched_launches": 1},
+        )
     panda_counts = phase_seed_batch(
         "batch-panda", "config_panda", ["multi_modal=True"], 10, 600,
         {"panda_rollout_batched_launches": 4, "weights_batched_launches": 3},
@@ -1175,6 +1398,12 @@ def main() -> None:
     phase_batch_vs_serial("batch-vs-serial point", "config_point", MAIN_PATH, 4, 300)
     phase_batch_vs_serial("batch-vs-serial panda", "config_panda", ["multi_modal=True"], 10, 600)
     phase_batch_bench(card, hz)
+    # 25. / 26. K1 and K1b on the closed loops' inputs, and the scaling sweep
+    loop_k1, loop_k1b, k1_loop, k1b_loop = phase_closed_loop(card, k1_calls, k1b_calls)
+    stats["point_rollout"].update(loop_k1)
+    stats["point_rollout_batched"].update(loop_k1b)
+    del k1_calls, k1b_calls
+    phase_rollout_scaling(card, k1_loop, k1b_loop)
 
     sources = {
         "point_rollout": ("m3p2i_aip_tpu_torch/csrc/point_rollout.cu", "m3p2i_aip_tpu/ops/pallas_rollout.py:189"),

@@ -21,22 +21,62 @@
 // rollout is the B = 1 launch of the same body.  As in the JAX rule, a
 // batched call never shards K, so each seed's global offset k0 is 0.
 //
-// What bounds it on the H100: latency.  At K = 200 there are 200 independent
-// serial chains of ~T * substeps * pos_iters * (5 passes) contact solves, a
-// few thousand dependent flops each, and no data to speak of (2.5 KB of
-// actions in, 36 KB out).  Seven warps on a 132-SM card: the time is the
-// length of one sample's dependency chain, not throughput.
+// What bounds it on the H100: latency.  Each sample is a serial chain of
+// T * substeps * pos_iters position iterations (60 on the main path) of five
+// contact passes, and the data is small (2.5 KB of actions in and 36 KB out
+// at K = 200, ~60 KB for all operands): no pass is bound by bytes or by the
+// card's operation rate.  The time is the length of one sample's dependency
+// chain.
 //
-// What the design does about it: one thread per sample with the whole
-// T x substeps x pos_iters nest in registers -- the robot, the D dynamic
-// boxes (fully unrolled over the compile-time maximum kMaxD, so the per-box
-// state stays in registers) and the four suction carries.  Nothing touches
-// global memory inside the nest except the per-step action read and the
-// cost/trajectory write.  The scene constants (statics, per-box constants)
-// come from a small param buffer built once per scene in make_point_rollout
-// and staged to shared memory, so there is no per-scene build.  Blocks are
-// two warps, which spreads the seven warps over four SMs; a batch of B
-// seeds is B rows of such blocks (B x 4 blocks at K = 200).
+// What the design does about it: a team of kTeam lanes of one warp per
+// sample, in place of one thread.  Every lane keeps the same copy of the
+// sample's state in registers (the robot, the D dynamic boxes, the suction
+// carries, the dyn-obs contact force) and does the same per-substep work
+// (drive, speed cap, ground friction, integration, arena clamp, costs).  In
+// each contact pass the team splits the contacts that do not depend on each
+// other over its lanes, the way the TPU kernel packed them on sublanes:
+//   * passes 1 and 5: box d on lane d;
+//   * pass 2: ordered pair (i, j) on slot i * kMaxD + j, lane = slot % kTeam,
+//     round = slot / kTeam, each pair's four corners on its lane;
+//   * pass 3: for each box d, static si on lane si % kTeam, in rounds of
+//     kTeam statics (two rounds for the main path's D = 2 boxes x S = 5);
+//   * pass 4: static si on lane si % kTeam;
+//   * the wall-crush probe of the costs: static si on lane si % kTeam, then
+//     a max across the team (a max does not depend on the order).
+// Every correction reaches every lane through __shfl_sync within the team,
+// and every lane adds them in the contact order of one sequential thread
+// (pass 3: box, then static, then corner), so all lanes hold the same bits
+// and no broadcast follows.  Built without FMA contraction and without fast
+// math, each correction is the same IEEE result it is in a sequential loop,
+// so the kernel's output does not depend on kTeam, on the block or on B: a
+// batched launch equals B single launches bit for bit.  A team never
+// straddles a warp, and its shuffles name only its own lanes, so a team past
+// K at the ragged edge leaves as a whole without touching the others.
+//
+// Zero corrections are skipped.  A contact that is not live (pen <= 0)
+// projects to corrections that are exactly +-0, and a sum that starts at +0
+// and only adds can never be -0, so adding such a zero leaves its bits as
+// they are.  Each round therefore ballots its live corners: only those are
+// gathered, and a round in which no lane of the team has a live contact
+// skips its projections and keeps only its contact tests.  The exception is
+// pass 1's box state, which is not a fresh sum: its corrections are always
+// projected and added, so a -0 coordinate turns +0 exactly where a
+// sequential loop would turn it.  The time therefore depends on the data:
+// a sample in contact pays the projections and the gathers of its live
+// corners, and a warp pays the union of its four teams' rounds.
+//
+// What bounds it now: still one sample's chain, but per position iteration
+// that chain holds one contact test per pass (two rounds of four-corner
+// tests in pass 3 on the main path) and one projection in pass 1, plus the
+// projections and gathers of the contacts that are live; the replicated
+// per-substep work (drive, friction, integration of D boxes, the costs) and
+// the serial T loop stay on every lane.  The scene constants (statics,
+// per-box constants) come from a small param buffer built once per scene in
+// make_point_rollout and staged to shared memory (stride 7 is odd, so lanes
+// reading their own static rows hit distinct banks).  The kernel has no
+// matrix product and moves ~60 KB, so TMA, wgmma and thread block clusters
+// have no role in it.  Blocks are two warps, eight samples: 25 blocks at
+// K = 200, 500 at B = 20, one wave at the 168 registers ptxas gives it.
 //
 // Semantics kept from the TPU kernel (and the XLA step it mirrors):
 //   * every contact pass is Jacobi: pass 1 takes all D contacts from the
@@ -58,9 +98,15 @@
 
 namespace {
 
-constexpr int kMaxD = 4;   // dynamic boxes
-constexpr int kMaxS = 16;  // static boxes
+constexpr int kMaxD = 4;    // dynamic boxes
+constexpr int kMaxS = 16;   // static boxes
+// lanes per sample: kTeam divides 32 (a team never straddles a warp) and is
+// a multiple of kMaxD (passes 1 and 5 take one round, a pass-2 round holds
+// whole rows i); kThreads is whole warps
+// (tests/test_torch_kernel_sources.py holds the three)
+constexpr int kTeam = 8;
 constexpr int kThreads = 64;
+constexpr int kSamplesPerBlock = kThreads / kTeam;
 constexpr float kGravity = 9.8f;
 
 // param buffer layout (floats), shared with ops/rollout.py::_param_buffer
@@ -71,6 +117,30 @@ enum Scalar {
 };
 constexpr int kDynStride = 6;   // hx, hy, inv_mass, inv_inertia, ang_rad, friction
 constexpr int kStatStride = 7;  // x, y, cos, sin, hx, hy, friction
+
+// The lanes of one sample's team.
+struct Team {
+  unsigned mask;  // the team's lanes within the warp
+  int base;       // the warp lane of team lane 0
+  int lane;       // 0 .. kTeam - 1
+
+  // lane `src`'s value of v, on every lane of the team
+  __device__ __forceinline__ float from(float v, int src) const {
+    return __shfl_sync(mask, v, src, kTeam);
+  }
+  // bit l set where team lane l's `pred` holds
+  __device__ __forceinline__ unsigned ballot(bool pred) const {
+    return (__ballot_sync(mask, pred) & mask) >> base;
+  }
+};
+
+// a[i] for a lane-dependent i, by selects (no local-memory indexing)
+__device__ __forceinline__ float pick(const float (&a)[kMaxD], int i) {
+  float v = a[0];
+#pragma unroll
+  for (int d = 1; d < kMaxD; ++d) v = i == d ? a[d] : v;
+  return v;
+}
 
 // The four corners of box A against box B's dominant face (chosen from A's
 // center): penetrations, world corner points, one world normal.
@@ -123,8 +193,12 @@ point_rollout_kernel(const float* __restrict__ params, const float* __restrict__
   extern __shared__ float sp[];
   for (int i = threadIdx.x; i < n_params; i += blockDim.x) sp[i] = params[i];
   __syncthreads();
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= K) return;
+  const int k = blockIdx.x * kSamplesPerBlock + threadIdx.x / kTeam;
+  if (k >= K) return;  // all lanes of a team share k, so the team leaves as a whole
+  const int warp_lane = threadIdx.x % 32;
+  const int team_base = warp_lane / kTeam * kTeam;
+  const Team tm{(kTeam == 32 ? 0xffffffffu : (1u << kTeam) - 1u) << team_base, team_base,
+                warp_lane % kTeam};
   // seed b = blockIdx.y: its task, start state, friction scales and samples
   const size_t b = blockIdx.y;
   task += b * 4;
@@ -168,6 +242,9 @@ point_rollout_kernel(const float* __restrict__ params, const float* __restrict__
     }
   }
   float ext_rx = 0.0f, ext_ry = 0.0f, ext_bx = 0.0f, ext_by = 0.0f;
+  // the box this lane takes in passes 1 and 5 (lanes past D repeat box D - 1,
+  // and their results are never read)
+  const int lane_d = min(tm.lane, D - 1);
 
   for (int t = 0; t < T; ++t) {
     const float* u = acts + (static_cast<size_t>(k) * T + t) * n_u;
@@ -225,30 +302,39 @@ point_rollout_kernel(const float* __restrict__ params, const float* __restrict__
       if (n_q == 3) qyaw = qyaw + qdyaw * h;
 
       for (int it = 0; it < pos_iters; ++it) {
-        // pass 1: robot vs every dynamic box, from the pre-pass robot pose
+        // pass 1: robot vs every dynamic box (box d on lane d), from the
+        // pre-pass robot pose
         float sqx = 0.0f, sqy = 0.0f, sqdx = 0.0f, sqdy = 0.0f;
+        {
+          const float* bp = dynp + kDynStride * lane_d;
+          const float bx = pick(X, lane_d), by = pick(Y, lane_d), byaw = pick(YAW, lane_d);
+          const Contact c = circle_vs_obb(qx, qy, rr, bx, by, cosf(byaw), sinf(byaw), bp[0], bp[1]);
+          const Resolved o = resolve(c.pen, c.nx, c.ny, c.px, c.py, qx, qy, qdx, qdy, 0.0f, wm_r, 0.0f,
+                                     bx, by, pick(VX, lane_d), pick(VY, lane_d), pick(OM, lane_d),
+                                     bp[2], bp[3], h, (sp[P_ROBOT_FRIC] + pick(FR, lane_d)) / 2.0f, 1.0f);
+          const unsigned act = tm.ballot(tm.lane < D && c.pen > 0.0f);
 #pragma unroll
-        for (int d = 0; d < kMaxD; ++d) {
-          if (d < D) {
-            const float* bp = dynp + kDynStride * d;
-            const Contact c = circle_vs_obb(qx, qy, rr, X[d], Y[d], cosf(YAW[d]), sinf(YAW[d]), bp[0], bp[1]);
-            const Resolved o = resolve(c.pen, c.nx, c.ny, c.px, c.py, qx, qy, qdx, qdy, 0.0f, wm_r, 0.0f,
-                                       X[d], Y[d], VX[d], VY[d], OM[d], bp[2], bp[3], h,
-                                       (sp[P_ROBOT_FRIC] + FR[d]) / 2.0f, 1.0f);
-            X[d] += o.dbx;
-            Y[d] += o.dby;
-            YAW[d] += o.dyaw_b;
-            VX[d] += o.dvbx;
-            VY[d] += o.dvby;
-            OM[d] += o.dom_b;
-            if (d == obs) {
-              f_obs_x -= o.fx;
-              f_obs_y -= o.fy;
+          for (int d = 0; d < kMaxD; ++d) {
+            if (d < D) {
+              // the box state is not a fresh sum, so its (signed zero)
+              // corrections are added whether the contact is live or not
+              X[d] += tm.from(o.dbx, d);
+              Y[d] += tm.from(o.dby, d);
+              YAW[d] += tm.from(o.dyaw_b, d);
+              VX[d] += tm.from(o.dvbx, d);
+              VY[d] += tm.from(o.dvby, d);
+              OM[d] += tm.from(o.dom_b, d);
+              if ((act >> d) & 1u) {
+                if (d == obs) {
+                  f_obs_x -= tm.from(o.fx, d);
+                  f_obs_y -= tm.from(o.fy, d);
+                }
+                sqx += tm.from(o.dax, d);
+                sqy += tm.from(o.day, d);
+                sqdx += tm.from(o.dvax, d);
+                sqdy += tm.from(o.dvay, d);
+              }
             }
-            sqx += o.dax;
-            sqy += o.day;
-            sqdx += o.dvax;
-            sqdy += o.dvay;
           }
         }
         qx += sqx;
@@ -256,50 +342,68 @@ point_rollout_kernel(const float* __restrict__ params, const float* __restrict__
         qdx += sqdx;
         qdy += sqdy;
 
-        // pass 2: dynamic vs dynamic, every ordered pair from frozen poses
+        // pass 2: dynamic vs dynamic, every ordered pair (i, j) from frozen
+        // poses; slot i * kMaxD + j sits on lane slot % kTeam of round
+        // slot / kTeam, and the live corners' deltas are gathered in slot
+        // order
         if (D > 1) {
           float dX[kMaxD], dY[kMaxD], dYAW[kMaxD], dVX[kMaxD], dVY[kMaxD], dOM[kMaxD];
-          float C0[kMaxD], S0[kMaxD];
 #pragma unroll
-          for (int d = 0; d < kMaxD; ++d) {
-            dX[d] = dY[d] = dYAW[d] = dVX[d] = dVY[d] = dOM[d] = 0.0f;
-            C0[d] = d < D ? cosf(YAW[d]) : 1.0f;
-            S0[d] = d < D ? sinf(YAW[d]) : 0.0f;
-          }
+          for (int d = 0; d < kMaxD; ++d) dX[d] = dY[d] = dYAW[d] = dVX[d] = dVY[d] = dOM[d] = 0.0f;
 #pragma unroll
-          for (int i = 0; i < kMaxD; ++i) {
+          for (int r = 0; r < kMaxD * kMaxD / kTeam; ++r) {
+            if (r * kTeam / kMaxD >= D) continue;  // no row i < D in this round
+            const int slot = r * kTeam + tm.lane;
+            const bool valid = slot / kMaxD < D && slot % kMaxD < D && slot / kMaxD != slot % kMaxD;
+            const int i = min(slot / kMaxD, D - 1), j = min(slot % kMaxD, D - 1);
+            const float* pi = dynp + kDynStride * i;
+            const float* pj = dynp + kDynStride * j;
+            const float xi = pick(X, i), yi = pick(Y, i), yawi = pick(YAW, i);
+            const float xj = pick(X, j), yj = pick(Y, j), yawj = pick(YAW, j);
+            const CornerContacts cc = corners_vs_obb(xi, yi, cosf(yawi), sinf(yawi), pi[0], pi[1],
+                                                     xj, yj, cosf(yawj), sinf(yawj), pj[0], pj[1]);
+            unsigned act[4], any = 0u;
 #pragma unroll
-            for (int j = 0; j < kMaxD; ++j) {
-              if (i < D && j < D && i != j) {
-                const float* pi = dynp + kDynStride * i;
-                const float* pj = dynp + kDynStride * j;
-                const CornerContacts cc = corners_vs_obb(X[i], Y[i], C0[i], S0[i], pi[0], pi[1],
-                                                         X[j], Y[j], C0[j], S0[j], pj[0], pj[1]);
+            for (int m = 0; m < 4; ++m) {
+              act[m] = tm.ballot(valid && cc.pen[m] > 0.0f);
+              any |= act[m];
+            }
+            if (any == 0u) continue;  // no live corner in the team's round
+            const float vxi = pick(VX, i), vyi = pick(VY, i), omi = pick(OM, i);
+            const float vxj = pick(VX, j), vyj = pick(VY, j), omj = pick(OM, j);
+            const float fr = (pick(FR, i) + pick(FR, j)) / 2.0f;
+            Resolved o[4];
 #pragma unroll
-                for (int m = 0; m < 4; ++m) {
-                  const Resolved o = resolve(cc.pen[m], cc.nx, cc.ny, cc.wx[m], cc.wy[m],
-                                             X[i], Y[i], VX[i], VY[i], OM[i], pi[2], pi[3],
-                                             X[j], Y[j], VX[j], VY[j], OM[j], pj[2], pj[3], h,
-                                             (FR[i] + FR[j]) / 2.0f, 0.5f);
-                  dX[i] += o.dax;
-                  dY[i] += o.day;
-                  dYAW[i] += o.dyaw_a;
-                  dVX[i] += o.dvax;
-                  dVY[i] += o.dvay;
-                  dOM[i] += o.dom_a;
-                  dX[j] += o.dbx;
-                  dY[j] += o.dby;
-                  dYAW[j] += o.dyaw_b;
-                  dVX[j] += o.dvbx;
-                  dVY[j] += o.dvby;
-                  dOM[j] += o.dom_b;
-                  if (i == obs) {
-                    f_obs_x += o.fx;
-                    f_obs_y += o.fy;
+            for (int m = 0; m < 4; ++m) {
+              o[m] = resolve(cc.pen[m], cc.nx, cc.ny, cc.wx[m], cc.wy[m], xi, yi, vxi, vyi, omi, pi[2],
+                             pi[3], xj, yj, vxj, vyj, omj, pj[2], pj[3], h, fr, 0.5f);
+            }
+#pragma unroll
+            for (int l = 0; l < kTeam; ++l) {
+              const int gi = (r * kTeam + l) / kMaxD, gj = (r * kTeam + l) % kMaxD;
+              if (gi == gj) continue;
+#pragma unroll
+              for (int m = 0; m < 4; ++m) {
+                if ((act[m] >> l) & 1u) {
+                  dX[gi] += tm.from(o[m].dax, l);
+                  dY[gi] += tm.from(o[m].day, l);
+                  dYAW[gi] += tm.from(o[m].dyaw_a, l);
+                  dVX[gi] += tm.from(o[m].dvax, l);
+                  dVY[gi] += tm.from(o[m].dvay, l);
+                  dOM[gi] += tm.from(o[m].dom_a, l);
+                  dX[gj] += tm.from(o[m].dbx, l);
+                  dY[gj] += tm.from(o[m].dby, l);
+                  dYAW[gj] += tm.from(o[m].dyaw_b, l);
+                  dVX[gj] += tm.from(o[m].dvbx, l);
+                  dVY[gj] += tm.from(o[m].dvby, l);
+                  dOM[gj] += tm.from(o[m].dom_b, l);
+                  if (gi == obs) {
+                    f_obs_x += tm.from(o[m].fx, l);
+                    f_obs_y += tm.from(o[m].fy, l);
                   }
-                  if (j == obs) {
-                    f_obs_x -= o.fx;
-                    f_obs_y -= o.fy;
+                  if (gj == obs) {
+                    f_obs_x -= tm.from(o[m].fx, l);
+                    f_obs_y -= tm.from(o[m].fy, l);
                   }
                 }
               }
@@ -316,7 +420,9 @@ point_rollout_kernel(const float* __restrict__ params, const float* __restrict__
           }
         }
 
-        // pass 3: each dynamic box vs all statics x 4 corners, full strength
+        // pass 3: each dynamic box vs all statics x 4 corners, full strength;
+        // static si on lane si % kTeam, rounds of kTeam statics, the live
+        // corners' corrections gathered in (static, corner) order
 #pragma unroll
         for (int d = 0; d < kMaxD; ++d) {
           if (d < D) {
@@ -324,29 +430,45 @@ point_rollout_kernel(const float* __restrict__ params, const float* __restrict__
             const float c = cosf(YAW[d]), s = sinf(YAW[d]);
             float ddx = 0.0f, ddy = 0.0f, ddyaw = 0.0f, ddvx = 0.0f, ddvy = 0.0f, ddom = 0.0f;
 #pragma unroll 1
-            for (int si = 0; si < S; ++si) {
-              const float* st = statp + kStatStride * si;
+            for (int s0 = 0; s0 < S; s0 += kTeam) {
+              const float* st = statp + kStatStride * min(s0 + tm.lane, S - 1);
               const CornerContacts cc = corners_vs_obb(X[d], Y[d], c, s, bp[0], bp[1],
                                                        st[0], st[1], st[2], st[3], st[4], st[5]);
+              unsigned act[4], any = 0u;
+#pragma unroll
+              for (int m = 0; m < 4; ++m) {
+                act[m] = tm.ballot(s0 + tm.lane < S && cc.pen[m] > 0.0f);
+                any |= act[m];
+              }
+              if (any == 0u) continue;  // no live corner in the team's round
               float n_act = 0.0f;
 #pragma unroll
               for (int m = 0; m < 4; ++m) n_act += cc.pen[m] > 0.0f ? 1.0f : 0.0f;
               const float relax = 1.0f / fmaxf(n_act, 1.0f);
+              Resolved o[4];
 #pragma unroll
               for (int m = 0; m < 4; ++m) {
-                const Resolved o = resolve(cc.pen[m], cc.nx, cc.ny, cc.wx[m], cc.wy[m],
-                                           X[d], Y[d], VX[d], VY[d], OM[d], bp[2], bp[3],
-                                           st[0], st[1], 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, h,
-                                           (FR[d] + st[6]) / 2.0f, relax);
-                ddx += o.dax;
-                ddy += o.day;
-                ddyaw += o.dyaw_a;
-                ddvx += o.dvax;
-                ddvy += o.dvay;
-                ddom += o.dom_a;
-                if (d == obs) {
-                  f_obs_x += o.fx;
-                  f_obs_y += o.fy;
+                o[m] = resolve(cc.pen[m], cc.nx, cc.ny, cc.wx[m], cc.wy[m],
+                               X[d], Y[d], VX[d], VY[d], OM[d], bp[2], bp[3],
+                               st[0], st[1], 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, h,
+                               (FR[d] + st[6]) / 2.0f, relax);
+              }
+#pragma unroll
+              for (int l = 0; l < kTeam; ++l) {
+#pragma unroll
+                for (int m = 0; m < 4; ++m) {
+                  if ((act[m] >> l) & 1u) {
+                    ddx += tm.from(o[m].dax, l);
+                    ddy += tm.from(o[m].day, l);
+                    ddyaw += tm.from(o[m].dyaw_a, l);
+                    ddvx += tm.from(o[m].dvax, l);
+                    ddvy += tm.from(o[m].dvay, l);
+                    ddom += tm.from(o[m].dom_a, l);
+                    if (d == obs) {
+                      f_obs_x += tm.from(o[m].fx, l);
+                      f_obs_y += tm.from(o[m].fy, l);
+                    }
+                  }
                 }
               }
             }
@@ -359,38 +481,52 @@ point_rollout_kernel(const float* __restrict__ params, const float* __restrict__
           }
         }
 
-        // pass 4: robot vs all statics, full strength
+        // pass 4: robot vs all statics (static si on lane si % kTeam), full strength
         sqx = sqy = sqdx = sqdy = 0.0f;
 #pragma unroll 1
-        for (int si = 0; si < S; ++si) {
-          const float* st = statp + kStatStride * si;
+        for (int s0 = 0; s0 < S; s0 += kTeam) {
+          const float* st = statp + kStatStride * min(s0 + tm.lane, S - 1);
           const Contact c = circle_vs_obb(qx, qy, rr, st[0], st[1], st[2], st[3], st[4], st[5]);
+          const unsigned act = tm.ballot(s0 + tm.lane < S && c.pen > 0.0f);
+          if (act == 0u) continue;
           const Resolved o = resolve(c.pen, c.nx, c.ny, c.px, c.py, qx, qy, qdx, qdy, 0.0f, wm_r, 0.0f,
                                      st[0], st[1], 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, h,
                                      (sp[P_ROBOT_FRIC] + st[6]) / 2.0f, 1.0f);
-          sqx += o.dax;
-          sqy += o.day;
-          sqdx += o.dvax;
-          sqdy += o.dvay;
+#pragma unroll
+          for (int l = 0; l < kTeam; ++l) {
+            if ((act >> l) & 1u) {
+              sqx += tm.from(o.dax, l);
+              sqy += tm.from(o.day, l);
+              sqdx += tm.from(o.dvax, l);
+              sqdy += tm.from(o.dvay, l);
+            }
+          }
         }
         qx += sqx;
         qy += sqy;
         qdx += sqdx;
         qdy += sqdy;
 
-        // pass 5: robot vs the dynamic boxes held immovable
+        // pass 5: robot vs the dynamic boxes held immovable (box d on lane d)
         sqx = sqy = sqdx = sqdy = 0.0f;
-#pragma unroll
-        for (int d = 0; d < kMaxD; ++d) {
-          if (d < D) {
-            const float* bp = dynp + kDynStride * d;
-            const Contact c = circle_vs_obb(qx, qy, rr, X[d], Y[d], cosf(YAW[d]), sinf(YAW[d]), bp[0], bp[1]);
+        {
+          const float* bp = dynp + kDynStride * lane_d;
+          const float bx = pick(X, lane_d), by = pick(Y, lane_d), byaw = pick(YAW, lane_d);
+          const Contact c = circle_vs_obb(qx, qy, rr, bx, by, cosf(byaw), sinf(byaw), bp[0], bp[1]);
+          const unsigned act = tm.ballot(tm.lane < D && c.pen > 0.0f);
+          if (act != 0u) {
             const Resolved o = resolve(c.pen, c.nx, c.ny, c.px, c.py, qx, qy, qdx, qdy, 0.0f, wm_r, 0.0f,
-                                       X[d], Y[d], VX[d], VY[d], OM[d], 0.0f, 0.0f, h, 0.0f, 1.0f);
-            sqx += o.dax;
-            sqy += o.day;
-            sqdx += o.dvax;
-            sqdy += o.dvay;
+                                       bx, by, pick(VX, lane_d), pick(VY, lane_d), pick(OM, lane_d),
+                                       0.0f, 0.0f, h, 0.0f, 1.0f);
+#pragma unroll
+            for (int d = 0; d < kMaxD; ++d) {
+              if ((act >> d) & 1u) {
+                sqx += tm.from(o.dax, d);
+                sqy += tm.from(o.day, d);
+                sqdx += tm.from(o.dvax, d);
+                sqdy += tm.from(o.dvay, d);
+              }
+            }
           }
         }
         qx += sqx;
@@ -442,12 +578,17 @@ point_rollout_kernel(const float* __restrict__ params, const float* __restrict__
     const float fry = clampf(sp[P_KP] * (pdy * mag) * gate, -500.0f, 500.0f);
     const bool off = towards || (multi_modal && !mode1);
     const float vel_cost = (towards && d_rb <= 0.5f) ? 0.6f : 0.0f;
-    // wall crush: max robot-circle penetration into the statics
+    // wall crush: max robot-circle penetration into the statics (static si
+    // on lane si % kTeam, then the max across the team)
     float crush_pen = -INFINITY;
 #pragma unroll 1
-    for (int si = 0; si < S; ++si) {
-      const float* st = statp + kStatStride * si;
+    for (int s0 = 0; s0 < S; s0 += kTeam) {
+      const float* st = statp + kStatStride * min(s0 + tm.lane, S - 1);
       crush_pen = fmaxf(crush_pen, circle_vs_obb(qx, qy, rr, st[0], st[1], st[2], st[3], st[4], st[5]).pen);
+    }
+#pragma unroll
+    for (int off_l = kTeam / 2; off_l > 0; off_l /= 2) {
+      crush_pen = fmaxf(crush_pen, __shfl_xor_sync(tm.mask, crush_pen, off_l, kTeam));
     }
     if (sp[P_ARENA] > 0.0f) {
       if (fmaxf(fabsf(qx), fabsf(qy)) > sp[P_EDGE_LIM]) crush_pen = 1.0f;
@@ -479,10 +620,12 @@ point_rollout_kernel(const float* __restrict__ params, const float* __restrict__
     ext_rx = apply ? frx : 0.0f;
     ext_ry = apply ? fry : 0.0f;
 
-    const size_t o = static_cast<size_t>(k) * T + t;
-    cost_out[o] = cost;
-    traj_out[2 * o] = qx;
-    traj_out[2 * o + 1] = qy;
+    if (tm.lane == 0) {
+      const size_t o = static_cast<size_t>(k) * T + t;
+      cost_out[o] = cost;
+      traj_out[2 * o] = qx;
+      traj_out[2 * o + 1] = qy;
+    }
   }
 }
 
@@ -499,10 +642,11 @@ extern "C" int m3p2i_point_rollout(const float* params, const float* task, const
       obs < 0 || obs >= D) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((K + kThreads - 1) / kThreads, B);
+  const dim3 grid((K + kSamplesPerBlock - 1) / kSamplesPerBlock, B);
   const size_t smem = static_cast<size_t>(n_params) * sizeof(float);
   point_rollout_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       params, task, state0, fric_k, acts, cost, traj, K, K_total, T, D, S, substeps,
       pos_iters, box, obs, robot_type, n_q, n_u, multi_modal, boxer_align, n_params);
   return static_cast<int>(cudaGetLastError());
 }
+

@@ -39,7 +39,8 @@ NVCC_FLAGS = (
 )
 
 # filled by the first load: seconds spent building (0.0 when cached), the
-# library path, and nvcc's output (ptxas registers / spills per kernel)
+# library path, and nvcc's output (ptxas registers / spills per kernel, kept
+# beside the library and read back when it is cached)
 build_info: dict = {}
 
 _lock = threading.Lock()
@@ -97,8 +98,9 @@ def _build(target: pathlib.Path) -> None:
     log = "".join(logs)
     if link is None or link.returncode != 0:
         raise RuntimeError(f"nvcc failed:\n{log}")
+    target.with_suffix(".log").write_text(log)
     os.replace(tmp, target)
-    build_info.update(seconds=time.perf_counter() - t0, log=log)
+    build_info["seconds"] = time.perf_counter() - t0
 
 
 def load_kernels() -> ctypes.CDLL:
@@ -109,11 +111,13 @@ def load_kernels() -> ctypes.CDLL:
             return _lib
         target = _library_path()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        build_info.update(seconds=0.0, log="")
+        build_info["seconds"] = 0.0
         with open(BUILD_DIR / "build.lock", "w") as lock_file:
             fcntl.flock(lock_file, fcntl.LOCK_EX)  # released on close or exit
             if not target.exists():
                 _build(target)
+        log = target.with_suffix(".log")
+        build_info["log"] = log.read_text() if log.exists() else ""
         lib = ctypes.CDLL(str(target))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

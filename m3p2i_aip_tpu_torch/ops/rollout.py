@@ -235,8 +235,8 @@ def point_rollout(spec: RolloutSpec, task_vec, state0, fric_k, acts):
     """The rollout of ``acts`` [K, T, n_u] from ``state0``.
 
     A CPU tensor runs :func:`point_rollout_plain`; a CUDA tensor launches the
-    kernel on the current stream (one thread per sample; the batched
-    kernel's body with one seed) or raises.
+    kernel on the current stream (a team of warp lanes per sample; the
+    batched kernel's body with one seed) or raises.
     """
     global rollout_launches
     if acts.device.type == "cpu":

@@ -20,16 +20,19 @@ import torch
 
 from m3p2i_aip_tpu_torch.config.config_store import load_config
 from m3p2i_aip_tpu_torch.envs import make_env
+from m3p2i_aip_tpu_torch.models import point_env
 from m3p2i_aip_tpu_torch.ops import albert_rollout as ar
 from m3p2i_aip_tpu_torch.ops import panda_rollout as pr
 from m3p2i_aip_tpu_torch.ops import rollout as ro
 from m3p2i_aip_tpu_torch.ops import weights
 from m3p2i_aip_tpu_torch.planners.motion_planner.mppi import make_task_params
+from m3p2i_aip_tpu_torch.sim.sim_config import ActorCfg, load_env_cfgs
 from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMP
 from m3p2i_aip_tpu_torch.utils.tree import tree_map
 
 pytestmark = pytest.mark.cuda
 
+POINT_MAIN = ["task=push_pull", "multi_modal=True", "goal=[-3.75,-3.75]"]
 STARTS = [
     ([-0.3, 1.4], [0.5, 0.5]),
     ([-3.7, -3.7], [-2.0, -2.0]),
@@ -63,9 +66,7 @@ def test_weights_kernel_matches_plain(cuda, K):
 
 @pytest.mark.parametrize("config_name", ["config_point", "config_heijn", "config_boxer"])
 def test_rollout_kernel_matches_plain(cuda, config_name):
-    tamp = ReactiveTAMP(
-        load_config(config_name, ["task=push_pull", "multi_modal=True", "goal=[-3.75,-3.75]"]), device=cuda
-    )
+    tamp = ReactiveTAMP(load_config(config_name, POINT_MAIN), device=cuda)
     mp, env = tamp.motion_planner, tamp.env
     spec = mp.rollout.spec
     rng = np.random.default_rng(0)
@@ -83,6 +84,88 @@ def test_rollout_kernel_matches_plain(cuda, config_name):
         c_p, t_p = ro.point_rollout_plain(spec, *inputs, acts)
         assert float(torch.max(torch.abs(c_k - c_p))) <= 1e-2, q0
         assert float(torch.max(torch.abs(t_k - t_p))) <= 1e-3, q0
+
+
+def _box(name, pos, size, fixed, yaw_deg=0.0):
+    half = np.radians(yaw_deg) / 2
+    return ActorCfg(
+        type="box", name=name, size=list(size) + [0.1], init_pos=list(pos) + [0.0],
+        init_ori=[0.0, 0.0, float(np.sin(half)), float(np.cos(half))], fixed=fixed, friction=0.6,
+    )
+
+
+def _point_scene_at_the_maxima(device):
+    """config_point's scene grown to the kernel's compile-time maxima,
+    D = 4 dynamic and S = 16 static boxes: two crates pressed against the box
+    and the dyn-obs, and eleven pillars, three of them pressed against the
+    boxes, so pass 2 and every round of pass 3 see live contacts."""
+    cfg = load_config("config_point", POINT_MAIN)
+    actors = load_env_cfgs(cfg.env_type) + [
+        _box("crate-a", [0.35, 2.0], [0.4, 0.4], False),
+        _box("crate-b", [-2.0, 2.35], [0.4, 0.4], False, 20.0),
+        _box("pillar-0", [0.0, 2.5], [0.3, 0.3], True),
+        _box("pillar-1", [0.3, 1.7], [0.3, 0.3], True, 30.0),
+        _box("pillar-2", [-2.0, 1.7], [0.3, 0.3], True),
+        _box("pillar-3", [-1.0, -1.0], [0.3, 0.3], True),
+        _box("pillar-4", [1.0, -1.0], [0.3, 0.3], True, 45.0),
+        _box("pillar-5", [-1.0, 1.0], [0.3, 0.3], True),
+        _box("pillar-6", [1.0, 1.0], [0.3, 0.3], True),
+        _box("pillar-7", [3.0, -3.0], [0.3, 0.3], True),
+        _box("pillar-8", [-3.0, 3.0], [0.3, 0.3], True),
+        _box("pillar-9", [2.5, 0.0], [0.2, 1.0], True),
+        _box("pillar-10", [-2.5, 0.0], [0.2, 1.0], True, 15.0),
+    ]
+    params = point_env.build_params(actors, cfg.sim, device=device)
+    rollout = ro.make_point_rollout(params, float(cfg.kp_suction), cfg.mppi.num_samples, cfg.mppi.horizon, True)
+    return params, rollout.spec
+
+
+def test_rollout_kernel_matches_plain_at_the_maxima(cuda):
+    """D = 4 and S = 16: every team loop of the kernel runs its most rounds
+    (pass 2 both rounds, pass 3 two rounds a box, pass 4 two)."""
+    params, spec = _point_scene_at_the_maxima(cuda)
+    assert (spec.D, spec.S) == (ro.MAX_DYN, ro.MAX_STAT)
+    K, T = spec.K, spec.T
+    rng = np.random.default_rng(3)
+    for q0, qd0 in STARTS + [([-2.0, 2.8], [0.0, -3.0])]:
+        state = dataclasses.replace(
+            point_env.init_state(params), q=torch.tensor(q0, device=cuda), qd=torch.tensor(qd0, device=cuda)
+        )
+        sk = tree_map(lambda x: x.expand((K,) + x.shape), state)
+        fric = torch.as_tensor(rng.uniform(0.7, 1.3, size=(K, spec.D)).astype(np.float32), device=cuda)
+        sk = dataclasses.replace(sk, fric_scale=fric)
+        inputs = ro.rollout_inputs(sk, make_task_params("push_pull", [-3.75, -3.75], device=cuda))
+        acts = torch.as_tensor(rng.uniform(-3, 3, size=(K, T, 2)).astype(np.float32), device=cuda)
+        before = ro.rollout_launches
+        c_k, t_k = ro.point_rollout(spec, *inputs, acts)
+        assert ro.rollout_launches == before + 1
+        c_p, t_p = ro.point_rollout_plain(spec, *inputs, acts)
+        assert float(torch.max(torch.abs(c_k - c_p))) <= 1e-2, q0
+        assert float(torch.max(torch.abs(t_k - t_p))) <= 1e-3, q0
+
+
+# 37 and 1500: samples past K in the last block (teams that leave at the
+# ragged edge); 4000: the K1b sample count of a B=20 batch in one launch
+@pytest.mark.parametrize("K", [37, 1500, 4000])
+def test_rollout_kernel_matches_plain_at_other_sample_counts(cuda, K):
+    tamp = ReactiveTAMP(load_config("config_point", POINT_MAIN), device=cuda)
+    env, T = tamp.env, tamp.motion_planner.T
+    spec = ro.make_point_rollout(env.params, float(tamp.cfg.kp_suction), K, T, True).spec
+    rng = np.random.default_rng(K)
+    state = dataclasses.replace(
+        env.init_state(), q=torch.tensor([-0.3, 1.4], device=cuda), qd=torch.tensor([0.5, 0.5], device=cuda)
+    )
+    sk = tree_map(lambda x: x.expand((K,) + x.shape), state)
+    sk = dataclasses.replace(
+        sk, fric_scale=torch.as_tensor(rng.uniform(0.7, 1.3, size=(K, 2)).astype(np.float32), device=cuda)
+    )
+    inputs = ro.rollout_inputs(sk, tamp.tamp_interface_view(env.view(state)))
+    acts = torch.as_tensor(rng.uniform(-3, 3, size=(K, T, env.nu)).astype(np.float32), device=cuda)
+    c_k, t_k = ro.point_rollout(spec, *inputs, acts)
+    c_p, t_p = ro.point_rollout_plain(spec, *inputs, acts)
+    assert c_k.shape == (K, T) and t_k.shape == (K, T, 2)
+    assert float(torch.max(torch.abs(c_k - c_p))) <= 1e-2
+    assert float(torch.max(torch.abs(t_k - t_p))) <= 1e-3
 
 
 @pytest.mark.parametrize("multi_modal", [False, True])
@@ -169,11 +252,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
 
 
 # ------------------------------------------------- batched kernels K1b-K4b
-# B = 4 seeds with their own start states and tasks; each batched kernel is
-# held against its batched plain version at its single kernel's bars, and
-# against B single launches on the same inputs at 1e-5 (the bodies are the
-# same, so 0 is expected; tests/test_pallas.py:475, :610).
-SERIAL_ATOL = 1e-5
+# B = 4 seeds with their own start states and tasks (K1b also B = 20); each
+# batched kernel is held against its batched plain version at its single
+# kernel's bars, and against B single launches on the same inputs exactly:
+# a single launch is the batched body with B = 1, and no kernel's arithmetic
+# depends on the seed count.
+SERIAL_ATOL = 0.0
 
 
 def _check_batched(batched, plain, single, inputs, cost_atol, traj_atol, counter):
@@ -208,24 +292,27 @@ def test_batched_weights_kernel_matches_plain_and_single(cuda):
             assert float(torch.max(torch.abs(g[b] - s))) <= SERIAL_ATOL, b
 
 
-def test_batched_point_kernel_matches_plain_and_single(cuda):
-    tamp = ReactiveTAMP(
-        load_config("config_point", ["task=push_pull", "multi_modal=True", "goal=[-3.75,-3.75]"]), device=cuda
-    )
+@pytest.mark.parametrize("B", [4, 20])  # 20: the n=20 batch's width
+def test_batched_point_kernel_matches_plain_and_single(cuda, B):
+    """K1b on B seeds (seed b from the start and task b % 4, its own friction
+    draw) against its plain version and against one K1 launch per seed:
+    equal bit for bit, since each lane adds the team's corrections in one
+    fixed order."""
+    tamp = ReactiveTAMP(load_config("config_point", POINT_MAIN), device=cuda)
     mp, env = tamp.motion_planner, tamp.env
     spec = mp.rollout.spec
     rng = np.random.default_rng(6)
+    starts = STARTS + [([-3.3, -3.3], [-6.0, -6.0])]
+    tasks = [("push_pull", [-3.75, -3.75]), ("pull", [1.0, 3.0]), ("push", [-1.0, -1.0]), ("navigation", [1.5, 1.0])]
     rows = []
-    for (q0, qd0), (task_name, goal) in zip(
-        STARTS + [([-3.3, -3.3], [-6.0, -6.0])],
-        [("push_pull", [-3.75, -3.75]), ("pull", [1.0, 3.0]), ("push", [-1.0, -1.0]), ("navigation", [1.5, 1.0])],
-    ):
+    for b in range(B):
+        (q0, qd0), (task_name, goal) = starts[b % 4], tasks[b % 4]
         state = dataclasses.replace(env.init_state(), q=torch.tensor(q0, device=cuda), qd=torch.tensor(qd0, device=cuda))
         sk = tree_map(lambda x: x.expand((mp.K,) + x.shape), state)
         fric = torch.as_tensor(rng.uniform(0.7, 1.3, size=(mp.K, 2)).astype(np.float32), device=cuda)
         sk = dataclasses.replace(sk, fric_scale=fric)
         rows.append(ro.rollout_inputs(sk, make_task_params(task_name, goal, device=cuda)))
-    acts = torch.as_tensor(rng.uniform(-3, 3, size=(4, mp.K, mp.T, env.nu)).astype(np.float32), device=cuda)
+    acts = torch.as_tensor(rng.uniform(-3, 3, size=(B, mp.K, mp.T, env.nu)).astype(np.float32), device=cuda)
     inputs = tuple(torch.stack(xs) for xs in zip(*rows)) + (acts,)
     _check_batched(
         lambda *a: ro.point_rollout_batched(spec, *a), lambda *a: ro.point_rollout_batched_plain(spec, *a),

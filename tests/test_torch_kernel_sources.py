@@ -1,0 +1,95 @@
+"""The constants each CUDA source shares with its Python wrapper, read from
+the sources themselves (no nvcc needed): compile-time maxima, the scalar
+count of each param buffer and the row strides the wrapper's
+``_param_buffer`` writes, the albert's state and action widths, the beta
+search's round cap, and the point kernel's team width.  A source edited
+without its wrapper (or the other way round) fails here, on the CPU, before
+a launch on the card reads a misaligned buffer."""
+import re
+
+import numpy as np
+import pytest
+
+from m3p2i_aip_tpu_torch.config.config_store import load_config
+from m3p2i_aip_tpu_torch.envs import make_env
+from m3p2i_aip_tpu_torch.ops import albert_rollout as ar
+from m3p2i_aip_tpu_torch.ops import cuda_build
+from m3p2i_aip_tpu_torch.ops import panda_rollout as pr
+from m3p2i_aip_tpu_torch.ops import rollout as ro
+from m3p2i_aip_tpu_torch.ops import weights
+
+
+def _constants(source: str) -> dict:
+    """``constexpr int`` values of a source, and ``N_SCALARS`` of its
+    ``enum Scalar`` (given, or counted from the enumerators before it)."""
+    text = (cuda_build.CSRC_DIR / source).read_text()
+    consts = {name: int(v) for name, v in re.findall(r"constexpr int (\w+) = (\d+);", text)}
+    enum = re.search(r"enum Scalar \{(.*?)\};", text, re.S)
+    if enum is not None:
+        names = [e.split("=")[0].strip() for e in enum.group(1).split(",") if e.strip()]
+        given = re.search(r"N_SCALARS = (\d+)", enum.group(1))
+        consts["N_SCALARS"] = int(given.group(1)) if given else names.index("N_SCALARS")
+    return consts
+
+
+def _check_point(c: dict) -> None:
+    assert (c["kMaxD"], c["kMaxS"], c["N_SCALARS"]) == (ro.MAX_DYN, ro.MAX_STAT, ro._N_SCALARS)
+    p = make_env(load_config("config_point"), device="cpu").params
+    box = p.dyn_actor_idx.index(list(p.actor_names).index("box"))
+    buf = ro._param_buffer(p, 1.0, box)
+    D, S, n = p.dyn_half.shape[0], p.stat_pos.shape[0], c["N_SCALARS"]
+    assert buf.size == n + c["kDynStride"] * D + c["kStatStride"] * S
+    dyn = buf[n : n + c["kDynStride"] * D].reshape(D, c["kDynStride"])
+    stat = buf[n + c["kDynStride"] * D :].reshape(S, c["kStatStride"])
+    np.testing.assert_array_equal(dyn[:, :2], p.dyn_half.numpy())  # hx, hy lead each box row
+    np.testing.assert_array_equal(stat[:, :2], p.stat_pos.numpy())  # x, y lead each static row
+    np.testing.assert_array_equal(stat[:, 6], p.stat_friction.numpy())  # friction ends it
+
+
+def _check_panda(c: dict) -> None:
+    assert (c["kMaxS"], c["N_SCALARS"]) == (pr.MAX_STAT, pr._N_SCALARS)
+    p = make_env(load_config("config_panda"), device="cpu").params
+    buf = pr._param_buffer(p, 0.05)
+    S, n = p.stat_min.shape[0], c["N_SCALARS"]
+    nb, ns, nu = 3 * c["kBodyStride"], S * c["kStatStride"], (S + 1) * c["kSupStride"]
+    assert buf.size == n + nb + ns + nu
+    body = buf[n : n + nb].reshape(3, c["kBodyStride"])
+    stat = buf[n + nb : n + nb + ns].reshape(S, c["kStatStride"])
+    sup = buf[n + nb + ns :].reshape(S + 1, c["kSupStride"])
+    np.testing.assert_array_equal(body[:, :3], p.body_half.numpy())
+    np.testing.assert_array_equal(stat[:, :3], p.stat_min.numpy())
+    np.testing.assert_array_equal(sup[:, 4], p.sup_z.numpy())
+
+
+def _check_albert(c: dict) -> None:
+    assert (c["kStateLen"], c["kNu"], c["N_SCALARS"]) == (ar.STATE_LEN, ar.N_U, ar._N_SCALARS)
+
+
+def _check_weights(c: dict) -> None:
+    assert c["kBetaIters"] == weights.BETA_ITERS
+
+
+CHECKS = {
+    "point_rollout.cu": _check_point,
+    "panda_rollout.cu": _check_panda,
+    "albert_rollout.cu": _check_albert,
+    "multimodal_weights.cu": _check_weights,
+}
+
+
+def test_every_source_has_a_check():
+    assert sorted(CHECKS) == sorted(cuda_build.SOURCES)
+
+
+@pytest.mark.parametrize("source", list(CHECKS))
+def test_source_constants_match_the_wrapper(source):
+    CHECKS[source](_constants(source))
+
+
+def test_point_team_fits_the_warp():
+    """A team of kTeam lanes never straddles a warp, a block holds whole
+    teams, and the boxes of passes 1 and 5 fit one round."""
+    c = _constants("point_rollout.cu")
+    assert 32 % c["kTeam"] == 0
+    assert c["kThreads"] % 32 == 0
+    assert c["kTeam"] % c["kMaxD"] == 0
