@@ -11,8 +11,8 @@ paths through ``SimLoop.run_chunked``:
 * the panda active-inference pick-place loop (``-cn config_panda``) at
   K=200 x T=12 with the refine ladder: the table pick-place must grasp the
   cube and latch success, a short multi-modal shelf run must stay finite,
-  and the replan+step rate is measured with ``scripts/bench_panda.py``'s
-  protocol;
+  the replan+step rate is measured with ``scripts/bench_panda.py``'s
+  protocol, and one 20-tick chunk is profiled (``torch.profiler``);
 * the albert mobile manipulator (``-cn config_albert``) at K=128 x T=12
   with the softmax-only refine ladder: the ee_reach must latch success
   within 150 ticks with the base driven, the push_reach must push the box to
@@ -31,13 +31,16 @@ paths through ``SimLoop.run_chunked``:
   1e-4); and the B=20 point batch's rate in benchmark mode beside the serial
   rate, with a profile of one batched tick.
 
-The point kernel's time depends on its data (it skips the projections of
-contacts that are not live), so the inputs the point main path and the
-n=20 point batch gave K1 and K1b are recorded, each timed, and the slowest
-held against the plain version and timed beside the random-action inputs;
-then a rollout-scaling phase times K1 at K = 200, 1000 and 4000 and K1b at
-B = 1, 4 and 20 on both kinds of input (kernel times only, each with its
-waves).
+The inputs the point and panda main paths and their n=20 batches gave K1,
+K1b, K3 and K3b are recorded, each timed, and the slowest held against the
+plain version sample by sample (a sample beyond the bars passes only where
+a one- to four-ulp nudge of its own actions carries the plain version to the
+kernel's output)
+and timed beside the check inputs: the point kernel's time depends on its
+data (it skips the projections of contacts that are not live).  Then a
+rollout-scaling phase times K1 and K3 at K = 200, 1000 and 4000 and K1b
+and K3b at B = 1, 4 and 20 on both kinds of input (kernel times only, each
+with its waves).
 
 Each kernel's entry in the kernel table carries its bound: the least time
 the card could take for the same work, the larger of the bytes it must move
@@ -87,11 +90,13 @@ BENCH_CHUNK = 50  # the point and panda benchmark phases: 2 warm-up chunks, then
 N_SEEDS = 20  # the n=20 protocol of RESULTS.md
 CHECK_SEEDS = 4  # seeds of the batched kernels' checks against their plain versions
 SERIAL_ATOL = 0.0  # a batched kernel against its single kernel per seed: the same body, so the same bits
-SCALING_K = (200, 1000, 4000)  # K1's sample counts in the rollout-scaling phase (T=15)
-SCALING_B = (1, 4, 20)  # K1b's seed counts there (K=200 x T=15)
-# K1 / K1b on a recorded closed-loop input: the share of samples that may lie
-# beyond COST_ATOL / TRAJ_ATOL, since such an input can sit on a contact gate
-CLOSED_LOOP_BEYOND = 0.01
+SCALING_K = (200, 1000, 4000)  # K1's and K3's sample counts in the rollout-scaling phase
+SCALING_B = (1, 4, 20)  # K1b's and K3b's seed counts there (K=200)
+# A rollout kernel on a recorded closed-loop input: a sample beyond COST_ATOL
+# / TRAJ_ATOL passes only if a nudge of all its own actions by 1 .. NUDGE_ULPS
+# ulp carries the plain version's same sample to the kernel's output, within
+# the same bars
+NUDGE_ULPS = 4
 BATCH_PARITY_ATOL = 1e-4  # batched runs against serial runs (tests/test_batch_loop.py:44-78)
 MIN_SUCCESS = 18  # of N_SEEDS, per n=20 batch
 # four point tasks for the batched checks: (name, goal)
@@ -335,118 +340,155 @@ def phase_rollout(tamp) -> dict:
     return {"max_abs_err": cost_err, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None}
 
 
-def _point_launch_shape() -> dict:
-    """The point kernel's team width and block (its source's constants), its
-    registers and spill stores a thread (the build's ptxas report), and the
+def _launch_shape(source: str, symbol: str) -> dict:
+    """A team kernel's width and block (its source's constants), the
+    registers, stack frame and spill stores a thread of its instantiation
+    ``symbol`` (the build's ptxas report), and the
     blocks an SM holds at that register count: an H100 SM has 64K
     registers, allocated 256 a warp, and holds at most 64 warps and 32
     blocks (the kernel's few hundred bytes of shared memory a block bind
     nothing)."""
     from m3p2i_aip_tpu_torch.ops import cuda_build
 
-    src = (cuda_build.CSRC_DIR / "point_rollout.cu").read_text()
+    src = (cuda_build.CSRC_DIR / f"{source}.cu").read_text()
     team, threads = (int(re.search(rf"constexpr int {n} = (\d+);", src).group(1)) for n in ("kTeam", "kThreads"))
     m = re.search(
-        r"for \S*point_rollout_kernel\S*\n[^\n]*?(\d+) bytes spill stores[^\n]*\n[^\n]*?Used (\d+) registers",
+        rf"for \S*{symbol}\S*\n\s*(\d+) bytes stack frame, (\d+) bytes spill stores[^\n]*\n[^\n]*?Used (\d+) "
+        "registers",
         cuda_build.build_info["log"],
     )
-    assert m is not None, "the build log holds no ptxas report of the point kernel"
-    spill, regs = int(m.group(1)), int(m.group(2))
+    assert m is not None, f"the build log holds no ptxas report of {symbol}"
+    stack, spill, regs = (int(v) for v in m.groups())
     warps = threads // 32
     per_sm = min(32, 64 // warps, 65536 // (-(-regs * 32 // 256) * 256 * warps))
-    return {"team": team, "threads": threads, "samples": threads // team, "registers": regs, "spill": spill,
-            "per_wave": per_sm * torch.cuda.get_device_properties(0).multi_processor_count}
+    return {"team": team, "threads": threads, "samples": threads // team, "registers": regs, "stack": stack,
+            "spill": spill, "per_wave": per_sm * torch.cuda.get_device_properties(0).multi_processor_count}
 
 
 def _slowest(calls, kernel) -> tuple:
-    """Each recorded (spec, inputs) call of a point kernel wrapper timed
+    """Each recorded (spec, inputs) call of a rollout kernel wrapper timed
     (CUDA events, median of 5 calls): the median over the calls, and the
     slowest call."""
     times = [_time_ms(lambda: kernel(spec, *args), calls=5, warmup=1) for spec, args in calls]
     return float(np.median(times)), calls[int(np.argmax(times))]
 
 
-def _closed_loop_check(label: str, spec, inputs, out) -> int:
-    """A point kernel's (cost, traj) ``out`` [B, K, ...] on B seeds'
-    recorded closed-loop ``inputs`` against the plain version, sample by
-    sample; returns the live contacts the plain version counted.
+def _beyond(out, ref) -> tuple:
+    """Per sample of [B, K] rollouts: the cost and trajectory errors of
+    ``out`` against ``ref``, and where either lies beyond its bar."""
+    ce = torch.abs(out[0] - ref[0]).amax(-1)
+    te = torch.abs(out[1] - ref[1]).amax((-2, -1))
+    return ce, te, (ce > COST_ATOL) | (te > TRAJ_ATOL)
 
-    A closed-loop input can be ill-conditioned: a sample whose box sits on a
-    contact gate (pen = 0, n_active) takes the other branch after a one-ulp
-    difference in any earlier operation, and its trajectory parts from
-    there.  So at most CLOSED_LOOP_BEYOND of the samples may lie beyond the
-    bars; where any does, the plain version is run again with the worst
-    seed's actions one ulp up, to show how far it moves by itself."""
-    from m3p2i_aip_tpu_torch.ops import rollout as ro
 
+def _nudges():
+    """The nudges of a sample's own actions that ``_closed_loop_check`` tries,
+    in order, as (label, ulp, up): all of its [T, nu] actions n ulp up, then
+    down, for n = 1 .. NUDGE_ULPS."""
+    for n in range(1, NUDGE_ULPS + 1):
+        for up in (True, False):
+            yield f"{n} ulp {'up' if up else 'down'}", n, up
+
+
+def _nudged(acts, samples, n: int, up: bool):
+    """``acts`` [B, K, T, nu] with every action of ``samples`` [B, K] moved n
+    ulp up (or down), every other sample's as it is."""
+    where = samples[..., None, None]
+    toward = torch.full_like(acts, torch.inf if up else -torch.inf)
+    for _ in range(n):
+        acts = torch.where(where, torch.nextafter(acts, toward), acts)
+    return acts
+
+
+def _closed_loop_check(label: str, plain, inputs, out, ref=None) -> tuple:
+    """A rollout kernel's (cost, traj) ``out`` [B, K, ...] on B seeds'
+    recorded closed-loop ``inputs`` (actions last) against the family's
+    batched plain version ``plain(*inputs)`` (``ref``, if the caller ran it
+    already), sample by sample; returns (samples beyond the bars, samples
+    explained).
+
+    A closed-loop input can be ill-conditioned: a sample that sits on a
+    contact gate takes the other branch after a one-ulp difference in any
+    earlier operation, and its trajectory parts from there.  A sample's
+    outputs depend only on its own actions, its seed's start state and task,
+    and its index, so the evidence is per sample: a sample beyond the bars
+    is explained when a nudge of its own actions (``_nudges``, in turn; one
+    plain run of the affected seeds per nudge, every other sample unchanged)
+    carries the plain version's same sample to the kernel's output, within
+    the same bars: the plain version itself sits on a gate there, and its
+    other branch is the kernel's.  Any sample no nudge explains fails the
+    check, whatever their share."""
     c_k, t_k = out
-    with _live_contacts() as live:
-        c_p, t_p = ro.point_rollout_batched_plain(spec, *inputs)
-    ce = torch.abs(c_k - c_p).amax(-1)
-    te = torch.abs(t_k - t_p).amax((-2, -1))
-    beyond = (ce > COST_ATOL) | (te > TRAJ_ATOL)
-    n_beyond, within = int(beyond.sum()), ~beyond
-    print(f"[{label}] vs plain: {n_beyond} of {beyond.numel()} samples beyond the bars; within them max cost err "
-          f"{float(ce[within].max()):.3e}, traj err {float(te[within].max()):.3e}; overall max cost err "
-          f"{float(ce.max()):.3e}, traj err {float(te.max()):.3e}")
-    if n_beyond:
-        b = int(te.amax(-1).argmax())
-        x = [v[b] for v in inputs]
-        x[-1] = torch.nextafter(x[-1], torch.full_like(x[-1], torch.inf))
-        c_n, t_n = ro.point_rollout_plain(spec, *x)
-        ce_n, te_n = torch.abs(c_n - c_p[b]).amax(-1), torch.abs(t_n - t_p[b]).amax((-2, -1))
-        n_moved = int(((ce_n > COST_ATOL) | (te_n > TRAJ_ATOL)).sum())
-        print(f"[{label}] the plain version with seed {b}'s actions one ulp up moves {n_moved} of its "
-              f"{ce_n.numel()} samples beyond the bars, by up to cost {float(ce_n.max()):.3e}, traj {float(te_n.max()):.3e}")
+    if ref is None:
+        ref = plain(*inputs)
+    ce, te, beyond = _beyond(out, ref)
+    within = ~beyond
+    ce_in, te_in = (float(x[within].max()) if within.any() else 0.0 for x in (ce, te))
+    print(f"[{label}] vs plain: {int(beyond.sum())} of {beyond.numel()} samples beyond the bars; within them max cost "
+          f"err {ce_in:.3e}, traj err {te_in:.3e}; overall max cost err {float(ce.max()):.3e}, traj err "
+          f"{float(te.max()):.3e}")
+    unexplained, explained_by = beyond.clone(), {}
+    for nudge, n, up in _nudges():
+        seeds = torch.nonzero(unexplained.any(-1)).flatten()
+        if seeds.numel() == 0:
+            break
+        samples = unexplained[seeds]
+        x = [v[seeds] for v in inputs]
+        x[-1] = _nudged(x[-1], samples, n, up)
+        landed = ~_beyond(plain(*x), tuple(o[seeds] for o in out))[2] & samples
+        if landed.any():
+            explained_by[nudge] = int(landed.sum())
+        unexplained[seeds] = samples & ~landed
+    n_beyond, n_explained = int(beyond.sum()), sum(explained_by.values())
+    print(f"[{label}] {n_beyond} beyond, {n_explained} explained by nudges of their own actions {explained_by}")
+    lost = [f"seed {int(b)} sample {int(k)} (cost err {float(ce[b, k]):.3e}, traj err {float(te[b, k]):.3e})"
+            for b, k in torch.nonzero(unexplained).tolist()]
+    for line in lost:
+        print(f"[{label}] unexplained: {line}")
     assert torch.isfinite(c_k).all() and torch.isfinite(t_k).all()
-    assert n_beyond <= CLOSED_LOOP_BEYOND * beyond.numel(), f"{label}: kernel disagrees with its plain version"
-    return _total(live)
+    assert not lost, (
+        f"{label}: kernel disagrees with its plain version at {len(lost)} unexplained samples: " + "; ".join(lost)
+    )
+    return n_beyond, n_explained
 
 
-def phase_closed_loop(card: str, main_calls: list, batch_calls: list) -> tuple:
-    """K1 and K1b on the inputs the closed loops gave them: every K1 input of
-    the gated main path (one a tick) and every K1b input of the n=20 point
-    batch (one a batched tick) timed; the slowest of each (the most live
-    contacts to project) held against its plain version sample by sample
-    (``_closed_loop_check``, which counts its live contacts for the bound;
-    K1b also against single launches, exactly) and timed with TIMED_CALLS.
-    Returns the two kernels' closed-loop keys and the two slowest inputs."""
-    from m3p2i_aip_tpu_torch.ops import rollout as ro
-
-    med1, (spec, k1_in) = _slowest(main_calls, ro.point_rollout)
-    out = tuple(x[None] for x in ro.point_rollout(spec, *k1_in))
-    live1 = _closed_loop_check(f"closed-loop K1, slowest of {len(main_calls)} main-path ticks", spec,
-                               tuple(x[None] for x in k1_in), out)
-    med1b, (spec_b, k1b_in) = _slowest(batch_calls, ro.point_rollout_batched)
-    c_k, t_k = ro.point_rollout_batched(spec_b, *k1b_in)
-    live1b = _closed_loop_check(f"closed-loop K1b, slowest of {len(batch_calls)} batched ticks", spec_b, k1b_in,
-                                (c_k, t_k))
-    se = 0.0
-    for b in range(c_k.shape[0]):
-        c_s, t_s = ro.point_rollout(spec_b, *(x[b] for x in k1b_in))
-        se = max(se, float(torch.max(torch.abs(c_k[b] - c_s))), float(torch.max(torch.abs(t_k[b] - t_s))))
-    print(f"[closed-loop K1b] vs {c_k.shape[0]} single launches max err {se:.3e}")
-    assert se <= SERIAL_ATOL, f"closed-loop K1b disagrees with its single kernel: {se}"
-
-    entries = []
-    for name, sp, inputs, med, n_live in (("K1", spec, k1_in, med1, live1), ("K1b", spec_b, k1b_in, med1b, live1b)):
-        kernel = ro.point_rollout if name == "K1" else ro.point_rollout_batched
-        ms = _time_ms(lambda: kernel(sp, *inputs))
-        n, T = inputs[-1].shape[:-2].numel(), inputs[-1].shape[-2]
-        bound = _bound(_bytes(sp.params_buf, *inputs) + n * T * 3 * 4, _point_rollout_ops(sp, n, n_live))
-        print(f"[closed-loop {name}] {tuple(inputs[-1].shape[:-2])} samples: slowest input {ms:.4f} ms (median of "
-              f"{TIMED_CALLS}), {n_live} live contacts, bound {bound}; median over the recorded inputs "
-              f"{med:.4f} ms ({card})")
-        entries.append({"closed_loop_ms": ms, "closed_loop_median_ms": med, "closed_loop_bound_ms": bound["bound_ms"]})
-    return entries[0], entries[1], (spec, k1_in), (spec_b, k1b_in)
+def phase_closed_loop(card: str, label: str, calls: list, kernel, plain, ops, single=None, live=False) -> tuple:
+    """A rollout kernel on the inputs a closed loop gave it: every recorded
+    (spec, inputs) call timed; the slowest held against the plain batched
+    version ``plain(spec, ...)`` sample by sample (``_closed_loop_check``;
+    a batched kernel also against its ``single`` kernel per seed, exactly)
+    and timed with TIMED_CALLS.  The bound's operations are ``ops(spec,
+    samples)``, or, where ``live`` (the point kernel), ``ops(spec, samples,
+    live contacts)`` with the contacts the plain version projects.  Returns
+    the kernel's closed-loop keys and its slowest input."""
+    med, (spec, x) = _slowest(calls, kernel)
+    out = kernel(spec, *x)
+    xb, out = (x, out) if single is not None else (tuple(v[None] for v in x), tuple(v[None] for v in out))
+    with _live_contacts() if live else contextlib.nullcontext([]) as counted:
+        ref = plain(spec, *xb)
+    n_live = _total(counted)
+    _closed_loop_check(f"closed-loop {label}, slowest of {len(calls)} recorded calls", lambda *a: plain(spec, *a),
+                       xb, out, ref)
+    if single is not None:
+        se = 0.0
+        for b in range(out[0].shape[0]):
+            c_s, t_s = single(spec, *(v[b] for v in x))
+            se = max(se, float(torch.max(torch.abs(out[0][b] - c_s))), float(torch.max(torch.abs(out[1][b] - t_s))))
+        print(f"[closed-loop {label}] vs {out[0].shape[0]} single launches max err {se:.3e}")
+        assert se <= SERIAL_ATOL, f"closed-loop {label} disagrees with its single kernel: {se}"
+    ms = _time_ms(lambda: kernel(spec, *x))
+    n, T = x[-1].shape[:-2].numel(), x[-1].shape[-2]
+    bound = _bound(_bytes(spec.params_buf, *x) + n * T * 3 * 4, ops(spec, n, n_live) if live else ops(spec, n))
+    counted_note = f", {n_live} live contacts" if live else ""
+    print(f"[closed-loop {label}] {tuple(x[-1].shape[:-2])} samples: slowest input {ms:.4f} ms (median of "
+          f"{TIMED_CALLS}){counted_note}, bound {bound}; median over the recorded inputs {med:.4f} ms ({card})")
+    return {"closed_loop_ms": ms, "closed_loop_median_ms": med, "closed_loop_bound_ms": bound["bound_ms"]}, (spec, x)
 
 
-def phase_rollout_scaling(card: str, k1_loop: tuple, k1b_loop: tuple) -> None:
-    """K1 at K in SCALING_K (T=15; the K=200 samples tiled) and K1b at B in
-    SCALING_B (K=200; the first B seeds), on random-action inputs (few live
-    contacts) and on the slowest closed-loop inputs: kernel times only
-    (CUDA events, medians of TIMED_CALLS), each with its blocks and waves,
-    after the kernel's team width, registers and spills."""
+def _point_random_inputs() -> tuple:
+    """K1's and K1b's random-action inputs of the scaling sweep (few live
+    contacts): one start with a friction draw at K=200 x T=15, and B=20
+    seeds as the batched check makes them."""
     from dataclasses import replace
 
     from m3p2i_aip_tpu_torch.config.config_store import load_config
@@ -454,10 +496,6 @@ def phase_rollout_scaling(card: str, k1_loop: tuple, k1b_loop: tuple) -> None:
     from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMP
     from m3p2i_aip_tpu_torch.utils.tree import tree_map
 
-    shape = _point_launch_shape()
-    print(f"[rollout-scaling] team {shape['team']} lanes a sample, {shape['threads']} threads ({shape['samples']} "
-          f"samples) a block, {shape['registers']} registers and {shape['spill']} bytes of spill stores a thread, "
-          f"{shape['per_wave']} blocks a wave ({card})")
     tamp = ReactiveTAMP(load_config("config_point", MAIN_PATH), device="cuda")
     env, spec = tamp.env, tamp.motion_planner.rollout.spec
     rng = np.random.default_rng(13)
@@ -467,22 +505,34 @@ def phase_rollout_scaling(card: str, k1_loop: tuple, k1b_loop: tuple) -> None:
     fric = rng.uniform(0.7, 1.3, size=(spec.K, state.fric_scale.shape[0])).astype(np.float32)
     sk = replace(sk, fric_scale=torch.as_tensor(fric, device="cuda"))
     acts = torch.as_tensor(rng.uniform(-3, 3, size=(spec.K, spec.T, env.nu)).astype(np.float32), device="cuda")
-    random_k1 = (spec, ro.rollout_inputs(sk, tamp.tamp_interface_view(env.view(state))) + (acts,))
-    random_k1b = (spec, _point_batch_inputs(tamp, max(SCALING_B), rng))
-    for kind, (sp, (task, state0, fric_k, acts)), (sp_b, inputs_b) in (
-        ("random-action", random_k1, random_k1b), ("closed-loop", k1_loop, k1b_loop)
-    ):
+    single = (spec, ro.rollout_inputs(sk, tamp.tamp_interface_view(env.view(state))) + (acts,))
+    return single, (spec, _point_batch_inputs(tamp, max(SCALING_B), rng))
+
+
+def phase_rollout_scaling(card: str, names: tuple, shape: dict, kernel, batched, inputs: dict) -> None:
+    """A team rollout kernel (``names[0]``, launch ``shape``) at K in
+    SCALING_K (the K=200 samples tiled) and its batched call (``names[1]``)
+    at B in SCALING_B (the first B seeds), on each kind of input in
+    ``inputs`` ({kind: ((spec, single inputs), (spec, batched inputs))}):
+    kernel times only (CUDA events, medians of TIMED_CALLS), each with its
+    blocks and waves, after the kernel's team width, registers and spills."""
+    from dataclasses import replace
+
+    print(f"[rollout-scaling] {names[0]}: team {shape['team']} lanes a sample, {shape['threads']} threads "
+          f"({shape['samples']} samples) a block, {shape['registers']} registers, a {shape['stack']}-byte stack frame "
+          f"and {shape['spill']} bytes of spill stores a thread, {shape['per_wave']} blocks a wave ({card})")
+    for kind, ((sp, x), (sp_b, xb)) in inputs.items():
         for K in SCALING_K:
-            n = K // acts.shape[0]
-            tiled = (task, state0, fric_k.repeat(n, 1), acts.repeat(n, 1, 1))
-            ms = _time_ms(lambda: ro.point_rollout(replace(sp, K=K), *tiled))
+            n = K // x[-1].shape[0]
+            tiled = tuple(v.repeat(n, *[1] * (v.dim() - 1)) if v.dim() > 1 else v for v in x)  # the per-sample rows
+            ms = _time_ms(lambda: kernel(replace(sp, K=K), *tiled))
             blocks = -(-K // shape["samples"])
-            print(f"[rollout-scaling] {kind} K1 K={K} x T={sp.T}: {ms:.4f} ms, {blocks} blocks, "
+            print(f"[rollout-scaling] {kind} {names[0]} K={K} x T={sp.T}: {ms:.4f} ms, {blocks} blocks, "
                   f"{-(-blocks // shape['per_wave'])} wave(s) ({card})")
         for B in SCALING_B:
-            ms = _time_ms(lambda: ro.point_rollout_batched(sp_b, *(x[:B] for x in inputs_b)))
+            ms = _time_ms(lambda: batched(sp_b, *(v[:B] for v in xb)))
             blocks = B * -(-sp_b.K // shape["samples"])
-            print(f"[rollout-scaling] {kind} K1b B={B} x K={sp_b.K} x T={sp_b.T}: {ms:.4f} ms, {blocks} blocks, "
+            print(f"[rollout-scaling] {kind} {names[1]} B={B} x K={sp_b.K} x T={sp_b.T}: {ms:.4f} ms, {blocks} blocks, "
                   f"{-(-blocks // shape['per_wave'])} wave(s) ({card})")
 
 
@@ -549,7 +599,8 @@ def phase_panda_rollout() -> tuple:
     from the seven parity starts, for multi_modal False and True; in the
     multi-modal scene also K2 against its plain version on each case's K3
     cost horizon, with the panda planner's discount, halves and eta bounds
-    (the shape and cost scale the shelf and benchmark paths give K2)."""
+    (the shape and cost scale the shelf and benchmark paths give K2).
+    Returns K3's stats, K2's error and the timed (first) input."""
     from m3p2i_aip_tpu_torch.config.config_store import load_config
     from m3p2i_aip_tpu_torch.ops import panda_rollout as pr
     from m3p2i_aip_tpu_torch.ops import weights
@@ -598,7 +649,8 @@ def phase_panda_rollout() -> tuple:
     print(f"[panda-rollout] kernel {ms:.4f} ms (median of {TIMED_CALLS}), plain {plain_ms:.4f} ms (median of 10); "
           f"bound {bound}")
     print(f"[panda-weights] max err {w_err:.3e}; kernel {w_ms:.4f} ms at K=200 x T=12 (median of {TIMED_CALLS})")
-    return {"max_abs_err": cost_err, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None}, w_err
+    stats = {"max_abs_err": cost_err, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None}
+    return stats, w_err, (spec, inputs + (acts,))
 
 
 def _count_panda_ticks(loop) -> list:
@@ -616,11 +668,12 @@ def _count_panda_ticks(loop) -> list:
     return record
 
 
-def phase_panda_main() -> int:
+def phase_panda_main() -> tuple:
     """The panda main path: ``config_panda`` (reactive_pick, cube on the
     table, single mode) through ``SimLoop.run_chunked`` in chunks of 50.  The
     cube must be grasped, success must latch within PANDA_TICKS, and K3 must
-    launch 1 + refine_iters times per dispatched tick."""
+    launch 1 + refine_iters times per dispatched tick.  Returns K3's launch
+    count and its recorded inputs."""
     from m3p2i_aip_tpu_torch.config.config_store import load_config
     from m3p2i_aip_tpu_torch.ops import panda_rollout as pr
     from m3p2i_aip_tpu_torch.ops import weights
@@ -635,7 +688,8 @@ def phase_panda_main() -> int:
     pr.panda_rollout_launches = 0
     weights.weights_launches = 0
     t0 = time.perf_counter()
-    log = loop.run_chunked(PANDA_TICKS, chunk=50)
+    with _recorded(pr, "panda_rollout") as calls:
+        log = loop.run_chunked(PANDA_TICKS, chunk=50)
     wall = time.perf_counter() - t0
     launches = pr.panda_rollout_launches
     dispatched = sum(n for n, _ in record)
@@ -656,7 +710,7 @@ def phase_panda_main() -> int:
     pos_err = float(np.linalg.norm(view["cube_state"][:2] - view["cube_goal"][:2]))
     ori_err = float(general_ori_cube2goal(view["cube_state"][3:], view["cube_goal"][3:]))
     print(f"[panda-main] success tick {log.success_step}; settled cube error: pos {pos_err:.4f} m, ori {ori_err:.4f}")
-    return launches
+    return launches, calls
 
 
 def phase_panda_shelf() -> float:
@@ -704,7 +758,7 @@ def phase_panda_bench(card: str) -> float:
     """The panda replan+step rate, scripts/bench_panda.py:58-77's protocol
     at a shorter depth: multi-modal K=200 x T=12, warm-up 50, two warm-up
     chunks of BENCH_CHUNK, then 4 timed chunks chained from the start
-    state."""
+    state; then a profile of one 20-tick chunk from the start state."""
     from m3p2i_aip_tpu_torch.config.config_store import load_config
     from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
 
@@ -724,6 +778,9 @@ def phase_panda_bench(card: str) -> float:
     run(4 * chunk)
     hz = 4 * chunk / (time.perf_counter() - t0)
     print(f"[panda-bench] {hz:.2f} Hz replan+step, K=200 x T=12, multi-modal, {4 * chunk} timed ticks ({card})")
+    _profile_ticks("panda-bench", card,
+                   lambda: tamp.run_chunk_panda(tamp.mppi_state, loop.state, 0, tamp.zup_zs0(), 20), 20,
+                   {"K3": "panda_rollout", "K2": "multimodal_weights"})
     return hz
 
 
@@ -865,6 +922,33 @@ def phase_albert_bench(card: str) -> float:
     return hz
 
 
+def _profile_ticks(label: str, card: str, run, n: int, kernels: dict) -> None:
+    """``torch.profiler`` over ``run()``, a chunk of n ticks: device kernels
+    and device time a tick, the time a tick of each kernel in ``kernels``
+    ({label: a substring of its name}), the profiled wall a tick and the
+    device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        print(f"[{label}] torch.profiler recorded no device kernels: device time not measured")
+        return
+    dev_us = sum(e.time_range.elapsed_us() for e in events)
+    parts = ", ".join(
+        f"{k} {sum(e.time_range.elapsed_us() for e in events if sub in e.name) / n / 1e3:.3f} ms"
+        for k, sub in kernels.items()
+    )
+    print(f"[{label}] profiler over {n} ticks: {len(events) / n:.0f} device kernels a tick, "
+          f"{dev_us / n / 1e3:.3f} ms device time a tick ({parts}), profiled wall {wall / n * 1e3:.3f} ms a tick, "
+          f"device idle {100 * (1 - dev_us / 1e6 / wall):.1f}% ({card})")
+
+
 def _host_ms(fn, calls: int = 10) -> float:
     """Median host time of one call that ends in a synchronize."""
     fn()
@@ -904,24 +988,8 @@ def phase_albert_breakdown(card: str) -> None:
         t = _host_ms(fn, calls=5 if "20" in name else 10)
         print(f"[albert-breakdown] {name}: {t / (20 if '20' in name else 1):.3f} ms ({card})")
 
-    from torch.profiler import ProfilerActivity, profile
-
-    n = 20
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tamp._run_chunk_impl(ms, rs, task, 0, n, gate=False)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        print("[albert-breakdown] torch.profiler recorded no device kernels: device time not measured")
-        return
-    dev_us = sum(e.time_range.elapsed_us() for e in kernels)
-    k4_us = sum(e.time_range.elapsed_us() for e in kernels if "albert_rollout" in e.name)
-    print(f"[albert-breakdown] profiler over {n} ticks: {len(kernels) / n:.0f} device kernels a tick, "
-          f"{dev_us / n / 1e3:.3f} ms device time a tick (K4 {k4_us / n / 1e3:.3f} ms), "
-          f"profiled wall {wall / n * 1e3:.3f} ms a tick, device idle {100 * (1 - dev_us / 1e6 / wall):.1f}% ({card})")
+    _profile_ticks("albert-breakdown", card, lambda: tamp._run_chunk_impl(ms, rs, task, 0, 20, gate=False), 20,
+                   {"K4": "albert_rollout"})
 
 
 # ------------------------------------------------------------------------
@@ -1121,7 +1189,7 @@ def phase_panda_batched() -> tuple:
         f"panda-batched K3b at B={B}", fns[0], fns[1], inputs,
         _bytes(spec.params_buf, *inputs) + B * K * T * 3 * 4, _panda_rollout_ops(spec, B * K), plain_calls=1,
     )
-    return {"max_abs_err": err, **stats}, w_err
+    return {"max_abs_err": err, **stats}, w_err, (spec, inputs)
 
 
 def phase_albert_batched() -> dict:
@@ -1307,25 +1375,9 @@ def phase_batch_bench(card: str, serial_hz: float) -> None:
           f"({wall / ticks * 1e3:.3f} ms a batched tick, {ticks} timed ticks); serial {serial_hz:.2f} ticks/s; "
           f"ratio {hz * N_SEEDS / serial_hz:.2f}x ({card})")
 
-    from torch.profiler import ProfilerActivity, profile
-
-    n = 10
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tamp._run_chunk_impl(batch.mppi_state, batch.state, task, 0, n, gate=False)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        print("[batch-bench] torch.profiler recorded no device kernels: device time not measured")
-        return
-    dev_us = sum(e.time_range.elapsed_us() for e in kernels)
-    k1b_us = sum(e.time_range.elapsed_us() for e in kernels if "point_rollout" in e.name)
-    k2b_us = sum(e.time_range.elapsed_us() for e in kernels if "multimodal_weights" in e.name)
-    print(f"[batch-bench] profiler over {n} batched ticks: {len(kernels) / n:.0f} device kernels a tick, "
-          f"{dev_us / n / 1e3:.3f} ms device time a tick (K1b {k1b_us / n / 1e3:.3f} ms, K2b {k2b_us / n / 1e3:.3f} ms), "
-          f"profiled wall {wall / n * 1e3:.3f} ms a tick, device idle {100 * (1 - dev_us / 1e6 / wall):.1f}% ({card})")
+    _profile_ticks("batch-bench", card, lambda: tamp._run_chunk_impl(batch.mppi_state, batch.state, task, 0, 10,
+                                                                      gate=False),
+                   10, {"K1b": "point_rollout", "K2b": "multimodal_weights"})
 
 
 def main() -> None:
@@ -1333,6 +1385,7 @@ def main() -> None:
         sys.exit("chip_smoke.py: no CUDA device; this script runs only on a GPU")
     from m3p2i_aip_tpu_torch.config.config_store import load_config
     from m3p2i_aip_tpu_torch.ops import cuda_build
+    from m3p2i_aip_tpu_torch.ops import panda_rollout as pr
     from m3p2i_aip_tpu_torch.ops import rollout as ro
     from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMP
 
@@ -1359,8 +1412,8 @@ def main() -> None:
     hz = phase_benchmark(loop, card)
     del loop
     # 7. K3 against its plain version; 8. / 9. / 10. the panda path
-    stats["panda_rollout"], w_err = phase_panda_rollout()
-    launches["panda_rollout"] = phase_panda_main()
+    stats["panda_rollout"], w_err, k3_parity = phase_panda_rollout()
+    launches["panda_rollout"], k3_calls = phase_panda_main()
     w_err = max(w_err, phase_panda_shelf())
     k2 = stats["multimodal_weights"]
     k2["max_abs_err"] = max(k2["max_abs_err"], w_err)  # over the point and the panda shapes and costs
@@ -1373,7 +1426,7 @@ def main() -> None:
     phase_albert_breakdown(card)
     # 16. - 18. the batched kernels against their plain versions and single launches, timed at B=20
     stats["point_rollout_batched"], stats["multimodal_weights_batched"] = phase_point_batched()
-    stats["panda_rollout_batched"], w_err = phase_panda_batched()
+    stats["panda_rollout_batched"], w_err, k3b_parity = phase_panda_batched()
     k2b = stats["multimodal_weights_batched"]
     k2b["max_abs_err"] = max(k2b["max_abs_err"], w_err)
     stats["albert_rollout_batched"] = phase_albert_batched()
@@ -1383,10 +1436,11 @@ def main() -> None:
             "batch-point", "config_point", MAIN_PATH, 4, 300,
             {"rollout_batched_launches": 1, "weights_batched_launches": 1},
         )
-    panda_counts = phase_seed_batch(
-        "batch-panda", "config_panda", ["multi_modal=True"], 10, 600,
-        {"panda_rollout_batched_launches": 4, "weights_batched_launches": 3},
-    )
+    with _recorded(pr, "panda_rollout_batched") as k3b_calls:
+        panda_counts = phase_seed_batch(
+            "batch-panda", "config_panda", ["multi_modal=True"], 10, 600,
+            {"panda_rollout_batched_launches": 4, "weights_batched_launches": 3},
+        )
     albert_counts = phase_seed_batch("batch-albert", "config_albert", [], 10, 300, {"albert_rollout_batched_launches": 4})
     launches["point_rollout_batched"] = point_counts["rollout_batched_launches"]
     launches["multimodal_weights_batched"] = (
@@ -1398,12 +1452,27 @@ def main() -> None:
     phase_batch_vs_serial("batch-vs-serial point", "config_point", MAIN_PATH, 4, 300)
     phase_batch_vs_serial("batch-vs-serial panda", "config_panda", ["multi_modal=True"], 10, 600)
     phase_batch_bench(card, hz)
-    # 25. / 26. K1 and K1b on the closed loops' inputs, and the scaling sweep
-    loop_k1, loop_k1b, k1_loop, k1b_loop = phase_closed_loop(card, k1_calls, k1b_calls)
-    stats["point_rollout"].update(loop_k1)
-    stats["point_rollout_batched"].update(loop_k1b)
-    del k1_calls, k1b_calls
-    phase_rollout_scaling(card, k1_loop, k1b_loop)
+    # 25. K1, K1b, K3 and K3b on the closed loops' inputs; 26. the scaling sweeps
+    slowest = {}
+    for name, label, calls, kernel, plain, ops, single in (
+        ("point_rollout", "K1", k1_calls, ro.point_rollout, ro.point_rollout_batched_plain, _point_rollout_ops, None),
+        ("point_rollout_batched", "K1b", k1b_calls, ro.point_rollout_batched, ro.point_rollout_batched_plain,
+         _point_rollout_ops, ro.point_rollout),
+        ("panda_rollout", "K3", k3_calls, pr.panda_rollout, pr.panda_rollout_batched_plain, _panda_rollout_ops, None),
+        ("panda_rollout_batched", "K3b", k3b_calls, pr.panda_rollout_batched, pr.panda_rollout_batched_plain,
+         _panda_rollout_ops, pr.panda_rollout),
+    ):
+        live = name.startswith("point")  # the point kernel's bound counts its live contacts
+        entry, slowest[label] = phase_closed_loop(card, label, calls, kernel, plain, ops, single, live)
+        stats[name].update(entry)
+        calls.clear()
+    phase_rollout_scaling(card, ("K1", "K1b"), _launch_shape("point_rollout", "point_rollout_kernel"),
+                          ro.point_rollout, ro.point_rollout_batched,
+                          {"random-action": _point_random_inputs(), "closed-loop": (slowest["K1"], slowest["K1b"])})
+    # the S = 3 instantiation, which the panda scenes launch
+    phase_rollout_scaling(card, ("K3", "K3b"), _launch_shape("panda_rollout", "panda_rollout_kernelILi3E"),
+                          pr.panda_rollout, pr.panda_rollout_batched,
+                          {"parity": (k3_parity, k3b_parity), "closed-loop": (slowest["K3"], slowest["K3b"])})
 
     sources = {
         "point_rollout": ("m3p2i_aip_tpu_torch/csrc/point_rollout.cu", "m3p2i_aip_tpu/ops/pallas_rollout.py:189"),

@@ -65,20 +65,25 @@ __device__ __forceinline__ void mul_const(float R[3][3], const float (&M)[3][3])
     for (int j = 0; j < 3; ++j) R[i][j] = out[i][j];
 }
 
+// joint J with c = cos(q_J), s = sin(q_J)
 template <int J>
-__device__ __forceinline__ void fk_joint(float pos[3], float R[3][3], float qj) {
+__device__ __forceinline__ void fk_joint(float pos[3], float R[3][3], float c, float s) {
   constexpr float o0 = kJointXYZ[J][0], o1 = kJointXYZ[J][1], o2 = kJointXYZ[J][2];
   add_rot_const(pos, R, o0, o1, o2);
   if (kRollSign[J] < 0) mul_const(R, kRollNeg);
   if (kRollSign[J] > 0) mul_const(R, kRollPos);
   // R @ Rz(q) with Rz = [[c, -s, 0], [s, c, 0], [0, 0, 1]]
-  const float c = cosf(qj), s = sinf(qj);
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     const float r0 = R[i][0], r1 = R[i][1];
     R[i][0] = r0 * c + r1 * s;
     R[i][1] = r0 * (-s) + r1 * c;
   }
+}
+
+template <int J>
+__device__ __forceinline__ void fk_joint(float pos[3], float R[3][3], float qj) {
+  fk_joint<J>(pos, R, cosf(qj), sinf(qj));
 }
 
 }  // namespace

@@ -22,23 +22,66 @@
 // body, and a batched call never shards K (each seed's k0 is 0).
 //
 // What bounds it on the H100: latency.  At K = 200 there are 200 independent
-// serial chains of T x substeps steps, each a few thousand dependent flops
-// (FK, seven probes x (S statics + cubeB), the pushout of three bodies), and
-// almost no data (8.6 KB of actions in, 29 KB out).  Seven warps on a 132-SM
-// card: the time is the length of one sample's dependency chain.
+// serial chains of T x substeps = 24 substeps, each a few thousand dependent
+// flops, and almost no data (8.6 KB of actions in, 29 KB out).  With one
+// thread a sample the time was one sample's chain (0.43 ms at K = 8, 64 and
+// 200 alike), and most of that chain was 31 sphere-vs-box contact tests a
+// substep (three bodies x S statics of the pushout, seven arm probes x
+// table, shelf and cubeB, cubeA vs cubeB), each an IEEE square root, three
+// IEEE divisions and a branch.
 //
-// What the design does about it: one thread per sample with the whole
-// T x substeps nest in registers (joint state, the three bodies, cubeA's
-// orientation and the grasp); nothing touches global memory inside the nest
-// but the per-step action read and the cost / EE write.  The start state is
-// one 56-float vector read by every thread (all K rollouts start from the
-// synced real state).  Scene constants (statics, supports, body constants,
-// dt and friends) come from a small param buffer built once per scene in
-// ops/panda_rollout.py and staged to shared memory.  The FK tables and joint
+// What the design does about it: a team of kTeam lanes of one warp per
+// sample, in place of one thread, as the TPU kernel packed the probes on
+// sublanes.  Every lane keeps the same copy of the sample's state in
+// registers (joints, the three bodies, cubeA's quaternion and spin, the
+// grasp) and does the same serial work: the joint drive and limits, the FK,
+// grasp attach / detach, the quaternion integration, each body's gravity,
+// support search and landing, the held cube, the costs.  The contact tests,
+// which do not depend on each other, are split over the lanes:
+//   * pushout: (body b, static s) pair j = b * S + s on lane j % kTeam of
+//     round j / kTeam (two rounds at the scene's S = 3), together with the
+//     probes' table and shelf tests (probe pi on lane pi), which need only
+//     the FK;
+//   * after the pushout and the held cube: probe pi against cubeB on lane pi
+//     and cubeA against cubeB on lane kProbes, in one round.
+// Each test runs the unchanged sphere_aabb arithmetic, and its results reach
+// every lane through __shfl_sync within the team; every lane then adds them
+// in the order of one sequential thread (the pushout in (body, static)
+// order with the s == 0 assignment, the forces by static, by body and then
+// by probe, cubeA-cubeB last), so all lanes hold the same bits and the
+// output does not depend on kTeam, on the block or on B: a batched launch
+// equals B single launches bit for bit, and this kernel gives the bits of
+// the one-thread kernel it replaced.  sphere_aabb and mat_to_quat select
+// their operands instead of branching (a select yields the branch's IEEE
+// result), so the lanes of a warp, which test different boxes, do not
+// split on them.  A team never straddles a warp, and its shuffles name only
+// its own lanes, so a team past K at the ragged edge leaves as a whole.
+//
+// Three more cuts of the chain, each exact: the FK's 14 sines and cosines
+// run on the lanes (joint j's on lane j, then shuffled), where one thread
+// ran all 14 range reductions; the bodies' landing selects instead of
+// branching, so the three bodies interleave; and the scenes' static count
+// S = 3 is a template argument (every loop over the statics and supports
+// unrolled, every gather index a constant; any other S runs the kS = 0
+// instantiation, which reads S at run time).
+//
+// What bounds it now: still one sample's chain (the time is flat from
+// K = 200 to 1000 and grows ~10% to 4000, all one wave), about a third of
+// the one-thread kernel's.  Per substep the chain holds four contact tests
+// in the first round (two pushout rounds and the two static probe tests)
+// and one in the second; each test's IEEE square root and divisions carry
+// slow-path branches that keep the tests from interleaving, and they are
+// the largest share, ahead of the replicated drive and FK, the bodies and
+// the costs.  The scene constants (statics, supports, body constants, dt and
+// friends) come from a small param buffer built once per scene in
+// ops/panda_rollout.py and staged to shared memory; the FK tables and joint
 // limits are constexpr, and every product with a table entry goes through
 // cdot(), which drops exact zeros and turns +-1 into a sign at compile time
-// (the TPU kernel's trace-time _term / _fold_sum).  Blocks are two warps;
-// a batch of B seeds is B rows of such blocks.
+// (the TPU kernel's trace-time _term / _fold_sum).  The kernel has no matrix
+// product and moves ~40 KB, so TMA, wgmma and clusters have no role in it.
+// Blocks are two warps, eight samples: 25 blocks at K = 200, 500 at B = 20,
+// one wave at the 168 registers ptxas gives the S = 3 instantiation (a
+// 64-byte stack frame for the sines' slow paths, no spills).
 //
 // Orientation integration: the TPU kernel carries cubeA's orientation as a
 // rotation matrix integrated with Rodrigues, which differs from the XLA
@@ -59,11 +102,19 @@
 #include <math.h>
 
 #include "panda_fk.cuh"
+#include "team.cuh"
 
 namespace {
 
-constexpr int kThreads = 64;
 constexpr int kMaxS = 8;  // static AABBs (the supports are the statics + the ground)
+// lanes per sample: kTeam divides 32 (a team never straddles a warp) and
+// holds the kProbes probes and the cubeA-cubeB test on lane kProbes;
+// kThreads is whole warps (tests/test_torch_kernel_sources.py holds them)
+constexpr int kTeam = 8;
+constexpr int kThreads = 64;
+constexpr int kSamplesPerBlock = kThreads / kTeam;
+constexpr int kProbes = 7;  // arm probe spheres: link4-6 origins, hand, fingers, tip
+constexpr int kPairRounds = (3 * kMaxS + kTeam - 1) / kTeam;  // rounds of (body, static) pushout pairs
 constexpr float kGravity = 9.8f;
 constexpr float kFingertipZ = 0.045f;
 
@@ -90,23 +141,24 @@ struct Links {
   float left[3], right[3], ee[3], tip[3];
 };
 
-// panda_fk.fk: 7 joints, the hand, the fingers, the EE midpoint and the tip
-__device__ __forceinline__ void fk(const float q[9], const float* sp, Links& L) {
+// panda_fk.fk: 7 joints (their angles' cosines c and sines s given), the
+// hand, the fingers, the EE midpoint and the tip
+__device__ __forceinline__ void fk(const float q[9], const float c[7], const float s[7], const float* sp, Links& L) {
   float pos[3] = {sp[P_BASE_X], sp[P_BASE_Y], sp[P_BASE_Z]};
   float R[3][3] = {{1.0f, 0.0f, 0.0f}, {0.0f, 1.0f, 0.0f}, {0.0f, 0.0f, 1.0f}};
-  fk_joint<0>(pos, R, q[0]);
-  fk_joint<1>(pos, R, q[1]);
-  fk_joint<2>(pos, R, q[2]);
-  fk_joint<3>(pos, R, q[3]);
+  fk_joint<0>(pos, R, c[0], s[0]);
+  fk_joint<1>(pos, R, c[1], s[1]);
+  fk_joint<2>(pos, R, c[2], s[2]);
+  fk_joint<3>(pos, R, c[3], s[3]);
 #pragma unroll
   for (int i = 0; i < 3; ++i) L.p4[i] = pos[i];
-  fk_joint<4>(pos, R, q[4]);
+  fk_joint<4>(pos, R, c[4], s[4]);
 #pragma unroll
   for (int i = 0; i < 3; ++i) L.p5[i] = pos[i];
-  fk_joint<5>(pos, R, q[5]);
+  fk_joint<5>(pos, R, c[5], s[5]);
 #pragma unroll
   for (int i = 0; i < 3; ++i) L.p6[i] = pos[i];
-  fk_joint<6>(pos, R, q[6]);
+  fk_joint<6>(pos, R, c[6], s[6]);
   add_rot_const(pos, R, kHandXYZ[0], kHandXYZ[1], kHandXYZ[2]);
   mul_const(R, kHandMat);
   float fb[3] = {pos[0], pos[1], pos[2]};
@@ -120,6 +172,15 @@ __device__ __forceinline__ void fk(const float q[9], const float* sp, Links& L) 
     L.right[i] = fb[i] - R[i][1] * q[8];
     L.ee[i] = (L.left[i] + L.right[i]) / 2.0f;
     L.tip[i] = L.ee[i] + R[i][2] * kFingertipZ;
+  }
+}
+
+// the position of arm probe pi (a lane-dependent index) of the links
+__device__ __forceinline__ void probe_pos(const Links& L, int pi, float c[3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float v[kProbes] = {L.p4[i], L.p5[i], L.p6[i], L.hand[i], L.left[i], L.right[i], L.tip[i]};
+    c[i] = pick(v, pi);
   }
 }
 
@@ -158,30 +219,34 @@ __device__ __forceinline__ void quat_integrate(float q[4], const float om[3], fl
   quat_normalize(q);
 }
 
-// quat.py:101 mat_to_quat: the branch-free Shepperd selection
+// quat.py:101 mat_to_quat: the Shepperd selection (trace > 0, else the
+// largest diagonal), by selects: one square root, and each component either
+// 0.25 s or its case's numerator over s
 __device__ __forceinline__ void mat_to_quat(const float M[3][3], float q[4]) {
   const float m00 = M[0][0], m01 = M[0][1], m02 = M[0][2];
   const float m10 = M[1][0], m11 = M[1][1], m12 = M[1][2];
   const float m20 = M[2][0], m21 = M[2][1], m22 = M[2][2];
   const float tr = m00 + m11 + m22;
-  if (tr > 0.0f) {
-    const float s = sqrtf(fmaxf(1.0f + tr, 1e-12f)) * 2.0f;
-    q[0] = (m21 - m12) / s; q[1] = (m02 - m20) / s; q[2] = (m10 - m01) / s; q[3] = 0.25f * s;
-  } else if (m00 >= m11 && m00 >= m22) {
-    const float s = sqrtf(fmaxf(1.0f + m00 - m11 - m22, 1e-12f)) * 2.0f;
-    q[0] = 0.25f * s; q[1] = (m01 + m10) / s; q[2] = (m02 + m20) / s; q[3] = (m21 - m12) / s;
-  } else if (m11 >= m22) {
-    const float s = sqrtf(fmaxf(1.0f - m00 + m11 - m22, 1e-12f)) * 2.0f;
-    q[0] = (m01 + m10) / s; q[1] = 0.25f * s; q[2] = (m12 + m21) / s; q[3] = (m02 - m20) / s;
-  } else {
-    const float s = sqrtf(fmaxf(1.0f - m00 - m11 + m22, 1e-12f)) * 2.0f;
-    q[0] = (m02 + m20) / s; q[1] = (m12 + m21) / s; q[2] = 0.25f * s; q[3] = (m10 - m01) / s;
-  }
+  const bool c0 = tr > 0.0f;
+  const bool c1 = !c0 && m00 >= m11 && m00 >= m22;
+  const bool c2 = !c0 && !c1 && m11 >= m22;
+  const float a = c0 ? 1.0f + tr
+                     : (c1 ? 1.0f + m00 - m11 - m22 : (c2 ? 1.0f - m00 + m11 - m22 : 1.0f - m00 - m11 + m22));
+  const float s = sqrtf(fmaxf(a, 1e-12f)) * 2.0f;
+  const float n0 = c0 ? m21 - m12 : (c2 ? m01 + m10 : m02 + m20);
+  const float n1 = c0 ? m02 - m20 : (c1 ? m01 + m10 : m12 + m21);
+  const float n2 = c0 ? m10 - m01 : (c1 ? m02 + m20 : m12 + m21);
+  const float n3 = c1 ? m21 - m12 : (c2 ? m02 - m20 : m10 - m01);
+  q[0] = c1 ? 0.25f * s : n0 / s;
+  q[1] = c2 ? 0.25f * s : n1 / s;
+  q[2] = (c0 || c1 || c2) ? n2 / s : 0.25f * s;
+  q[3] = c0 ? 0.25f * s : n3 / s;
   quat_normalize(q);
 }
 
 // panda_env._sphere_vs_aabb: penetration + outward normal; an inside center
-// pushes out along the least-separation axis, ties sharing the push
+// pushes out along the least-separation axis, ties sharing the push.  Both
+// cases' normals come from one division per axis, on selected operands.
 __device__ __forceinline__ float sphere_aabb(const float c[3], float r, const float lo[3], const float hi[3],
                                              float n[3]) {
   float diff[3], sep_lo[3], sep_hi[3], sep[3];
@@ -196,19 +261,17 @@ __device__ __forceinline__ float sphere_aabb(const float c[3], float r, const fl
   }
   const float dist = norm3(diff[0], diff[1], diff[2]);
   const float min_sep = fminf(fminf(sep[0], sep[1]), sep[2]);
-  if (inside) {
-    float oh[3];
+  float oh[3];
 #pragma unroll
-    for (int i = 0; i < 3; ++i) oh[i] = sep[i] <= min_sep ? 1.0f : 0.0f;
-    const float cnt = oh[0] + oh[1] + oh[2];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) n[i] = (sep_hi[i] < sep_lo[i] ? 1.0f : -1.0f) * (oh[i] / cnt);
-    return r + min_sep;
-  }
+  for (int i = 0; i < 3; ++i) oh[i] = sep[i] <= min_sep ? 1.0f : 0.0f;
+  const float cnt = oh[0] + oh[1] + oh[2];
   const float g = fmaxf(dist, 1e-9f);
 #pragma unroll
-  for (int i = 0; i < 3; ++i) n[i] = diff[i] / g;
-  return r - dist;
+  for (int i = 0; i < 3; ++i) {
+    const float qv = (inside ? oh[i] : diff[i]) / (inside ? cnt : g);
+    n[i] = inside ? (sep_hi[i] < sep_lo[i] ? 1.0f : -1.0f) * qv : qv;
+  }
+  return inside ? r + min_sep : r - dist;
 }
 
 // quat.py:188 general_ori_ee2cube_mat, tilt 0: ee z and y each parallel (up
@@ -223,17 +286,23 @@ __device__ __forceinline__ float min_one_minus_abs_cos(const float v[3], const f
   return m;
 }
 
+// kS > 0: the scene's static count S at compile time (every loop over the
+// statics and supports unrolled, every gather index a constant); kS = 0
+// reads it from S_arg
+template <int kS>
 __global__ void __launch_bounds__(kThreads)
 panda_rollout_kernel(const float* __restrict__ params, const float* __restrict__ task,
                      const float* __restrict__ state0, const float* __restrict__ acts,
                      float* __restrict__ cost_out, float* __restrict__ traj_out, int K, int K_total,
-                     int T, int S, int substeps, int table_slot, int shelf_slot, int multi_modal,
+                     int T, int S_arg, int substeps, int table_slot, int shelf_slot, int multi_modal,
                      int n_params) {
+  const int S = kS > 0 ? kS : S_arg;
   extern __shared__ float sp[];
   for (int i = threadIdx.x; i < n_params; i += blockDim.x) sp[i] = params[i];
   __syncthreads();
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= K) return;
+  const int k = blockIdx.x * kSamplesPerBlock + threadIdx.x / kTeam;
+  if (k >= K) return;  // all lanes of a team share k, so the team leaves as a whole
+  const auto tm = Team<kTeam>::of_thread();
   // seed b = blockIdx.y: its task, start state and samples
   const size_t b = blockIdx.y;
   task += b * 10;
@@ -292,6 +361,20 @@ panda_rollout_kernel(const float* __restrict__ params, const float* __restrict__
   const float held_finger = half_w * 0.96f;
   const float release_gap = 2.0f * half_w + 0.005f;
   const float* hB = body + kBodyStride * 2;  // cubeB half sizes
+  const float* tbl_st = stat + kStatStride * table_slot;
+  const float* shf_st = stat + kStatStride * shelf_slot;
+  // this lane's pushout pairs (lanes past the last pair repeat it; never read)
+  int pair_b[kPairRounds], pair_s[kPairRounds];
+#pragma unroll
+  for (int r = 0; r < kPairRounds; ++r) {
+    const int j = min(r * kTeam + tm.lane, 3 * S - 1);
+    pair_b[r] = j / S;
+    pair_s[r] = j % S;
+  }
+  // this lane's probe (lane kProbes repeats the last one in the static tests; never read)
+  const int probe = min(tm.lane, kProbes - 1);
+  const bool cube_lane = tm.lane == kProbes;  // tests cubeA vs cubeB
+  const int joint = min(tm.lane, 6);  // the FK joint whose angle's cosine and sine this lane takes
   Links L;
 
   for (int t = 0; t < T; ++t) {
@@ -316,7 +399,20 @@ panda_rollout_kernel(const float* __restrict__ params, const float* __restrict__
         q[7] = fmaxf(q[7], held_finger);
         q[8] = fmaxf(q[8], held_finger);
       }
-      fk(q, sp, L);
+      // cubeA's quaternion integrated ahead (the grasp reads the old one)
+      float quat_next[4] = {quatA[0], quatA[1], quatA[2], quatA[3]};
+      quat_integrate(quat_next, omA, h);
+      // joint j's cosine and sine on lane j, then on every lane
+      float cq[7], sq[7];
+      {
+        const float qj = pick(q, joint), cl = cosf(qj), sl = sinf(qj);
+#pragma unroll
+        for (int j = 0; j < 7; ++j) {
+          cq[j] = tm.from(cl, j);
+          sq[j] = tm.from(sl, j);
+        }
+      }
+      fk(q, cq, sq, sp, L);
 
       // ---- grasp attach / detach ----------------------------------------
       const float cube[3] = {Pb[1][0], Pb[1][1], Pb[1][2]};  // substep start
@@ -336,80 +432,128 @@ panda_rollout_kernel(const float* __restrict__ params, const float* __restrict__
       // only an OPENING gripper that has cleared the cube width releases
       if (!closing && q[7] + q[8] > release_gap) att = 0.0f;
 
-      // ---- bodies: gravity, integrate, support, settling, pushout --------
-      quat_integrate(quatA, omA, h);
-      // the statics' pushout forces, summed over the bodies (table, shelf)
-      // and cubeB's, summed over the statics, before they are accumulated
-      float fsum_tbl[2] = {0.0f, 0.0f}, fsum_shf[2] = {0.0f, 0.0f}, fsum_cb[2] = {0.0f, 0.0f};
+      // ---- bodies: gravity, integrate, support, settling -----------------
+      // (every body reads only its own and cubeB's substep-start state, so
+      // all three move before the pushout; the landing selects, so the
+      // three bodies interleave)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) quatA[i] = quat_next[i];
+      float np[3][3];
 #pragma unroll
       for (int b = 0; b < 3; ++b) {
         const float* bc = body + kBodyStride * b;
         const bool grav = bc[4] > 0.5f;
         Vb[b][2] = Vb[b][2] + (0.0f + (-kGravity * bc[4])) * h;
-        float np[3];
 #pragma unroll
-        for (int i = 0; i < 3; ++i) np[i] = Pb[b][i] + Vb[b][i] * h;
+        for (int i = 0; i < 3; ++i) np[b][i] = Pb[b][i] + Vb[b][i] * h;
         // support: the highest surface under the footprint, below the body
         const float old_bottom = Pb[b][2] - bc[2] + 1e-3f;
         float sup_h = -INFINITY;
-        for (int p = 0; p < P; ++p) {
-          const float* sv = sup + kSupStride * p;
-          const bool over = np[0] >= sv[0] && np[0] <= sv[2] && np[1] >= sv[1] && np[1] <= sv[3];
-          if (over && sv[4] <= old_bottom) sup_h = fmaxf(sup_h, sv[4]);
+#pragma unroll
+        for (int p = 0; p < kMaxS + 1; ++p) {
+          if (p < P) {
+            const float* sv = sup + kSupStride * p;
+            const bool over = np[b][0] >= sv[0] && np[b][0] <= sv[2] && np[b][1] >= sv[1] && np[b][1] <= sv[3];
+            if (over && sv[4] <= old_bottom) sup_h = fmaxf(sup_h, sv[4]);
+          }
         }
         if (b == 1) {  // cubeA rests on cubeB's top face too
           const float cb_top = Pb[2][2] + hB[2];
-          const bool over_b = fabsf(np[0] - Pb[2][0]) <= hB[0] && fabsf(np[1] - Pb[2][1]) <= hB[1];
+          const bool over_b = fabsf(np[b][0] - Pb[2][0]) <= hB[0] && fabsf(np[b][1] - Pb[2][1]) <= hB[1];
           if (over_b && cb_top <= Pb[1][2] - bc[2] + 1e-3f) sup_h = fmaxf(sup_h, cb_top);
         }
         const float rest_z = sup_h + bc[2];
-        const bool landing = np[2] <= rest_z && grav;
-        if (landing) {
-          np[2] = rest_z;
-          Vb[b][2] = 0.0f;
-          const float speed = sqrtf(Vb[b][0] * Vb[b][0] + Vb[b][1] * Vb[b][1]);
-          const float scale = fmaxf(1.0f - sp[P_MU_G_H] / fmaxf(speed, 1e-9f), 0.0f);
-          Vb[b][0] = Vb[b][0] * scale;
-          Vb[b][1] = Vb[b][1] * scale;
-          if (b == 1) {  // contact settling: turn the body z-axis toward world z
-            const float x = quatA[0], y = quatA[1], z = quatA[2], w = quatA[3];
-            const float ux = 2.0f * (x * z + w * y), uy = 2.0f * (y * z - w * x);
-            const float uz = 2.0f * (w * w + z * z) - 1.0f;
-            const bool flat = uz > 0.5f;
-            omA[0] = omA[0] * 0.8f + (flat ? 5.0f * uy : 0.0f);
-            omA[1] = omA[1] * 0.8f + (flat ? 5.0f * (-ux) : 0.0f);
-            omA[2] = omA[2] * 0.8f + 0.0f;
-          }
+        const bool landing = np[b][2] <= rest_z && grav;
+        const float speed = sqrtf(Vb[b][0] * Vb[b][0] + Vb[b][1] * Vb[b][1]);
+        const float scale = fmaxf(1.0f - sp[P_MU_G_H] / fmaxf(speed, 1e-9f), 0.0f);
+        np[b][2] = landing ? rest_z : np[b][2];
+        Vb[b][2] = landing ? 0.0f : Vb[b][2];
+        Vb[b][0] = landing ? Vb[b][0] * scale : Vb[b][0];
+        Vb[b][1] = landing ? Vb[b][1] * scale : Vb[b][1];
+        if (b == 1) {  // contact settling: turn the body z-axis toward world z
+          const float x = quatA[0], y = quatA[1], z = quatA[2], w = quatA[3];
+          const float ux = 2.0f * (x * z + w * y), uy = 2.0f * (y * z - w * x);
+          const float uz = 2.0f * (w * w + z * z) - 1.0f;
+          const bool flat = uz > 0.5f;
+          omA[0] = landing ? omA[0] * 0.8f + (flat ? 5.0f * uy : 0.0f) : omA[0];
+          omA[1] = landing ? omA[1] * 0.8f + (flat ? 5.0f * (-ux) : 0.0f) : omA[1];
+          omA[2] = landing ? omA[2] * 0.8f + 0.0f : omA[2];
         }
-        // lateral pushout vs the statics (the body as a sphere of r_eff)
-        float corr[3] = {0.0f, 0.0f, 0.0f};
-        for (int s = 0; s < S; ++s) {
-          const float* st = stat + kStatStride * s;
-          float n[3];
-          const float pen = sphere_aabb(np, bc[5], st, st + 3, n);
-          float cs[3] = {0.0f, 0.0f, 0.0f};
+      }
+
+      // ---- first contact round, over the team ---------------------------
+      // lateral pushout vs the statics (the body as a sphere of r_eff): this
+      // lane's pairs, each a correction and its force
+      float pcx[kPairRounds], pcy[kPairRounds], pcz[kPairRounds], pfx[kPairRounds], pfy[kPairRounds];
+#pragma unroll
+      for (int r = 0; r < kPairRounds; ++r) {
+        pcx[r] = pcy[r] = pcz[r] = pfx[r] = pfy[r] = 0.0f;
+        if (r * kTeam < 3 * S) {
+          const float* bc = body + kBodyStride * pair_b[r];
+          const float* st = stat + kStatStride * pair_s[r];
+          float c[3], n[3];
+#pragma unroll
+          for (int i = 0; i < 3; ++i) {
+            const float v[3] = {np[0][i], np[1][i], np[2][i]};
+            c[i] = pick(v, pair_b[r]);
+          }
+          const float pen = sphere_aabb(c, bc[5], st, st + 3, n);
           if (pen > 0.0f && fabsf(n[2]) < 0.9f) {
+            pcx[r] = pen * n[0];
+            pcy[r] = pen * n[1];
+            pcz[r] = pen * n[2];
+          }
+          pfx[r] = pcx[r] / sp[P_H2] * bc[3];
+          pfy[r] = pcy[r] / sp[P_H2] * bc[3];
+        }
+      }
+      // arm collision sensing: this lane's probe vs the table and the shelf
+      float pc[3], ftx, fty, fsx, fsy;
+      probe_pos(L, probe, pc);
+      {
+        float n[3];
+        const float hit = fmaxf(sphere_aabb(pc, 0.05f, tbl_st, tbl_st + 3, n), 0.0f);
+        ftx = (hit * n[0]) * 2000.0f;
+        fty = (hit * n[1]) * 2000.0f;
+      }
+      {
+        float n[3];
+        const float hit = fmaxf(sphere_aabb(pc, 0.05f, shf_st, shf_st + 3, n), 0.0f);
+        fsx = (hit * n[0]) * 2000.0f;
+        fsy = (hit * n[1]) * 2000.0f;
+      }
+
+      // ---- the pushout, gathered in (body, static) order ------------------
+      // the statics' pushout forces, summed over the bodies (table, shelf)
+      // and cubeB's, summed over the statics, before they are accumulated
+      float fsum_tbl[2] = {0.0f, 0.0f}, fsum_shf[2] = {0.0f, 0.0f}, fsum_cb[2] = {0.0f, 0.0f};
 #pragma unroll
-            for (int i = 0; i < 3; ++i) cs[i] = pen * n[i];
-          }
+      for (int b = 0; b < 3; ++b) {
+        float corr[3] = {0.0f, 0.0f, 0.0f};
 #pragma unroll
-          for (int i = 0; i < 3; ++i) corr[i] = s == 0 ? cs[i] : corr[i] + cs[i];
-          const float fx = cs[0] / sp[P_H2] * bc[3], fy = cs[1] / sp[P_H2] * bc[3];
-          if (s == table_slot) {
-            fsum_tbl[0] = b == 0 ? fx : fsum_tbl[0] + fx;
-            fsum_tbl[1] = b == 0 ? fy : fsum_tbl[1] + fy;
-          }
-          if (s == shelf_slot) {
-            fsum_shf[0] = b == 0 ? fx : fsum_shf[0] + fx;
-            fsum_shf[1] = b == 0 ? fy : fsum_shf[1] + fy;
-          }
-          if (b == 2) {
-            fsum_cb[0] = s == 0 ? fx : fsum_cb[0] + fx;
-            fsum_cb[1] = s == 0 ? fy : fsum_cb[1] + fy;
+        for (int s = 0; s < kMaxS; ++s) {
+          if (s < S) {
+            const int j = b * S + s, src = j % kTeam, r = j / kTeam;
+            const float cs[3] = {tm.from(pick(pcx, r), src), tm.from(pick(pcy, r), src), tm.from(pick(pcz, r), src)};
+#pragma unroll
+            for (int i = 0; i < 3; ++i) corr[i] = s == 0 ? cs[i] : corr[i] + cs[i];
+            const float fx = tm.from(pick(pfx, r), src), fy = tm.from(pick(pfy, r), src);
+            if (s == table_slot) {
+              fsum_tbl[0] = b == 0 ? fx : fsum_tbl[0] + fx;
+              fsum_tbl[1] = b == 0 ? fy : fsum_tbl[1] + fy;
+            }
+            if (s == shelf_slot) {
+              fsum_shf[0] = b == 0 ? fx : fsum_shf[0] + fx;
+              fsum_shf[1] = b == 0 ? fy : fsum_shf[1] + fy;
+            }
+            if (b == 2) {
+              fsum_cb[0] = s == 0 ? fx : fsum_cb[0] + fx;
+              fsum_cb[1] = s == 0 ? fy : fsum_cb[1] + fy;
+            }
           }
         }
 #pragma unroll
-        for (int i = 0; i < 3; ++i) Pb[b][i] = np[i] + corr[i];
+        for (int i = 0; i < 3; ++i) Pb[b][i] = np[b][i] + corr[i];
       }
       tbl[0] = tbl[0] - fsum_tbl[0];
       tbl[1] = tbl[1] - fsum_tbl[1];
@@ -433,41 +577,37 @@ panda_rollout_kernel(const float* __restrict__ params, const float* __restrict__
         mat_to_quat(HR, quatA);
       }
 
-      // ---- arm collision sensing: probe spheres vs statics and cubeB -----
+      // ---- second contact round: probe pi vs cubeB on lane pi, and the ---
+      // held or free cubeA vs cubeB on lane kProbes (it pushes cubeB)
       const float cb_lo[3] = {Pb[2][0] - hB[0], Pb[2][1] - hB[1], Pb[2][2] - hB[2]};
       const float cb_hi[3] = {Pb[2][0] + hB[0], Pb[2][1] + hB[1], Pb[2][2] + hB[2]};
-      const float* probes[7] = {L.p4, L.p5, L.p6, L.hand, L.left, L.right, L.tip};
-#pragma unroll
-      for (int pi = 0; pi < 7; ++pi) {
-        const float* pr = probes[pi];
-        for (int s = 0; s < S; ++s) {
-          if (s != table_slot && s != shelf_slot) continue;  // no cost reads the others
-          const float* st = stat + kStatStride * s;
-          float n[3];
-          const float hit = fmaxf(sphere_aabb(pr, 0.05f, st, st + 3, n), 0.0f);
-          const float fx = (hit * n[0]) * 2000.0f, fy = (hit * n[1]) * 2000.0f;
-          if (s == table_slot) {
-            tbl[0] = tbl[0] - fx;
-            tbl[1] = tbl[1] - fy;
-          } else {
-            shf[0] = shf[0] - fx;
-            shf[1] = shf[1] - fy;
-          }
-        }
-        float n[3];
-        const float hit_b = fmaxf(sphere_aabb(pr, 0.04f, cb_lo, cb_hi, n), 0.0f);
-        cbf[0] = cbf[0] - (hit_b * n[0]) * 2000.0f;
-        cbf[1] = cbf[1] - (hit_b * n[1]) * 2000.0f;
-      }
-      // held or free cubeA vs cubeB: pushes cubeB, records the force
+      float hit_b, nb[3], fbx, fby;
       {
-        float n[3];
-        const float hit = fmaxf(sphere_aabb(Pb[1], body[kBodyStride * 1 + 5], cb_lo, cb_hi, n), 0.0f);
-        cbf[0] = cbf[0] - hit * n[0] * 2000.0f;
-        cbf[1] = cbf[1] - hit * n[1] * 2000.0f;
+        float c[3];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) c[i] = cube_lane ? Pb[1][i] : pc[i];
+        hit_b = fmaxf(sphere_aabb(c, cube_lane ? body[kBodyStride * 1 + 5] : 0.04f, cb_lo, cb_hi, nb), 0.0f);
+        fbx = (hit_b * nb[0]) * 2000.0f;
+        fby = (hit_b * nb[1]) * 2000.0f;
+      }
+      // the probes' forces in probe order, then cubeA-cubeB's
+#pragma unroll
+      for (int pi = 0; pi < kProbes; ++pi) {
+        tbl[0] = tbl[0] - tm.from(ftx, pi);
+        tbl[1] = tbl[1] - tm.from(fty, pi);
+        shf[0] = shf[0] - tm.from(fsx, pi);
+        shf[1] = shf[1] - tm.from(fsy, pi);
+      }
+#pragma unroll
+      for (int pi = 0; pi <= kProbes; ++pi) {
+        cbf[0] = cbf[0] - tm.from(fbx, pi);
+        cbf[1] = cbf[1] - tm.from(fby, pi);
+      }
+      {
+        const float hit = tm.from(hit_b, kProbes), nx = tm.from(nb[0], kProbes), ny = tm.from(nb[1], kProbes);
         const float on = hit > 0.0f ? 1.0f : 0.0f;
-        Pb[2][0] = Pb[2][0] + -on * n[0] * hit * 0.5f;
-        Pb[2][1] = Pb[2][1] + -on * n[1] * hit * 0.5f;
+        Pb[2][0] = Pb[2][0] + -on * nx * hit * 0.5f;
+        Pb[2][1] = Pb[2][1] + -on * ny * hit * 0.5f;
       }
     }
 
@@ -531,10 +671,12 @@ panda_rollout_kernel(const float* __restrict__ params, const float* __restrict__
       cost = 2.0f * (1.0f - norm3(L.left[0] - L.right[0], L.left[1] - L.right[1], L.left[2] - L.right[2]));
     }
 
-    const size_t o = static_cast<size_t>(k) * T + t;
-    cost_out[o] = cost;
-    traj_out[2 * o] = L.ee[0];
-    traj_out[2 * o + 1] = L.ee[1];
+    if (tm.lane == 0) {
+      const size_t o = static_cast<size_t>(k) * T + t;
+      cost_out[o] = cost;
+      traj_out[2 * o] = L.ee[0];
+      traj_out[2 * o + 1] = L.ee[1];
+    }
   }
 }
 
@@ -550,9 +692,11 @@ extern "C" int m3p2i_panda_rollout(const float* params, const float* task, const
       n_params != N_SCALARS + 3 * kBodyStride + kStatStride * S + kSupStride * (S + 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((K + kThreads - 1) / kThreads, B);
+  const dim3 grid((K + kSamplesPerBlock - 1) / kSamplesPerBlock, B);
   const size_t smem = static_cast<size_t>(n_params) * sizeof(float);
-  panda_rollout_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  // the shipped panda scenes have S = 3 statics (table, table stand, shelf stand)
+  const auto kernel = S == 3 ? panda_rollout_kernel<3> : panda_rollout_kernel<0>;
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       params, task, state0, acts, cost, traj, K, K_total, T, S, substeps, table_slot, shelf_slot,
       multi_modal, n_params);
   return static_cast<int>(cudaGetLastError());

@@ -88,7 +88,10 @@ __device__ Resolved resolve(float pen, float nx, float ny, float px, float py,
   const float wt_sum = wm_a + wi_a * (ta * ta) + wm_b + wi_b * (tb * tb);
   const float vt = vrx * tx + vry * ty;
   const float jt_un = -vt / fmaxf(wt_sum, 1e-9f);
-  const float jt_max = friction * (jn + lam / h);
+  // the plain version divides by the python scalar h, which PyTorch's CUDA
+  // division turns into a product with its float32 reciprocal
+  const float inv_h = 1.0f / h;
+  const float jt_max = friction * (jn + lam * inv_h);
   const float jt = active ? clampf(jt_un, -jt_max, jt_max) : 0.0f;
 
   o.dvax = (wm_a * jn) * nx + (wm_a * jt) * tx;
@@ -97,7 +100,7 @@ __device__ Resolved resolve(float pen, float nx, float ny, float px, float py,
   o.dvbx = -(wm_b * jn) * nx - (wm_b * jt) * tx;
   o.dvby = -(wm_b * jn) * ny - (wm_b * jt) * ty;
   o.dom_b = -wi_b * jn * cb - wi_b * jt * tb;
-  const float f = (jn + lam / h) / h;
+  const float f = (jn + lam * inv_h) * inv_h;
   o.fx = f * nx;
   o.fy = f * ny;
   return o;

@@ -44,12 +44,28 @@
 //   * the wall-crush probe of the costs: static si on lane si % kTeam, then
 //     a max across the team (a max does not depend on the order).
 // Every correction reaches every lane through __shfl_sync within the team,
-// and every lane adds them in the contact order of one sequential thread
-// (pass 3: box, then static, then corner), so all lanes hold the same bits
-// and no broadcast follows.  Built without FMA contraction and without fast
-// math, each correction is the same IEEE result it is in a sequential loop,
-// so the kernel's output does not depend on kTeam, on the block or on B: a
-// batched launch equals B single launches bit for bit.  A team never
+// and every lane adds them in the order the plain version's sums add them
+// (ops/rollout.py::point_rollout_plain over models/point_env.step), so all
+// lanes hold the same bits.  Those sums are PyTorch's CUDA reductions, whose
+// order is fixed by their layout: a reduction over dimensions that are not
+// the innermost (the [.., S, 4, 2] position, velocity and force rows, the
+// [.., S, 2] robot rows) puts element i into accumulator i % 4 and adds the
+// four in order; one over the innermost ones (the [.., S, 4] yaw and spin
+// rows, the [.., 4] corner rows) is a pairwise tree over 32 lanes.  Pass 3's
+// position, velocity and force corrections are therefore summed per corner
+// over the statics, then over the corners; its yaw and spin by the same
+// tree (static s + 8 into s on the lane, then s + 4, s + 2, s + 1 across the
+// team, then (c0 + c2) + (c1 + c3)); pass 4's over the statics into four
+// accumulators; pass 2 sums each pair's four corners on its lane before the
+// pairs are gathered.  These orders were measured on the card's torch build
+// (PERF.md names it); models/point_env.step names the layouts they follow,
+// and tests/test_torch_cuda.py::test_point_kernel_equals_plain_bit_for_bit
+// holds the kernel to the plain version bit for bit at S = 5 and S = 16.
+// Built without FMA contraction and without fast math,
+// each correction is the same IEEE result it is in the plain version, so
+// the kernel follows the plain version bit for bit wherever their
+// arithmetic does, and its output does not depend on kTeam, on the block or
+// on B: a batched launch equals B single launches bit for bit.  A team never
 // straddles a warp, and its shuffles name only its own lanes, so a team past
 // K at the ragged edge leaves as a whole without touching the others.
 //
@@ -95,6 +111,7 @@
 #include <math.h>
 
 #include "pbd2d.cuh"
+#include "team.cuh"
 
 namespace {
 
@@ -102,8 +119,9 @@ constexpr int kMaxD = 4;    // dynamic boxes
 constexpr int kMaxS = 16;   // static boxes
 // lanes per sample: kTeam divides 32 (a team never straddles a warp) and is
 // a multiple of kMaxD (passes 1 and 5 take one round, a pass-2 round holds
-// whole rows i); kThreads is whole warps
-// (tests/test_torch_kernel_sources.py holds the three)
+// whole rows i); 4 corners x kTeam lanes are the plain version's 32-lane
+// reduction tree and two rounds hold kMaxS statics (pass 3's yaw and spin);
+// kThreads is whole warps (tests/test_torch_kernel_sources.py holds them)
 constexpr int kTeam = 8;
 constexpr int kThreads = 64;
 constexpr int kSamplesPerBlock = kThreads / kTeam;
@@ -117,30 +135,6 @@ enum Scalar {
 };
 constexpr int kDynStride = 6;   // hx, hy, inv_mass, inv_inertia, ang_rad, friction
 constexpr int kStatStride = 7;  // x, y, cos, sin, hx, hy, friction
-
-// The lanes of one sample's team.
-struct Team {
-  unsigned mask;  // the team's lanes within the warp
-  int base;       // the warp lane of team lane 0
-  int lane;       // 0 .. kTeam - 1
-
-  // lane `src`'s value of v, on every lane of the team
-  __device__ __forceinline__ float from(float v, int src) const {
-    return __shfl_sync(mask, v, src, kTeam);
-  }
-  // bit l set where team lane l's `pred` holds
-  __device__ __forceinline__ unsigned ballot(bool pred) const {
-    return (__ballot_sync(mask, pred) & mask) >> base;
-  }
-};
-
-// a[i] for a lane-dependent i, by selects (no local-memory indexing)
-__device__ __forceinline__ float pick(const float (&a)[kMaxD], int i) {
-  float v = a[0];
-#pragma unroll
-  for (int d = 1; d < kMaxD; ++d) v = i == d ? a[d] : v;
-  return v;
-}
 
 // The four corners of box A against box B's dominant face (chosen from A's
 // center): penetrations, world corner points, one world normal.
@@ -182,6 +176,29 @@ __device__ CornerContacts corners_vs_obb(float ax, float ay, float ac, float as,
   return cc;
 }
 
+// The four corners' corrections of one box pair summed as the plain
+// version's sums over the corners add them: the [.., 4, 2] position,
+// velocity and force rows in corner order, the contiguous [.., 4] yaw and
+// spin rows as (c0 + c2) + (c1 + c3)
+__device__ __forceinline__ Resolved corner_sum(const Resolved (&o)[4]) {
+  Resolved r;
+  r.dax = ((o[0].dax + o[1].dax) + o[2].dax) + o[3].dax;
+  r.day = ((o[0].day + o[1].day) + o[2].day) + o[3].day;
+  r.dvax = ((o[0].dvax + o[1].dvax) + o[2].dvax) + o[3].dvax;
+  r.dvay = ((o[0].dvay + o[1].dvay) + o[2].dvay) + o[3].dvay;
+  r.dbx = ((o[0].dbx + o[1].dbx) + o[2].dbx) + o[3].dbx;
+  r.dby = ((o[0].dby + o[1].dby) + o[2].dby) + o[3].dby;
+  r.dvbx = ((o[0].dvbx + o[1].dvbx) + o[2].dvbx) + o[3].dvbx;
+  r.dvby = ((o[0].dvby + o[1].dvby) + o[2].dvby) + o[3].dvby;
+  r.fx = ((o[0].fx + o[1].fx) + o[2].fx) + o[3].fx;
+  r.fy = ((o[0].fy + o[1].fy) + o[2].fy) + o[3].fy;
+  r.dyaw_a = (o[0].dyaw_a + o[2].dyaw_a) + (o[1].dyaw_a + o[3].dyaw_a);
+  r.dom_a = (o[0].dom_a + o[2].dom_a) + (o[1].dom_a + o[3].dom_a);
+  r.dyaw_b = (o[0].dyaw_b + o[2].dyaw_b) + (o[1].dyaw_b + o[3].dyaw_b);
+  r.dom_b = (o[0].dom_b + o[2].dom_b) + (o[1].dom_b + o[3].dom_b);
+  return r;
+}
+
 __global__ void __launch_bounds__(kThreads)
 point_rollout_kernel(const float* __restrict__ params, const float* __restrict__ task,
                      const float* __restrict__ state0, const float* __restrict__ fric_k,
@@ -195,10 +212,7 @@ point_rollout_kernel(const float* __restrict__ params, const float* __restrict__
   __syncthreads();
   const int k = blockIdx.x * kSamplesPerBlock + threadIdx.x / kTeam;
   if (k >= K) return;  // all lanes of a team share k, so the team leaves as a whole
-  const int warp_lane = threadIdx.x % 32;
-  const int team_base = warp_lane / kTeam * kTeam;
-  const Team tm{(kTeam == 32 ? 0xffffffffu : (1u << kTeam) - 1u) << team_base, team_base,
-                warp_lane % kTeam};
+  const auto tm = Team<kTeam>::of_thread();
   // seed b = blockIdx.y: its task, start state, friction scales and samples
   const size_t b = blockIdx.y;
   task += b * 4;
@@ -257,7 +271,7 @@ point_rollout_kernel(const float* __restrict__ params, const float* __restrict__
       qdy = qdy + ext_ry * sp[P_WMR_H];
       if (boxer) {
         const float v = sp[P_WHEEL_R] * (u0 + u1) / 2.0f;
-        const float om = sp[P_WHEEL_R] * (u1 - u0) / sp[P_WHEEL_B];
+        const float om = sp[P_WHEEL_R] * (u1 - u0) * (1.0f / sp[P_WHEEL_B]);
         const float txv = v * cosf(qyaw), tyv = v * sinf(qyaw);
         qdx = txv + (qdx - txv) * decay;
         qdy = tyv + (qdy - tyv) * decay;
@@ -267,9 +281,12 @@ point_rollout_kernel(const float* __restrict__ params, const float* __restrict__
         qdy = u1 + (qdy - u1) * decay;
         if (n_q == 3) qdyaw = u2 + (qdyaw - u2) * decay;
       }
-      // robot speed cap: a substep never out-runs the contact envelope
+      // robot speed cap: a substep never out-runs the contact envelope (a
+      // python scalar over a tensor is, in PyTorch, the tensor's reciprocal
+      // times the scalar; a tensor over a python scalar, the tensor times
+      // the scalar's float32 reciprocal)
       const float qsp = sqrtf(qdx * qdx + qdy * qdy);
-      const float qcap = fminf(1.0f, 6.0f / fmaxf(qsp, 1e-9f));
+      const float qcap = fminf(1.0f, (1.0f / fmaxf(qsp, 1e-9f)) * 6.0f);
       qdx = qdx * qcap;
       qdy = qdy * qcap;
 #pragma unroll
@@ -289,7 +306,7 @@ point_rollout_kernel(const float* __restrict__ params, const float* __restrict__
               0.0f, 1.0f - mu * kGravity * h / fmaxf(fabsf(OM[d]) * dynp[kDynStride * d + 4], 1e-9f));
           OM[d] = OM[d] * om_scale;
           const float sp2 = sqrtf(VX[d] * VX[d] + VY[d] * VY[d]);
-          const float cap = fminf(1.0f, sp[P_MAX_SPEED] / fmaxf(sp2, 1e-9f));
+          const float cap = fminf(1.0f, (1.0f / fmaxf(sp2, 1e-9f)) * sp[P_MAX_SPEED]);
           VX[d] = VX[d] * cap;
           VY[d] = VY[d] * cap;
           X[d] = X[d] + VX[d] * h;
@@ -344,12 +361,15 @@ point_rollout_kernel(const float* __restrict__ params, const float* __restrict__
 
         // pass 2: dynamic vs dynamic, every ordered pair (i, j) from frozen
         // poses; slot i * kMaxD + j sits on lane slot % kTeam of round
-        // slot / kTeam, and the live corners' deltas are gathered in slot
-        // order
+        // slot / kTeam.  Each lane sums its pair's four corners as the plain
+        // version's sums do (positions, velocities and forces in corner
+        // order, yaw and spin as (c0 + c2) + (c1 + c3)), and the pairs with a
+        // live corner are gathered in slot order
         if (D > 1) {
           float dX[kMaxD], dY[kMaxD], dYAW[kMaxD], dVX[kMaxD], dVY[kMaxD], dOM[kMaxD];
 #pragma unroll
           for (int d = 0; d < kMaxD; ++d) dX[d] = dY[d] = dYAW[d] = dVX[d] = dVY[d] = dOM[d] = 0.0f;
+          float dfx = 0.0f, dfy = 0.0f;  // the dyn-obs's pass-2 force
 #pragma unroll
           for (int r = 0; r < kMaxD * kMaxD / kTeam; ++r) {
             if (r * kTeam / kMaxD >= D) continue;  // no row i < D in this round
@@ -362,13 +382,11 @@ point_rollout_kernel(const float* __restrict__ params, const float* __restrict__
             const float xj = pick(X, j), yj = pick(Y, j), yawj = pick(YAW, j);
             const CornerContacts cc = corners_vs_obb(xi, yi, cosf(yawi), sinf(yawi), pi[0], pi[1],
                                                      xj, yj, cosf(yawj), sinf(yawj), pj[0], pj[1]);
-            unsigned act[4], any = 0u;
+            bool live = false;
 #pragma unroll
-            for (int m = 0; m < 4; ++m) {
-              act[m] = tm.ballot(valid && cc.pen[m] > 0.0f);
-              any |= act[m];
-            }
-            if (any == 0u) continue;  // no live corner in the team's round
+            for (int m = 0; m < 4; ++m) live = live || cc.pen[m] > 0.0f;
+            const unsigned act = tm.ballot(valid && live);
+            if (act == 0u) continue;  // no live corner in the team's round
             const float vxi = pick(VX, i), vyi = pick(VY, i), omi = pick(OM, i);
             const float vxj = pick(VX, j), vyj = pick(VY, j), omj = pick(OM, j);
             const float fr = (pick(FR, i) + pick(FR, j)) / 2.0f;
@@ -378,34 +396,30 @@ point_rollout_kernel(const float* __restrict__ params, const float* __restrict__
               o[m] = resolve(cc.pen[m], cc.nx, cc.ny, cc.wx[m], cc.wy[m], xi, yi, vxi, vyi, omi, pi[2],
                              pi[3], xj, yj, vxj, vyj, omj, pj[2], pj[3], h, fr, 0.5f);
             }
+            const Resolved ps = corner_sum(o);
 #pragma unroll
             for (int l = 0; l < kTeam; ++l) {
               const int gi = (r * kTeam + l) / kMaxD, gj = (r * kTeam + l) % kMaxD;
-              if (gi == gj) continue;
-#pragma unroll
-              for (int m = 0; m < 4; ++m) {
-                if ((act[m] >> l) & 1u) {
-                  dX[gi] += tm.from(o[m].dax, l);
-                  dY[gi] += tm.from(o[m].day, l);
-                  dYAW[gi] += tm.from(o[m].dyaw_a, l);
-                  dVX[gi] += tm.from(o[m].dvax, l);
-                  dVY[gi] += tm.from(o[m].dvay, l);
-                  dOM[gi] += tm.from(o[m].dom_a, l);
-                  dX[gj] += tm.from(o[m].dbx, l);
-                  dY[gj] += tm.from(o[m].dby, l);
-                  dYAW[gj] += tm.from(o[m].dyaw_b, l);
-                  dVX[gj] += tm.from(o[m].dvbx, l);
-                  dVY[gj] += tm.from(o[m].dvby, l);
-                  dOM[gj] += tm.from(o[m].dom_b, l);
-                  if (gi == obs) {
-                    f_obs_x += tm.from(o[m].fx, l);
-                    f_obs_y += tm.from(o[m].fy, l);
-                  }
-                  if (gj == obs) {
-                    f_obs_x -= tm.from(o[m].fx, l);
-                    f_obs_y -= tm.from(o[m].fy, l);
-                  }
-                }
+              if (gi == gj || !((act >> l) & 1u)) continue;
+              dX[gi] += tm.from(ps.dax, l);
+              dX[gj] += tm.from(ps.dbx, l);
+              dYAW[gi] += tm.from(ps.dyaw_a, l);
+              dYAW[gj] += tm.from(ps.dyaw_b, l);
+              dVX[gi] += tm.from(ps.dvax, l);
+              dVX[gj] += tm.from(ps.dvbx, l);
+              dOM[gi] += tm.from(ps.dom_a, l);
+              dOM[gj] += tm.from(ps.dom_b, l);
+              dY[gi] += tm.from(ps.day, l);
+              dY[gj] += tm.from(ps.dby, l);
+              dVY[gi] += tm.from(ps.dvay, l);
+              dVY[gj] += tm.from(ps.dvby, l);
+              if (gi == obs) {
+                dfx += tm.from(ps.fx, l);
+                dfy += tm.from(ps.fy, l);
+              }
+              if (gj == obs) {
+                dfx -= tm.from(ps.fx, l);
+                dfy -= tm.from(ps.fy, l);
               }
             }
           }
@@ -418,17 +432,27 @@ point_rollout_kernel(const float* __restrict__ params, const float* __restrict__
             VY[d] += dVY[d];
             OM[d] += dOM[d];
           }
+          f_obs_x += dfx;
+          f_obs_y += dfy;
         }
 
         // pass 3: each dynamic box vs all statics x 4 corners, full strength;
-        // static si on lane si % kTeam, rounds of kTeam statics, the live
-        // corners' corrections gathered in (static, corner) order
+        // static si on lane si % kTeam, rounds of kTeam statics.  The
+        // corrections are added as the plain version's sums over (static,
+        // corner) add them: positions, velocities and forces per corner over
+        // the statics in order, then the four corners in order; yaw and
+        // spin by the pairwise tree of a 32-lane reduction, static s + 8 into
+        // s, then s + 4, s + 2 and s + 1 across the team, then
+        // (c0 + c2) + (c1 + c3)
 #pragma unroll
         for (int d = 0; d < kMaxD; ++d) {
           if (d < D) {
             const float* bp = dynp + kDynStride * d;
             const float c = cosf(YAW[d]), s = sinf(YAW[d]);
-            float ddx = 0.0f, ddy = 0.0f, ddyaw = 0.0f, ddvx = 0.0f, ddvy = 0.0f, ddom = 0.0f;
+            Resolved acc[4], mine[4];  // per corner: over the statics; this lane's statics
+#pragma unroll
+            for (int m = 0; m < 4; ++m) acc[m] = mine[m] = Resolved{};
+            bool any_live = false;
 #pragma unroll 1
             for (int s0 = 0; s0 < S; s0 += kTeam) {
               const float* st = statp + kStatStride * min(s0 + tm.lane, S - 1);
@@ -441,71 +465,95 @@ point_rollout_kernel(const float* __restrict__ params, const float* __restrict__
                 any |= act[m];
               }
               if (any == 0u) continue;  // no live corner in the team's round
+              any_live = true;
               float n_act = 0.0f;
 #pragma unroll
               for (int m = 0; m < 4; ++m) n_act += cc.pen[m] > 0.0f ? 1.0f : 0.0f;
               const float relax = 1.0f / fmaxf(n_act, 1.0f);
-              Resolved o[4];
 #pragma unroll
               for (int m = 0; m < 4; ++m) {
-                o[m] = resolve(cc.pen[m], cc.nx, cc.ny, cc.wx[m], cc.wy[m],
-                               X[d], Y[d], VX[d], VY[d], OM[d], bp[2], bp[3],
-                               st[0], st[1], 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, h,
-                               (FR[d] + st[6]) / 2.0f, relax);
-              }
+                const Resolved o = resolve(cc.pen[m], cc.nx, cc.ny, cc.wx[m], cc.wy[m],
+                                           X[d], Y[d], VX[d], VY[d], OM[d], bp[2], bp[3],
+                                           st[0], st[1], 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, h,
+                                           (FR[d] + st[6]) / 2.0f, relax);
+                if ((act[m] >> tm.lane) & 1u) {
+                  mine[m].dyaw_a += o.dyaw_a;
+                  mine[m].dom_a += o.dom_a;
+                }
 #pragma unroll
-              for (int l = 0; l < kTeam; ++l) {
-#pragma unroll
-                for (int m = 0; m < 4; ++m) {
+                for (int l = 0; l < kTeam; ++l) {
                   if ((act[m] >> l) & 1u) {
-                    ddx += tm.from(o[m].dax, l);
-                    ddy += tm.from(o[m].day, l);
-                    ddyaw += tm.from(o[m].dyaw_a, l);
-                    ddvx += tm.from(o[m].dvax, l);
-                    ddvy += tm.from(o[m].dvay, l);
-                    ddom += tm.from(o[m].dom_a, l);
+                    acc[m].dax += tm.from(o.dax, l);
+                    acc[m].day += tm.from(o.day, l);
+                    acc[m].dvax += tm.from(o.dvax, l);
+                    acc[m].dvay += tm.from(o.dvay, l);
                     if (d == obs) {
-                      f_obs_x += tm.from(o[m].fx, l);
-                      f_obs_y += tm.from(o[m].fy, l);
+                      acc[m].fx += tm.from(o.fx, l);
+                      acc[m].fy += tm.from(o.fy, l);
                     }
                   }
                 }
               }
             }
-            X[d] += ddx;
-            Y[d] += ddy;
-            YAW[d] += ddyaw;
-            VX[d] += ddvx;
-            VY[d] += ddvy;
-            OM[d] += ddom;
-          }
-        }
-
-        // pass 4: robot vs all statics (static si on lane si % kTeam), full strength
-        sqx = sqy = sqdx = sqdy = 0.0f;
-#pragma unroll 1
-        for (int s0 = 0; s0 < S; s0 += kTeam) {
-          const float* st = statp + kStatStride * min(s0 + tm.lane, S - 1);
-          const Contact c = circle_vs_obb(qx, qy, rr, st[0], st[1], st[2], st[3], st[4], st[5]);
-          const unsigned act = tm.ballot(s0 + tm.lane < S && c.pen > 0.0f);
-          if (act == 0u) continue;
-          const Resolved o = resolve(c.pen, c.nx, c.ny, c.px, c.py, qx, qy, qdx, qdy, 0.0f, wm_r, 0.0f,
-                                     st[0], st[1], 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, h,
-                                     (sp[P_ROBOT_FRIC] + st[6]) / 2.0f, 1.0f);
+            float tyaw = 0.0f, tom = 0.0f;
+            if (any_live) {
+              float ty[4], to[4];
 #pragma unroll
-          for (int l = 0; l < kTeam; ++l) {
-            if ((act >> l) & 1u) {
-              sqx += tm.from(o.dax, l);
-              sqy += tm.from(o.day, l);
-              sqdx += tm.from(o.dvax, l);
-              sqdy += tm.from(o.dvay, l);
+              for (int m = 0; m < 4; ++m) {
+                ty[m] = mine[m].dyaw_a;
+                to[m] = mine[m].dom_a;
+#pragma unroll
+                for (int off = kTeam / 2; off > 0; off /= 2) {
+                  ty[m] += __shfl_down_sync(tm.mask, ty[m], off, kTeam);
+                  to[m] += __shfl_down_sync(tm.mask, to[m], off, kTeam);
+                }
+              }
+              tyaw = tm.from((ty[0] + ty[2]) + (ty[1] + ty[3]), 0);
+              tom = tm.from((to[0] + to[2]) + (to[1] + to[3]), 0);
+            }
+            X[d] += ((acc[0].dax + acc[1].dax) + acc[2].dax) + acc[3].dax;
+            Y[d] += ((acc[0].day + acc[1].day) + acc[2].day) + acc[3].day;
+            YAW[d] += tyaw;
+            VX[d] += ((acc[0].dvax + acc[1].dvax) + acc[2].dvax) + acc[3].dvax;
+            VY[d] += ((acc[0].dvay + acc[1].dvay) + acc[2].dvay) + acc[3].dvay;
+            OM[d] += tom;
+            if (d == obs) {
+              f_obs_x += ((acc[0].fx + acc[1].fx) + acc[2].fx) + acc[3].fx;
+              f_obs_y += ((acc[0].fy + acc[1].fy) + acc[2].fy) + acc[3].fy;
             }
           }
         }
-        qx += sqx;
-        qy += sqy;
-        qdx += sqdx;
-        qdy += sqdy;
+
+        // pass 4: robot vs all statics (static si on lane si % kTeam), full
+        // strength; added as the plain version's sum over the statics adds:
+        // static s into accumulator s % 4, then the four in order
+        {
+          float ax[4] = {0.0f, 0.0f, 0.0f, 0.0f}, ay[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          float avx[4] = {0.0f, 0.0f, 0.0f, 0.0f}, avy[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 1
+          for (int s0 = 0; s0 < S; s0 += kTeam) {
+            const float* st = statp + kStatStride * min(s0 + tm.lane, S - 1);
+            const Contact c = circle_vs_obb(qx, qy, rr, st[0], st[1], st[2], st[3], st[4], st[5]);
+            const unsigned act = tm.ballot(s0 + tm.lane < S && c.pen > 0.0f);
+            if (act == 0u) continue;
+            const Resolved o = resolve(c.pen, c.nx, c.ny, c.px, c.py, qx, qy, qdx, qdy, 0.0f, wm_r, 0.0f,
+                                       st[0], st[1], 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, h,
+                                       (sp[P_ROBOT_FRIC] + st[6]) / 2.0f, 1.0f);
+#pragma unroll
+            for (int l = 0; l < kTeam; ++l) {
+              if ((act >> l) & 1u) {
+                ax[l % 4] += tm.from(o.dax, l);
+                ay[l % 4] += tm.from(o.day, l);
+                avx[l % 4] += tm.from(o.dvax, l);
+                avy[l % 4] += tm.from(o.dvay, l);
+              }
+            }
+          }
+          qx += ((ax[0] + ax[1]) + ax[2]) + ax[3];
+          qy += ((ay[0] + ay[1]) + ay[2]) + ay[3];
+          qdx += ((avx[0] + avx[1]) + avx[2]) + avx[3];
+          qdy += ((avy[0] + avy[1]) + avy[2]) + avy[3];
+        }
 
         // pass 5: robot vs the dynamic boxes held immovable (box d on lane d)
         sqx = sqy = sqdx = sqdy = 0.0f;
@@ -544,7 +592,8 @@ point_rollout_kernel(const float* __restrict__ params, const float* __restrict__
 
     // ---- costs (PointObjective.compute) ---------------------------------
     const float n_norm = static_cast<float>(substeps * pos_iters);
-    const float coll = fabsf(f_obs_x / n_norm) + fabsf(f_obs_y / n_norm);
+    const float inv_norm = 1.0f / n_norm;
+    const float coll = fabsf(f_obs_x * inv_norm) + fabsf(f_obs_y * inv_norm);
     const float motion_cost = coll > 0.1f ? 1000.0f : 0.0f;
 
     float bx = 0.0f, by = 0.0f;

@@ -318,6 +318,14 @@ def step(
         dpos = dpos + dvel * h
         dyaw = dyaw + dom * h
 
+        # The point kernel (csrc/point_rollout.cu) adds its contact
+        # corrections in the order PyTorch's CUDA reductions add the sums
+        # below at these layouts ([.., D, S, 4, 2], [.., D, S, 4], [.., S, 2],
+        # [.., 4, 2], [.., 4]; its head note gives each order), and so
+        # follows this step bit for bit on the card.  A new layout here keeps
+        # the math and changes only the rounding;
+        # tests/test_torch_cuda.py::test_point_kernel_equals_plain_bit_for_bit
+        # shows it.
         for _ in range(params.pos_iters):
             # pass 1: robot circle vs every dynamic box, Jacobi from the
             # pre-pass robot pose

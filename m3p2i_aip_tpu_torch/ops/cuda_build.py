@@ -30,7 +30,7 @@ _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("point_rollout.cu", "multimodal_weights.cu", "panda_rollout.cu", "albert_rollout.cu")
-HEADERS = ("pbd2d.cuh", "panda_fk.cuh")  # device code shared by the sources
+HEADERS = ("pbd2d.cuh", "panda_fk.cuh", "team.cuh")  # device code shared by the sources
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",

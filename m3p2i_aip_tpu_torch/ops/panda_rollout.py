@@ -268,8 +268,8 @@ def panda_rollout(spec: PandaRolloutSpec, task_vec, state0, acts):
     """The rollout of ``acts`` [K, T, 9] from ``state0``.
 
     A CPU tensor runs :func:`panda_rollout_plain`; a CUDA tensor launches the
-    kernel on the current stream (one thread per sample; the batched
-    kernel's body with one seed) or raises.
+    kernel on the current stream (a team of warp lanes per sample; the
+    batched kernel's body with one seed) or raises.
     """
     global panda_rollout_launches
     if acts.device.type == "cpu":

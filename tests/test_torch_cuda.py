@@ -20,7 +20,7 @@ import torch
 
 from m3p2i_aip_tpu_torch.config.config_store import load_config
 from m3p2i_aip_tpu_torch.envs import make_env
-from m3p2i_aip_tpu_torch.models import point_env
+from m3p2i_aip_tpu_torch.models import panda_env, point_env
 from m3p2i_aip_tpu_torch.ops import albert_rollout as ar
 from m3p2i_aip_tpu_torch.ops import panda_rollout as pr
 from m3p2i_aip_tpu_torch.ops import rollout as ro
@@ -144,6 +144,40 @@ def test_rollout_kernel_matches_plain_at_the_maxima(cuda):
         assert float(torch.max(torch.abs(t_k - t_p))) <= 1e-3, q0
 
 
+# config_point: the shipped S = 5; config_boxer: the differential drive;
+# "maxima": D = 4, S = 16, pass 3's second round of statics
+@pytest.mark.parametrize("scene", ["config_point", "config_boxer", "maxima"])
+def test_point_kernel_equals_plain_bit_for_bit(cuda, scene):
+    """K1 adds its contact corrections in the order PyTorch's CUDA
+    reductions add the plain version's sums at their layouts, and divides
+    as PyTorch's CUDA division does (csrc/point_rollout.cu, head note), so
+    on the card its output is the plain version's bit for bit.  A change of
+    layout in models/point_env.step, or a torch whose reductions add in
+    another order, shows here first."""
+    if scene == "maxima":
+        params, spec = _point_scene_at_the_maxima(cuda)
+        init, nu, view = point_env.init_state(params), 2, None
+    else:
+        tamp = ReactiveTAMP(load_config(scene, POINT_MAIN), device=cuda)
+        spec, init, nu = tamp.motion_planner.rollout.spec, tamp.env.init_state(), tamp.env.nu
+        view = lambda s: tamp.tamp_interface_view(tamp.env.view(s))  # noqa: E731
+    K, T = spec.K, spec.T
+    rng = np.random.default_rng(9)
+    for q0, qd0 in STARTS + [([-2.0, 2.8], [0.0, -3.0])]:
+        q0, qd0 = q0 + [0.3] * (init.q.shape[0] - 2), qd0 + [0.5] * (init.q.shape[0] - 2)
+        state = dataclasses.replace(init, q=torch.tensor(q0, device=cuda), qd=torch.tensor(qd0, device=cuda))
+        sk = tree_map(lambda x: x.expand((K,) + x.shape), state)
+        fric = torch.as_tensor(rng.uniform(0.7, 1.3, size=(K, spec.D)).astype(np.float32), device=cuda)
+        sk = dataclasses.replace(sk, fric_scale=fric)
+        task = make_task_params("push_pull", [-3.75, -3.75], device=cuda) if view is None else view(state)
+        inputs = ro.rollout_inputs(sk, task)
+        acts = torch.as_tensor(rng.uniform(-3, 3, size=(K, T, nu)).astype(np.float32), device=cuda)
+        c_k, t_k = ro.point_rollout(spec, *inputs, acts)
+        c_p, t_p = ro.point_rollout_plain(spec, *inputs, acts)
+        assert torch.equal(c_k, c_p) and torch.equal(t_k, t_p), (
+            q0, int((c_k != c_p).sum()), int((t_k != t_p).any(-1).sum()))
+
+
 # 37 and 1500: samples past K in the last block (teams that leave at the
 # ragged edge); 4000: the K1b sample count of a B=20 batch in one launch
 @pytest.mark.parametrize("K", [37, 1500, 4000])
@@ -197,6 +231,62 @@ def test_panda_rollout_kernel_matches_plain(cuda, multi_modal):
             for g, r in zip(weights.multimodal_weights(*args), weights.multimodal_weights_plain(*args)):
                 assert float(torch.max(torch.abs(g - r))) <= 1e-6, name
                 assert abs(float(torch.sum(g)) - 1.0) < 1e-5, name
+
+
+def _panda_case(spec, state, task_name, K, T, rng, device):
+    """A panda kernel input from ``state`` with random actions, the gripper
+    closing: (task_vec, state0, acts)."""
+    goal = pr.PARITY_GOAL if task_name == "pick" else [0.0] * 7
+    inputs = pr.rollout_inputs(tree_map(lambda x: x.expand((K,) + x.shape), state),
+                               make_task_params(task_name, goal, "none", 1.0, device=device))
+    acts = rng.uniform(-1.5, 1.5, size=(K, T, 9)).astype(np.float32)
+    acts[..., 7:9] = -1.5
+    return inputs + (torch.as_tensor(acts, device=device),)
+
+
+# 37: teams past K in the last block (they leave at the ragged edge); 1500:
+# 188 blocks, past one block a SM
+@pytest.mark.parametrize("K", [37, 1500])
+def test_panda_rollout_kernel_matches_plain_at_other_sample_counts(cuda, K):
+    cfg = load_config("config_panda", ["multi_modal=True"])
+    env = make_env(cfg, device=cuda)
+    T = cfg.mppi.horizon
+    spec = pr.make_panda_rollout(env.params, cfg.pre_height_diff, K, T, True).spec
+    rng = np.random.default_rng(K)
+    for start in ("near_cubeB", "attached"):
+        inputs = _panda_case(spec, pr.parity_state(env.init_state(), start), "pick", K, T, rng, cuda)
+        c_k, t_k = pr.panda_rollout(spec, *inputs)
+        c_p, t_p = pr.panda_rollout_plain(spec, *inputs)
+        assert c_k.shape == (K, T) and t_k.shape == (K, T, 2)
+        assert float(torch.max(torch.abs(c_k - c_p))) <= 1e-2, start
+        assert float(torch.max(torch.abs(t_k - t_p))) <= 1e-3, start
+
+
+def test_panda_rollout_kernel_matches_plain_at_the_maxima(cuda):
+    """config_panda's scene grown to the kernel's kMaxS = 8 statics: five
+    posts, four pressed against cubeA, cubeB and the dyn-obs, so all three
+    pushout rounds see live contacts, through the kernel's run-time-S
+    instantiation (the shipped scenes have S = 3)."""
+    cfg = load_config("config_panda", ["multi_modal=True"])
+    posts = [([0.24, -0.2, 1.1], [0.04, 0.04, 0.15]), ([0.16, 0.2, 1.1], [0.04, 0.04, 0.15]),
+             ([0.35, 0.14, 1.735], [0.06, 0.06, 0.06]), ([0.2, -0.27, 1.1], [0.06, 0.04, 0.15]),
+             ([0.25, 0.2, 1.1], [0.04, 0.04, 0.15])]
+    actors = load_env_cfgs(cfg.env_type) + [
+        ActorCfg(type="box", name=f"post-{i}", size=size, init_pos=pos, fixed=True) for i, (pos, size) in enumerate(posts)
+    ]
+    params = panda_env.build_params(actors, cfg.sim, device=cuda)
+    K, T = cfg.mppi.num_samples, cfg.mppi.horizon
+    spec = pr.make_panda_rollout(params, cfg.pre_height_diff, K, T, True).spec
+    assert spec.S == pr.MAX_STAT
+    rng = np.random.default_rng(4)
+    for start in ("near_cubeB", "attached"):
+        inputs = _panda_case(spec, pr.parity_state(panda_env.init_state(params), start), "pick", K, T, rng, cuda)
+        before = pr.panda_rollout_launches
+        c_k, t_k = pr.panda_rollout(spec, *inputs)
+        assert pr.panda_rollout_launches == before + 1
+        c_p, t_p = pr.panda_rollout_plain(spec, *inputs)
+        assert float(torch.max(torch.abs(c_k - c_p))) <= 1e-2, start
+        assert float(torch.max(torch.abs(t_k - t_p))) <= 1e-3, start
 
 
 def test_albert_rollout_kernel_matches_plain(cuda):
@@ -320,14 +410,19 @@ def test_batched_point_kernel_matches_plain_and_single(cuda, B):
     )
 
 
-def test_batched_panda_kernel_matches_plain_and_single(cuda):
+@pytest.mark.parametrize("B", [4, 20])  # 20: the n=20 batch's width
+def test_batched_panda_kernel_matches_plain_and_single(cuda, B):
+    """K3b on B seeds (seed b from parity case 1 + b, cyclically) against
+    its plain version and against one K3 launch per seed: equal bit for
+    bit, since each lane adds the team's contacts in one fixed order."""
     tamp = ReactiveTAMP(load_config("config_panda", ["multi_modal=True"]), device=cuda)
     mp = tamp.motion_planner
     spec, K, T = mp.rollout.spec, mp.K, mp.T
     rng = np.random.default_rng(7)
     base = tamp.env.init_state()
     rows, acts = [], []
-    for name, start, task_name, grip, zup in pr.PARITY_CASES[1:5]:
+    for b in range(B):
+        name, start, task_name, grip, zup = pr.PARITY_CASES[(1 + b) % len(pr.PARITY_CASES)]
         goal = pr.PARITY_GOAL if task_name == "pick" else [0.0] * 7
         sk = tree_map(lambda x: x.expand((K,) + x.shape), pr.parity_state(base, start))
         rows.append(pr.rollout_inputs(sk, make_task_params(task_name, goal, "none", zup, device=cuda)))

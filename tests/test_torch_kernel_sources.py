@@ -2,7 +2,7 @@
 the sources themselves (no nvcc needed): compile-time maxima, the scalar
 count of each param buffer and the row strides the wrapper's
 ``_param_buffer`` writes, the albert's state and action widths, the beta
-search's round cap, and the point kernel's team width.  A source edited
+search's round cap, and the team kernels' widths.  A source edited
 without its wrapper (or the other way round) fails here, on the CPU, before
 a launch on the card reads a misaligned buffer."""
 import re
@@ -86,10 +86,23 @@ def test_source_constants_match_the_wrapper(source):
     CHECKS[source](_constants(source))
 
 
-def test_point_team_fits_the_warp():
+# what each team kernel's lane mapping needs of its team width
+TEAM_MAPPINGS = {
+    # the boxes of passes 1 and 5 fit one round, a pass-2 round holds whole
+    # rows; pass 3's yaw tree is the plain version's 32-lane reduction over
+    # 4 corners x kTeam lanes, in at most two rounds of statics
+    "point_rollout.cu": lambda c: c["kTeam"] % c["kMaxD"] == 0 and 4 * c["kTeam"] == 32
+    and c["kMaxS"] <= 2 * c["kTeam"],
+    # the arm probes on lanes 0 .. kProbes - 1 and cubeA-cubeB on lane kProbes, one round
+    "panda_rollout.cu": lambda c: c["kTeam"] >= c["kProbes"] + 1,
+}
+
+
+@pytest.mark.parametrize("source", list(TEAM_MAPPINGS))
+def test_team_fits_the_warp(source):
     """A team of kTeam lanes never straddles a warp, a block holds whole
-    teams, and the boxes of passes 1 and 5 fit one round."""
-    c = _constants("point_rollout.cu")
+    warps, and the kernel's lane mapping fits the team."""
+    c = _constants(source)
     assert 32 % c["kTeam"] == 0
     assert c["kThreads"] % 32 == 0
-    assert c["kTeam"] % c["kMaxD"] == 0
+    assert TEAM_MAPPINGS[source](c)
