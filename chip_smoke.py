@@ -26,21 +26,25 @@ paths through ``SimLoop.run_chunked``:
   point push_pull hybrid, the panda multi-modal table pick-place with its
   settle, the albert ee_reach), each of which must succeed on at least 18
   seeds with the batched kernels launched once per rollout per tick and the
-  single kernels not at all; three seeds batched against three serial runs
+  single kernels not at all, and each of which prints its per-seed rows;
+  three seeds batched against three serial runs
   (point and panda: equal tick counts and success ticks, positions within
   1e-4); and the B=20 point batch's rate in benchmark mode beside the serial
   rate, with a profile of one batched tick.
 
-The inputs the point and panda main paths and their n=20 batches gave K1,
-K1b, K3 and K3b are recorded, each timed, and the slowest held against the
-plain version sample by sample (a sample beyond the bars passes only where
-a one- to four-ulp nudge of its own actions carries the plain version to the
-kernel's output)
-and timed beside the check inputs: the point kernel's time depends on its
-data (it skips the projections of contacts that are not live).  Then a
-rollout-scaling phase times K1 and K3 at K = 200, 1000 and 4000 and K1b
-and K3b at B = 1, 4 and 20 on both kinds of input (kernel times only, each
-with its waves).
+The inputs the point, panda and albert main paths and their n=20 batches
+gave K1, K1b, K3, K3b, K4 and K4b are recorded, each timed, and the slowest
+held against the plain version sample by sample at the family's bars (a
+sample beyond the bars passes only where a one- to four-ulp nudge of its own
+actions carries the plain version to the kernel's output) and timed beside
+the check inputs: the point and albert kernels' times depend on their data
+(they skip work whose result no output reads).  Then a rollout-scaling phase
+times K1 and K3 at K = 200, 1000 and 4000, K4 at K = 128, 1024 and 4096, and
+K1b, K3b and K4b at B = 1, 4 and 20 on both kinds of input (kernel times
+only, each with its waves).  Each kernel is timed twice: single calls
+between CUDA events (``ms``, ``closed_loop_ms``) and calls replayed back to
+back from a CUDA graph (``device_ms``, ``closed_loop_device_ms``, which
+leave out the host's time to issue a call).
 
 Each kernel's entry in the kernel table carries its bound: the least time
 the card could take for the same work, the larger of the bytes it must move
@@ -81,9 +85,11 @@ STARTS = [
 ]
 WEIGHTS_ATOL, SUM_TOL = 1e-6, 1e-5  # tests/test_pallas.py:131-132
 COST_ATOL, TRAJ_ATOL = 1e-2, 1e-3  # tests/test_pallas.py:259-260 (and :379-384 for the panda)
+PLANAR_BARS = (COST_ATOL, TRAJ_ATOL)  # the point and panda rollouts' (cost, trajectory) bars
 TIMED_CALLS = 50
 PANDA_TICKS = 900  # the table pick-place must latch success within this many ticks
 ALBERT_ATOL = 1e-4  # K4 vs its plain version, cost and trajectory (tests/test_pallas.py:818-821)
+ALBERT_BARS = (ALBERT_ATOL, ALBERT_ATOL)
 EE_REACH_TICKS, PUSH_REACH_TICKS = 150, 500  # tests/test_albert.py:37, :193
 PUSH_REACH = ["task=push_reach", "goal=[3.0,0.0,0.6]"]
 BENCH_CHUNK = 50  # the point and panda benchmark phases: 2 warm-up chunks, then 4 timed chunks
@@ -91,7 +97,8 @@ N_SEEDS = 20  # the n=20 protocol of RESULTS.md
 CHECK_SEEDS = 4  # seeds of the batched kernels' checks against their plain versions
 SERIAL_ATOL = 0.0  # a batched kernel against its single kernel per seed: the same body, so the same bits
 SCALING_K = (200, 1000, 4000)  # K1's and K3's sample counts in the rollout-scaling phase
-SCALING_B = (1, 4, 20)  # K1b's and K3b's seed counts there (K=200)
+SCALING_B = (1, 4, 20)  # the batched kernels' seed counts there
+ALBERT_SCALING_K = (128, 1024, 4096)  # K4's: whole tilings of its K=128 samples
 # A rollout kernel on a recorded closed-loop input: a sample beyond COST_ATOL
 # / TRAJ_ATOL passes only if a nudge of all its own actions by 1 .. NUDGE_ULPS
 # ulp carries the plain version's same sample to the kernel's output, within
@@ -135,6 +142,36 @@ def _time_ms(fn, calls: int = TIMED_CALLS, warmup: int = 5) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+
+
+def _device_ms(fn, launches: int = 20, reps: int = 5) -> float:
+    """Device time of one call, without the host's time to issue it: ``fn``
+    captured ``launches`` times into a CUDA graph and the graph replayed
+    between CUDA events, so the calls run back to back however long the
+    wrapper takes on the host (single calls between events take that time
+    in wherever the kernel is shorter); the median over ``reps`` replays,
+    per call."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as torch.cuda.graphs asks
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return float(np.median(times))
 
 
 def _bytes(*tensors) -> int:
@@ -276,10 +313,12 @@ def phase_weights(mp) -> dict:
     err = _weights_check(mp, cost, "weights")
     args = (cost, mp.gamma_seq, mp.half_K, mp.eta_u, mp.eta_l)
     ms = _time_ms(lambda: weights.multimodal_weights(*args))
+    dev_ms = _device_ms(lambda: weights.multimodal_weights(*args))
     plain_ms = _time_ms(lambda: weights.multimodal_weights_plain(*args))
     bound = _bound(_bytes(cost, mp.gamma_seq) + 3 * cost.shape[0] * 4, _weights_ops(cost, mp))
-    print(f"[weights] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of {TIMED_CALLS}); bound {bound}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None}
+    print(f"[weights] kernel {ms:.4f} ms ({dev_ms:.4f} replayed from a graph), plain {plain_ms:.4f} ms (median of "
+          f"{TIMED_CALLS}); bound {bound}")
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, **bound, "library_ms": None}
 
 
 def phase_rollout(tamp) -> dict:
@@ -331,13 +370,15 @@ def phase_rollout(tamp) -> dict:
             timed = (inputs, acts, _total(live))
     inputs, acts, n_live = timed
     ms = _time_ms(lambda: ro.point_rollout(spec, *inputs, acts))
+    dev_ms = _device_ms(lambda: ro.point_rollout(spec, *inputs, acts))
     plain_ms = _time_ms(lambda: ro.point_rollout_plain(spec, *inputs, acts), calls=5, warmup=1)
     K, T = acts.shape[:2]
     bound = _bound(_bytes(spec.params_buf, *inputs, acts) + K * T * 3 * 4, _point_rollout_ops(spec, K, n_live))
     print(f"[rollout] max cost err {cost_err:.3e}, max traj err {traj_err:.3e}; "
           f"case 0 (timed) projects {n_live} live contacts")
-    print(f"[rollout] kernel {ms:.4f} ms (median of {TIMED_CALLS}), plain {plain_ms:.4f} ms (median of 5); bound {bound}")
-    return {"max_abs_err": cost_err, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None}
+    print(f"[rollout] kernel {ms:.4f} ms (median of {TIMED_CALLS}; {dev_ms:.4f} replayed from a graph), plain {plain_ms:.4f} "
+          f"ms (median of 5); bound {bound}")
+    return {"max_abs_err": cost_err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, **bound, "library_ms": None}
 
 
 def _launch_shape(source: str, symbol: str) -> dict:
@@ -373,12 +414,13 @@ def _slowest(calls, kernel) -> tuple:
     return float(np.median(times)), calls[int(np.argmax(times))]
 
 
-def _beyond(out, ref) -> tuple:
+def _beyond(out, ref, bars: tuple = PLANAR_BARS) -> tuple:
     """Per sample of [B, K] rollouts: the cost and trajectory errors of
-    ``out`` against ``ref``, and where either lies beyond its bar."""
+    ``out`` against ``ref``, and where either lies beyond its bar in
+    ``bars`` (cost, trajectory)."""
     ce = torch.abs(out[0] - ref[0]).amax(-1)
     te = torch.abs(out[1] - ref[1]).amax((-2, -1))
-    return ce, te, (ce > COST_ATOL) | (te > TRAJ_ATOL)
+    return ce, te, (ce > bars[0]) | (te > bars[1])
 
 
 def _nudges():
@@ -400,12 +442,12 @@ def _nudged(acts, samples, n: int, up: bool):
     return acts
 
 
-def _closed_loop_check(label: str, plain, inputs, out, ref=None) -> tuple:
+def _closed_loop_check(label: str, plain, inputs, out, ref=None, bars: tuple = PLANAR_BARS) -> tuple:
     """A rollout kernel's (cost, traj) ``out`` [B, K, ...] on B seeds'
     recorded closed-loop ``inputs`` (actions last) against the family's
     batched plain version ``plain(*inputs)`` (``ref``, if the caller ran it
-    already), sample by sample; returns (samples beyond the bars, samples
-    explained).
+    already), sample by sample, at the family's (cost, trajectory) ``bars``;
+    returns (samples beyond the bars, samples explained).
 
     A closed-loop input can be ill-conditioned: a sample that sits on a
     contact gate takes the other branch after a one-ulp difference in any
@@ -421,7 +463,7 @@ def _closed_loop_check(label: str, plain, inputs, out, ref=None) -> tuple:
     c_k, t_k = out
     if ref is None:
         ref = plain(*inputs)
-    ce, te, beyond = _beyond(out, ref)
+    ce, te, beyond = _beyond(out, ref, bars)
     within = ~beyond
     ce_in, te_in = (float(x[within].max()) if within.any() else 0.0 for x in (ce, te))
     print(f"[{label}] vs plain: {int(beyond.sum())} of {beyond.numel()} samples beyond the bars; within them max cost "
@@ -435,7 +477,7 @@ def _closed_loop_check(label: str, plain, inputs, out, ref=None) -> tuple:
         samples = unexplained[seeds]
         x = [v[seeds] for v in inputs]
         x[-1] = _nudged(x[-1], samples, n, up)
-        landed = ~_beyond(plain(*x), tuple(o[seeds] for o in out))[2] & samples
+        landed = ~_beyond(plain(*x), tuple(o[seeds] for o in out), bars)[2] & samples
         if landed.any():
             explained_by[nudge] = int(landed.sum())
         unexplained[seeds] = samples & ~landed
@@ -452,15 +494,18 @@ def _closed_loop_check(label: str, plain, inputs, out, ref=None) -> tuple:
     return n_beyond, n_explained
 
 
-def phase_closed_loop(card: str, label: str, calls: list, kernel, plain, ops, single=None, live=False) -> tuple:
+def phase_closed_loop(card: str, label: str, calls: list, kernel, plain, ops, single=None, live=False,
+                      bars: tuple = PLANAR_BARS) -> tuple:
     """A rollout kernel on the inputs a closed loop gave it: every recorded
-    (spec, inputs) call timed; the slowest held against the plain batched
-    version ``plain(spec, ...)`` sample by sample (``_closed_loop_check``;
-    a batched kernel also against its ``single`` kernel per seed, exactly)
-    and timed with TIMED_CALLS.  The bound's operations are ``ops(spec,
-    samples)``, or, where ``live`` (the point kernel), ``ops(spec, samples,
-    live contacts)`` with the contacts the plain version projects.  Returns
-    the kernel's closed-loop keys and its slowest input."""
+    (spec, inputs) call timed (``_slowest``); the slowest held against the plain batched
+    version ``plain(spec, ...)`` sample by sample at the family's ``bars``
+    (``_closed_loop_check``; a batched kernel also against its ``single``
+    kernel per seed, exactly) and timed with TIMED_CALLS single calls and
+    replayed from a graph (``_device_ms``).  The bound's
+    operations are ``ops(spec, samples)``, or, where ``live`` (the point
+    kernel), ``ops(spec, samples, live contacts)`` with the contacts the
+    plain version projects.  Returns the kernel's closed-loop keys and its
+    slowest input."""
     med, (spec, x) = _slowest(calls, kernel)
     out = kernel(spec, *x)
     xb, out = (x, out) if single is not None else (tuple(v[None] for v in x), tuple(v[None] for v in out))
@@ -468,7 +513,7 @@ def phase_closed_loop(card: str, label: str, calls: list, kernel, plain, ops, si
         ref = plain(spec, *xb)
     n_live = _total(counted)
     _closed_loop_check(f"closed-loop {label}, slowest of {len(calls)} recorded calls", lambda *a: plain(spec, *a),
-                       xb, out, ref)
+                       xb, out, ref, bars)
     if single is not None:
         se = 0.0
         for b in range(out[0].shape[0]):
@@ -477,12 +522,15 @@ def phase_closed_loop(card: str, label: str, calls: list, kernel, plain, ops, si
         print(f"[closed-loop {label}] vs {out[0].shape[0]} single launches max err {se:.3e}")
         assert se <= SERIAL_ATOL, f"closed-loop {label} disagrees with its single kernel: {se}"
     ms = _time_ms(lambda: kernel(spec, *x))
+    dev_ms = _device_ms(lambda: kernel(spec, *x))
     n, T = x[-1].shape[:-2].numel(), x[-1].shape[-2]
     bound = _bound(_bytes(spec.params_buf, *x) + n * T * 3 * 4, ops(spec, n, n_live) if live else ops(spec, n))
     counted_note = f", {n_live} live contacts" if live else ""
     print(f"[closed-loop {label}] {tuple(x[-1].shape[:-2])} samples: slowest input {ms:.4f} ms (median of "
-          f"{TIMED_CALLS}){counted_note}, bound {bound}; median over the recorded inputs {med:.4f} ms ({card})")
-    return {"closed_loop_ms": ms, "closed_loop_median_ms": med, "closed_loop_bound_ms": bound["bound_ms"]}, (spec, x)
+          f"{TIMED_CALLS}; {dev_ms:.4f} replayed from a graph){counted_note}, bound {bound}; median over the recorded "
+          f"inputs {med:.4f} ms ({card})")
+    return {"closed_loop_ms": ms, "closed_loop_device_ms": dev_ms, "closed_loop_median_ms": med,
+            "closed_loop_bound_ms": bound["bound_ms"]}, (spec, x)
 
 
 def _point_random_inputs() -> tuple:
@@ -509,12 +557,14 @@ def _point_random_inputs() -> tuple:
     return single, (spec, _point_batch_inputs(tamp, max(SCALING_B), rng))
 
 
-def phase_rollout_scaling(card: str, names: tuple, shape: dict, kernel, batched, inputs: dict) -> None:
-    """A team rollout kernel (``names[0]``, launch ``shape``) at K in
-    SCALING_K (the K=200 samples tiled) and its batched call (``names[1]``)
-    at B in SCALING_B (the first B seeds), on each kind of input in
-    ``inputs`` ({kind: ((spec, single inputs), (spec, batched inputs))}):
-    kernel times only (CUDA events, medians of TIMED_CALLS), each with its
+def phase_rollout_scaling(card: str, names: tuple, shape: dict, kernel, batched, inputs: dict,
+                          ks: tuple = SCALING_K) -> None:
+    """A team rollout kernel (``names[0]``, launch ``shape``) at K in ``ks``
+    (the recorded samples tiled, so each K is a multiple of theirs) and its
+    batched call (``names[1]``) at B in SCALING_B (the first B seeds), on
+    each kind of input in ``inputs`` ({kind: ((spec, single inputs), (spec,
+    batched inputs))}): kernel times only (CUDA events, medians of
+    TIMED_CALLS single calls, and replayed from a graph), each with its
     blocks and waves, after the kernel's team width, registers and spills."""
     from dataclasses import replace
 
@@ -522,18 +572,20 @@ def phase_rollout_scaling(card: str, names: tuple, shape: dict, kernel, batched,
           f"({shape['samples']} samples) a block, {shape['registers']} registers, a {shape['stack']}-byte stack frame "
           f"and {shape['spill']} bytes of spill stores a thread, {shape['per_wave']} blocks a wave ({card})")
     for kind, ((sp, x), (sp_b, xb)) in inputs.items():
-        for K in SCALING_K:
+        for K in ks:
             n = K // x[-1].shape[0]
             tiled = tuple(v.repeat(n, *[1] * (v.dim() - 1)) if v.dim() > 1 else v for v in x)  # the per-sample rows
             ms = _time_ms(lambda: kernel(replace(sp, K=K), *tiled))
+            dev_ms = _device_ms(lambda: kernel(replace(sp, K=K), *tiled))
             blocks = -(-K // shape["samples"])
-            print(f"[rollout-scaling] {kind} {names[0]} K={K} x T={sp.T}: {ms:.4f} ms, {blocks} blocks, "
-                  f"{-(-blocks // shape['per_wave'])} wave(s) ({card})")
+            print(f"[rollout-scaling] {kind} {names[0]} K={K} x T={sp.T}: {ms:.4f} ms ({dev_ms:.4f} replayed), "
+                  f"{blocks} blocks, {-(-blocks // shape['per_wave'])} wave(s) ({card})")
         for B in SCALING_B:
             ms = _time_ms(lambda: batched(sp_b, *(v[:B] for v in xb)))
+            dev_ms = _device_ms(lambda: batched(sp_b, *(v[:B] for v in xb)))
             blocks = B * -(-sp_b.K // shape["samples"])
-            print(f"[rollout-scaling] {kind} {names[1]} B={B} x K={sp_b.K} x T={sp_b.T}: {ms:.4f} ms, {blocks} blocks, "
-                  f"{-(-blocks // shape['per_wave'])} wave(s) ({card})")
+            print(f"[rollout-scaling] {kind} {names[1]} B={B} x K={sp_b.K} x T={sp_b.T}: {ms:.4f} ms ({dev_ms:.4f} "
+                  f"replayed), {blocks} blocks, {-(-blocks // shape['per_wave'])} wave(s) ({card})")
 
 
 def phase_main_path(cfg) -> tuple:
@@ -641,15 +693,16 @@ def phase_panda_rollout() -> tuple:
                     w_timed = (c_k, mp.gamma_seq, mp.half_K, mp.eta_u, mp.eta_l)
     spec, inputs, acts = timed
     ms = _time_ms(lambda: pr.panda_rollout(spec, *inputs, acts))
+    dev_ms = _device_ms(lambda: pr.panda_rollout(spec, *inputs, acts))
     plain_ms = _time_ms(lambda: pr.panda_rollout_plain(spec, *inputs, acts), calls=10, warmup=2)
     w_ms = _time_ms(lambda: weights.multimodal_weights(*w_timed))
     K, T = acts.shape[:2]
     bound = _bound(_bytes(spec.params_buf, *inputs, acts) + K * T * 3 * 4, _panda_rollout_ops(spec, K))
     print(f"[panda-rollout] max cost err {cost_err:.3e}, max traj err {traj_err:.3e}")
-    print(f"[panda-rollout] kernel {ms:.4f} ms (median of {TIMED_CALLS}), plain {plain_ms:.4f} ms (median of 10); "
-          f"bound {bound}")
+    print(f"[panda-rollout] kernel {ms:.4f} ms (median of {TIMED_CALLS}; {dev_ms:.4f} replayed from a graph), plain "
+          f"{plain_ms:.4f} ms (median of 10); bound {bound}")
     print(f"[panda-weights] max err {w_err:.3e}; kernel {w_ms:.4f} ms at K=200 x T=12 (median of {TIMED_CALLS})")
-    stats = {"max_abs_err": cost_err, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None}
+    stats = {"max_abs_err": cost_err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, **bound, "library_ms": None}
     return stats, w_err, (spec, inputs + (acts,))
 
 
@@ -784,10 +837,11 @@ def phase_panda_bench(card: str) -> float:
     return hz
 
 
-def phase_albert_rollout() -> dict:
+def phase_albert_rollout(card: str) -> tuple:
     """K4 against its plain version at K=128 x T=12 (config_albert physics)
     on the five starts and tasks of ``albert_rollout.PARITY_CASES``, each
-    call launching the kernel once."""
+    call launching the kernel once.  Returns K4's stats and the timed
+    (first) input."""
     from m3p2i_aip_tpu_torch.config.config_store import load_config
     from m3p2i_aip_tpu_torch.ops import albert_rollout as ar
     from m3p2i_aip_tpu_torch.planners.motion_planner.mppi import make_task_params
@@ -823,12 +877,22 @@ def phase_albert_rollout() -> dict:
             timed = (inputs, acts)
     inputs, acts = timed
     ms = _time_ms(lambda: ar.albert_rollout(spec, *inputs, acts))
+    dev_ms = _device_ms(lambda: ar.albert_rollout(spec, *inputs, acts))
     plain_ms = _time_ms(lambda: ar.albert_rollout_plain(spec, *inputs, acts), calls=10, warmup=2)
     bound = _bound(_bytes(spec.params_buf, *inputs, acts) + K * T * 3 * 4, _albert_rollout_ops(spec, K))
     print(f"[albert-rollout] max cost err {cost_err:.3e}, max traj err {traj_err:.3e}")
-    print(f"[albert-rollout] kernel {ms:.4f} ms (median of {TIMED_CALLS}), plain {plain_ms:.4f} ms (median of 10); "
-          f"bound {bound}")
-    return {"max_abs_err": max(cost_err, traj_err), "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None}
+    print(f"[albert-rollout] kernel {ms:.4f} ms (median of {TIMED_CALLS}; {dev_ms:.4f} replayed from a graph), plain "
+          f"{plain_ms:.4f} ms (median of 10); bound {bound}")
+    # the time against K, and the launch floor: an empty kernel timed the same two ways
+    for k in (8, 32, K):
+        x = acts[:k].contiguous()
+        print(f"[albert-rollout] K4 at K={k} x T={T}: {_time_ms(lambda: ar.albert_rollout(spec, *inputs, x)):.4f} ms "
+              f"single, {_device_ms(lambda: ar.albert_rollout(spec, *inputs, x)):.4f} ms replayed from a graph ({card})")
+    print(f"[albert-rollout] an empty kernel (torch.cuda._sleep(0)): {_time_ms(lambda: torch.cuda._sleep(0)):.4f} ms "
+          f"single, {_device_ms(lambda: torch.cuda._sleep(0)):.4f} ms replayed from a graph ({card})")
+    stats = {"max_abs_err": max(cost_err, traj_err), "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, **bound,
+             "library_ms": None}
+    return stats, (spec, inputs + (acts,))
 
 
 def _albert_gated_run(label: str, overrides: list, n_ticks: int):
@@ -1070,11 +1134,12 @@ def _batched_weights_check(mp, cost, label: str) -> float:
 def _time_batched(label: str, kernel, plain, inputs, n_bytes: int, n_ops: float, plain_calls: int) -> dict:
     """Kernel and plain-version times at the inputs' width, and the bound."""
     ms = _time_ms(lambda: kernel(*inputs))
+    dev_ms = _device_ms(lambda: kernel(*inputs))
     plain_ms = _time_ms(lambda: plain(*inputs), calls=plain_calls, warmup=0)
     bound = _bound(n_bytes, n_ops)
-    print(f"[{label}] kernel {ms:.4f} ms (median of {TIMED_CALLS}), plain {plain_ms:.4f} ms "
-          f"(median of {plain_calls}); bound {bound}")
-    return {"ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None}
+    print(f"[{label}] kernel {ms:.4f} ms (median of {TIMED_CALLS}; {dev_ms:.4f} replayed from a graph), plain {plain_ms:.4f} "
+          f"ms (median of {plain_calls}); bound {bound}")
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, **bound, "library_ms": None}
 
 
 def _point_batch_inputs(tamp, B: int, rng) -> tuple:
@@ -1192,10 +1257,11 @@ def phase_panda_batched() -> tuple:
     return {"max_abs_err": err, **stats}, w_err, (spec, inputs)
 
 
-def phase_albert_batched() -> dict:
+def phase_albert_batched() -> tuple:
     """K4b at the albert's K=128 x T=12: seed b takes
     albert_rollout.PARITY_CASES[b % 5]; against its plain version and single
-    launches on CHECK_SEEDS seeds, then timed at B=N_SEEDS."""
+    launches on CHECK_SEEDS seeds and at B=N_SEEDS, then timed at B=N_SEEDS.
+    Returns K4b's stats and the B=N_SEEDS input."""
     from m3p2i_aip_tpu_torch.config.config_store import load_config
     from m3p2i_aip_tpu_torch.ops import albert_rollout as ar
     from m3p2i_aip_tpu_torch.planners.motion_planner.mppi import make_task_params
@@ -1224,12 +1290,13 @@ def phase_albert_batched() -> dict:
     )
     err = _batched_check("albert-batched K4b", *fns, inputs_of(CHECK_SEEDS), ALBERT_ATOL, ALBERT_ATOL)
     inputs = inputs_of(N_SEEDS)
+    err = max(err, _batched_check("albert-batched K4b", *fns, inputs, ALBERT_ATOL, ALBERT_ATOL))
     B = inputs[-1].shape[0]
     stats = _time_batched(
         f"albert-batched K4b at B={B}", fns[0], fns[1], inputs,
         _bytes(spec.params_buf, *inputs) + B * K * T * 3 * 4, _albert_rollout_ops(spec, B * K), plain_calls=1,
     )
-    return {"max_abs_err": err, **stats}
+    return {"max_abs_err": err, **stats}, (spec, inputs)
 
 
 def _count_batch_ticks(batch) -> list:
@@ -1252,9 +1319,16 @@ def phase_seed_batch(label: str, config_name: str, overrides: list, chunk: int, 
     count set to 0 just before ``run_chunked`` and read just after; each
     batched kernel in ``per_tick`` launched that many times per dispatched
     tick for the whole batch, every other kernel never.  The panda batch
-    settles 150 steps before its rows are logged.  Prints the success count
-    and the row statistics of ``analysis.summarize``; returns the counts."""
-    from m3p2i_aip_tpu_torch.analysis import finalize_albert_row, finalize_panda_row, finalize_point_row, summarize
+    settles 150 steps before its rows are logged.  Prints each seed's row
+    (``_seed_rows``), the success count and the row statistics of
+    ``analysis.summarize``; returns the counts."""
+    from m3p2i_aip_tpu_torch.analysis import (
+        finalize_albert_row,
+        finalize_panda_row,
+        finalize_point_row,
+        per_seed,
+        summarize,
+    )
     from m3p2i_aip_tpu_torch.config.config_store import load_config
     from m3p2i_aip_tpu_torch.tamp.batch_loop import BatchSimLoop
 
@@ -1291,6 +1365,9 @@ def phase_seed_batch(label: str, config_name: str, overrides: list, chunk: int, 
     assert np.isfinite(rows).all(), f"{label}: non-finite rows"
     ok = [log.success_step is not None for log in logs]
     steps = [log.success_step for log in logs]
+    cubes = np.stack([np.asarray(v["cube_state"])[:3] for v in batch.views]) if family == "panda" else None
+    for line in _seed_rows(per_seed(rows, family), steps, cubes):
+        print(f"[{label}] {line}")
     stats = {k: (round(m, 4), round(s, 4)) for k, (m, s) in summarize(rows, family).items()}
     print(f"[{label}] success {sum(ok)}/{N_SEEDS}; success ticks {steps}; stats (mean, std) {stats}")
     if family != "panda":
@@ -1299,6 +1376,19 @@ def phase_seed_batch(label: str, config_name: str, overrides: list, chunk: int, 
               f"over the {len(done)} successful seeds")
     assert sum(ok) >= MIN_SUCCESS, f"{label}: only {sum(ok)}/{N_SEEDS} seeds succeeded"
     return counts
+
+
+def _seed_rows(per_seed: dict, steps: list, cubes=None) -> list:
+    """One line per seed of an n=20 batch: its entry of each of
+    ``analysis.per_seed``'s arrays, the settled cube's xyz where ``cubes``
+    [B, 3] are given (the panda), and its success tick."""
+    lines = []
+    for b, step in enumerate(steps):
+        cells = [f"{k} {v[b]:.4f}" for k, v in per_seed.items()]
+        if cubes is not None:
+            cells.append(f"cube at [{', '.join(f'{c:.4f}' for c in cubes[b])}]")
+        lines.append(f"seed {b}: {', '.join(cells)}, success tick {step}")
+    return lines
 
 
 def phase_batch_vs_serial(label: str, config_name: str, overrides: list, chunk: int, max_ticks: int) -> None:
@@ -1384,6 +1474,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device; this script runs only on a GPU")
     from m3p2i_aip_tpu_torch.config.config_store import load_config
+    from m3p2i_aip_tpu_torch.ops import albert_rollout as ar
     from m3p2i_aip_tpu_torch.ops import cuda_build
     from m3p2i_aip_tpu_torch.ops import panda_rollout as pr
     from m3p2i_aip_tpu_torch.ops import rollout as ro
@@ -1419,9 +1510,10 @@ def main() -> None:
     k2["max_abs_err"] = max(k2["max_abs_err"], w_err)  # over the point and the panda shapes and costs
     panda_hz = phase_panda_bench(card)
     # 11. K4 against its plain version; 12. - 15. the albert path
-    stats["albert_rollout"] = phase_albert_rollout()
-    launches["albert_rollout"] = phase_albert_main()
-    phase_albert_push()
+    stats["albert_rollout"], k4_parity = phase_albert_rollout(card)
+    with _recorded(ar, "albert_rollout") as k4_calls:
+        launches["albert_rollout"] = phase_albert_main()
+        phase_albert_push()
     albert_hz = phase_albert_bench(card)
     phase_albert_breakdown(card)
     # 16. - 18. the batched kernels against their plain versions and single launches, timed at B=20
@@ -1429,7 +1521,7 @@ def main() -> None:
     stats["panda_rollout_batched"], w_err, k3b_parity = phase_panda_batched()
     k2b = stats["multimodal_weights_batched"]
     k2b["max_abs_err"] = max(k2b["max_abs_err"], w_err)
-    stats["albert_rollout_batched"] = phase_albert_batched()
+    stats["albert_rollout_batched"], k4b_parity = phase_albert_batched()
     # 19. - 21. the three n=20 batches through BatchSimLoop
     with _recorded(ro, "point_rollout_batched") as k1b_calls:
         point_counts = phase_seed_batch(
@@ -1441,7 +1533,10 @@ def main() -> None:
             "batch-panda", "config_panda", ["multi_modal=True"], 10, 600,
             {"panda_rollout_batched_launches": 4, "weights_batched_launches": 3},
         )
-    albert_counts = phase_seed_batch("batch-albert", "config_albert", [], 10, 300, {"albert_rollout_batched_launches": 4})
+    with _recorded(ar, "albert_rollout_batched") as k4b_calls:
+        albert_counts = phase_seed_batch(
+            "batch-albert", "config_albert", [], 10, 300, {"albert_rollout_batched_launches": 4}
+        )
     launches["point_rollout_batched"] = point_counts["rollout_batched_launches"]
     launches["multimodal_weights_batched"] = (
         point_counts["weights_batched_launches"] + panda_counts["weights_batched_launches"]
@@ -1452,7 +1547,7 @@ def main() -> None:
     phase_batch_vs_serial("batch-vs-serial point", "config_point", MAIN_PATH, 4, 300)
     phase_batch_vs_serial("batch-vs-serial panda", "config_panda", ["multi_modal=True"], 10, 600)
     phase_batch_bench(card, hz)
-    # 25. K1, K1b, K3 and K3b on the closed loops' inputs; 26. the scaling sweeps
+    # 25. K1, K1b, K3, K3b, K4 and K4b on the closed loops' inputs; 26. the scaling sweeps
     slowest = {}
     for name, label, calls, kernel, plain, ops, single in (
         ("point_rollout", "K1", k1_calls, ro.point_rollout, ro.point_rollout_batched_plain, _point_rollout_ops, None),
@@ -1461,9 +1556,14 @@ def main() -> None:
         ("panda_rollout", "K3", k3_calls, pr.panda_rollout, pr.panda_rollout_batched_plain, _panda_rollout_ops, None),
         ("panda_rollout_batched", "K3b", k3b_calls, pr.panda_rollout_batched, pr.panda_rollout_batched_plain,
          _panda_rollout_ops, pr.panda_rollout),
+        ("albert_rollout", "K4", k4_calls, ar.albert_rollout, ar.albert_rollout_batched_plain, _albert_rollout_ops,
+         None),
+        ("albert_rollout_batched", "K4b", k4b_calls, ar.albert_rollout_batched, ar.albert_rollout_batched_plain,
+         _albert_rollout_ops, ar.albert_rollout),
     ):
         live = name.startswith("point")  # the point kernel's bound counts its live contacts
-        entry, slowest[label] = phase_closed_loop(card, label, calls, kernel, plain, ops, single, live)
+        bars = ALBERT_BARS if name.startswith("albert") else PLANAR_BARS
+        entry, slowest[label] = phase_closed_loop(card, label, calls, kernel, plain, ops, single, live, bars)
         stats[name].update(entry)
         calls.clear()
     phase_rollout_scaling(card, ("K1", "K1b"), _launch_shape("point_rollout", "point_rollout_kernel"),
@@ -1473,6 +1573,10 @@ def main() -> None:
     phase_rollout_scaling(card, ("K3", "K3b"), _launch_shape("panda_rollout", "panda_rollout_kernelILi3E"),
                           pr.panda_rollout, pr.panda_rollout_batched,
                           {"parity": (k3_parity, k3b_parity), "closed-loop": (slowest["K3"], slowest["K3b"])})
+    phase_rollout_scaling(card, ("K4", "K4b"), _launch_shape("albert_rollout", "albert_rollout_kernel"),
+                          ar.albert_rollout, ar.albert_rollout_batched,
+                          {"parity": (k4_parity, k4b_parity), "closed-loop": (slowest["K4"], slowest["K4b"])},
+                          ALBERT_SCALING_K)
 
     sources = {
         "point_rollout": ("m3p2i_aip_tpu_torch/csrc/point_rollout.cu", "m3p2i_aip_tpu/ops/pallas_rollout.py:189"),

@@ -5,4 +5,4 @@ from m3p2i_aip_tpu_torch.analysis.run_logger import (
     finalize_panda_row,
     finalize_point_row,
 )
-from m3p2i_aip_tpu_torch.analysis.stats import mean_std, panda_costs, point_costs, summarize
+from m3p2i_aip_tpu_torch.analysis.stats import mean_std, panda_costs, per_seed, point_costs, summarize

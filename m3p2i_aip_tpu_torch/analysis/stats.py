@@ -42,23 +42,20 @@ def mean_std(x: np.ndarray, label: str = "") -> Tuple[float, float]:
     return m, s
 
 
-def summarize(data: np.ndarray, env: str = "point") -> Dict[str, Tuple[float, float]]:
-    """mean±std of pos/ori error (+ collisions and task time for point runs)."""
+def per_seed(data: np.ndarray, env: str = "point") -> Dict[str, np.ndarray]:
+    """Per run (row): pos/ori error (+ collisions and task time for point
+    runs); the albert's ee error, success and task time."""
     if env == "point":
         pos, quat = point_costs(data)
-        return {
-            "pos_error": mean_std(pos),
-            "ori_error": mean_std(quat),
-            "collisions": mean_std(data[:, 17]),
-            "task_time": mean_std(data[:, 18]),
-        }
+        return {"pos_error": pos, "ori_error": quat, "collisions": data[:, 17], "task_time": data[:, 18]}
     if env == "albert":
         # 11-col albert schema (run_logger.finalize_albert_row)
         pos = np.linalg.norm(data[:, 1:4] - data[:, 6:9], axis=1)
-        return {
-            "ee_pos_error": mean_std(pos),
-            "success": mean_std(data[:, 9]),
-            "task_time": mean_std(data[:, 10]),
-        }
+        return {"ee_pos_error": pos, "success": data[:, 9], "task_time": data[:, 10]}
     pos, quat = panda_costs(data)
-    return {"pos_error": mean_std(pos), "ori_error": mean_std(quat)}
+    return {"pos_error": pos, "ori_error": quat}
+
+
+def summarize(data: np.ndarray, env: str = "point") -> Dict[str, Tuple[float, float]]:
+    """mean±std of each of :func:`per_seed`'s arrays."""
+    return {k: mean_std(v) for k, v in per_seed(data, env).items()}

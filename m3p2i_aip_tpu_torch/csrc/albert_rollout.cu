@@ -21,24 +21,60 @@
 // body.
 //
 // What bounds it on the H100: latency.  At K = 128 there are 128 independent
-// serial chains of T x substeps steps, each a few hundred dependent flops
-// (the drive, two contact projections, a 7-joint FK with 8 sin/cos pairs),
-// and almost no data (80 KB of actions in, 18 KB out).  Four warps on a
-// 132-SM card: the time is the length of one sample's dependency chain.
+// serial chains of T x substeps = 24 substeps, each a few hundred dependent
+// flops (the drive, the box's friction, two contact projections), and almost
+// no data (80 KB of actions in, 18 KB out).  With one thread a sample the
+// time was one sample's chain (0.068-0.072 ms at K = 8, 32 and 128 alike,
+// ~11.5k cycles a step): the two contact passes about half of it, the FK and
+// the cost a quarter, the drive and the friction the rest; every division,
+// square root, sine and cosine carries a slow-path branch, so its basic
+// block runs alone, and one warp per scheduler hides no latency.
 //
-// What the design does about it: one thread per sample with the whole
-// T x substeps nest in registers (the 12 joint positions and velocities, the
-// box's pose and twist, the FK chain); nothing touches global memory inside
-// the nest but the per-step action read and the cost / xy write.  The start
-// state is one 30-float vector read by every thread (all K rollouts start from
-// the synced real state).  Scene constants come from a 16-float param buffer
-// built once per scene in ops/albert_rollout.py.  The FK tables and their
-// constant-folded products are shared with the panda kernel (panda_fk.cuh);
-// the chain starts from the sample's own base frame, Rz(yaw) at
-// [x, y, 0.4], so the first joint's products are not folded.  The contact
-// primitives are the point kernel's (pbd2d.cuh).  Blocks are two warps, so
-// K = 128 is two blocks, and a batch of B seeds is B rows of two.
+// What the design does about it: a team of kTeam lanes of one warp per
+// sample, in place of one thread.  Every lane keeps the same copy of the
+// sample's state in registers and runs the physics in one thread's order
+// (the drive, the arm clip, the friction, the two passes).  The FK and the
+// cost read the post-step state but feed no later step, so they leave the
+// chain: at the end of step t, lane t % kTeam keeps a snapshot of what they
+// read (the 12 joints and the box's xy), and after every kTeam-th step (and
+// the last) the whole team runs albert_ee and the cost once, each lane on
+// its own snapshot, and writes its own step's cost and xy.  At T = 12 the
+// chain holds the FK and the cost twice in place of 12 times; lanes of a
+// partial last round hold no step and write nothing.  Along the physics,
+// the work whose result no output reads is skipped behind a branch, exactly:
+// a box at rest divides by the friction guard, so its two divisions are one
+// constant; the box's cosine and sine are formed anew only when its yaw's
+// bits change (a box that neither slides nor turns keeps them); the ratio
+// test of circle_vs_obb runs only with the base centre inside the box, and
+// resolve's three divisions only for a live contact (pbd2d.cuh).  A step's
+// actions are loaded a step ahead.  The substeps stay a run-time count: an
+// instantiation with the scenes' 2 unrolled (111 registers) was measured
+// slower, 0.040 against 0.034 ms in free space and 0.060 against 0.052 ms
+// at B = 20, and so were the primitives without their skips (0.046 ms in
+// free space).  Splitting the physics' independent divisions or the
+// drive's sines over lanes and gathering them by shuffles was measured
+// slower (a shuffle costs about what a division's fast path does), and so
+// was voting the skips warp-wide; the team's lanes therefore split only
+// the FK and the cost.
 //
+// Every lane that computes a value runs the operations of the one-thread
+// kernel in its order, and only the snapshot moves between lanes (by a
+// select on the owning lane), so the outputs are that kernel's bits and do
+// not depend on kTeam, on the block or on B: a batched launch equals B
+// single launches bit for bit.  A team never straddles a warp and a team
+// past K leaves as a whole.  Blocks are two warps, eight samples: 16 blocks
+// at K = 128, 320 at B = 20, one wave (ptxas: 114 registers, a 32-byte
+// stack frame for the sines' slow paths, no spills; 1056 blocks a wave).
+//
+// What bounds it now: one sample's physics chain, whose length depends on
+// the data (a sample whose base pushes a turning box runs every division
+// and sine, one in free space few of them); the card is still idle, so the
+// time is flat in K, and a batch takes as long as its slowest sample.  On
+// an NVIDIA H100 80GB HBM3 at 700 W, replayed from a CUDA graph: 0.034 ms
+// at K = 128 x T = 12 in free space and 0.045 ms with the base against the
+// box (0.067-0.074 ms with one thread a sample), 0.052 ms for B = 20 seeds
+// (0.077).
+
 // Semantics kept from the plain version (ops/albert_rollout.py, over
 // models/albert.step and AlbertObjective.compute), where the TPU kernel
 // differs from it:
@@ -61,10 +97,16 @@
 
 #include "panda_fk.cuh"
 #include "pbd2d.cuh"
+#include "team.cuh"
 
 namespace {
 
+// lanes per sample: kTeam divides 32 (a team never straddles a warp) and
+// holds one step's FK and cost on each lane of a round; kThreads is whole
+// warps (tests/test_torch_kernel_sources.py holds them)
+constexpr int kTeam = 8;
 constexpr int kThreads = 64;
+constexpr int kSamplesPerBlock = kThreads / kTeam;
 constexpr int kStateLen = 30;  // q(12), qd(12), box x, y, yaw, vx, vy, om
 constexpr int kNu = 13;
 constexpr float kGravity = 9.8f;
@@ -108,6 +150,34 @@ __device__ __forceinline__ void albert_ee(const float q[12], float ee[3]) {
   }
 }
 
+// AlbertObjective.compute on one post-step state: the base xy q[0..1], the
+// EE, the box xy
+__device__ __forceinline__ float step_cost(const float* sp, float task_id, float gx, float gy, float gz,
+                                           const float q[12], float bx, float by, const float ee[3]) {
+  const float nav = norm2(q[0] - gx, q[1] - gy);
+  float cost;
+  if (task_id == 9.0f) {  // push_reach: push the box, the EE hovering over it
+    const float r2bx = bx - q[0], r2by = by - q[1];
+    const float b2gx = gx - bx, b2gy = gy - by;
+    const float d_rb = norm2(r2bx, r2by);
+    const float d_bg = norm2(b2gx, b2gy);
+    const float cos_theta = (-r2bx * b2gx + -r2by * b2gy) / fmaxf(d_rb * d_bg, 1e-9f);
+    const float approach = 5.0f * fmaxf(d_rb - sp[P_APPROACH_R], 0.0f);
+    const float push = 3.0f * (d_rb + d_bg * 10.0f) + 1.5f * (1.0f + cos_theta) + approach;
+    const float gate = (sp[P_HOVER_GATE_R] - d_rb) / 0.03f;
+    const float hover_w = 1.5f + 2.5f * (1.0f / (1.0f + expf(-gate)));
+    cost = push + hover_w * norm3(ee[0] - bx, ee[1] - by, ee[2] - gz);
+  } else if (task_id == 7.0f) {  // ee_reach: EE at the goal, base-progress shaping
+    cost = 10.0f * norm3(ee[0] - gx, ee[1] - gy, ee[2] - gz) + 3.0f * nav;
+  } else if (task_id == 8.0f) {  // reposition: navigation outside the keep-out
+    const float d_rb = norm2(bx - q[0], by - q[1]);
+    cost = nav + 10.0f * fmaxf(sp[P_CLEARANCE_R] - d_rb, 0.0f);
+  } else {  // navigation
+    cost = nav;
+  }
+  return cost;
+}
+
 __global__ void __launch_bounds__(kThreads)
 albert_rollout_kernel(const float* __restrict__ params, const float* __restrict__ task,
                       const float* __restrict__ state0, const float* __restrict__ acts,
@@ -116,8 +186,9 @@ albert_rollout_kernel(const float* __restrict__ params, const float* __restrict_
   __shared__ float sp[N_SCALARS];
   if (threadIdx.x < N_SCALARS) sp[threadIdx.x] = params[threadIdx.x];
   __syncthreads();
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= K) return;
+  const int k = blockIdx.x * kSamplesPerBlock + threadIdx.x / kTeam;
+  if (k >= K) return;  // all lanes of a team share k, so the team leaves as a whole
+  const auto tm = Team<kTeam>::of_thread();
   // seed b = blockIdx.y: its task, start state and samples
   const size_t b = blockIdx.y;
   task += b * 5;
@@ -139,14 +210,31 @@ albert_rollout_kernel(const float* __restrict__ params, const float* __restrict_
   }
   float bx = state0[24], by = state0[25], byaw = state0[26];
   float bvx = state0[27], bvy = state0[28], bom = state0[29];
+  // this lane's snapshot of what the FK and the cost read: the post-step
+  // state of step t0 + lane of the current round of kTeam steps
+  float sq[12], sbx = bx, sby = by;
+#pragma unroll
+  for (int i = 0; i < 12; ++i) sq[i] = q[i];
+  // ground friction's ratio for a box at rest, whose guarded speeds divide by 1e-9
+  const float rest_ratio = sp[P_MU_G] * kGravity * h / 1e-9f;
+  // the box's cosine and sine, formed anew only when its yaw's bits change
+  float yaw_c = byaw, cyaw = cosf(byaw), syaw = sinf(byaw);
+  float un[11];  // the next step's actions u[2..12], loaded a step ahead
+#pragma unroll
+  for (int i = 0; i < 11; ++i) un[i] = acts[static_cast<size_t>(k) * T * kNu + 2 + i];
 
   for (int t = 0; t < T; ++t) {
-    const float* u = acts + (static_cast<size_t>(k) * T + t) * kNu;
     float ua[9];  // arm + finger velocity targets, u[2..10]
 #pragma unroll
-    for (int i = 0; i < 9; ++i) ua[i] = u[2 + i];
-    const float ul = u[11], ur = u[12];
+    for (int i = 0; i < 9; ++i) ua[i] = un[i];
+    const float ul = un[9], ur = un[10];
+    if (t + 1 < T) {
+      const float* u = acts + (static_cast<size_t>(k) * T + t + 1) * kNu;
+#pragma unroll
+      for (int i = 0; i < 11; ++i) un[i] = u[2 + i];
+    }
 
+#pragma unroll
     for (int sub = 0; sub < substeps; ++sub) {
       // ---- diff-drive base + arm velocity drive, integrate, arm clip ------
       const float v = sp[P_WHEEL_R] * (ul + ur) / 2.0f;
@@ -166,10 +254,14 @@ albert_rollout_kernel(const float* __restrict__ params, const float* __restrict_
         // ---- box ground friction (pbd2d.ground_friction) + integration ----
         const float mu_g_h = sp[P_MU_G] * kGravity * h;
         const float speed = norm2(bvx, bvy);
-        const float scale = fmaxf(1.0f - mu_g_h / fmaxf(speed, 1e-9f), 0.0f);
+        const float den_v = fmaxf(speed, 1e-9f), den_om = fmaxf(fabsf(bom) * sp[P_ANG_RAD], 1e-9f);
+        float r_v = rest_ratio, r_om = rest_ratio;
+        if (den_v != 1e-9f) r_v = mu_g_h / den_v;
+        if (den_om != 1e-9f) r_om = mu_g_h / den_om;
+        const float scale = fmaxf(1.0f - r_v, 0.0f);
         bvx = bvx * scale;
         bvy = bvy * scale;
-        const float om_scale = fmaxf(1.0f - mu_g_h / fmaxf(fabsf(bom) * sp[P_ANG_RAD], 1e-9f), 0.0f);
+        const float om_scale = fmaxf(1.0f - r_om, 0.0f);
         bom = bom * om_scale;
         bx = bx + bvx * h;
         by = by + bvy * h;
@@ -177,10 +269,15 @@ albert_rollout_kernel(const float* __restrict__ params, const float* __restrict_
         // ---- two Jacobi passes: the base circle vs the box -----------------
 #pragma unroll
         for (int pass = 0; pass < 2; ++pass) {
-          const Contact c = circle_vs_obb(q[0], q[1], sp[P_RR], bx, by, cosf(byaw), sinf(byaw), sp[P_HX], sp[P_HY]);
+          if (__float_as_uint(byaw) != __float_as_uint(yaw_c)) {
+            yaw_c = byaw;
+            cyaw = cosf(byaw);
+            syaw = sinf(byaw);
+          }
+          const Contact c = circle_vs_obb(q[0], q[1], sp[P_RR], bx, by, cyaw, syaw, sp[P_HX], sp[P_HY]);
           const Resolved o = resolve(c.pen, c.nx, c.ny, c.px, c.py, q[0], q[1], qd[0], qd[1], 0.0f,
-                                     sp[P_WM_BASE], 0.0f, bx, by, bvx, bvy, bom, sp[P_WM_BOX], sp[P_WI_BOX],
-                                     h, sp[P_FRIC], 1.0f);
+                                     sp[P_WM_BASE], 0.0f, bx, by, bvx, bvy, bom, sp[P_WM_BOX], sp[P_WI_BOX], h,
+                                     sp[P_FRIC], 1.0f);
           q[0] = q[0] + o.dax;
           q[1] = q[1] + o.day;
           qd[0] = qd[0] + o.dvax;
@@ -195,35 +292,25 @@ albert_rollout_kernel(const float* __restrict__ params, const float* __restrict_
       }
     }
 
-    // ---- costs (AlbertObjective.compute) on the post-step state ----------
-    float ee[3];
-    albert_ee(q, ee);
-    const float nav = norm2(q[0] - gx, q[1] - gy);
-    float cost;
-    if (task_id == 9.0f) {  // push_reach: push the box, the EE hovering over it
-      const float r2bx = bx - q[0], r2by = by - q[1];
-      const float b2gx = gx - bx, b2gy = gy - by;
-      const float d_rb = norm2(r2bx, r2by);
-      const float d_bg = norm2(b2gx, b2gy);
-      const float cos_theta = (-r2bx * b2gx + -r2by * b2gy) / fmaxf(d_rb * d_bg, 1e-9f);
-      const float approach = 5.0f * fmaxf(d_rb - sp[P_APPROACH_R], 0.0f);
-      const float push = 3.0f * (d_rb + d_bg * 10.0f) + 1.5f * (1.0f + cos_theta) + approach;
-      const float gate = (sp[P_HOVER_GATE_R] - d_rb) / 0.03f;
-      const float hover_w = 1.5f + 2.5f * (1.0f / (1.0f + expf(-gate)));
-      cost = push + hover_w * norm3(ee[0] - bx, ee[1] - by, ee[2] - gz);
-    } else if (task_id == 7.0f) {  // ee_reach: EE at the goal, base-progress shaping
-      cost = 10.0f * norm3(ee[0] - gx, ee[1] - gy, ee[2] - gz) + 3.0f * nav;
-    } else if (task_id == 8.0f) {  // reposition: navigation outside the keep-out
-      const float d_rb = norm2(bx - q[0], by - q[1]);
-      cost = nav + 10.0f * fmaxf(sp[P_CLEARANCE_R] - d_rb, 0.0f);
-    } else {  // navigation
-      cost = nav;
+    // ---- the FK and the cost, off the chain: lane t % kTeam keeps this
+    // step's state; the team scores a whole round at once ------------------
+    const int slot = t % kTeam;
+    const bool mine = tm.lane == slot;
+#pragma unroll
+    for (int i = 0; i < 12; ++i) sq[i] = mine ? q[i] : sq[i];
+    sbx = mine ? bx : sbx;
+    sby = mine ? by : sby;
+    if (slot == kTeam - 1 || t == T - 1) {
+      float ee[3];
+      albert_ee(sq, ee);
+      const float cost = step_cost(sp, task_id, gx, gy, gz, sq, sbx, sby, ee);
+      if (tm.lane <= slot) {  // a partial last round: lanes past T hold no step
+        const size_t o = static_cast<size_t>(k) * T + (t - slot + tm.lane);
+        cost_out[o] = cost;
+        traj_out[2 * o] = sq[0];
+        traj_out[2 * o + 1] = sq[1];
+      }
     }
-
-    const size_t o = static_cast<size_t>(k) * T + t;
-    cost_out[o] = cost;
-    traj_out[2 * o] = q[0];
-    traj_out[2 * o + 1] = q[1];
   }
 }
 
@@ -236,7 +323,7 @@ extern "C" int m3p2i_albert_rollout(const float* params, const float* task, cons
     return static_cast<int>(cudaErrorInvalidValue);
   }
   static_assert(kStateLen == 30, "ops/albert_rollout.py STATE_LEN");
-  const dim3 grid((K + kThreads - 1) / kThreads, B);
+  const dim3 grid((K + kSamplesPerBlock - 1) / kSamplesPerBlock, B);
   albert_rollout_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       params, task, state0, acts, cost, traj, K, T, substeps, has_box);
   return static_cast<int>(cudaGetLastError());

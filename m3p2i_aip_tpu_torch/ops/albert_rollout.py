@@ -222,7 +222,7 @@ def albert_rollout(spec: AlbertRolloutSpec, task_vec, state0, acts):
     """The rollout of ``acts`` [K, T, 13] from ``state0``.
 
     A CPU tensor runs :func:`albert_rollout_plain`; a CUDA tensor launches
-    the kernel on the current stream (one thread per sample; the batched
+    the kernel on the current stream (a team of warp lanes per sample; the batched
     kernel's body with one seed) or raises.
     """
     global albert_rollout_launches

@@ -1,9 +1,10 @@
 """The closed-loop kernel check of ``chip_smoke.py`` (``_closed_loop_check``)
-on the CPU, with the plain point and panda rollouts at K = 8, T = 3 standing
-in for a kernel: the check passes an output equal to the plain version's,
-fails on a sample that no nudge of its own actions explains and names it,
-and lets a sample through only when a nudge of all that sample's actions by
-at most ``NUDGE_ULPS`` ulp carries the plain version to the kernel's output
+on the CPU, with the plain point, panda and albert rollouts at K = 8, T = 3
+standing in for a kernel, each at its family's bars (the albert's are
+tighter): the check passes an output equal to the plain version's, fails on
+a sample that no nudge of its own actions explains and names it, and lets a
+sample through only when a nudge of all that sample's actions by at most
+``NUDGE_ULPS`` ulp carries the plain version to the kernel's output
 there."""
 import numpy as np
 import pytest
@@ -12,9 +13,11 @@ import torch
 import chip_smoke
 from m3p2i_aip_tpu_torch.config.config_store import load_config
 from m3p2i_aip_tpu_torch.envs import make_env
+from m3p2i_aip_tpu_torch.ops import albert_rollout as ar
 from m3p2i_aip_tpu_torch.ops import panda_rollout as pr
 from m3p2i_aip_tpu_torch.ops import rollout as ro
 from m3p2i_aip_tpu_torch.planners.motion_planner.mppi import make_task_params
+from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMP
 from m3p2i_aip_tpu_torch.utils.tree import tree_map
 
 B, K, T = 2, 8, 3
@@ -46,13 +49,29 @@ def _panda():
     return (lambda *x: pr.panda_rollout_batched_plain(spec, *x)), inputs
 
 
-FAMILIES = {"point": _point, "panda": _panda}
+def _albert():
+    """(plain, inputs): the batched plain albert rollout and two seeds'
+    inputs from the push_reach_contact parity start (the base driving into
+    the box) with random actions, the wheels at the config's authority."""
+    tamp = ReactiveTAMP(load_config("config_albert"), device="cpu")
+    spec = ar.make_albert_rollout(tamp.env.params, tamp.objective, K, T).spec
+    name, start, task_name, goal = ar.PARITY_CASES[2]
+    sk = tree_map(lambda x: x.expand((K,) + x.shape), ar.parity_state(tamp.env.params, start))
+    row = ar.rollout_inputs(sk, make_task_params(task_name, goal, device="cpu"))
+    acts = np.random.default_rng(2).uniform(-1.5, 1.5, size=(B, K, T, 13)).astype(np.float32)
+    acts[..., 11:13] *= 8.0
+    inputs = chip_smoke._stack_rows([row] * B, torch.as_tensor(acts))
+    return (lambda *x: ar.albert_rollout_batched_plain(spec, *x)), inputs
+
+
+FAMILIES = {"point": _point, "panda": _panda, "albert": _albert}
+BARS = {"point": chip_smoke.PLANAR_BARS, "panda": chip_smoke.PLANAR_BARS, "albert": chip_smoke.ALBERT_BARS}
 
 
 @pytest.mark.parametrize("family", list(FAMILIES))
 def test_an_output_equal_to_plain_passes_with_nothing_beyond(family):
     plain, inputs = FAMILIES[family]()
-    assert chip_smoke._closed_loop_check(family, plain, inputs, plain(*inputs)) == (0, 0)
+    assert chip_smoke._closed_loop_check(family, plain, inputs, plain(*inputs), bars=BARS[family]) == (0, 0)
 
 
 @pytest.mark.parametrize("family", list(FAMILIES))
@@ -65,18 +84,33 @@ def test_an_unexplained_sample_fails_and_is_named(family):
     cost = cost.clone()
     cost[1, 3, 1] += 1.0
     with pytest.raises(AssertionError, match=r"1 unexplained samples: seed 1 sample 3 \(cost err 1\.000e\+00"):
-        chip_smoke._closed_loop_check(family, plain, inputs, (cost, traj))
+        chip_smoke._closed_loop_check(family, plain, inputs, (cost, traj), bars=BARS[family])
 
 
-def _gate(ulps: int):
+def test_the_albert_bars_catch_what_the_planar_bars_let_through():
+    """The albert rollout's seed 0, sample 6 trajectory moved by 5e-4 at one
+    step: beyond the albert bar (1e-4), inside the planar one (1e-3; a move
+    of 1e-3 itself would sit on its edge).  Under the albert bars no nudge of that
+    sample's actions explains it, so the check raises and names it; under
+    the planar bars nothing is beyond."""
+    plain, inputs = _albert()
+    cost, traj = plain(*inputs)
+    traj = traj.clone()
+    traj[0, 6, 1, 0] += 5e-4
+    assert chip_smoke._closed_loop_check("albert", plain, inputs, (cost, traj)) == (0, 0)
+    with pytest.raises(AssertionError, match=r"1 unexplained samples: seed 0 sample 6 "):
+        chip_smoke._closed_loop_check("albert", plain, inputs, (cost, traj), bars=chip_smoke.ALBERT_BARS)
+
+
+def _gate(ulps: int, jump: float = 1000.0):
     """A stub plain version on a contact gate: every action sits at 1.25,
-    and a sample's cost jumps by 1000 once any of its actions has moved
+    and a sample's cost jumps by ``jump`` once any of its actions has moved
     ``ulps`` ulp or more (an ulp is 2**-23 in [1, 2))."""
 
     def plain(*inputs):
         acts = inputs[-1]
         moved = (torch.abs(acts - 1.25) >= (ulps - 0.5) * 2.0**-23).flatten(-2).any(-1)
-        cost = 1000.0 * moved[..., None].expand(moved.shape + (T,)).float()
+        cost = jump * moved[..., None].expand(moved.shape + (T,)).float()
         return cost, torch.zeros(cost.shape + (2,))
 
     return plain
@@ -98,6 +132,21 @@ def test_a_sample_is_explained_by_a_nudge_of_its_own_actions(ulps):
     else:
         with pytest.raises(AssertionError, match="seed 0 sample 5"):
             chip_smoke._closed_loop_check("gate", plain, inputs, (cost, traj))
+
+
+def test_an_albert_sample_a_one_ulp_nudge_explains_passes():
+    """At the albert bars, the kernel's seed 1, sample 4 cost is 1e-3 off:
+    beyond the albert bar, and the stub plain version jumps there by the
+    same 1e-3 when that sample's actions move one ulp, so the check passes
+    with the sample explained; at the planar bars it is not even beyond."""
+    _, inputs = _albert()
+    inputs = inputs[:-1] + (torch.full_like(inputs[-1], 1.25),)
+    plain = _gate(1, jump=1e-3)
+    cost, traj = plain(*inputs)
+    cost = cost.clone()
+    cost[1, 4] += 1e-3
+    assert chip_smoke._closed_loop_check("albert gate", plain, inputs, (cost, traj), bars=chip_smoke.ALBERT_BARS) == (1, 1)
+    assert chip_smoke._closed_loop_check("albert gate", plain, inputs, (cost, traj)) == (0, 0)
 
 
 def _step_gate(*x):

@@ -289,12 +289,17 @@ def test_panda_rollout_kernel_matches_plain_at_the_maxima(cuda):
         assert float(torch.max(torch.abs(t_k - t_p))) <= 1e-3, start
 
 
-def test_albert_rollout_kernel_matches_plain(cuda):
-    """K4 on the five parity cases at the shipped K=128 x T=12."""
+# K: 128 = the shipped width, 37 = a ragged last team and block, 1500 = many
+# blocks; T: 12 = the shipped horizon (a full FK round and a partial one),
+# 5 = one partial round, 1 = a round of one step
+@pytest.mark.parametrize("T", [12, 5, 1])
+@pytest.mark.parametrize("K", [128, 37, 1500])
+def test_albert_rollout_kernel_matches_plain(cuda, K, T):
+    """K4 on the five parity cases."""
     tamp = ReactiveTAMP(load_config("config_albert"), device=cuda)
     mp = tamp.motion_planner
-    spec, K, T = mp.rollout.spec, mp.K, mp.T
-    assert (K, T) == (128, 12)
+    assert (mp.K, mp.T) == (128, 12)
+    spec = ar.make_albert_rollout(tamp.env.params, tamp.objective, K, T).spec
     rng = np.random.default_rng(2)
     for name, start, task_name, goal in ar.PARITY_CASES:
         task = make_task_params(task_name, goal, device=cuda)
@@ -306,6 +311,26 @@ def test_albert_rollout_kernel_matches_plain(cuda):
         before = ar.albert_rollout_launches
         c_k, t_k = ar.albert_rollout(spec, *inputs, acts)
         assert ar.albert_rollout_launches == before + 1
+        c_p, t_p = ar.albert_rollout_plain(spec, *inputs, acts)
+        assert float(torch.max(torch.abs(c_k - c_p))) <= 1e-4, name
+        assert float(torch.max(torch.abs(t_k - t_p))) <= 1e-4, name
+
+
+def test_albert_rollout_kernel_at_run_time_substeps(cuda):
+    """K4 at 3 substeps (the albert scenes run 2; the kernel reads the
+    count at run time) on the five parity cases at K=128 x T=12."""
+    tamp = ReactiveTAMP(load_config("config_albert"), device=cuda)
+    params = dataclasses.replace(tamp.env.params, substeps=3)
+    spec = ar.make_albert_rollout(params, tamp.objective, 128, 12).spec
+    rng = np.random.default_rng(3)
+    for name, start, task_name, goal in ar.PARITY_CASES:
+        acts = rng.uniform(-1.5, 1.5, size=(128, 12, 13)).astype(np.float32)
+        acts[..., 11:13] *= 8.0
+        acts = torch.as_tensor(acts, device=cuda)
+        state = ar.parity_state(params, start)
+        inputs = ar.rollout_inputs(tree_map(lambda x: x.expand((128,) + x.shape), state),
+                                   make_task_params(task_name, goal, device=cuda))
+        c_k, t_k = ar.albert_rollout(spec, *inputs, acts)
         c_p, t_p = ar.albert_rollout_plain(spec, *inputs, acts)
         assert float(torch.max(torch.abs(c_k - c_p))) <= 1e-4, name
         assert float(torch.max(torch.abs(t_k - t_p))) <= 1e-4, name
@@ -437,16 +462,21 @@ def test_batched_panda_kernel_matches_plain_and_single(cuda, B):
     )
 
 
-def test_batched_albert_kernel_matches_plain_and_single(cuda):
+@pytest.mark.parametrize("B", [4, 20])  # 20: the n=20 batch's width
+def test_batched_albert_kernel_matches_plain_and_single(cuda, B):
+    """K4b on B seeds (seed b from parity case b, cyclically) against its
+    plain version and against one K4 launch per seed: equal bit for bit,
+    since every lane of a team runs one thread's operations."""
     tamp = ReactiveTAMP(load_config("config_albert"), device=cuda)
     mp = tamp.motion_planner
     spec, K, T = mp.rollout.spec, mp.K, mp.T
     rng = np.random.default_rng(8)
     rows = []
-    for name, start, task_name, goal in ar.PARITY_CASES[:4]:
+    for b in range(B):
+        name, start, task_name, goal = ar.PARITY_CASES[b % len(ar.PARITY_CASES)]
         sk = tree_map(lambda x: x.expand((K,) + x.shape), ar.parity_state(tamp.env.params, start))
         rows.append(ar.rollout_inputs(sk, make_task_params(task_name, goal, device=cuda)))
-    acts = rng.uniform(-1.5, 1.5, size=(4, K, T, 13)).astype(np.float32)
+    acts = rng.uniform(-1.5, 1.5, size=(B, K, T, 13)).astype(np.float32)
     acts[..., 11:13] *= 8.0
     inputs = tuple(torch.stack(xs) for xs in zip(*rows)) + (torch.as_tensor(acts, device=cuda),)
     _check_batched(

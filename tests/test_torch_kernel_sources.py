@@ -95,6 +95,9 @@ TEAM_MAPPINGS = {
     and c["kMaxS"] <= 2 * c["kTeam"],
     # the arm probes on lanes 0 .. kProbes - 1 and cubeA-cubeB on lane kProbes, one round
     "panda_rollout.cu": lambda c: c["kTeam"] >= c["kProbes"] + 1,
+    # a round scores kTeam steps' FK and cost, one a lane: with more than one
+    # lane they leave the chain
+    "albert_rollout.cu": lambda c: c["kTeam"] > 1,
 }
 
 
