@@ -41,10 +41,16 @@ the check inputs: the point and albert kernels' times depend on their data
 (they skip work whose result no output reads).  Then a rollout-scaling phase
 times K1 and K3 at K = 200, 1000 and 4000, K4 at K = 128, 1024 and 4096, and
 K1b, K3b and K4b at B = 1, 4 and 20 on both kinds of input (kernel times
-only, each with its waves).  Each kernel is timed twice: single calls
-between CUDA events (``ms``, ``closed_loop_ms``) and calls replayed back to
-back from a CUDA graph (``device_ms``, ``closed_loop_device_ms``, which
-leave out the host's time to issue a call).
+only, each with its waves).  Every weights call of the point main path,
+the panda shelf run and the point and panda n=20 batches (K2 and K2b, the
+wrappers patched by name in the mppi module) is held to the plain version
+and timed, with each path's beta-round histogram per group
+(``weights.beta_rounds``), and K2 is swept over K = 200, 1024 and 4096 and
+K2b over B = 1, 4 and 20 on random and closed-loop costs.  Each kernel is
+timed twice: single calls between CUDA events (``ms``, ``closed_loop_ms``)
+and calls replayed back to back from a CUDA graph (``device_ms``,
+``closed_loop_device_ms``, which leave out the host's time to issue a
+call).
 
 Each kernel's entry in the kernel table carries its bound: the least time
 the card could take for the same work, the larger of the bytes it must move
@@ -99,6 +105,7 @@ SERIAL_ATOL = 0.0  # a batched kernel against its single kernel per seed: the sa
 SCALING_K = (200, 1000, 4000)  # K1's and K3's sample counts in the rollout-scaling phase
 SCALING_B = (1, 4, 20)  # the batched kernels' seed counts there
 ALBERT_SCALING_K = (128, 1024, 4096)  # K4's: whole tilings of its K=128 samples
+WEIGHTS_SCALING_K = (200, 1024, 4096)  # K2's: one parent warp short of a pass, 32 parent warps, 4096 strided
 # A rollout kernel on a recorded closed-loop input: a sample beyond COST_ATOL
 # / TRAJ_ATOL passes only if a nudge of all its own actions by 1 .. NUDGE_ULPS
 # ulp carries the plain version's same sample to the kernel's output, within
@@ -245,25 +252,44 @@ def _recorded(mod, name: str):
         setattr(mod, name, fn)
 
 
-def _weights_ops(cost, mp) -> float:
-    """K2: the cost-to-go, the group minima, and the three beta searches for
-    as many rounds as this cost needs (replayed here: the kernel stops when
-    all three groups are inside [eta_l, eta_u]), then the three softmaxes."""
-    K, T = cost.shape
-    tc = torch.sum(cost * mp.gamma_seq, dim=-1)
-    k = torch.arange(K, device=cost.device)
-    mask = torch.stack([k < mp.half_K, k >= mp.half_K, torch.ones_like(k, dtype=torch.bool)])
-    c3 = torch.where(mask, tc, torch.inf)
-    c3 = c3 - torch.amin(c3, dim=1, keepdim=True)
-    beta = torch.ones(3, 1, device=cost.device)
-    rounds = 0
-    for rounds in range(1, 65):
-        eta = torch.sum(torch.exp(-c3 / beta), dim=1, keepdim=True)
-        high, low = eta > mp.eta_u, eta < mp.eta_l
-        if not bool(torch.any(high | low)):
-            break
-        beta = torch.where(high, beta * 0.9, torch.where(low, beta * 1.2, beta))
-    return 2 * K * T + 6 * K + rounds * 3 * K * 4 + 3 * K * 4
+@contextlib.contextmanager
+def _recorded_weights(name: str):
+    """Inside the block, each call the planner makes of the weights wrapper
+    ``name`` (``multimodal_weights`` or ``multimodal_weights_batched``,
+    looked up in the mppi module, which imports both by name) is recorded
+    into the yielded list as (a copy of its costs, gamma, half_K, eta_u,
+    eta_l); the call itself goes through unchanged, launch count included."""
+    from m3p2i_aip_tpu_torch.planners.motion_planner import mppi
+
+    fn, calls = getattr(mppi, name), []
+
+    def recording(cost, *args):
+        calls.append((cost.clone(),) + args)
+        return fn(cost, *args)
+
+    setattr(mppi, name, recording)
+    try:
+        yield calls
+    finally:
+        setattr(mppi, name, fn)
+
+
+def _weights_ops(args) -> float:
+    """K2 on the [..., K, T] costs of ``args`` (cost, gamma, half_K, eta_u,
+    eta_l): the cost-to-go, the group minima, each group's beta search for
+    the rounds it needs (``weights.beta_rounds``, the plain version's round
+    by round; the kernel stops each group at its own first round inside
+    [eta_l, eta_u]) plus the round that finds it there, four operations a
+    sample a round (the shift, the division, the exponential, the add), then
+    the normalised weights."""
+    from m3p2i_aip_tpu_torch.ops import weights
+
+    cost, _, half_K = args[:3]
+    K, T = cost.shape[-2:]
+    n = cost[..., 0, 0].numel()
+    rounds = weights.beta_rounds(*args)[0].reshape(-1, 3)
+    sizes = np.asarray([min(half_K, K), K - min(half_K, K), K])
+    return n * (2 * K * T + 3 * K + 2 * K * 4) + 4 * float(((rounds + 1) * sizes).sum())
 
 
 def _panda_rollout_ops(spec, K: int) -> float:
@@ -315,7 +341,7 @@ def phase_weights(mp) -> dict:
     ms = _time_ms(lambda: weights.multimodal_weights(*args))
     dev_ms = _device_ms(lambda: weights.multimodal_weights(*args))
     plain_ms = _time_ms(lambda: weights.multimodal_weights_plain(*args))
-    bound = _bound(_bytes(cost, mp.gamma_seq) + 3 * cost.shape[0] * 4, _weights_ops(cost, mp))
+    bound = _bound(_bytes(cost, mp.gamma_seq) + 3 * cost.shape[0] * 4, _weights_ops(args))
     print(f"[weights] kernel {ms:.4f} ms ({dev_ms:.4f} replayed from a graph), plain {plain_ms:.4f} ms (median of "
           f"{TIMED_CALLS}); bound {bound}")
     return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, **bound, "library_ms": None}
@@ -531,6 +557,122 @@ def phase_closed_loop(card: str, label: str, calls: list, kernel, plain, ops, si
           f"inputs {med:.4f} ms ({card})")
     return {"closed_loop_ms": ms, "closed_loop_device_ms": dev_ms, "closed_loop_median_ms": med,
             "closed_loop_bound_ms": bound["bound_ms"]}, (spec, x)
+
+
+def _round_histogram(label: str, calls: list) -> None:
+    """Each group's beta rounds over one path's recorded weights calls
+    (``weights.beta_rounds``, seeds of a batch counted alone): the
+    histogram, the calls at the 64-round cap, the calls whose search turns
+    and the calls whose group ties (every shifted cost 0, which the kernel
+    answers without a search)."""
+    from m3p2i_aip_tpu_torch.ops import weights
+
+    cost = torch.stack([c for c, *_ in calls])
+    rounds, turns, _ = weights.beta_rounds(cost, *calls[0][1:])
+    rounds, turns = rounds.reshape(-1, 3), turns.reshape(-1, 3)
+    c3 = weights._shifted_costs(cost, *calls[0][1:3]).reshape(-1, 3, cost.shape[-2])
+    ties = (torch.where(torch.isinf(c3), 0.0, c3).amax(-1) == 0).cpu().numpy()  # every shift 0: no search
+    for g in range(3):
+        hist = dict(zip(*(v.tolist() for v in np.unique(rounds[:, g], return_counts=True))))
+        print(f"[{label}] group {g}: {rounds.shape[0]} searches, rounds {{rounds: searches}} {hist}; "
+              f"{int((rounds[:, g] == weights.BETA_ITERS).sum())} at the cap, {int((turns[:, g] > 0).sum())} turn, "
+              f"{int(ties[:, g].sum())} tied")
+
+
+def phase_weights_closed_loop(card: str, label: str, paths: dict, kernel, plain, single=None) -> tuple:
+    """K2 (or K2b) on every input the closed loops gave it (``paths``:
+    {path: recorded (cost, gamma, half_K, eta_u, eta_l) calls}): each call
+    held to the plain version at WEIGHTS_ATOL / SUM_TOL (``plain`` on all of
+    a path's calls at once, each seed searched alone; a batched kernel also
+    to one ``single`` launch per seed, exactly), each path's
+    beta-round histogram (``_round_histogram``), each call timed (median of
+    5 single calls, and 10 replayed from a graph); the slowest replayed
+    call timed again with TIMED_CALLS single calls and 20 replayed.
+    Returns the closed-loop keys and the slowest input."""
+    from m3p2i_aip_tpu_torch.ops import weights
+
+    singles, replays, inputs = [], [], []
+    for path, calls in paths.items():
+        t0 = time.perf_counter()
+        got = [torch.stack(w) for w in zip(*(kernel(*args) for args in calls))]  # 3 x [calls, (B,) K]
+        # the plain version on every call at once: each leading index searches alone
+        ref = plain(torch.stack([c for c, *_ in calls]), *calls[0][1:])
+        err = max(float(torch.max(torch.abs(g - r))) for g, r in zip(got, ref))
+        dev = max(float(torch.max(torch.abs(torch.sum(g, dim=-1) - 1.0))) for g in got)
+        if single is not None:
+            for n, args in enumerate(calls):
+                for b in range(args[0].shape[0]):
+                    for g, x in zip(got, single(args[0][b], *args[1:])):
+                        assert torch.equal(g[n, b], x), f"{label} {path}: call {n} seed {b} differs from its single launch"
+        t1 = time.perf_counter()
+        for args in calls:
+            singles.append(_time_ms(lambda: kernel(*args), calls=5, warmup=1))
+            replays.append(_device_ms(lambda: kernel(*args), launches=10, reps=3))
+            inputs.append(args)
+        print(f"[closed-loop {label}] {path}: checked in {t1 - t0:.1f} s, timed in {time.perf_counter() - t1:.1f} s")
+        serial = ", each seed equal to its single launch" if single is not None else ""
+        print(f"[closed-loop {label}] {path}: {len(calls)} calls of {tuple(calls[0][0].shape)}: vs plain max err "
+              f"{err:.3e}, max |sum - 1| {dev:.3e}{serial}")
+        assert err <= WEIGHTS_ATOL and dev < SUM_TOL, f"{label} {path}: weights disagree with their plain version"
+        _round_histogram(f"closed-loop {label}, {path}", calls)
+    slowest = inputs[int(np.argmax(replays))]
+    ms = _time_ms(lambda: kernel(*slowest))
+    dev_ms = _device_ms(lambda: kernel(*slowest))
+    cost = slowest[0]
+    bound = _bound(_bytes(cost, slowest[1]) + 3 * cost[..., 0].numel() * 4, _weights_ops(slowest))
+    most = weights.beta_rounds(*slowest)[0].reshape(-1, 3).max(0).tolist()
+    print(f"[closed-loop {label}] slowest of {len(inputs)} recorded calls {tuple(cost.shape)} (most rounds per group "
+          f"{most}): {ms:.4f} ms (median of {TIMED_CALLS}; {dev_ms:.4f} replayed from a graph), bound "
+          f"{bound}; median over the recorded inputs {float(np.median(singles)):.4f} ms single, "
+          f"{float(np.median(replays)):.4f} ms replayed ({card})")
+    return {"closed_loop_ms": ms, "closed_loop_device_ms": dev_ms, "closed_loop_median_ms": float(np.median(singles)),
+            "closed_loop_bound_ms": bound["bound_ms"]}, slowest
+
+
+def phase_weights_random_inputs() -> tuple:
+    """K2's and K2b's random inputs of the sweep: phase_weights' uniform(0,
+    50) costs at the point planner's K=200 x T=15, and N_SEEDS seeds of
+    them, with its discount, halves and eta bounds."""
+    from m3p2i_aip_tpu_torch.config.config_store import load_config
+    from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMP
+
+    mp = ReactiveTAMP(load_config("config_point", MAIN_PATH), device="cuda").motion_planner
+    rng = np.random.default_rng(0)
+    cost = torch.as_tensor(rng.uniform(0, 50, size=(N_SEEDS + 1, mp.K, mp.T)).astype(np.float32), device="cuda")
+    rest = (mp.gamma_seq, mp.half_K, mp.eta_u, mp.eta_l)
+    return (cost[0].contiguous(),) + rest, (cost[1:].contiguous(),) + rest
+
+
+def phase_weights_scaling(card: str, single_inputs: dict, batched_inputs: dict) -> None:
+    """K2 at K in WEIGHTS_SCALING_K (the [K0, T] rows tiled, half_K = K / 2)
+    and K2b at B in SCALING_B (the first B seeds), on each kind of input
+    ({kind: recorded-style args}): the block's warps at each K, times single
+    and replayed, after the kernel's registers."""
+    from m3p2i_aip_tpu_torch.ops import cuda_build, weights
+
+    src = (cuda_build.CSRC_DIR / "multimodal_weights.cu").read_text()
+    consts = {n: int(v) for n, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    m = re.search(r"for \S*multimodal_weights_kernel\S*\n\s*(\d+) bytes stack frame, (\d+) bytes spill stores[^\n]*"
+                  r"\n[^\n]*?Used (\d+) registers", cuda_build.build_info["log"])
+    assert m is not None, "the build log holds no ptxas report of multimodal_weights_kernel"
+    print(f"[weights-scaling] K2: {consts['kCandidates']} candidate betas a step, {consts['kLanes']} lanes a parent "
+          f"warp; {m.group(3)} registers, a {m.group(1)}-byte stack frame, {m.group(2)} bytes of spill stores ({card})")
+    for kind, (cost, *rest) in single_inputs.items():
+        for K in WEIGHTS_SCALING_K:
+            x = cost.repeat(-(-K // cost.shape[0]), 1)[:K].contiguous()
+            args = (x, rest[0], K // 2, *rest[2:])
+            parent_warps = min(-(-K // 32), 32)
+            team = min(-(-parent_warps * consts["kLanes"] // 32), consts["kMaxThreads"] // (32 * consts["kCandidates"]))
+            print(f"[weights-scaling] {kind} K2 K={K} x T={x.shape[1]}: {_time_ms(lambda: weights.multimodal_weights(*args)):.4f}"
+                  f" ms ({_device_ms(lambda: weights.multimodal_weights(*args)):.4f} replayed), "
+                  f"{consts['kCandidates'] * team} warps, rounds {weights.beta_rounds(*args)[0].tolist()} ({card})")
+    for kind, (cost, *rest) in batched_inputs.items():
+        for B in SCALING_B:
+            args = (cost[:B].contiguous(), *rest)
+            print(f"[weights-scaling] {kind} K2b B={B} x K={cost.shape[1]} x T={cost.shape[2]}: "
+                  f"{_time_ms(lambda: weights.multimodal_weights_batched(*args)):.4f} ms "
+                  f"({_device_ms(lambda: weights.multimodal_weights_batched(*args)):.4f} replayed), most rounds "
+                  f"{weights.beta_rounds(*args)[0].reshape(-1, 3).max(0).tolist()} ({card})")
 
 
 def _point_random_inputs() -> tuple:
@@ -1206,7 +1348,7 @@ def phase_point_batched() -> tuple:
     args = (cost, mp.gamma_seq, mp.half_K, mp.eta_u, mp.eta_l)
     k2b = _time_batched(
         f"point-batched K2b at B={B}", weights.multimodal_weights_batched, weights.multimodal_weights_batched_plain,
-        args, _bytes(cost, mp.gamma_seq) + 3 * B * K * 4, sum(_weights_ops(c, mp) for c in cost), plain_calls=5,
+        args, _bytes(cost, mp.gamma_seq) + 3 * B * K * 4, _weights_ops(args), plain_calls=5,
     )
     return {"max_abs_err": k1b_err, **k1b}, {"max_abs_err": k2b_err, **k2b}
 
@@ -1499,13 +1641,15 @@ def main() -> None:
     stats = {"multimodal_weights": phase_weights(tamp.motion_planner), "point_rollout": phase_rollout(tamp)}
     del tamp
     # 5. / 6. the point main path
-    loop, launches, k1_calls = phase_main_path(load_config("config_point", MAIN_PATH))
+    with _recorded_weights("multimodal_weights") as k2_point:
+        loop, launches, k1_calls = phase_main_path(load_config("config_point", MAIN_PATH))
     hz = phase_benchmark(loop, card)
     del loop
     # 7. K3 against its plain version; 8. / 9. / 10. the panda path
     stats["panda_rollout"], w_err, k3_parity = phase_panda_rollout()
     launches["panda_rollout"], k3_calls = phase_panda_main()
-    w_err = max(w_err, phase_panda_shelf())
+    with _recorded_weights("multimodal_weights") as k2_shelf:
+        w_err = max(w_err, phase_panda_shelf())
     k2 = stats["multimodal_weights"]
     k2["max_abs_err"] = max(k2["max_abs_err"], w_err)  # over the point and the panda shapes and costs
     panda_hz = phase_panda_bench(card)
@@ -1523,12 +1667,14 @@ def main() -> None:
     k2b["max_abs_err"] = max(k2b["max_abs_err"], w_err)
     stats["albert_rollout_batched"], k4b_parity = phase_albert_batched()
     # 19. - 21. the three n=20 batches through BatchSimLoop
-    with _recorded(ro, "point_rollout_batched") as k1b_calls:
+    with _recorded(ro, "point_rollout_batched") as k1b_calls, \
+            _recorded_weights("multimodal_weights_batched") as k2b_point:
         point_counts = phase_seed_batch(
             "batch-point", "config_point", MAIN_PATH, 4, 300,
             {"rollout_batched_launches": 1, "weights_batched_launches": 1},
         )
-    with _recorded(pr, "panda_rollout_batched") as k3b_calls:
+    with _recorded(pr, "panda_rollout_batched") as k3b_calls, \
+            _recorded_weights("multimodal_weights_batched") as k2b_panda:
         panda_counts = phase_seed_batch(
             "batch-panda", "config_panda", ["multi_modal=True"], 10, 600,
             {"panda_rollout_batched_launches": 4, "weights_batched_launches": 3},
@@ -1547,7 +1693,8 @@ def main() -> None:
     phase_batch_vs_serial("batch-vs-serial point", "config_point", MAIN_PATH, 4, 300)
     phase_batch_vs_serial("batch-vs-serial panda", "config_panda", ["multi_modal=True"], 10, 600)
     phase_batch_bench(card, hz)
-    # 25. K1, K1b, K3, K3b, K4 and K4b on the closed loops' inputs; 26. the scaling sweeps
+    # 25. K1, K1b, K3, K3b, K4 and K4b on the closed loops' inputs, then K2 and K2b;
+    # 26. the scaling sweeps
     slowest = {}
     for name, label, calls, kernel, plain, ops, single in (
         ("point_rollout", "K1", k1_calls, ro.point_rollout, ro.point_rollout_batched_plain, _point_rollout_ops, None),
@@ -1566,6 +1713,19 @@ def main() -> None:
         entry, slowest[label] = phase_closed_loop(card, label, calls, kernel, plain, ops, single, live, bars)
         stats[name].update(entry)
         calls.clear()
+    from m3p2i_aip_tpu_torch.ops import weights
+
+    entry, slowest["K2"] = phase_weights_closed_loop(
+        card, "K2", {"point main path": k2_point, "panda shelf": k2_shelf},
+        weights.multimodal_weights, weights.multimodal_weights_plain,
+    )
+    stats["multimodal_weights"].update(entry)
+    entry, slowest["K2b"] = phase_weights_closed_loop(
+        card, "K2b", {"point n=20 batch": k2b_point, "panda n=20 batch": k2b_panda},
+        weights.multimodal_weights_batched, weights.multimodal_weights_plain, weights.multimodal_weights,
+    )
+    stats["multimodal_weights_batched"].update(entry)
+    del k2_point, k2_shelf, k2b_point, k2b_panda
     phase_rollout_scaling(card, ("K1", "K1b"), _launch_shape("point_rollout", "point_rollout_kernel"),
                           ro.point_rollout, ro.point_rollout_batched,
                           {"random-action": _point_random_inputs(), "closed-loop": (slowest["K1"], slowest["K1b"])})
@@ -1577,6 +1737,9 @@ def main() -> None:
                           ar.albert_rollout, ar.albert_rollout_batched,
                           {"parity": (k4_parity, k4b_parity), "closed-loop": (slowest["K4"], slowest["K4b"])},
                           ALBERT_SCALING_K)
+    w_random = phase_weights_random_inputs()
+    phase_weights_scaling(card, {"random": w_random[0], "closed-loop": slowest["K2"]},
+                          {"random": w_random[1], "closed-loop": slowest["K2b"]})
 
     sources = {
         "point_rollout": ("m3p2i_aip_tpu_torch/csrc/point_rollout.cu", "m3p2i_aip_tpu/ops/pallas_rollout.py:189"),

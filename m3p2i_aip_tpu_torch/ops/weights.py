@@ -18,11 +18,13 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from m3p2i_aip_tpu_torch.ops import cuda_build
 
 BETA_ITERS = 64
+MAX_K = 12288  # the kernel keeps the [K] cost-to-go in 48 KB of shared memory
 
 # Number of CUDA kernel launches made by ``multimodal_weights`` and by
 # ``multimodal_weights_batched`` (CPU calls run the plain versions and do
@@ -31,33 +33,69 @@ weights_launches = 0
 weights_batched_launches = 0
 
 
-def multimodal_weights_plain(cost, gamma, half_K: int, eta_u: float = 10.0, eta_l: float = 3.0):
-    """(w_mode0, w_mode1, w_global), each [K], from [K, T] costs.
-
-    The search runs all 64 rounds with the update masked to out-of-bounds
-    groups: a group inside [eta_l, eta_u] keeps its beta, so this equals the
-    early-exit loop without a host sync per round.
+def _shifted_costs(cost, gamma, half_K: int):
+    """[3, K] (or [..., 3, K] for [..., K, T] costs): each group's discounted
+    cost-to-go shifted by the group's minimum, +inf outside the group.
 
     The cost-to-go is summed in horizon order, one multiply and one add a
     step, as the kernel sums it: on panda costs the search drives beta down
     to ~1e-3 where samples tie, and there a few ulps of cost-to-go from
     another summation order move the weights by 1e-5.
     """
-    K = cost.shape[0]
-    tc = cost[:, 0] * gamma[0]  # [K]
-    for t in range(1, cost.shape[1]):
-        tc = tc + cost[:, t] * gamma[t]
+    K = cost.shape[-2]
+    tc = cost[..., 0] * gamma[0]  # [..., K]
+    for t in range(1, cost.shape[-1]):
+        tc = tc + cost[..., t] * gamma[t]
     k = torch.arange(K, device=cost.device)
     mask = torch.stack([k < half_K, k >= half_K, torch.ones_like(k, dtype=torch.bool)])
-    c3 = torch.where(mask, tc, torch.inf)
-    c3 = c3 - torch.amin(c3, dim=1, keepdim=True)  # per-group min shift
-    beta = torch.ones(3, 1, dtype=cost.dtype, device=cost.device)
+    c3 = torch.where(mask, tc[..., None, :], torch.inf)
+    return c3 - torch.amin(c3, dim=-1, keepdim=True)  # per-group min shift
+
+
+def multimodal_weights_plain(cost, gamma, half_K: int, eta_u: float = 10.0, eta_l: float = 3.0):
+    """(w_mode0, w_mode1, w_global), each [K], from [K, T] costs (or each
+    [..., K] from [..., K, T] costs, every leading index searched alone).
+
+    The search runs all 64 rounds with the update masked to out-of-bounds
+    groups: a group inside [eta_l, eta_u] keeps its beta, so this equals the
+    early-exit loop without a host sync per round.
+    """
+    c3 = _shifted_costs(cost, gamma, half_K)
+    beta = torch.ones(c3.shape[:-1] + (1,), dtype=cost.dtype, device=cost.device)
     for _ in range(BETA_ITERS):
-        eta = torch.sum(torch.exp(-c3 / beta), dim=1, keepdim=True)
+        eta = torch.sum(torch.exp(-c3 / beta), dim=-1, keepdim=True)
         beta = torch.where(eta > eta_u, beta * 0.9, torch.where(eta < eta_l, beta * 1.2, beta))
     e = torch.exp(-c3 / beta)
-    w = e / torch.sum(e, dim=1, keepdim=True)
-    return w[0], w[1], w[2]
+    w = e / torch.sum(e, dim=-1, keepdim=True)
+    return w[..., 0, :], w[..., 1, :], w[..., 2, :]
+
+
+def beta_rounds(cost, gamma, half_K: int, eta_u: float = 10.0, eta_l: float = 3.0):
+    """Each group's beta search on [..., K, T] costs, round by round with
+    the plain version's arithmetic: (rounds, turns, beta), arrays [..., 3].
+
+    ``rounds`` counts the updates of beta before eta lay inside [eta_l,
+    eta_u] (BETA_ITERS where it never did: the cap, after which the final
+    beta is 0.9 or 1.2 to the 64th power, formed by repeated products);
+    ``turns`` counts the changes of direction among those updates, and
+    ``beta`` is each group's final beta.  The
+    sums over K are PyTorch's, so near a bound a count can differ from the
+    kernel's by its order of summation.
+    """
+    c3 = _shifted_costs(cost, gamma, half_K)
+    beta = torch.ones(c3.shape[:-1] + (1,), dtype=cost.dtype, device=cost.device)
+    steps = []
+    for _ in range(BETA_ITERS):
+        eta = torch.sum(torch.exp(-c3 / beta), dim=-1, keepdim=True)
+        high, low = eta > eta_u, eta < eta_l
+        steps.append(torch.where(high, -1, torch.where(low, 1, 0))[..., 0])  # down, up, or inside
+        beta = torch.where(high, beta * 0.9, torch.where(low, beta * 1.2, beta))
+    steps = torch.stack(steps, dim=-1).cpu().numpy()  # [..., 3, BETA_ITERS], one host copy
+    inside = steps == 0
+    rounds = np.where(inside.any(-1), inside.argmax(-1), BETA_ITERS)
+    live = np.arange(BETA_ITERS - 1) < rounds[..., None] - 1  # consecutive updates of the search
+    turns = ((steps[..., 1:] != steps[..., :-1]) & live).sum(-1)
+    return rounds, turns, beta[..., 0].cpu().numpy()
 
 
 def _check_batch(fn: str, cost, gamma) -> None:
@@ -77,6 +115,8 @@ def _launch(fn: str, cost, gamma, half_K: int, eta_u: float, eta_l: float):
         raise ValueError(f"{fn}: unsupported device {cost.device}")
     _check_batch(fn, cost, gamma)
     B, K, T = cost.shape
+    if K > MAX_K:
+        raise ValueError(f"{fn}: K = {K} samples, the kernel takes at most {MAX_K}")
     out = torch.empty(B, 3, K, dtype=torch.float32, device=cost.device)
     lib = cuda_build.load_kernels()
     err = lib.m3p2i_multimodal_weights(

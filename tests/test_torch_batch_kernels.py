@@ -124,6 +124,33 @@ def test_batched_weights_match_vmapped_pallas_interpret(spread):
         np.testing.assert_allclose(torch.sum(g, dim=-1).numpy(), 1.0, atol=SUM_TOL, rtol=0)
 
 
+def test_batched_weights_with_a_tied_seed_match_vmapped_pallas_interpret():
+    """A tied seed (64 rounds down, the cap) between random ones (a few
+    rounds up or down): each seed's search exits on its own, and each seed
+    equals the single plain version exactly."""
+    rng = np.random.default_rng(7)
+    B, Kw = 4, 37
+    cost = rng.uniform(0, 1, size=(B, Kw, T)).astype(np.float32) * np.asarray([50.0, 1.0, 0.5, 5.0], np.float32)[
+        :, None, None
+    ]
+    cost[1] = 1.43  # the tie
+    gamma = np.cumprod([1.0] + [0.95] * (T - 1)).astype(np.float32)
+    half = Kw // 2
+    ref = jax.vmap(lambda c: multimodal_weights_pallas(c, jnp.asarray(gamma), half, 10.0, 3.0, interpret=True))(
+        jnp.asarray(cost)
+    )
+    args = (torch.as_tensor(cost), torch.as_tensor(gamma), half, 10.0, 3.0)
+    rounds = weights.beta_rounds(*args)[0]
+    assert rounds[1].tolist() == [64, 64, 64] and (rounds[[0, 2, 3]] < 64).all()
+    got = weights.multimodal_weights_batched(*args)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=W_ATOL, rtol=0, err_msg=f"w{i}")
+        np.testing.assert_allclose(torch.sum(g, dim=-1).numpy(), 1.0, atol=SUM_TOL, rtol=0)
+    for b in range(B):
+        for g, s in zip(got, weights.multimodal_weights_plain(args[0][b], *args[1:])):
+            assert torch.equal(g[b], s)
+
+
 # ----------------------------------------------------------------- point
 @functools.lru_cache(maxsize=None)
 def _point():

@@ -49,8 +49,9 @@ def cuda():
     return torch.device("cuda")
 
 
-# 200 = the main path, 37 = odd halves, 1500 > 1024 = the strided block loop
-@pytest.mark.parametrize("K", [200, 37, 1500])
+# 200 = the main path, 37 = odd halves, 1500 > 1024 = the strided samples,
+# 5 = one parent warp, 1024 = 32 full parent warps, 4096 = four passes a team
+@pytest.mark.parametrize("K", [200, 37, 1500, 5, 1024, 4096])
 def test_weights_kernel_matches_plain(cuda, K):
     rng = np.random.default_rng(K)
     cost = torch.as_tensor(rng.uniform(0, 50, size=(K, 15)).astype(np.float32), device=cuda)
@@ -60,6 +61,27 @@ def test_weights_kernel_matches_plain(cuda, K):
     ref = weights.multimodal_weights_plain(cost, gamma, K // 2)
     assert weights.weights_launches == before + 1
     for g, r in zip(got, ref):
+        assert float(torch.max(torch.abs(g - r))) <= 1e-6
+        assert abs(float(torch.sum(g)) - 1.0) < 1e-5
+
+
+def _capped_cost(case: str, K: int):
+    """[K, 15] costs whose searches hit the 64-round cap: "tied" (every beta
+    goes down), "small_group" (half_K = 2: group 0 goes up; the rest random)."""
+    if case == "tied":
+        return np.full((K, 15), 1.43, np.float32)
+    return np.random.default_rng(K).uniform(0, 50, size=(K, 15)).astype(np.float32)
+
+
+@pytest.mark.parametrize("K", [5, 200, 1500])
+@pytest.mark.parametrize("case", ["tied", "small_group"])
+def test_weights_kernel_capped_searches_match_plain(cuda, case, K):
+    cost = torch.as_tensor(_capped_cost(case, K), device=cuda)
+    gamma = torch.as_tensor(np.cumprod([1.0] + [0.95] * 14).astype(np.float32), device=cuda)
+    half = K // 2 if case == "tied" else 2
+    assert (weights.beta_rounds(cost, gamma, half)[0] == weights.BETA_ITERS).any()
+    got = weights.multimodal_weights(cost, gamma, half)
+    for g, r in zip(got, weights.multimodal_weights_plain(cost, gamma, half)):
         assert float(torch.max(torch.abs(g - r))) <= 1e-6
         assert abs(float(torch.sum(g)) - 1.0) < 1e-5
 
@@ -342,6 +364,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         weights.multimodal_weights(cost, torch.ones(15, device=cuda), 20)
     with pytest.raises(ValueError):
         weights.multimodal_weights(torch.rand(40, 15, device=cuda, dtype=torch.float64), torch.ones(15, device=cuda), 20)
+    with pytest.raises(ValueError):  # the [K] cost-to-go passes 48 KB of shared memory
+        weights.multimodal_weights(torch.rand(weights.MAX_K + 1, 2, device=cuda), torch.ones(2, device=cuda), 20)
     cfg = load_config("config_panda")
     env = make_env(cfg, device=cuda)
     spec = pr.make_panda_rollout(env.params, cfg.pre_height_diff, 8, 4, False).spec
@@ -403,6 +427,24 @@ def test_batched_weights_kernel_matches_plain_and_single(cuda):
         assert float(torch.max(torch.abs(g - r))) <= 1e-6
         assert float(torch.max(torch.abs(torch.sum(g, dim=-1) - 1.0))) < 1e-5
     for b in range(4):
+        for g, s in zip(got, weights.multimodal_weights(cost[b], gamma, 100)):
+            assert float(torch.max(torch.abs(g[b] - s))) <= SERIAL_ATOL, b
+
+
+def test_batched_weights_kernel_with_a_tied_seed_equals_single(cuda):
+    """A tied seed (the cap) among random ones: each seed exits on its own,
+    and the batch equals one launch per seed exactly."""
+    rng = np.random.default_rng(6)
+    cost = rng.uniform(0, 50, size=(5, 200, 15)).astype(np.float32)
+    cost[2] = 1.43
+    cost[4, :, :] *= 0.01  # a few rounds up
+    cost = torch.as_tensor(cost, device=cuda)
+    gamma = torch.as_tensor(np.cumprod([1.0] + [0.95] * 14).astype(np.float32), device=cuda)
+    got = weights.multimodal_weights_batched(cost, gamma, 100)
+    ref = weights.multimodal_weights_batched_plain(cost, gamma, 100)
+    for g, r in zip(got, ref):
+        assert float(torch.max(torch.abs(g - r))) <= 1e-6
+    for b in range(5):
         for g, s in zip(got, weights.multimodal_weights(cost[b], gamma, 100)):
             assert float(torch.max(torch.abs(g[b] - s))) <= SERIAL_ATOL, b
 

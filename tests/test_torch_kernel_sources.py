@@ -67,6 +67,16 @@ def _check_albert(c: dict) -> None:
 
 def _check_weights(c: dict) -> None:
     assert c["kBetaIters"] == weights.BETA_ITERS
+    # the [K] cost-to-go fills at most 48 KB of shared memory
+    assert c["kMaxK"] == weights.MAX_K and 4 * c["kMaxK"] <= 48 * 1024
+    # one warp at least per candidate beta, and the first step's split has
+    # a candidate each way
+    assert 2 <= c["kCandidates"] and 32 * c["kCandidates"] <= c["kMaxThreads"]
+    assert 32 % c["kLanes"] == 0
+    # the candidates' betas are repeated products, bit for bit the loop's:
+    # no power function in the source
+    code = re.sub(r"//[^\n]*", "", (cuda_build.CSRC_DIR / "multimodal_weights.cu").read_text())
+    assert not re.search(r"\b(__)?(powf?|exp2f|exp10f)\s*\(", code)
 
 
 CHECKS = {
