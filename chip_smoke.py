@@ -30,7 +30,17 @@ paths through ``SimLoop.run_chunked``:
   three seeds batched against three serial runs
   (point and panda: equal tick counts and success ticks, positions within
   1e-4); and the B=20 point batch's rate in benchmark mode beside the serial
-  rate, with a profile of one batched tick.
+  rate, with a profile of one batched tick;
+* the heijn (3-dof omni) and boxer (differential drive) bases and the
+  planner modes beyond the default, each a gated ``run_chunked`` at
+  K=200 x T=15 that must reach its goal, with its launch counts and success
+  tick: heijn push, boxer pull, boxer staged pure push (its reposition must
+  engage), the boxer corner hybrid; on the point, simple-mode, random-
+  sampling and update_cov navigation and the update_cov_per_mode hybrid.
+  Every K1 call of these runs is held to the plain version
+  (``phase_every_call``), their K2 calls join K2's closed-loop phase, and
+  the heijn and boxer replan+step rates are measured with
+  ``scripts/bench_family.py``'s protocol.
 
 The inputs the point, panda and albert main paths and their n=20 batches
 gave K1, K1b, K3, K3b, K4 and K4b are recorded, each timed, and the slowest
@@ -113,6 +123,34 @@ WEIGHTS_SCALING_K = (200, 1024, 4096)  # K2's: one parent warp short of a pass, 
 NUDGE_ULPS = 4
 BATCH_PARITY_ATOL = 1e-4  # batched runs against serial runs (tests/test_batch_loop.py:44-78)
 MIN_SUCCESS = 18  # of N_SEEDS, per n=20 batch
+# the heijn/boxer closed loops and the planner-mode runs at K=200 x T=15, each
+# gated and required to reach its goal: (label, config, overrides, tick cap),
+# with the JAX tests' protocols (warm-up 10; tests/test_tamp_integration.py
+# :558 heijn push, :575 boxer pull, :90 boxer staged pure push;
+# tests/test_mppi_simple.py:126 / :149 the simple and random-sampling
+# navigations), and the boxer corner hybrid, whose staged pocket endgame
+# (pull -> reposition -> push) must engage.  At K=200 the pure push
+# finishes seed 0 unstaged, in the JAX package too
+NAV = ["task=navigation", "goal=[-3,3]"]
+FAMILY_LOOPS = [
+    ("heijn push", "config_heijn", ["task=push", "goal=[-1,-1]"], 300),
+    ("boxer pull", "config_boxer", ["task=pull", "goal=[0,0]"], 400),
+    ("boxer staged push", "config_boxer", ["task=push", "goal=[-1,-1]"], 900),
+    ("boxer corner hybrid", "config_boxer", MAIN_PATH, 1000),
+]
+MODE_LOOPS = [
+    ("simple navigation", "config_point", [*NAV, "mppi.mppi_mode=simple"], 200),
+    ("random-sampling navigation", "config_point", [*NAV, "mppi.sampling_method=random"], 200),
+    # the reference's covariance EMA settles near kappa / step_size_cov, so
+    # the sampling scale collapses to ~0.13 and a run to [-3, 3] parks at the
+    # wall in the JAX package too (2 of 3 seeds in 600 ticks, K=200,
+    # scripts/run_experiments.py); to [1.5, 1] its seeds 0-3 arrive at
+    # ticks 11-14
+    ("update_cov navigation", "config_point", ["task=navigation", "goal=[1.5,1.0]", "mppi.update_cov=True"], 200),
+    ("update_cov_per_mode hybrid", "config_point", [*MAIN_PATH, "mppi.update_cov_per_mode=True"], 300),
+]
+LOOP_CHUNK = 10  # the n=20 campaigns' chunked=10 (scripts/run_quality_campaign_r3.sh)
+CHECK_GROUP = 100  # recorded K1 calls held to the batched plain version at once
 # four point tasks for the batched checks: (name, goal)
 POINT_TASKS = [("push_pull", [-3.75, -3.75]), ("pull", [1.0, 3.0]), ("push", [-1.0, -1.0]), ("navigation", [1.5, 1.0])]
 
@@ -771,7 +809,7 @@ def phase_main_path(cfg) -> tuple:
     return loop, launches, calls
 
 
-def phase_benchmark(loop, card: str) -> float:
+def phase_benchmark(loop, card: str, label: str = "bench") -> float:
     """Benchmark mode (bench.py:40-41): both gates off, 2 warm-up chunks of
     BENCH_CHUNK, then 4 timed chunks."""
     loop.tamp.task_planner.check_task_success = lambda view: False
@@ -784,7 +822,7 @@ def phase_benchmark(loop, card: str) -> float:
     for _ in range(4):
         loop.run_chunked(chunk, chunk=chunk)
     hz = 4 * chunk / (time.perf_counter() - t0)
-    print(f"[bench] {hz:.2f} Hz replan+step, K=200 x T=15, {4 * chunk} timed ticks ({card})")
+    print(f"[{label}] {hz:.2f} Hz replan+step, K=200 x T=15, {4 * chunk} timed ticks ({card})")
     return hz
 
 
@@ -1612,6 +1650,131 @@ def phase_batch_bench(card: str, serial_hz: float) -> None:
                    10, {"K1b": "point_rollout", "K2b": "multimodal_weights"})
 
 
+# ------------------------------------------------------------------------
+# the heijn and boxer bases, and the planner modes beyond the default
+
+def phase_gated_loop(label: str, config_name: str, overrides: list, max_ticks: int) -> tuple:
+    """One gated closed loop through ``SimLoop.run_chunked`` (warm-up 10,
+    chunks of LOOP_CHUNK): every launch count set to 0 just before and read
+    just after, K1 launched once per dispatched tick and K2 once per tick of
+    a multi-modal halton planner (never in single mode or simple mode),
+    every other kernel never; the box (the robot, for navigation) must reach
+    the goal, and the boxer corner hybrid's staged endgame must engage.
+    Returns (the launch counts, K1's recorded calls)."""
+    from m3p2i_aip_tpu_torch.config.config_store import load_config
+    from m3p2i_aip_tpu_torch.ops import rollout as ro
+    from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
+
+    cfg = load_config(config_name, overrides)
+    loop = SimLoop(cfg, device="cuda")
+    mp = loop.tamp.motion_planner
+    assert mp.refine_iters == 0, f"{label}: one rollout a tick expected"
+    loop.warmup(10)
+    dispatched, run_chunk = 0, loop.tamp.run_chunk
+
+    def counted_run_chunk(ms, rs, task, i0, length):
+        nonlocal dispatched
+        dispatched += length
+        return run_chunk(ms, rs, task, i0, length)
+
+    loop.tamp.run_chunk = counted_run_chunk
+    _zero_launches()
+    t0 = time.perf_counter()
+    with _recorded(ro, "point_rollout") as calls:
+        log = loop.run_chunked(max_ticks, chunk=LOOP_CHUNK)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_launches()
+    weighted = mp.multi_modal and mp.mppi_mode != "simple"
+    want = {"rollout_launches": dispatched, "weights_launches": dispatched if weighted else 0}
+    print(f"[{label}] {log.steps} ticks logged, {dispatched} dispatched in {wall:.2f} s; launches {counts}")
+    for name, n in counts.items():
+        assert n == want.get(name, 0), f"{label}: {name} launched {n} times, expected {want.get(name, 0)}"
+    robot, box = np.asarray(log.robot_pos), np.asarray(log.box_pos)
+    assert np.isfinite(robot).all() and np.isfinite(box).all(), f"{label}: non-finite positions"
+    assert np.abs(box).max() <= 3.8, f"{label}: box tunnelled: max |coord| {np.abs(box).max()}"
+    final = float(np.linalg.norm((robot if cfg.task == "navigation" else box)[-1] - np.asarray(cfg.goal)))
+    stage = getattr(loop.tamp.task_planner, "_pocket_stage", None)
+    print(f"[{label}] success tick {log.success_step}, final distance to the goal {final:.4f} m, pocket stage {stage}")
+    assert log.success_step is not None, f"{label}: the goal was not reached in {max_ticks} ticks"
+    if label == "boxer corner hybrid":
+        assert stage == 2, f"{label}: the staged endgame never engaged"
+    return counts, calls
+
+
+def _point_plain_flat(spec, task_vec, state0, fric_k, acts) -> tuple:
+    """K1's plain version on B recorded calls of one task at once: the
+    calls' K samples side by side as one [B K] plain rollout (each sample
+    from its own call's start state, in its own call's mode half), the same
+    ``point_env.step`` and objective as ``rollout.point_rollout_plain``,
+    which takes one start state and one call at a time.  ``task_vec`` [B, 4]
+    (every row equal), ``state0`` [B, n_state], ``fric_k`` [B, K, D],
+    ``acts`` [B, K, T, n_u]; returns [B, K, T] costs and [B, K, T, 2]
+    trajectory points."""
+    from types import SimpleNamespace
+
+    from m3p2i_aip_tpu_torch.models import point_env
+
+    assert bool((task_vec == task_vec[0]).all()), "one task a flat plain call"
+    p, D, n_q = spec.env_params, spec.D, spec.n_q
+    B, K, T = acts.shape[:3]
+    n, o = B * K, 2 * n_q
+    s0 = state0.repeat_interleave(K, dim=0)  # [B K, n_state]: sample k of call b starts from call b's state
+    state = point_env.PointEnvState(
+        q=s0[:, :n_q], qd=s0[:, n_q:o], dyn_pos=s0[:, o : o + 2 * D].reshape(n, D, 2), dyn_yaw=s0[:, o + 2 * D : o + 3 * D],
+        dyn_vel=s0[:, o + 3 * D : o + 5 * D].reshape(n, D, 2), dyn_om=s0[:, o + 5 * D : o + 6 * D],
+        contact_force=torch.zeros(n, p.num_actors, 3, dtype=acts.dtype, device=acts.device),
+        fric_scale=fric_k.reshape(n, D),
+    )
+    gk = torch.arange(K, device=acts.device, dtype=torch.float32) + task_vec[0, 3]
+    mode = ((gk >= spec.K // 2) & (gk < spec.K)).to(torch.int32).repeat(B)
+    task = SimpleNamespace(task_id=task_vec[0, 0], goal=task_vec[0, 1:3])
+    ext, flat = point_env.zero_ext(p, (n,)), acts.reshape(n, T, -1)
+    costs, points = [], []
+    for t in range(T):
+        state = point_env.step(p, state, flat[:, t], ext)
+        cost, ext = spec.objective.compute(state, flat[:, t], task, mode)
+        costs.append(cost)
+        points.append(state.q[:, :2])
+    return torch.stack(costs, dim=1).reshape(B, K, T), torch.stack(points, dim=1).reshape(B, K, T, 2)
+
+
+def phase_every_call(label: str, calls: list, kernel) -> None:
+    """K1 on every recorded (spec, inputs) call of one run, held to its
+    plain version (``_point_plain_flat``, up to CHECK_GROUP consecutive
+    calls of one task at once) sample by sample at the point bars
+    (``_closed_loop_check``: every sample beyond them must be explained by a
+    nudge of its own actions)."""
+    spec = calls[0][0]
+    groups, beyond, explained = [], 0, 0
+    for _, x in calls:
+        if groups and len(groups[-1]) < CHECK_GROUP and torch.equal(groups[-1][0][0], x[0]):
+            groups[-1].append(x)
+        else:
+            groups.append([x])
+    t0 = time.perf_counter()
+    for group in groups:
+        xb = tuple(torch.stack(v) for v in zip(*group))
+        out = tuple(torch.stack(v) for v in zip(*(kernel(spec, *x) for x in group)))
+        nb, ne = _closed_loop_check(f"every call {label}, {len(group)} calls", lambda *a: _point_plain_flat(spec, *a),
+                                    xb, out)
+        beyond, explained = beyond + nb, explained + ne
+    print(f"[every call {label}] {len(calls)} recorded calls in {len(groups)} groups held to the plain version in "
+          f"{time.perf_counter() - t0:.1f} s: {beyond} samples beyond the bars, {explained} explained")
+
+
+def phase_family_bench(card: str, config_name: str, label: str) -> float:
+    """``scripts/bench_family.py``'s protocol on the port: push_pull
+    multi-modal to the corner goal, warm-up 50, both gates off, then
+    ``phase_benchmark``'s chunks."""
+    from m3p2i_aip_tpu_torch.config.config_store import load_config
+    from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
+
+    loop = SimLoop(load_config(config_name, MAIN_PATH), device="cuda")
+    loop.warmup(50)
+    return phase_benchmark(loop, card, label)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device; this script runs only on a GPU")
@@ -1693,8 +1856,19 @@ def main() -> None:
     phase_batch_vs_serial("batch-vs-serial point", "config_point", MAIN_PATH, 4, 300)
     phase_batch_vs_serial("batch-vs-serial panda", "config_panda", ["multi_modal=True"], 10, 600)
     phase_batch_bench(card, hz)
-    # 25. K1, K1b, K3, K3b, K4 and K4b on the closed loops' inputs, then K2 and K2b;
-    # 26. the scaling sweeps
+    # 25. / 26. the heijn and boxer closed loops and the planner-mode runs, each gated;
+    # 27. the heijn and boxer rates
+    k1_runs, k2_runs = {}, {}
+    for label, config_name, overrides, cap in FAMILY_LOOPS + MODE_LOOPS:
+        with _recorded_weights("multimodal_weights") as k2_calls:
+            counts, k1_runs[label] = phase_gated_loop(label, config_name, overrides, cap)
+        if k2_calls:
+            k2_runs[label] = k2_calls
+        launches["point_rollout"] += counts["rollout_launches"]
+        launches["multimodal_weights"] += counts["weights_launches"]
+    family_hz = {name: phase_family_bench(card, f"config_{name}", f"family-bench {name}") for name in ("heijn", "boxer")}
+    # 28. K1, K1b, K3, K3b, K4 and K4b on the closed loops' inputs (K1 on every call of
+    # step 25's and 26's runs), then K2 and K2b; 29. the scaling sweeps
     slowest = {}
     for name, label, calls, kernel, plain, ops, single in (
         ("point_rollout", "K1", k1_calls, ro.point_rollout, ro.point_rollout_batched_plain, _point_rollout_ops, None),
@@ -1713,10 +1887,15 @@ def main() -> None:
         entry, slowest[label] = phase_closed_loop(card, label, calls, kernel, plain, ops, single, live, bars)
         stats[name].update(entry)
         calls.clear()
+    for label, calls in k1_runs.items():
+        phase_every_call(f"K1 {label}", calls, ro.point_rollout)
+        phase_closed_loop(card, f"K1 {label}", calls, ro.point_rollout, ro.point_rollout_batched_plain,
+                          _point_rollout_ops, None, True, PLANAR_BARS)
+        calls.clear()
     from m3p2i_aip_tpu_torch.ops import weights
 
     entry, slowest["K2"] = phase_weights_closed_loop(
-        card, "K2", {"point main path": k2_point, "panda shelf": k2_shelf},
+        card, "K2", {"point main path": k2_point, "panda shelf": k2_shelf, **k2_runs},
         weights.multimodal_weights, weights.multimodal_weights_plain,
     )
     stats["multimodal_weights"].update(entry)
@@ -1725,7 +1904,7 @@ def main() -> None:
         weights.multimodal_weights_batched, weights.multimodal_weights_plain, weights.multimodal_weights,
     )
     stats["multimodal_weights_batched"].update(entry)
-    del k2_point, k2_shelf, k2b_point, k2b_panda
+    del k2_point, k2_shelf, k2b_point, k2b_panda, k2_runs
     phase_rollout_scaling(card, ("K1", "K1b"), _launch_shape("point_rollout", "point_rollout_kernel"),
                           ro.point_rollout, ro.point_rollout_batched,
                           {"random-action": _point_random_inputs(), "closed-loop": (slowest["K1"], slowest["K1b"])})
@@ -1776,7 +1955,8 @@ def main() -> None:
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name], **stats[name]}
         for name, (src, rep) in sources.items()
     ]
-    print(f"[bench] point {hz:.2f} Hz, panda {panda_hz:.2f} Hz, albert {albert_hz:.2f} Hz on {card}")
+    print(f"[bench] point {hz:.2f} Hz, panda {panda_hz:.2f} Hz, albert {albert_hz:.2f} Hz, heijn "
+          f"{family_hz['heijn']:.2f} Hz, boxer {family_hz['boxer']:.2f} Hz on {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,7 +1,8 @@
 """Control-sequence utilities: squashing and discounted cost-to-go, in torch.
 
 Port of ``m3p2i_aip_tpu/ops/control.py`` (itself the reference's
-``utils/mppi_utils.py`` scale_ctrl:29-44 and cost_to_go:106-113).
+``utils/mppi_utils.py`` scale_ctrl:29-44 and cost_to_go:106-113, and
+``skill_utils._ensure_non_zero``:3-4).
 """
 from __future__ import annotations
 
@@ -36,3 +37,8 @@ def cost_to_go(cost_seq: torch.Tensor, gamma_seq: torch.Tensor) -> torch.Tensor:
 def discounted_traj_cost(cost_seq: torch.Tensor, gamma_seq: torch.Tensor) -> torch.Tensor:
     """``cost_to_go(...)[..., 0]``: the plain discounted sum over the horizon."""
     return torch.sum(cost_seq * gamma_seq, dim=-1)
+
+
+def ensure_non_zero(cost: torch.Tensor, beta, factor) -> torch.Tensor:
+    """exp(-factor * (cost - beta)). Parity: skill_utils._ensure_non_zero:3-4."""
+    return torch.exp(-factor * (cost - beta))

@@ -1,4 +1,5 @@
-"""MPPI planner, halton-spline sampling path, in torch.
+"""MPPI planner in torch: the halton-spline path and the simple (Williams)
+path.
 
 Port of ``m3p2i_aip_tpu/planners/motion_planner/mppi.py``: the planner state
 lives in an explicit :class:`MPPIState` dataclass of tensors, the cached
@@ -12,13 +13,21 @@ tensors, its plain version for CPU tensors), and the multi-modal weights
 through ``ops/weights.py``.  After the first update, ``refine_iters`` more
 rollouts re-sample the cached deltas at a shrinking scale around the new
 means (the annealed refine ladder); the last rung optionally picks the argmin
-sample instead of the weighted mean.
+sample instead of the weighted mean.  ``update_cov`` (single mode) and
+``update_cov_per_mode`` (multi-modal) adapt the sampling scale from the
+weighted second moment of the samples.  ``sampling_method=random`` replaces
+the cached deltas by a fresh correlated Gaussian draw every tick, and
+``mppi_mode=simple`` runs the reference's Williams update of one nominal
+sequence ``U`` (``_command_simple``).
 
-Exploration noise: the JAX planner jitters the cached deltas with
-``jax.random`` draws, which torch cannot reproduce.  Here the planner draws
-them from its own ``torch.Generator`` on the device (seeded from
-``mppi.seed_val``), and ``command``/``_command_impl`` also take the noise as
-an input so a test can feed both packages the same numbers.
+Random draws: the JAX planner draws its exploration jitter, its random
+deltas, its simple-mode noise and its initial ``U`` with ``jax.random``,
+which torch cannot reproduce.  Here the planner draws them from its own
+``torch.Generator`` on the device (seeded from ``mppi.seed_val``), and
+``command``/``_command_impl`` also take the tick's draw as an input so a test
+can feed both packages the same numbers: the standard-normal jitter on the
+halton path, the correlated draw ``noise_mu + z chol(noise_sigma)^T`` under
+random sampling and in simple mode.
 
 Seed batches: every planner step is written over leading dims, so an
 ``MPPIState`` whose fields carry a leading seed axis B (``init_state_batch``)
@@ -41,14 +50,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from m3p2i_aip_tpu_torch.ops.control import discounted_traj_cost, scale_ctrl
+from m3p2i_aip_tpu_torch.ops.control import discounted_traj_cost, ensure_non_zero, scale_ctrl
 from m3p2i_aip_tpu_torch.ops.filters import savgol_matrix
 from m3p2i_aip_tpu_torch.ops.sampling import gaussian_halton_samples
 from m3p2i_aip_tpu_torch.ops.spline import bspline_interp_matrix
 from m3p2i_aip_tpu_torch.ops.weights import multimodal_weights, multimodal_weights_batched
 from m3p2i_aip_tpu_torch.utils.tree import tree_map, tree_stack
-
-_NOT_PORTED = "is not ported yet: see ROADMAP.md Queue 1"
 
 
 @dataclass
@@ -120,7 +127,8 @@ class MPPIState:
 
 
 class MPPI:
-    """Halton-spline MPPI.  Construction parity: MPPI.__init__ (mppi.py:82-203).
+    """MPPI, halton-spline or simple.  Construction parity: MPPI.__init__
+    (mppi.py:82-203).
 
     ``rollout(sim_state_k, acts, task) -> (cost_horizon [K, T], traj [K, T, 2])``
     rolls out all K samples from the broadcast real state.
@@ -128,18 +136,15 @@ class MPPI:
 
     def __init__(self, cfg, rollout, fric_noise=None, device="cuda"):
         mcfg = cfg.mppi
-        for bad, what in (
-            (mcfg.mppi_mode == "simple", "mppi_mode=simple (M7)"),
-            (mcfg.sampling_method == "random", "sampling_method=random (M7)"),
-            (mcfg.update_cov or mcfg.update_cov_per_mode, "update_cov / update_cov_per_mode (M7)"),
-            (int(mcfg.grad_refine_steps or 0) > 0, "grad_refine_steps > 0 (ROADMAP M8: not ported)"),
-        ):
-            if bad:
-                raise NotImplementedError(f"{what} {_NOT_PORTED}")
+        if int(mcfg.grad_refine_steps or 0) > 0:
+            raise NotImplementedError("grad_refine_steps > 0 is not ported: see ROADMAP.md M8")
         self.device = torch.device(device)
         self.env_type = cfg.env_type
         self.multi_modal = bool(cfg.multi_modal)
         self.cfg = mcfg
+        self.mppi_mode = mcfg.mppi_mode
+        self.sampling_method = mcfg.sampling_method
+        self.lambda_ = mcfg.lambda_
         self.K = mcfg.num_samples
         self.half_K = self.K // 2
         self.T = mcfg.horizon
@@ -151,6 +156,10 @@ class MPPI:
         self.noise_sigma = np.asarray(noise_sigma, dtype=np.float32)
         self.nu = self.noise_sigma.shape[0]
         self.noise_mu = np.asarray(mcfg.noise_mu or [0.0] * self.nu, dtype=np.float32)
+        self.noise_sigma_inv = np.linalg.inv(self.noise_sigma)
+        self._mu = self._t(self.noise_mu)
+        self._chol = self._t(np.linalg.cholesky(self.noise_sigma).astype(np.float32))
+        self._sigma_inv = self._t(self.noise_sigma_inv)
 
         u_max, u_min = mcfg.u_max, mcfg.u_min
         if u_max and not u_min:
@@ -177,6 +186,16 @@ class MPPI:
         self.step_size_mean = 0.98
         self.eta_u = float(mcfg.eta_u_bound)
         self.eta_l = float(mcfg.eta_l_bound)
+        self.step_size_cov = 0.7  # (mppi.py:202)
+        self.kappa = 0.005  # additive per-tick covariance drift (mppi.py:203)
+        if mcfg.update_cov and (self.multi_modal or self.mppi_mode == "simple"):
+            raise ValueError(
+                "update_cov only applies to single-mode halton-spline MPPI (the reference's covariance update "
+                "lives in _update_distribution, mppi.py:508-516, which the multi-modal and simple paths never "
+                "reach); for the multi-modal path use update_cov_per_mode"
+            )
+        if mcfg.update_cov_per_mode and not self.multi_modal:
+            raise ValueError("update_cov_per_mode requires multi_modal=True")
         self.scale_tril = self._t(np.sqrt(np.diagonal(self.noise_sigma)).astype(np.float32))
         self.seed_val = mcfg.seed_val
         self.refine_iters = int(mcfg.refine_iters or 0)
@@ -244,9 +263,7 @@ class MPPI:
         if self.cfg.U_init is not None:
             U0 = self._t(np.asarray(self.cfg.U_init, np.float32))
         else:  # the reference samples U from the noise distribution (mppi.py:134)
-            chol = self._t(np.linalg.cholesky(self.noise_sigma).astype(np.float32))
-            eps = torch.randn(self.T, self.nu, generator=generator, device=self.device)
-            U0 = self._t(self.noise_mu) + eps @ chol.T
+            U0 = self._correlated(torch.randn(self.T, self.nu, generator=generator, device=self.device))
         cov = self._t(np.diagonal(self.noise_sigma).astype(np.float32))
         return MPPIState(
             mean_action=z,
@@ -290,6 +307,21 @@ class MPPI:
             [torch.randn(shape[1:], generator=g, device=self.device) for g in self.seed_generators]
         )
 
+    def _correlated(self, z: torch.Tensor) -> torch.Tensor:
+        """``noise_mu + z @ chol(noise_sigma).T`` for a standard-normal ``z``
+        [..., nu], as elementwise products summed in a fixed order, so a
+        seed's draw has the same bits alone or in a batch."""
+        acc = z[..., 0:1] * self._chol[:, 0]
+        for j in range(1, self.nu):
+            acc = acc + z[..., j : j + 1] * self._chol[:, j]
+        return self._mu + acc
+
+    def _correlated_draw(self, shape) -> torch.Tensor:
+        """A [..., K, T, nu] draw from N(noise_mu, noise_sigma) (the
+        reference's ``multivariate_normal``), from the generator(s) of
+        ``_exploration_draw``."""
+        return self._correlated(self._exploration_draw(shape))
+
     # --------------------------------------------------------------- helpers
     @staticmethod
     def _shift(seq: torch.Tensor) -> torch.Tensor:
@@ -311,6 +343,16 @@ class MPPI:
         """sum_k w[..., k] actions[..., k, :, :], accumulated in float64 and
         rounded once, so a seed's mean is the same bits alone or in a batch."""
         return torch.einsum("...k,...ktu->...tu", w.double(), actions.double()).float()
+
+    def _cov_update(self, cov, w, actions, mean) -> torch.Tensor:
+        """The covariance EMA of ``update_cov`` (mppi.py:698-712) and of each
+        mode under ``update_cov_per_mode`` (:663-689): the ``w``-weighted
+        second moment of the samples about ``mean``, averaged over the
+        horizon (summed in float64, as ``_weighted_mean``), smoothed by
+        step_size_cov, plus the kappa drift.  [nu] ([B, nu] in a batch)."""
+        delta = actions - mean[..., None, :, :]
+        second = torch.einsum("...k,...ktu->...tu", w.double(), (delta**2).double()).mean(dim=-2).float()
+        return (1.0 - self.step_size_cov) * cov + self.step_size_cov * second + self.kappa
 
     def _gripper_override(self, acts: torch.Tensor, task: TaskParams) -> torch.Tensor:
         """Panda gripper channels 7 and 8 forced to +1.5 (open) or -1.5
@@ -350,29 +392,38 @@ class MPPI:
         if self.multi_modal:
             w0, w1, w = self._multi_modal_exp_util(cost_horizon)
             new_mean = self._weighted_mean(w, actions)
-            return dataclasses.replace(
+            mean0, mean1 = self._weighted_mean(w0, actions), self._weighted_mean(w1, actions)
+            state = dataclasses.replace(
                 state,
                 mean_action=keep * state.mean_action + self.step_size_mean * new_mean,
-                mean_action_1=self._weighted_mean(w0, actions),
-                mean_action_2=self._weighted_mean(w1, actions),
+                mean_action_1=mean0,
+                mean_action_2=mean1,
                 best_traj_1=self._pick(actions, w0),
                 best_traj_2=self._pick(actions, w1),
                 weights=w,
             )
+            if self.cfg.update_cov_per_mode:
+                # each mode's EMA from its own masked weights; consumed as the
+                # modes' relative scale in _command_halton
+                state = dataclasses.replace(
+                    state,
+                    cov_action_1=self._cov_update(state.cov_action_1, w0, actions, mean0),
+                    cov_action_2=self._cov_update(state.cov_action_2, w1, actions, mean1),
+                )
+            return state
         w, beta = self._exp_util(cost_horizon, state.beta)
-        new_mean = self._weighted_mean(w, actions)
-        return dataclasses.replace(
-            state,
-            mean_action=keep * state.mean_action + self.step_size_mean * new_mean,
-            best_traj=self._pick(actions, w),
-            weights=w,
-            beta=beta,
-        )
+        mean = keep * state.mean_action + self.step_size_mean * self._weighted_mean(w, actions)
+        state = dataclasses.replace(state, mean_action=mean, best_traj=self._pick(actions, w), weights=w, beta=beta)
+        if self.cfg.update_cov:
+            state = dataclasses.replace(state, cov_action=self._cov_update(state.cov_action, w, actions, mean))
+        return state
 
     # --------------------------------------------------------------- command
     def command(self, state: MPPIState, sim_state, task: TaskParams, noise=None):
         """One replanning step from the single real-env state (or, for a
-        batched ``state``, from each seed's real-env state).
+        batched ``state``, from each seed's real-env state).  ``noise``
+        [..., K, T, nu] replaces the tick's draw from the generators (see the
+        module docstring for which draw each mode takes).
 
         Returns (action_sequence [T, nu], new_state, aux dict); [B, T, nu]
         for a seed batch.
@@ -386,7 +437,10 @@ class MPPI:
         )
         if self.fric_inject:
             sim_state_k = dataclasses.replace(sim_state_k, fric_scale=state.fric_scale_k)
-        state, action, tps = self._command_halton(state, sim_state_k, task, noise)
+        if self.mppi_mode == "simple":
+            state, action, tps = self._command_simple(state, sim_state_k, task, noise)
+        else:
+            state, action, tps = self._command_halton(state, sim_state_k, task, noise)
         if self.filter_u:
             T = action.shape[-2]
             action = (self._sgf[:T, :T] @ action.double()).float()  # float64, as _weighted_mean
@@ -397,11 +451,13 @@ class MPPI:
         return action, state, aux
 
     def _command_halton(self, state: MPPIState, sim_state_k, task: TaskParams, noise=None):
-        """Shift, jitter, per-mode sampling around the means, elites at 0 and
-        half_K, null action at K-1, rollout, update (mppi.py:751-844).
-        ``noise`` [..., K, T, nu] replaces the generators' standard-normal
-        draw.  Sample rows are written as [..., k, :, :], so a leading seed
-        axis passes through."""
+        """Shift, jitter (or a fresh random draw), per-mode sampling around
+        the means, elites at 0 and half_K, null action at K-1, rollout,
+        update (mppi.py:751-844).  ``noise`` [..., K, T, nu] replaces the
+        generators' draw: standard-normal jitter on the cached deltas, or
+        under random sampling the correlated deltas themselves.  Sample rows
+        are written as [..., k, :, :], so a leading seed axis passes
+        through."""
         state = dataclasses.replace(
             state,
             mean_action=self._shift(state.mean_action),
@@ -412,14 +468,18 @@ class MPPI:
             best_traj_2=self._shift(state.best_traj_2),
         )
         delta = state.halton_delta
-        if self.exploration_noise > 0.0:
+        if self.sampling_method == "random":
+            # a fresh correlated draw every tick (mppi.py:762-769)
+            delta = (self._correlated_draw(delta.shape) if noise is None else noise).clone()
+            delta[..., -1, :, :] = 0.0  # in place on the fresh copy: keep the pure-mean sample
+        elif self.exploration_noise > 0.0:
             # per-tick jitter on the cached deltas: breaks deterministic
             # replanning fixed points (see the JAX planner)
             if noise is None:
                 noise = self._exploration_draw(delta.shape)
             delta = delta + self.exploration_noise * noise
             delta[..., -1, :, :] = 0.0  # in place on the fresh sum: keep the pure-mean sample
-        scaled_delta = delta * self.scale_tril
+        scaled_delta = delta * self._sampling_scale(state)
         if self.multi_modal:
             mean_m = torch.where(
                 (self.sample_mode == 0)[:, None, None],
@@ -444,6 +504,55 @@ class MPPI:
         state = self._update_halton(state, cost_horizon, act_seq)
         state = self._sample_refine(state, sim_state_k, task)
         return state, state.mean_action, tps
+
+    def _sampling_scale(self, state: MPPIState) -> torch.Tensor:
+        """The deltas' scale (mppi.py:786-808): sqrt(cov_action) under
+        ``update_cov``; under ``update_cov_per_mode`` each mode's half-batch
+        at the nominal scale times its share of the two modes' EMAs, clamped
+        to [0.25, 4] in variance; else the fixed sqrt(diag(noise_sigma)).
+        Broadcasts against [..., K, T, nu]."""
+        if self.cfg.update_cov:
+            return torch.sqrt(state.cov_action)[..., None, None, :]
+        if self.multi_modal and self.cfg.update_cov_per_mode:
+            ref = 0.5 * (state.cov_action_1 + state.cov_action_2)
+            base = self.scale_tril**2
+            s1 = torch.sqrt(torch.clamp(state.cov_action_1 / ref, 0.25, 4.0) * base)
+            s2 = torch.sqrt(torch.clamp(state.cov_action_2 / ref, 0.25, 4.0) * base)
+            return torch.where((self.sample_mode == 0)[:, None, None], s1[..., None, None, :], s2[..., None, None, :])
+        return self.scale_tril
+
+    def _command_simple(self, state: MPPIState, sim_state_k, task: TaskParams, noise=None):
+        """The reference's Williams update of the nominal sequence ``U``
+        (mppi.py:992-1027): roll U, perturb it by the correlated draw
+        (``noise`` replaces it), clamp, gripper override, null action,
+        rollout; the action cost against noise_sigma^-1, beta = the least
+        total cost, the exp weights of ``ensure_non_zero``, and U moved by
+        the weighted post-clamp noise.  The totals, weights and U update are
+        formed in float64 and rounded once, so a seed's U has the same bits
+        alone or in a batch.  Returns the whole [T] U: the caller's filter
+        acts on all of it."""
+        U = torch.roll(state.U, -1, dims=-2)  # a plain roll (mppi.py:221), not _shift
+        if noise is None:
+            noise = self._correlated_draw(U.shape[:-2] + (self.K, self.T, self.nu))
+        perturbed = scale_ctrl(U[..., None, :, :] + noise, self.u_min, self.u_max, "clamp")
+        perturbed = self._gripper_override(perturbed, task)
+        if self.sample_null_action:
+            perturbed[..., self.K - 1, :, :] = 0.0  # in place on the fresh clamp
+        cost_horizon, tps = self.rollout(sim_state_k, self.u_scale * perturbed, task)
+        noise_b = perturbed - U[..., None, :, :]  # post-bounding noise (mppi.py:356)
+        dev = torch.abs(noise_b) if self.cfg.noise_abs_cost else noise_b
+        acc = dev[..., 0:1] * self._sigma_inv[0]  # dev @ noise_sigma^-1 in a fixed order
+        for j in range(1, self.nu):
+            acc = acc + dev[..., j : j + 1] * self._sigma_inv[j]
+        action_cost = self.lambda_ * acc
+        cost_total = torch.sum(cost_horizon.double(), dim=-1) + torch.sum(
+            (U[..., None, :, :] * action_cost).double(), dim=(-2, -1)
+        )
+        beta = torch.amin(cost_total, dim=-1, keepdim=True)
+        nz = ensure_non_zero(cost_total, beta, 1.0 / self.lambda_)
+        weights = nz / torch.sum(nz, dim=-1, keepdim=True)
+        U = U + torch.einsum("...k,...ktu->...tu", weights, noise_b.double()).float()
+        return dataclasses.replace(state, U=U, weights=weights.float()), U, tps
 
     def _sample_refine(self, state: MPPIState, sim_state_k, task: TaskParams) -> MPPIState:
         """The annealed refine ladder (mppi.py:846): ``refine_iters`` rollouts

@@ -67,9 +67,12 @@ def albert_state_from_numpy(arrays: dict, device="cpu") -> AlbertState:
 
 
 def mppi_state_from_numpy(arrays: dict, device="cpu") -> MPPIState:
-    """``MPPIState`` (a single or a [B]-leading batched one); the JAX PRNG
-    key (``rng``) has no counterpart and is dropped — the port's planner
-    draws from its own ``torch.Generator`` (one per seed in a batch)."""
+    """``MPPIState`` (a single or a [B]-leading batched one), every leaf
+    carried: the means and elites, simple mode's ``U``, ``beta`` and the
+    three covariances included, so one tick of any mode starts from the JAX
+    state.  The JAX PRNG key (``rng``) has no counterpart and is dropped —
+    the port's planner draws from its own ``torch.Generator`` (one per seed
+    in a batch)."""
     return _build(MPPIState, arrays, device)
 
 

@@ -28,6 +28,23 @@ def test_parallel_seeds_writes_rows(tmp_path, capsys, family, argv, cols):
     assert "run 1: success=" in printed and "success rate:" in printed
 
 
+@pytest.mark.parametrize("config_name", ["config_heijn", "config_boxer"])
+def test_family_rows_serial_equal_parallel_seeds(tmp_path, config_name):
+    """The heijn and boxer rows through ``finalize_point_row``: the serial
+    runner's and the ``parallel_seeds=True`` runner's agree bit for bit in
+    every column that is not a wall-clock time or rate."""
+    argv = ["-cn", config_name, "task=push_pull", "multi_modal=True", "goal=[-3.75,-3.75]", *TINY]
+    serial, batch = tmp_path / "serial.npy", tmp_path / "batch.npy"
+    run_experiments.main([*argv, f"out={serial}"])
+    run_experiments.main([*argv, "parallel_seeds=True", f"out={batch}"])
+    s, b = np.load(serial), np.load(batch)
+    assert s.shape == b.shape == (2, 19)
+    assert np.isfinite(s).all() and np.isfinite(b).all()
+    sim = [*range(1, 14), 17, 18]  # positions, velocities, box pose, goal, collisions, task time
+    np.testing.assert_array_equal(s[:, sim], b[:, sim])
+    assert not np.array_equal(s[0, 1:3], s[1, 1:3])  # two seeds, two runs
+
+
 def test_parallel_seeds_shard_is_refused(tmp_path):
     with pytest.raises(NotImplementedError, match="M11"):
         run_experiments.main([*TINY, "parallel_seeds=shard", f"out={tmp_path / 'x.npy'}"])

@@ -7,7 +7,12 @@
   seeds genuinely different runs.  Both sides run the same plain versions
   and each seed draws its noise from a generator seeded as its serial run's,
   so only the summation order of batched and single tensor ops separates
-  them (measured ~1e-7).
+  them (measured ~1e-7, in the panda's and albert's FK; the point family is
+  held bit for bit).  Three-seed batches of 8 ticks do the same, bit for
+  bit, for the heijn and boxer bases (the boxer's beta adaptation and its
+  parity ablation) and for the point planner's simple mode, random
+  sampling, update_cov and update_cov_per_mode, whose draws come from the
+  per-seed generators too.
 * A seed that finishes early freezes: its log stops at the crossing tick,
   and a chunk entered with its ``done0`` pre-latch set leaves its state
   untouched while the other seeds run on (point); a pre-latched panda seed
@@ -36,12 +41,23 @@ from m3p2i_aip_tpu_torch.utils import convert
 from m3p2i_aip_tpu_torch.utils.tree import tree_map
 
 SMALL = ["mppi.num_samples=16", "mppi.horizon=8"]
+HYBRID = ["task=push_pull", "multi_modal=True", "goal=[-3.75,-3.75]"]
+NAV = ["task=navigation", "goal=[-3,3]"]
 FAMILIES = {
-    "point_push_pull": ("config_point", ["task=push_pull", "multi_modal=True", "goal=[-3.75,-3.75]", *SMALL]),
+    "point_push_pull": ("config_point", [*HYBRID, *SMALL]),
     "panda_multi_modal": ("config_panda", ["multi_modal=True", "mppi.num_samples=16", "mppi.horizon=4"]),
     "albert_push_reach": ("config_albert", ["task=push_reach", "goal=[3.0,0.0,0.6]", *SMALL]),
+    # the heijn and boxer bases, and the planner modes beyond the default
+    "heijn_push_pull": ("config_heijn", [*HYBRID, *SMALL]),
+    "boxer_push_beta_adapt": ("config_boxer", ["task=push", "goal=[-1,-1]", *SMALL]),
+    "boxer_parity_push_pull": ("config_boxer", [*HYBRID, "mppi=boxer_parity", *SMALL]),
+    "point_simple": ("config_point", [*NAV, "mppi.mppi_mode=simple", *SMALL]),
+    "point_random": ("config_point", [*NAV, "mppi.sampling_method=random", *SMALL]),
+    "point_update_cov": ("config_point", [*NAV, "mppi.update_cov=True", *SMALL]),
+    "point_update_cov_per_mode": ("config_point", [*HYBRID, "mppi.update_cov_per_mode=True", *SMALL]),
 }
 SEEDS, STEPS, CHUNK, WARMUP = [0, 1], 12, 4, 10
+THREE_SEEDS = [0, 1, 2]  # the heijn/boxer and planner-mode batches
 ATOL = 1e-5
 JAX_ATOL = 1e-4
 
@@ -54,28 +70,35 @@ def _leaves(x) -> dict:
     }
 
 
-def _serial(config_name, overrides):
+def _serial(config_name, overrides, seeds=SEEDS, steps=STEPS):
     cfg = load_config(config_name, overrides)
     loop, out = None, []
-    for s in SEEDS:
+    for s in seeds:
         cfg.mppi.seed_val = s
         if loop is None:
             loop = SimLoop(cfg, device="cpu")
         else:
             loop.reset(s)
         loop.warmup(WARMUP)
-        out.append((loop.run_chunked(STEPS, chunk=CHUNK), loop._view))
+        out.append((loop.run_chunked(steps, chunk=CHUNK), loop._view))
     return out
 
 
 @pytest.mark.parametrize("family", list(FAMILIES))
 def test_batch_equals_serial_runs(family):
+    """The panda and albert at ATOL (their FK's matmuls sum in another
+    order at another batch shape); the point family bit for bit, the
+    heijn/boxer and planner-mode batches with three seeds over two chunks."""
     config_name, overrides = FAMILIES[family]
-    serial = _serial(config_name, overrides)
-    batch = BatchSimLoop(load_config(config_name, overrides), SEEDS, device="cpu")
+    seeds, steps = (SEEDS, STEPS) if family in ("point_push_pull", "panda_multi_modal", "albert_push_reach") else (
+        THREE_SEEDS, 2 * CHUNK
+    )
+    atol = ATOL if config_name in ("config_panda", "config_albert") else 0.0
+    serial = _serial(config_name, overrides, seeds, steps)
+    batch = BatchSimLoop(load_config(config_name, overrides), seeds, device="cpu")
     batch.warmup(WARMUP)
-    logs = batch.run_chunked(STEPS, chunk=CHUNK)
-    assert len(logs) == len(SEEDS)
+    logs = batch.run_chunked(steps, chunk=CHUNK)
+    assert len(logs) == len(seeds)
     for b, (slog, sview) in enumerate(serial):
         blog, bview = logs[b], batch.views[b]
         assert blog.steps == slog.steps, b
@@ -84,11 +107,11 @@ def test_batch_equals_serial_runs(family):
         assert blog.collisions == slog.collisions, b
         for name in ("robot_pos", "robot_vel", "box_pos"):
             np.testing.assert_allclose(
-                np.asarray(getattr(blog, name)), np.asarray(getattr(slog, name)), atol=ATOL, rtol=0,
+                np.asarray(getattr(blog, name)), np.asarray(getattr(slog, name)), atol=atol, rtol=0,
                 err_msg=f"seed {b} {name}",
             )
         for key, ref in sview.items():
-            np.testing.assert_allclose(np.asarray(bview[key]), np.asarray(ref), atol=ATOL, rtol=0, err_msg=f"{b} {key}")
+            np.testing.assert_allclose(np.asarray(bview[key]), np.asarray(ref), atol=atol, rtol=0, err_msg=f"{b} {key}")
     # the seeds are genuinely different runs (per-seed Halton deltas and noise)
     key = {"config_panda": "ee_state", "config_albert": "ee_pos"}.get(config_name, "robot_pos")
     assert not np.allclose(np.asarray(batch.views[0][key]), np.asarray(batch.views[1][key]))

@@ -166,9 +166,10 @@ def test_rollout_kernel_matches_plain_at_the_maxima(cuda):
         assert float(torch.max(torch.abs(t_k - t_p))) <= 1e-3, q0
 
 
-# config_point: the shipped S = 5; config_boxer: the differential drive;
-# "maxima": D = 4, S = 16, pass 3's second round of statics
-@pytest.mark.parametrize("scene", ["config_point", "config_boxer", "maxima"])
+# config_point: the shipped S = 5; config_heijn: the omni base's yaw channel;
+# config_boxer: the differential drive; "maxima": D = 4, S = 16, pass 3's
+# second round of statics
+@pytest.mark.parametrize("scene", ["config_point", "config_heijn", "config_boxer", "maxima"])
 def test_point_kernel_equals_plain_bit_for_bit(cuda, scene):
     """K1 adds its contact corrections in the order PyTorch's CUDA
     reductions add the plain version's sums at their layouts, and divides
@@ -198,6 +199,34 @@ def test_point_kernel_equals_plain_bit_for_bit(cuda, scene):
         c_p, t_p = ro.point_rollout_plain(spec, *inputs, acts)
         assert torch.equal(c_k, c_p) and torch.equal(t_k, t_p), (
             q0, int((c_k != c_p).sum()), int((t_k != t_p).any(-1).sum()))
+
+
+@pytest.mark.parametrize("mode", ["mppi.mppi_mode=simple", "mppi.sampling_method=random"])
+def test_planner_mode_tick_on_the_kernel_matches_plain(cuda, mode):
+    """One simple-mode and one random-sampling tick at K=200 x T=15 on the
+    card (un-smoothed Gaussian actions into K1): the planner with K1 against
+    the same planner with K1's plain version, on the same draw, within the
+    point bars."""
+    tamp = ReactiveTAMP(load_config("config_point", ["task=navigation", "goal=[-3,3]", mode]), device=cuda)
+    mp, env = tamp.motion_planner, tamp.env
+    state = dataclasses.replace(
+        env.init_state(), q=torch.tensor([0.0, 1.5], device=cuda), qd=torch.tensor([0.0, -1.0], device=cuda)
+    )
+    task = tamp.tamp_interface_view(env.view(state))
+    noise = mp._correlated_draw((mp.K, mp.T, mp.nu))
+    before = ro.rollout_launches
+    act_k, ms_k, _ = mp.command(tamp.mppi_state, state, task, noise=noise)
+    assert ro.rollout_launches == before + 1
+    spec, kernel_rollout = mp.rollout.spec, mp.rollout
+    mp.rollout = lambda sk, acts, tk, k0=None: ro.point_rollout_plain(spec, *ro.rollout_inputs(sk, tk, k0), acts)
+    try:
+        act_p, ms_p, _ = mp.command(tamp.mppi_state, state, task, noise=noise)
+    finally:
+        mp.rollout = kernel_rollout
+    assert torch.isfinite(act_k).all()
+    assert float(torch.max(torch.abs(act_k - act_p))) <= 1e-3
+    field = "U" if "simple" in mode else "mean_action"
+    assert float(torch.max(torch.abs(getattr(ms_k, field) - getattr(ms_p, field)))) <= 1e-3
 
 
 # 37 and 1500: samples past K in the last block (teams that leave at the
