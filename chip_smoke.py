@@ -40,7 +40,21 @@ paths through ``SimLoop.run_chunked``:
   Every K1 call of these runs is held to the plain version
   (``phase_every_call``), their K2 calls join K2's closed-loop phase, and
   the heijn and boxer replan+step rates are measured with
-  ``scripts/bench_family.py``'s protocol.
+  ``scripts/bench_family.py``'s protocol;
+* the README's entry points: the port's ``run_tamp`` script (``main``,
+  one replan+step a tick through ``SimLoop.run``, the host task planner
+  every tick), gated, on the point main path (it must latch at the chunked
+  main path's tick) and on ``-cn config_panda`` (it must latch success
+  within 300 ticks), with the per-tick rates; the two terminals, the port's
+  ``rpc.Server`` serving ``ReactiveTAMPServer`` on the card from a thread
+  and the port's sim client ticking against it over a localhost socket (the
+  point push to [-1, -1] must reach its goal within 300 ticks; 20 ticks of
+  the panda and of the albert), with the round trip per tick beside the
+  in-process tick; and checkpoint / resume of the point main path and the
+  panda, 20 ticks, a checkpoint, a fresh loop, 20 ticks, bit-equal to 40
+  uninterrupted ticks.  Every launch count is set to 0 just before each of
+  these runs and read just after, and every K1, K3 and K4 call of them is
+  held to its plain version (their K2 calls join K2's closed-loop phase).
 
 The inputs the point, panda and albert main paths and their n=20 batches
 gave K1, K1b, K3, K3b, K4 and K4b are recorded, each timed, and the slowest
@@ -149,6 +163,11 @@ MODE_LOOPS = [
     ("update_cov navigation", "config_point", ["task=navigation", "goal=[1.5,1.0]", "mppi.update_cov=True"], 200),
     ("update_cov_per_mode hybrid", "config_point", [*MAIN_PATH, "mppi.update_cov_per_mode=True"], 300),
 ]
+RUN_SIM_PANDA_TICKS = 300  # the per-tick panda run's cap
+RPC_PUSH = ["task=push", "goal=[-1,-1]"]  # the two-terminal point run: the box within 0.1 m of the goal ...
+RPC_PUSH_TICKS = 300  # ... within this many ticks
+RPC_FAMILY_TICKS = 20  # the panda and albert ticks over the socket
+CKPT_TICKS = 20  # ticks before and after the checkpoint
 LOOP_CHUNK = 10  # the n=20 campaigns' chunked=10 (scripts/run_quality_campaign_r3.sh)
 CHECK_GROUP = 100  # recorded K1 calls held to the batched plain version at once
 # four point tasks for the batched checks: (name, goal)
@@ -906,7 +925,7 @@ def phase_panda_main() -> tuple:
     table, single mode) through ``SimLoop.run_chunked`` in chunks of 50.  The
     cube must be grasped, success must latch within PANDA_TICKS, and K3 must
     launch 1 + refine_iters times per dispatched tick.  Returns K3's launch
-    count and its recorded inputs."""
+    count, its recorded inputs and the success tick."""
     from m3p2i_aip_tpu_torch.config.config_store import load_config
     from m3p2i_aip_tpu_torch.ops import panda_rollout as pr
     from m3p2i_aip_tpu_torch.ops import weights
@@ -943,7 +962,7 @@ def phase_panda_main() -> tuple:
     pos_err = float(np.linalg.norm(view["cube_state"][:2] - view["cube_goal"][:2]))
     ori_err = float(general_ori_cube2goal(view["cube_state"][3:], view["cube_goal"][3:]))
     print(f"[panda-main] success tick {log.success_step}; settled cube error: pos {pos_err:.4f} m, ori {ori_err:.4f}")
-    return launches, calls
+    return launches, calls, log.success_step
 
 
 def phase_panda_shelf() -> float:
@@ -1739,13 +1758,77 @@ def _point_plain_flat(spec, task_vec, state0, fric_k, acts) -> tuple:
     return torch.stack(costs, dim=1).reshape(B, K, T), torch.stack(points, dim=1).reshape(B, K, T, 2)
 
 
-def phase_every_call(label: str, calls: list, kernel) -> None:
-    """K1 on every recorded (spec, inputs) call of one run, held to its
-    plain version (``_point_plain_flat``, up to CHECK_GROUP consecutive
-    calls of one task at once) sample by sample at the point bars
-    (``_closed_loop_check``: every sample beyond them must be explained by a
-    nudge of its own actions)."""
+def _stacked_starts(rows) -> object:
+    """One state of B x K samples from B calls' broadcast start states (each
+    [K, ...]), call b's samples at b K .. b K + K - 1."""
+    import dataclasses
+
+    return dataclasses.replace(rows[0], **{f.name: torch.cat([getattr(r, f.name) for r in rows])
+                                           for f in dataclasses.fields(rows[0])})
+
+
+def _panda_plain_flat(spec, task_vec, state0, acts) -> tuple:
+    """K3's plain version on B recorded calls of one task at once, as
+    ``_point_plain_flat`` does K1's: the calls' K samples side by side as one
+    [B K] plain rollout, the same ``panda_env.step``, ``panda_fk.fk`` and
+    objective as ``panda_rollout.panda_rollout_plain``.  ``task_vec`` [B, 10]
+    (every row equal), ``state0`` [B, 56], ``acts`` [B, K, T, 9]; returns
+    [B, K, T] costs and [B, K, T, 2] trajectory points."""
+    from types import SimpleNamespace
+
+    from m3p2i_aip_tpu_torch.models import panda_env, panda_fk
+    from m3p2i_aip_tpu_torch.ops import panda_rollout as pr
+
+    assert bool((task_vec == task_vec[0]).all()), "one task a flat plain call"
+    p, (B, K, T) = spec.env_params, acts.shape[:3]
+    state = _stacked_starts([pr.unpack_state(row, K, p) for row in state0])
+    gk = torch.arange(K, device=acts.device, dtype=torch.float32) + task_vec[0, 8]
+    mode = ((gk >= spec.K // 2) & (gk < spec.K)).to(torch.int32).repeat(B)
+    task = SimpleNamespace(task_id=task_vec[0, 0], goal=task_vec[0, 1:8], zup_gate=task_vec[0, 9])
+    ext, flat = panda_env.zero_ext(p, (B * K,)), acts.reshape(B * K, T, -1)
+    costs, points = [], []
+    for t in range(T):
+        state = panda_env.step(p, state, flat[:, t], ext)
+        links = panda_fk.fk(state.q, p.base_pos)
+        cost, ext = spec.objective.compute(state, flat[:, t], task, mode, links)
+        costs.append(cost)
+        points.append(links["ee"][0][:, :2])
+    return torch.stack(costs, dim=1).reshape(B, K, T), torch.stack(points, dim=1).reshape(B, K, T, 2)
+
+
+def _albert_plain_flat(spec, task_vec, state0, acts) -> tuple:
+    """K4's plain version on B recorded calls of one task at once, as
+    ``_panda_plain_flat``, with ``albert_rollout.albert_rollout_plain``'s
+    ``albert.step``, ``albert.fk`` and objective.  ``task_vec`` [B, 5],
+    ``state0`` [B, 30], ``acts`` [B, K, T, 13]."""
+    from types import SimpleNamespace
+
+    from m3p2i_aip_tpu_torch.models import albert
+    from m3p2i_aip_tpu_torch.ops import albert_rollout as ar
+
+    assert bool((task_vec == task_vec[0]).all()), "one task a flat plain call"
+    B, K, T = acts.shape[:3]
+    state = _stacked_starts([ar.unpack_state(row, K) for row in state0])
+    task = SimpleNamespace(task_id=task_vec[0, 0], goal=task_vec[0, 1:4])
+    flat = acts.reshape(B * K, T, -1)
+    costs, points = [], []
+    for t in range(T):
+        state = albert.step(spec.env_params, state, flat[:, t])
+        cost, _ = spec.objective.compute(state, flat[:, t], task, None, ee_pos=albert.fk(state)["ee"][0])
+        costs.append(cost)
+        points.append(state.q[:, :2])
+    return torch.stack(costs, dim=1).reshape(B, K, T), torch.stack(points, dim=1).reshape(B, K, T, 2)
+
+
+def phase_every_call(label: str, calls: list, kernel, flat=_point_plain_flat, bars: tuple = PLANAR_BARS) -> None:
+    """A rollout kernel on every recorded (spec, inputs) call of one run,
+    held to its plain version laid flat (``_point_plain_flat``,
+    ``_panda_plain_flat`` or ``_albert_plain_flat``: up to CHECK_GROUP
+    consecutive calls of one task in one plain rollout) sample by sample at
+    ``bars`` (``_closed_loop_check``: every sample beyond them must be
+    explained by a nudge of its own actions)."""
     spec = calls[0][0]
+    assert all(s is spec for s, _ in calls), f"{label}: one rollout spec a run"
     groups, beyond, explained = [], 0, 0
     for _, x in calls:
         if groups and len(groups[-1]) < CHECK_GROUP and torch.equal(groups[-1][0][0], x[0]):
@@ -1756,11 +1839,205 @@ def phase_every_call(label: str, calls: list, kernel) -> None:
     for group in groups:
         xb = tuple(torch.stack(v) for v in zip(*group))
         out = tuple(torch.stack(v) for v in zip(*(kernel(spec, *x) for x in group)))
-        nb, ne = _closed_loop_check(f"every call {label}, {len(group)} calls", lambda *a: _point_plain_flat(spec, *a),
-                                    xb, out)
+        nb, ne = _closed_loop_check(f"every call {label}, {len(group)} calls", lambda *a: flat(spec, *a), xb, out,
+                                    bars=bars)
         beyond, explained = beyond + nb, explained + ne
     print(f"[every call {label}] {len(calls)} recorded calls in {len(groups)} groups held to the plain version in "
           f"{time.perf_counter() - t0:.1f} s: {beyond} samples beyond the bars, {explained} explained")
+
+
+def _expect_launches(label: str, counts: dict, want: dict) -> None:
+    """Every kernel's launch count of one run: ``want`` where named, else 0."""
+    print(f"[{label}] launches {counts}")
+    for name, n in counts.items():
+        assert n == want.get(name, 0), f"{label}: {name} launched {n} times, expected {want.get(name, 0)}"
+
+
+def phase_run_sim(card: str, chunked_ticks: dict) -> tuple:
+    """The port's ``run_tamp`` script (``main``: ``run_sim`` -> ``SimLoop.run``,
+    one replan+step a tick, the host task planner every tick) on the card,
+    gated, on the point main path and on ``-cn config_panda`` capped at
+    RUN_SIM_PANDA_TICKS: every launch count set to 0 just before each run
+    and read just after, K1 once and K2 once a replanned tick on the point,
+    K3 1 + refine_iters times a replanned tick on the panda (a tick whose
+    observation already meets the host planner's success check logs without
+    a replan, ``SimLoop.tick``); the point run must latch at the
+    chunked main path's tick (``chunked_ticks``), the panda run must latch
+    success.  Every K1 and K3 call is held to its plain version.  Returns
+    (launch counts summed, K2's recorded calls, the point run's median
+    in-process tick in ms)."""
+    from m3p2i_aip_tpu_torch.config.config_store import load_config
+    from m3p2i_aip_tpu_torch.ops import panda_rollout as pr
+    from m3p2i_aip_tpu_torch.ops import rollout as ro
+    from m3p2i_aip_tpu_torch.scripts import run_tamp
+
+    def report(label: str, log, chunked_tick) -> tuple:
+        """(replanned ticks, their median ms), printed with the rate."""
+        ticks = [t for t in log.replan_s if t > 0]
+        ms = float(np.median(ticks)) * 1e3
+        print(f"[{label}] {log.steps} ticks logged, {len(ticks)} replanned; success tick {log.success_step} per tick, "
+              f"{chunked_tick} chunked; stages {sorted(set(log.task))}; {len(ticks) / sum(ticks):.2f} Hz replan+step "
+              f"per tick, median tick {ms:.2f} ms ({card})")
+        return len(ticks), ms
+
+    _zero_launches()
+    with _recorded(ro, "point_rollout") as k1_calls, _recorded_weights("multimodal_weights") as k2_calls:
+        log = run_tamp.main(list(MAIN_PATH))
+    torch.cuda.synchronize()
+    counts = _read_launches()
+    replans, point_ms = report("run_sim point", log, chunked_ticks["point"])
+    _expect_launches("run_sim point", counts, {"rollout_launches": replans, "weights_launches": replans})
+    total = {"point_rollout": replans, "multimodal_weights": replans}
+    robot, box = np.asarray(log.robot_pos), np.asarray(log.box_pos)
+    assert np.isfinite(robot).all() and np.isfinite(box).all() and np.abs(box).max() <= 3.8
+    assert log.success_step is not None and log.success_step == chunked_ticks["point"], (
+        f"the per-tick point run latched at {log.success_step}, the chunked main path at {chunked_ticks['point']}"
+    )
+    phase_every_call("K1 run_sim point", k1_calls, ro.point_rollout)
+    k1_calls.clear()
+
+    _zero_launches()
+    with _recorded(pr, "panda_rollout") as k3_calls:
+        log = run_tamp.main(["-cn", "config_panda", f"n_steps={RUN_SIM_PANDA_TICKS}"])
+    torch.cuda.synchronize()
+    counts = _read_launches()
+    replans, _ = report("run_sim panda", log, chunked_ticks["panda"])
+    per_tick = 1 + int(load_config("config_panda").mppi.refine_iters)
+    _expect_launches("run_sim panda", counts, {"panda_rollout_launches": per_tick * replans})
+    total["panda_rollout"] = per_tick * replans
+    assert log.success_step is not None, f"the per-tick panda run did not latch success in {RUN_SIM_PANDA_TICKS} ticks"
+    phase_every_call("K3 run_sim panda", k3_calls, pr.panda_rollout, _panda_plain_flat)
+    return total, k2_calls, point_ms
+
+
+def _rpc_run(label: str, config_name: str, overrides: list, n_ticks: int, until=None) -> tuple:
+    """The two-terminal workflow on the card, in one process: the port's
+    ``rpc.Server`` serves ``ReactiveTAMPServer(cfg, device="cuda")`` from a
+    thread on an ephemeral localhost port, and the port's sim client
+    (``scripts/sim.py`` ``drive``, pacing off) ticks against it, every
+    launch count set to 0 just before and read just after.  A failure in
+    the server reaches the client as an error.  Returns (env, final state,
+    ticks, launch counts)."""
+    import threading
+
+    from m3p2i_aip_tpu_torch.config.config_store import load_config
+    from m3p2i_aip_tpu_torch.scripts.sim import drive
+    from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMPServer
+    from m3p2i_aip_tpu_torch.utils import rpc
+
+    server = rpc.Server(ReactiveTAMPServer(load_config(config_name, overrides), device="cuda"), "127.0.0.1", 0)
+    thread = threading.Thread(target=server.run, daemon=True)
+    thread.start()
+    client = rpc.Client().connect("127.0.0.1", server.port)
+    try:
+        _zero_launches()
+        env, state, rpc_s, tick_s = drive(load_config(config_name, overrides), client, n_ticks=n_ticks, pace=False,
+                                          device="cuda", until=until)
+        torch.cuda.synchronize()
+        counts = _read_launches()
+    finally:
+        client.close()
+        server.close()
+    thread.join(timeout=60)
+    assert not thread.is_alive(), f"{label}: the server thread did not stop"
+    print(f"[{label}] {len(rpc_s)} ticks over the socket: run_tamp round trip median {float(np.median(rpc_s)) * 1e3:.2f}"
+          f" ms (max {max(rpc_s) * 1e3:.2f}), the client's whole tick (with its real-env step) median "
+          f"{float(np.median(tick_s)) * 1e3:.2f} ms, {len(tick_s) / sum(tick_s):.2f} Hz")
+    return env, state, len(rpc_s), counts
+
+
+def phase_two_terminal(card: str, in_process_ms: float) -> dict:
+    """The reference's two terminals on the card: the point push to [-1, -1]
+    must bring the box within 0.1 m of the goal within RPC_PUSH_TICKS ticks
+    with K1 launched once a tick (every call held to the plain version);
+    then RPC_FAMILY_TICKS ticks of ``config_panda`` and ``config_albert``,
+    K3 and K4 launched 1 + refine_iters times a tick, every call held to its
+    plain version.  The round trip and the client's tick are printed beside
+    the in-process per-tick time.  Returns the launch counts summed."""
+    from m3p2i_aip_tpu_torch.config.config_store import load_config
+    from m3p2i_aip_tpu_torch.ops import albert_rollout as ar
+    from m3p2i_aip_tpu_torch.ops import panda_rollout as pr
+    from m3p2i_aip_tpu_torch.ops import rollout as ro
+
+    goal = torch.tensor([-1.0, -1.0], device="cuda")
+
+    def box_at_goal(env, state):
+        return float(torch.linalg.vector_norm(state.dyn_pos[env.box_slot] - goal)) <= 0.1
+
+    with _recorded(ro, "point_rollout") as k1_calls:
+        env, state, ticks, counts = _rpc_run("rpc point push", "config_point", RPC_PUSH, RPC_PUSH_TICKS, box_at_goal)
+    _expect_launches("rpc point push", counts, {"rollout_launches": ticks})
+    final = float(torch.linalg.vector_norm(state.dyn_pos[env.box_slot] - goal))
+    print(f"[rpc point push] box {final:.4f} m from the goal after {ticks} ticks; the in-process per-tick point main "
+          f"path's median tick {in_process_ms:.2f} ms ({card})")
+    assert final <= 0.1, f"the box is {final} m from the goal after {ticks} ticks over the socket"
+    phase_every_call("K1 rpc point push", k1_calls, ro.point_rollout)
+    total = {"point_rollout": ticks}
+    for label, config_name, mod, name, flat, bars in (
+        ("rpc panda", "config_panda", pr, "panda_rollout", _panda_plain_flat, PLANAR_BARS),
+        ("rpc albert", "config_albert", ar, "albert_rollout", _albert_plain_flat, ALBERT_BARS),
+    ):
+        with _recorded(mod, name) as calls:
+            env, state, ticks, counts = _rpc_run(label, config_name, [], RPC_FAMILY_TICKS)
+        per_tick = 1 + int(load_config(config_name).mppi.refine_iters)
+        _expect_launches(label, counts, {f"{name}_launches": per_tick * ticks})
+        assert ticks == RPC_FAMILY_TICKS, f"{label}: {ticks} ticks"
+        assert torch.isfinite(env.dof_state_view(state)).all(), f"{label}: non-finite state"
+        phase_every_call(f"{label[4:]} over RPC", calls, getattr(mod, name), flat, bars)
+        total[name] = len(calls)
+    return total
+
+
+def phase_checkpoint() -> dict:
+    """Checkpoint / resume on the card, point main path and ``config_panda``
+    per tick: CKPT_TICKS ticks, ``save_checkpoint``, a fresh loop
+    ``load_checkpoint``s it and ticks CKPT_TICKS more; its real state,
+    planner state, task and log rows must equal 2 x CKPT_TICKS uninterrupted
+    ticks bit for bit (the exploration noise on).  Returns the launch
+    counts summed."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from m3p2i_aip_tpu_torch.config.config_store import load_config
+    from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
+    from m3p2i_aip_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, config_name, overrides in (("point", "config_point", MAIN_PATH), ("panda", "config_panda", [])):
+            _zero_launches()
+            ref = SimLoop(load_config(config_name, overrides), device="cuda")
+            ref.warmup(50)
+            for i in range(CKPT_TICKS):
+                ref.tick(i)
+            path = save_checkpoint(os.path.join(tmp, label), ref.tamp, ref.state)
+            for i in range(CKPT_TICKS, 2 * CKPT_TICKS):
+                ref.tick(i)
+            loop = SimLoop(load_config(config_name, overrides), device="cuda")
+            loop.state = load_checkpoint(path, loop.tamp, loop.state, device="cuda")
+            for i in range(CKPT_TICKS, 2 * CKPT_TICKS):
+                loop.tick(i)
+            torch.cuda.synchronize()
+            ticks = 3 * CKPT_TICKS  # the uninterrupted run's and the resumed run's
+            mp = ref.tamp.motion_planner
+            if label == "point":
+                want = {"rollout_launches": ticks, "weights_launches": ticks}
+                total["point_rollout"], total["multimodal_weights"] = ticks, ticks
+            else:
+                want = {"panda_rollout_launches": (1 + mp.refine_iters) * ticks}
+                total["panda_rollout"] = (1 + mp.refine_iters) * ticks
+            _expect_launches(f"checkpoint {label}", _read_launches(), want)
+            differ = [f.name for a, b in ((ref.state, loop.state), (ref.tamp.mppi_state, loop.tamp.mppi_state))
+                      for f in dataclasses.fields(a) if not torch.equal(getattr(a, f.name), getattr(b, f.name))]
+            rows = ref.log.task[CKPT_TICKS:] == loop.log.task and all(
+                np.array_equal(np.asarray(getattr(ref.log, n)[CKPT_TICKS:]), np.asarray(getattr(loop.log, n)))
+                for n in ("robot_pos", "robot_vel", "box_pos"))
+            print(f"[checkpoint {label}] {CKPT_TICKS} + {CKPT_TICKS} ticks resumed from a checkpoint: fields that "
+                  f"differ from {2 * CKPT_TICKS} uninterrupted ticks {differ}, log rows equal {rows}, exploration "
+                  f"noise {mp.exploration_noise}, task {loop.tamp.task_planner.task}")
+            assert not differ and rows, f"checkpoint {label}: the resumed run differs from the uninterrupted one"
+    return total
 
 
 def phase_family_bench(card: str, config_name: str, label: str) -> float:
@@ -1806,11 +2083,12 @@ def main() -> None:
     # 5. / 6. the point main path
     with _recorded_weights("multimodal_weights") as k2_point:
         loop, launches, k1_calls = phase_main_path(load_config("config_point", MAIN_PATH))
+    point_chunked_tick = loop.log.success_step
     hz = phase_benchmark(loop, card)
     del loop
     # 7. K3 against its plain version; 8. / 9. / 10. the panda path
     stats["panda_rollout"], w_err, k3_parity = phase_panda_rollout()
-    launches["panda_rollout"], k3_calls = phase_panda_main()
+    launches["panda_rollout"], k3_calls, panda_chunked_tick = phase_panda_main()
     with _recorded_weights("multimodal_weights") as k2_shelf:
         w_err = max(w_err, phase_panda_shelf())
     k2 = stats["multimodal_weights"]
@@ -1867,8 +2145,16 @@ def main() -> None:
         launches["point_rollout"] += counts["rollout_launches"]
         launches["multimodal_weights"] += counts["weights_launches"]
     family_hz = {name: phase_family_bench(card, f"config_{name}", f"family-bench {name}") for name in ("heijn", "boxer")}
-    # 28. K1, K1b, K3, K3b, K4 and K4b on the closed loops' inputs (K1 on every call of
-    # step 25's and 26's runs), then K2 and K2b; 29. the scaling sweeps
+    # 28. - 30. the README's entry points: the run_tamp script per tick, the two terminals over a
+    # socket, checkpoint / resume
+    counts, k2_runs["point per-tick"], in_process_ms = phase_run_sim(
+        card, {"point": point_chunked_tick, "panda": panda_chunked_tick}
+    )
+    for extra in (counts, phase_two_terminal(card, in_process_ms), phase_checkpoint()):
+        for name, n in extra.items():
+            launches[name] += n
+    # 31. K1, K1b, K3, K3b, K4 and K4b on the closed loops' inputs (K1 on every call of
+    # step 25's and 26's runs), then K2 and K2b; 32. the scaling sweeps
     slowest = {}
     for name, label, calls, kernel, plain, ops, single in (
         ("point_rollout", "K1", k1_calls, ro.point_rollout, ro.point_rollout_batched_plain, _point_rollout_ops, None),

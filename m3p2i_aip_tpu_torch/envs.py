@@ -1,10 +1,13 @@
 """Environment construction for the point family, the panda and the albert,
 in torch.
 
-Port of ``m3p2i_aip_tpu/envs.py`` (without the Isaac-layout dof/root views): the
-per-actor YAMLs are packed into tensors on one device once, and the scene is
-exposed as a bundle of functions closed over those params.  The K rollouts
-and the real system share one ``step`` (a leading K axis vs none).
+Port of ``m3p2i_aip_tpu/envs.py``: the per-actor YAMLs are packed into
+tensors on one device once, and the scene is exposed as a bundle of functions
+closed over those params.  The K rollouts and the real system share one
+``step`` (a leading K axis vs none).  The Isaac-layout views (an interleaved
+dof state, a root state [A, 13]) and their loaders carry one real state over
+the two-terminal RPC boundary (``tamp/reactive_tamp.py``
+``ReactiveTAMPServer``).
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ import numpy as np
 import torch
 
 from m3p2i_aip_tpu_torch.models import albert, panda_env, panda_fk, point_env
-from m3p2i_aip_tpu_torch.ops.quat import mat_to_quat
+from m3p2i_aip_tpu_torch.ops.quat import mat_to_quat, quat_from_yaw
 from m3p2i_aip_tpu_torch.sim.sim_config import load_env_cfgs
 
 _POINT_ENVS = ("point_env", "heijn_env", "boxer_env")
@@ -28,9 +31,14 @@ class Env:
     env_type: str
     params: Any
     nu: int  # action dimension
+    nx: int  # interleaved dof-state dimension
     step: Callable  # (state, u, ext) -> state
     init_state: Callable  # () -> state
     zero_ext: Callable  # (batch=()) -> ext
+    dof_state_view: Callable  # (state) -> [nx]
+    load_dof_state: Callable  # (state, dof) -> state
+    root_state_view: Callable  # (state) -> [A, 13]
+    load_root_state: Callable  # (state, root) -> state
     view: Callable  # (state) -> dict for the host-side task planner (syncs)
     view_vec: Callable  # (state) -> packed [V] device tensor (no sync)
     view_unpack: Callable  # ([V] host array) -> same dict as `view`
@@ -68,6 +76,19 @@ def make_env(cfg, device="cuda") -> Env:
     return _make_point_env(cfg, actors, device)
 
 
+def dof_state_view(state):
+    """The Isaac-layout dof state of every family: ``q`` and ``qd``
+    interleaved, [q0, qd0, q1, qd1, ...] (``point_env.py:576``,
+    ``panda_env.py:446``, ``albert.py:199``)."""
+    return torch.stack([state.q, state.qd], dim=-1).flatten(-2)
+
+
+def load_dof_state(state, dof):
+    """``q`` and ``qd`` of ``state`` from an interleaved dof state."""
+    pairs = dof.unflatten(-1, (state.q.shape[-1], 2))
+    return replace(state, q=pairs[..., 0], qd=pairs[..., 1])
+
+
 def _domain_rng(cfg, actors):
     """Seeded RNG when any actor requests friction/size randomization."""
     wants = any(a.noise_percentage_friction or a.noise_sigma_size for a in actors)
@@ -94,7 +115,7 @@ def _make_point_env(cfg, actors, device) -> Env:
                 state.q[..., :2],
                 state.qd[..., :2],
                 state.dyn_pos[..., box_slot, :],
-                point_env.quat_from_yaw(state.dyn_yaw[..., box_slot]),
+                quat_from_yaw(state.dyn_yaw[..., box_slot]),
                 cf[..., None],
             ],
             dim=-1,
@@ -117,9 +138,14 @@ def _make_point_env(cfg, actors, device) -> Env:
         env_type="point_env",  # planner-facing family; the robot varies via params
         params=params,
         nu=point_env.robot_nu(params),
+        nx=2 * point_env.robot_nq(params),
         step=lambda s, u, e: point_env.step(params, s, u, e),
         init_state=lambda: point_env.init_state(params),
         zero_ext=lambda batch=(): point_env.zero_ext(params, batch),
+        dof_state_view=dof_state_view,
+        load_dof_state=load_dof_state,
+        root_state_view=lambda s: point_env.root_state_view(params, s),
+        load_root_state=lambda s, r: point_env.load_root_state(params, s, r),
         view=view,
         view_vec=view_vec,
         view_unpack=view_unpack,
@@ -171,9 +197,14 @@ def _make_panda_env(cfg, actors, device) -> Env:
         env_type="panda_env",
         params=params,
         nu=9,
+        nx=18,
         step=lambda s, u, e: panda_env.step(params, s, u, e),
         init_state=lambda: panda_env.init_state(params),
         zero_ext=lambda batch=(): panda_env.zero_ext(params, batch),
+        dof_state_view=dof_state_view,
+        load_dof_state=load_dof_state,
+        root_state_view=lambda s: panda_env.root_state_view(params, s),
+        load_root_state=lambda s, r: panda_env.load_root_state(params, s, r),
         view=view,
         view_vec=view_vec,
         view_unpack=view_unpack,
@@ -206,13 +237,23 @@ def _make_albert_env(cfg, actors, device) -> Env:
     def view(state):
         return view_unpack(view_vec(state).cpu().numpy())
 
+    # the base moves in the dofs and the box is not an Isaac actor here: one
+    # constant identity root, and loading a root changes nothing
+    root = torch.zeros(1, 13, dtype=torch.float32, device=params.device)
+    root[0, 6] = 1.0
+
     return Env(
         env_type="albert_env",
         params=params,
         nu=13,
+        nx=24,
         step=lambda s, u, e: albert.step(params, s, u),
         init_state=lambda: albert.init_state(params),
         zero_ext=lambda batch=(): albert.zero_ext(batch, params.device),
+        dof_state_view=dof_state_view,
+        load_dof_state=load_dof_state,
+        root_state_view=lambda s: root,
+        load_root_state=lambda s, r: s,
         view=view,
         view_vec=view_vec,
         view_unpack=view_unpack,
@@ -228,6 +269,17 @@ def update_dyn_obs_device(env: Env, state, i: int, period: int = 100):
         return state
     phase = i % period
     sign = 1.0 if (period // 4 < phase < 3 * period // 4) else -1.0
+    return replace(state, dyn_pos=state.dyn_pos + sign * env.dyn_obs_step)
+
+
+def update_dyn_obs(env: Env, state, i: int, period: int = 100):
+    """The host twin of :func:`update_dyn_obs_device`
+    (``m3p2i_aip_tpu/envs.py:291``, the sim client's per-tick call): the
+    same square wave, its half-period edges compared in float as the
+    reference compares them."""
+    if env.dyn_obs_slot < 0:
+        return state
+    sign = 1.0 if (period / 4 < i % period < 3 * period / 4) else -1.0
     return replace(state, dyn_pos=state.dyn_pos + sign * env.dyn_obs_step)
 
 

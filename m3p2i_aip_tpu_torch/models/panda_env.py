@@ -359,3 +359,23 @@ def step(params: PandaEnvParams, state: PandaEnvState, u_target: torch.Tensor, e
         attach_rot=attach_rot,
         contact_force=torch.stack(rows, dim=-2) / p.substeps,
     )
+
+
+def root_state_view(params: PandaEnvParams, state: PandaEnvState) -> torch.Tensor:
+    """The Isaac-style root-state tensor [A, 13] of one state
+    (``panda_env.py:423``): the dynamic bodies' position, orientation
+    quaternion, linear and angular velocity; every other actor keeps its
+    initial root."""
+    dyn = list(params.dyn_actor_idx)
+    root = params.init_root.clone()
+    root[dyn] = torch.cat([state.body_pos, state.body_quat, state.body_vel, state.body_om], dim=-1)
+    return root
+
+
+def load_root_state(params: PandaEnvParams, state: PandaEnvState, root: torch.Tensor) -> PandaEnvState:
+    """The dynamic bodies of ``state`` from a root-state tensor, the inverse
+    of :func:`root_state_view` (``panda_env.py:433``)."""
+    rows = root[list(params.dyn_actor_idx)]
+    return dataclasses.replace(
+        state, body_pos=rows[:, 0:3], body_quat=rows[:, 3:7], body_vel=rows[:, 7:10], body_om=rows[:, 10:13]
+    )

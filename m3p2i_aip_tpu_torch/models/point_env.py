@@ -19,6 +19,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from m3p2i_aip_tpu_torch.ops import quat
 from m3p2i_aip_tpu_torch.ops.quat_np import yaw_from_quat
 from m3p2i_aip_tpu_torch.sim import pbd2d
 from m3p2i_aip_tpu_torch.sim.sim_config import ActorCfg, SimConfig
@@ -465,9 +466,30 @@ def step(
     )
 
 
-def quat_from_yaw(yaw: torch.Tensor) -> torch.Tensor:
-    """(x, y, z, w) quaternion of a rotation by ``yaw`` about +z."""
-    half = 0.5 * yaw
-    z = torch.sin(half)
-    zero = torch.zeros_like(z)
-    return torch.stack([zero, zero, z, torch.cos(half)], dim=-1)
+def root_state_view(params: PointEnvParams, state: PointEnvState) -> torch.Tensor:
+    """The Isaac-style root-state tensor [A, 13] of one state (position,
+    quaternion, linear and angular velocity per actor;
+    ``point_env.py:532``).  Fixed actors and the robot keep their initial
+    root: the robot moves in its dofs."""
+    dyn = list(params.dyn_actor_idx)
+    zeros = torch.zeros_like(params.dyn_z)[:, None]
+    root = params.init_root.clone()
+    root[dyn, 0:3] = torch.cat([state.dyn_pos, params.dyn_z[:, None]], dim=-1)
+    root[dyn, 3:7] = quat.quat_from_yaw(state.dyn_yaw)
+    root[dyn, 7:10] = torch.cat([state.dyn_vel, zeros], dim=-1)
+    root[dyn, 10:13] = torch.cat([zeros, zeros, state.dyn_om[:, None]], dim=-1)
+    return root
+
+
+def load_root_state(params: PointEnvParams, state: PointEnvState, root: torch.Tensor) -> PointEnvState:
+    """The dynamic bodies of ``state`` from a root-state tensor: the inverse
+    of :func:`root_state_view` (``point_env.py:558``), up to the float32
+    yaw -> quaternion -> yaw round trip."""
+    rows = root[list(params.dyn_actor_idx)]
+    return dataclasses.replace(
+        state,
+        dyn_pos=rows[:, 0:2],
+        dyn_yaw=quat.yaw_from_quat(rows[:, 3:7]),
+        dyn_vel=rows[:, 7:9],
+        dyn_om=rows[:, 12],
+    )

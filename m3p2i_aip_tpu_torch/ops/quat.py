@@ -56,6 +56,22 @@ def quat_inv_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return quat_rotate(quat_conj(q), v)
 
 
+def quat_from_yaw(yaw: torch.Tensor) -> torch.Tensor:
+    """(x, y, z, w) quaternion of a rotation by ``yaw`` about +z
+    (``quat.py:75``).  yaw [...] -> [..., 4]."""
+    half = 0.5 * yaw
+    z = torch.sin(half)
+    zero = torch.zeros_like(z)
+    return torch.stack([zero, zero, z, torch.cos(half)], dim=-1)
+
+
+def yaw_from_quat(q: torch.Tensor) -> torch.Tensor:
+    """Yaw (rotation about z) of an (x, y, z, w) quaternion (``quat.py:84``).
+    The yaw -> quaternion -> yaw round trip is not exact in float32."""
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.atan2(2.0 * (w * z + x * y), 1.0 - 2.0 * (y * y + z * z))
+
+
 def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True), min=eps)
 

@@ -1,7 +1,9 @@
 """REACTIVE_TAMP orchestrator: task planner + objective + M3P2I.
 
-Port of ``m3p2i_aip_tpu/tamp/reactive_tamp.py`` (without the RPC server).
-One point-family or albert tick is dyn-obs motion, a K-sample replan, the
+Port of ``m3p2i_aip_tpu/tamp/reactive_tamp.py``.  ``run_tamp`` is the
+reference's per-tick API (sync the plan, replan from one real state, return
+the first action); ``ReactiveTAMPServer`` speaks it over the two-terminal
+RPC boundary with Isaac-layout numpy tensors.  One point-family or albert tick is dyn-obs motion, a K-sample replan, the
 real-env suction decision and the real-env step, all as tensor work on one
 device (the albert has no dyn-obs and no suction); a chunk
 runs ``length`` ticks with no host sync inside and returns the per-tick
@@ -112,6 +114,9 @@ class ReactiveTAMP:
             cfg, rollout, fric_noise=noise if noise is not None and np.any(noise) else None, device=self.device
         )
         self.mppi_state = self.motion_planner.init_state()
+        self.suction_active = int(cfg.suction_active)
+        self.top_trajs: Optional[torch.Tensor] = None  # [20, T, 2] of the last replan, on the device
+        self._zero_action = torch.zeros(self.env.nu, dtype=torch.float32, device=self.device)
         # on-device success gate for chunks (False = benchmark mode: every
         # tick replans regardless of goal distance)
         self.device_gate = True
@@ -119,6 +124,32 @@ class ReactiveTAMP:
         self._tp_cached: Optional[TaskParams] = None
 
     # ------------------------------------------------------------------ api
+    def run_tamp(self, real_state) -> torch.Tensor:
+        """One replanning tick from one real state: sync the plan, then the
+        first action [nu] of the optimized sequence (reactive_tamp.py:200);
+        zeros once the task has succeeded."""
+        task_params = self.tamp_interface(real_state)
+        if self.task_success:
+            return self._zero_action
+        action_seq, self.mppi_state, aux = self.motion_planner.command(self.mppi_state, real_state, task_params)
+        self.top_trajs = aux["top_trajs"]
+        return action_seq[0]
+
+    def run_tamp_sequence(self, real_state) -> torch.Tensor:
+        """:meth:`run_tamp`, returning the first ``u_per_command`` actions
+        [u_per_command, nu] (reactive_tamp.py:217)."""
+        task_params = self.tamp_interface(real_state)
+        u = self.cfg.mppi.u_per_command
+        if self.task_success:
+            return torch.zeros(u, self.env.nu, dtype=torch.float32, device=self.device)
+        action_seq, self.mppi_state, aux = self.motion_planner.command(self.mppi_state, real_state, task_params)
+        self.top_trajs = aux["top_trajs"]
+        return action_seq[:u]
+
+    def tamp_interface(self, real_state) -> TaskParams:
+        """:meth:`tamp_interface_view` on a real state (one device->host read)."""
+        return self.tamp_interface_view(self.env.view(real_state))
+
     def tamp_interface_view(self, view: dict) -> TaskParams:
         """Update plan -> gripper -> success on a host observation dict, and
         return the (cached) device TaskParams.  Parity: tamp_interface
@@ -190,8 +221,12 @@ class ReactiveTAMP:
         return action, mppi_state, real_state, aux
 
     def tick_fused(self, mppi_state, real_state, task: TaskParams, i: int):
-        """One tick; returns (action, mppi_state, real_state, view_vec)."""
-        action, ms, rs, _ = self._tick(mppi_state, real_state, task, i)
+        """One tick; returns (action, mppi_state, real_state, view_vec).  The
+        replan's top trajectories stay on the device in ``top_trajs``
+        (reactive_tamp.py:343): nothing is read back unless a caller
+        renders them."""
+        action, ms, rs, aux = self._tick(mppi_state, real_state, task, i)
+        self.top_trajs = aux["top_trajs"]
         return action, ms, rs, self.env.view_vec(rs)
 
     def _run_chunk_impl(self, mppi_state, real_state, task, i0: int, length: int, gate: bool = True, done0=None):
@@ -322,3 +357,41 @@ class ReactiveTAMP:
         stage = torch.as_tensor(stage, dtype=torch.int32, device=self.device)
         zs = torch.as_tensor(zs, dtype=torch.float32, device=self.device)
         return self._run_chunk_panda_impl(mppi_state, real_state, stage, zs, length)
+
+    # -------------------------------------------------------------- queries
+    def get_trajs(self) -> Optional[torch.Tensor]:
+        """The last replan's top-20 rollout trajectories (reactive_tamp.py:596)."""
+        return self.top_trajs
+
+    def get_suction(self) -> int:
+        """The pull preference of the current weights, read after the
+        command (reactive_tamp.py:600); the fused tick's suction reads the
+        weights from before it, as the JAX package does."""
+        self.suction_active = self.motion_planner.get_pull_preference(self.mppi_state)
+        return int(self.suction_active)
+
+
+class ReactiveTAMPServer:
+    """The reference's RPC surface (``run_tamp(dof_state, root_state)`` with
+    Isaac-layout tensors, ``get_suction``, ``get_trajs``;
+    reactive_tamp.py:609) over an in-process :class:`ReactiveTAMP` on
+    ``device``.  Serve it with ``m3p2i_aip_tpu_torch.utils.rpc.Server``."""
+
+    def __init__(self, cfg, device="cuda") -> None:
+        self.tamp = ReactiveTAMP(cfg, device=device)
+        self._state = self.tamp.env.init_state()
+
+    def run_tamp(self, dof_state, root_state) -> np.ndarray:
+        """Load the client's state into this server's env state, replan, and
+        return the action as numpy."""
+        env, dev = self.tamp.env, self.tamp.device
+        state = env.load_dof_state(self._state, torch.as_tensor(dof_state, dtype=torch.float32, device=dev))
+        self._state = env.load_root_state(state, torch.as_tensor(root_state, dtype=torch.float32, device=dev))
+        return self.tamp.run_tamp(self._state).cpu().numpy()
+
+    def get_trajs(self) -> Optional[np.ndarray]:
+        trajs = self.tamp.get_trajs()
+        return None if trajs is None else trajs.cpu().numpy()
+
+    def get_suction(self) -> int:
+        return self.tamp.get_suction()

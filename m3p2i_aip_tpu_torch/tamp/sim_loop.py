@@ -1,9 +1,14 @@
 """Real-system loop: the single "actuated" env driven by the TAMP planner.
 
 Port of ``m3p2i_aip_tpu/tamp/sim_loop.py`` (point family, panda and albert,
-serial chunks).  The same engine runs the rollouts and the real env, in one
-process.  The chunked loop syncs with the device once per chunk: one
-transfer brings back the chunk's per-tick views with the latch scalars.
+per tick and in serial chunks).  The same engine runs the rollouts and the
+real env, in one process.  ``run`` ticks one replan+step at a time, with one
+device->host transfer a tick (the view) and the host task planner on every
+tick (the panda's active-inference planner too), optionally paced to real
+time and open to live keyboard shoves; ``run_sim`` is the one-process
+replacement of the reference's two terminals.  The chunked loop syncs with
+the device once per chunk: one transfer brings back the chunk's per-tick
+views with the latch scalars.
 """
 from __future__ import annotations
 
@@ -14,10 +19,32 @@ from typing import List, Optional
 
 import torch
 
+from m3p2i_aip_tpu_torch.envs import Env, command_world_vel
 from m3p2i_aip_tpu_torch.models.panda_env import DYN_NAMES
 from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMP
+from m3p2i_aip_tpu_torch.utils import skill_utils
 
 _STAGE_TASK = ("reach", "pick", "place")
+
+
+def real_suction_ext(cfg, env: Env, state, action):
+    """The real env's suction forces (threshold 1.5, not the rollouts' 1.8:
+    a reference quirk), or zero forces (sim_loop.py:22): applied only on a
+    point-family scene with a box, for a pull-family task with suction
+    granted, the robot within 0.6 m of the box and the commanded velocity
+    pointing away from it.  Host-side: it reads the state back."""
+    ext = env.zero_ext()
+    if env.env_type != "point_env" or "box" not in env.params.actor_names:
+        return ext
+    box_pos = state.dyn_pos[env.box_slot]
+    robot_pos = state.q[:2]  # the 3-dof bases carry their yaw in q[2]
+    cmd_vel = command_world_vel(env.params, state.q, action)
+    if not skill_utils.check_suction_condition(cfg.task, bool(cfg.suction_active), robot_pos, box_pos, cmd_vel):
+        return ext
+    f_box, f_robot = skill_utils.calculate_suction(box_pos, robot_pos, float(cfg.kp_suction), threshold=1.5)
+    dyn = ext.dyn.clone()
+    dyn[env.box_slot] = f_box
+    return dataclasses.replace(ext, robot=f_robot, dyn=dyn)
 
 
 @dataclass
@@ -103,6 +130,50 @@ class SimLoop:
         # crossing tick itself (the chunked latch uses the same convention)
         self.tamp.task_success = self.tamp.task_planner.check_task_success(self._view)
         return self._record(i, self._view, t1 - t0, t1 - t0)
+
+    def run(self, n_steps: int = 1000, realtime: bool = False, verbose: bool = False, interactive: bool = False):
+        """Tick until success or ``n_steps`` (sim_loop.py:154; sim.py:36-58).
+
+        ``realtime`` paces each tick to the control period ``cfg.sim.dt``
+        (``verbose`` prints the achieved rate).  ``interactive`` polls the
+        terminal each tick so a human can disturb the scene while the
+        planner runs: i/j/k/l shove the box (point family) or cubeA (panda),
+        v toggles a live ASCII view with the planned top trajectories, q
+        quits.  Off a tty it is a plain run.
+        """
+        from m3p2i_aip_tpu_torch.utils.teleop import SHOVE_KEYS, KeyboardTeleop
+
+        if self.env.env_type == "panda_env":
+            shove_target = "cubeA"
+        else:  # the albert scene may ship no box
+            shove_target = "box" if "box" in self.env.params.actor_names else None
+        show_view = False
+        t = time.time()
+        with KeyboardTeleop(enabled=interactive) as keys:
+            if interactive and keys.active:
+                shove = f"i/j/k/l shove the {shove_target}, " if shove_target is not None else ""
+                print(f"interactive: {shove}v toggles the live view, q quits")
+            for i in range(n_steps):
+                if interactive:
+                    for key in keys.poll():
+                        if key == "q":
+                            return self.log
+                        if key == "v":
+                            show_view = not show_view
+                        elif key in SHOVE_KEYS and shove_target is not None:
+                            self.perturb_body(shove_target, list(SHOVE_KEYS[key]) + [0.0])
+                done = self.tick(i)
+                if interactive and show_view and self.env.env_type == "point_env":
+                    from m3p2i_aip_tpu_torch.utils.render import render_point_env
+
+                    trajs = self.tamp.get_trajs()
+                    trajs = None if trajs is None else trajs.cpu().numpy()
+                    print("\x1b[2J\x1b[H" + render_point_env(self.env, self.state, trajs=trajs))
+                if realtime:
+                    t = skill_utils.time_tracking(t, self.cfg.sim.dt, verbose=verbose)
+                if done:
+                    break
+        return self.log
 
     def run_chunked(self, n_steps: int, chunk: int = 10, pipelined: bool = False) -> TickLog:
         """``chunk`` full replan+step ticks per device round trip.
@@ -236,3 +307,13 @@ class SimLoop:
             pos[slot] += torch.as_tensor(dpos[:2], dtype=torch.float32, device=pos.device)
             self.state = dataclasses.replace(self.state, dyn_pos=pos)
         self._view = self.env.view(self.state)
+
+
+def run_sim(cfg, n_steps: Optional[int] = None, warmup: int = 150, device="cuda", **kwargs) -> TickLog:
+    """Build everything from ``cfg`` on ``device``, settle the scene and
+    tick until success or ``n_steps`` (``cfg.n_steps`` if None): the
+    one-process reactive TAMP (sim_loop.py:435).  ``kwargs`` go to
+    :meth:`SimLoop.run`.  Returns the TickLog."""
+    loop = SimLoop(cfg, device=device)
+    loop.warmup(warmup)
+    return loop.run(n_steps or cfg.n_steps, **kwargs)

@@ -1,10 +1,12 @@
-"""Suction force model and its real-env gate, in torch.
+"""Suction force model, its real-env gate and the real-time pacing, in torch.
 
-Port of ``m3p2i_aip_tpu/utils/skill_utils.py:14-60`` (the reference's
-``skill_utils.calculate_suction:59-94`` and
-``check_suction_condition:47-56``).
+Port of ``m3p2i_aip_tpu/utils/skill_utils.py:14-60, :88`` (the reference's
+``skill_utils.calculate_suction:59-94``, ``check_suction_condition:47-56``
+and ``time_tracking:25-33``).
 """
 from __future__ import annotations
+
+import time
 
 import torch
 
@@ -44,3 +46,18 @@ def check_suction_condition(task: str, suction_active: bool, robot_pos, box_pos,
     align = float(torch.sum(action[..., :2] * dir_rb))
     dist = float(torch.linalg.vector_norm(dir_rb))
     return dist < 0.6 and align > 0
+
+
+def time_tracking(t: float, dt: float, verbose: bool = True) -> float:
+    """Soft real-time pacing of an interactive loop (skill_utils.py:88):
+    sleep off what is left of the control period ``dt`` since ``t``, print
+    the achieved rate and real-time factor, and return the new tick start."""
+    actual_dt = time.time() - t
+    rt = dt / max(actual_dt, 1e-9)
+    if rt > 1.0:
+        time.sleep(max(0.0, dt - actual_dt))
+        actual_dt = time.time() - t
+        rt = dt / max(actual_dt, 1e-9)
+    if verbose:
+        print("FPS: {:.3f}".format(1 / max(actual_dt, 1e-9)), "RT: {:.3f}".format(rt))
+    return time.time()

@@ -23,6 +23,11 @@ from m3p2i_aip_tpu_torch.utils.tree import tree_map
 B, K, T = 2, 8, 3
 
 
+def _with_spec(plain, spec):
+    plain.spec = spec
+    return plain
+
+
 def _point():
     """(plain, inputs): the batched plain point rollout and two seeds'
     inputs from the push_pull start with their own random actions."""
@@ -33,7 +38,7 @@ def _point():
     row = ro.rollout_inputs(sk, make_task_params("push_pull", [-3.75, -3.75], device="cpu"))
     acts = np.random.default_rng(0).uniform(-3, 3, size=(B, K, T, env.nu)).astype(np.float32)
     inputs = chip_smoke._stack_rows([row] * B, torch.as_tensor(acts))
-    return (lambda *x: ro.point_rollout_batched_plain(spec, *x)), inputs
+    return _with_spec(lambda *x: ro.point_rollout_batched_plain(spec, *x), spec), inputs
 
 
 def _panda():
@@ -46,7 +51,7 @@ def _panda():
     row = pr.rollout_inputs(sk, make_task_params("pick", pr.PARITY_GOAL, "none", 0.0, device="cpu"))
     acts = np.random.default_rng(1).uniform(-1.5, 1.5, size=(B, K, T, 9)).astype(np.float32)
     inputs = chip_smoke._stack_rows([row] * B, torch.as_tensor(acts))
-    return (lambda *x: pr.panda_rollout_batched_plain(spec, *x)), inputs
+    return _with_spec(lambda *x: pr.panda_rollout_batched_plain(spec, *x), spec), inputs
 
 
 def _albert():
@@ -61,11 +66,27 @@ def _albert():
     acts = np.random.default_rng(2).uniform(-1.5, 1.5, size=(B, K, T, 13)).astype(np.float32)
     acts[..., 11:13] *= 8.0
     inputs = chip_smoke._stack_rows([row] * B, torch.as_tensor(acts))
-    return (lambda *x: ar.albert_rollout_batched_plain(spec, *x)), inputs
+    return _with_spec(lambda *x: ar.albert_rollout_batched_plain(spec, *x), spec), inputs
 
 
 FAMILIES = {"point": _point, "panda": _panda, "albert": _albert}
 BARS = {"point": chip_smoke.PLANAR_BARS, "panda": chip_smoke.PLANAR_BARS, "albert": chip_smoke.ALBERT_BARS}
+FLAT = {"point": chip_smoke._point_plain_flat, "panda": chip_smoke._panda_plain_flat,
+        "albert": chip_smoke._albert_plain_flat}
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_flat_plain_equals_the_plain_version_per_call(family):
+    """``phase_every_call`` lays B recorded calls of one task side by side in
+    one plain rollout; on the CPU that equals the plain version run per
+    call bit for bit, for calls from different start states."""
+    plain, (task_vec, state0, *rest) = FAMILIES[family]()
+    state0 = state0.clone()
+    state0[1, :2] += 0.05  # call 1 from another start
+    inputs = (task_vec, state0, *rest)
+    for got, ref in zip(FLAT[family](plain.spec, *inputs), plain(*inputs)):
+        assert torch.equal(got, ref)
+    assert not torch.equal(plain(*inputs)[1][0], plain(*inputs)[1][1])
 
 
 @pytest.mark.parametrize("family", list(FAMILIES))

@@ -21,6 +21,8 @@ for name in names:
 for name in (
     "models.albert", "ops.albert_rollout", "models.panda_env", "ops.panda_rollout", "ops.rollout",
     "tamp.batch_loop", "analysis.run_logger", "analysis.stats", "scripts.run_experiments",
+    "utils.rpc", "utils.data_transfer", "utils.teleop", "utils.render", "utils.checkpoint", "utils.profiling",
+    "scripts.run_tamp", "scripts.reactive_tamp", "scripts.sim",
 ):
     assert pkg.__name__ + "." + name in names, name
 leaked = sorted(m for m in sys.modules if m == "m3p2i_aip_tpu" or m.startswith("m3p2i_aip_tpu."))
