@@ -55,6 +55,21 @@ paths through ``SimLoop.run_chunked``:
   uninterrupted ticks.  Every launch count is set to 0 just before each of
   these runs and read just after, and every K1, K3 and K4 call of them is
   held to its plain version (their K2 calls join K2's closed-loop phase).
+  F3: the per-tick and chunked panda runs recorded tick by tick from one
+  scene must agree bit for bit until the device gate first plans the pick
+  and part there, the host planner switching one tick later;
+* pipelined chunks (``run_chunked(pipelined=True)``, one chunk in flight) on
+  the main path: gated, the same latch and bit-equal logs as serial chunks,
+  no host sync in any enqueue (``torch.cuda.set_sync_debug_mode``), K1 and
+  K2 once per dispatched tick; the benchmark-mode rates of both in turns,
+  each profiled (device idle share);
+* gradient refinement, the round-4 panda setting (``mppi.grad_refine_steps=8
+  mppi.refine_iters=0``, multi-modal) at K=200 x T=12: finite means every
+  tick, K3 and K2 once a tick, the tick's time and the autograd chain's
+  share of it, and one tick's refinement repeated on the CPU from the same
+  inputs within 1e-4;
+* the URDF FK cross-check: the vendored franka and albert URDFs' chains
+  (``utils/urdf.py``) against ``panda_fk.fk`` and ``albert.fk`` on the card.
 
 The inputs the point, panda and albert main paths and their n=20 batches
 gave K1, K1b, K3, K3b, K4 and K4b are recorded, each timed, and the slowest
@@ -170,6 +185,14 @@ RPC_FAMILY_TICKS = 20  # the panda and albert ticks over the socket
 CKPT_TICKS = 20  # ticks before and after the checkpoint
 LOOP_CHUNK = 10  # the n=20 campaigns' chunked=10 (scripts/run_quality_campaign_r3.sh)
 CHECK_GROUP = 100  # recorded K1 calls held to the batched plain version at once
+PIPELINE_CHUNK = 10  # the gated serial / pipelined main-path runs' chunk
+PIPELINE_TIMED = 3  # the benchmark-mode rates in turns: 1 warm-up chunk, then this many of BENCH_CHUNK
+PROFILE_TICKS = 10  # each mode's profiled ticks, in two chunks (a point tick is ~4,700 device kernels)
+GRAD_REFINE = ["multi_modal=True", "mppi.grad_refine_steps=8", "mppi.grad_refine_unroll=True", "mppi.refine_iters=0"]
+GRAD_REFINE_TICKS = 6  # ticks of the round-4 panda setting (config/mppi/panda.yaml:25-32)
+GRAD_REFINE_ATOL = 1e-4  # its refined means on the card against the port on the CPU, one recorded tick
+URDF_SAMPLES = 1024  # joint vectors of the URDF cross-check
+URDF_ATOL = 1e-5  # tests/test_urdf.py's bar
 # four point tasks for the batched checks: (name, goal)
 POINT_TASKS = [("push_pull", [-3.75, -3.75]), ("pull", [1.0, 3.0]), ("push", [-1.0, -1.0]), ("navigation", [1.5, 1.0])]
 
@@ -1907,7 +1930,35 @@ def phase_run_sim(card: str, chunked_ticks: dict) -> tuple:
     total["panda_rollout"] = per_tick * replans
     assert log.success_step is not None, f"the per-tick panda run did not latch success in {RUN_SIM_PANDA_TICKS} ticks"
     phase_every_call("K3 run_sim panda", k3_calls, pr.panda_rollout, _panda_plain_flat)
+    phase_f3(card)
     return total, k2_calls, point_ms
+
+
+def phase_f3(card: str) -> None:
+    """F3 (ROADMAP Queue 3): the per-tick and the chunked panda runs from one
+    warmed-up scene and generator state, recorded tick by tick
+    (``scripts/trace_tick_paths.py``).  They must agree bit for bit (task,
+    means, real state) on every tick before the chunked run's device gate
+    first plans a pick, and part there: on that tick the per-tick run's host
+    planner still plans the reach and plans the pick one tick later (the
+    active-inference agent's one-observation lag, the JAX package's too).
+    Both must latch success; the latch ticks are printed, not compared: past
+    the switch the two runs are different trajectories."""
+    from m3p2i_aip_tpu_torch.config.config_store import load_config
+    from m3p2i_aip_tpu_torch.scripts import trace_tick_paths as ttp
+
+    per_tick, per_tick_success = ttp.record_per_tick(load_config("config_panda"), RUN_SIM_PANDA_TICKS, 50, "cuda")
+    chunked, chunked_success = ttp.record_chunked(load_config("config_panda"), RUN_SIM_PANDA_TICKS, 50, "cuda")
+    switch = next(i for i, row in enumerate(chunked) if row["task_id"] == 5)
+    first = ttp.first_differences(per_tick, chunked)
+    part = min(t for t, _ in first.values())
+    print(f"[F3] per-tick and chunked panda runs bit-equal for {part} ticks; the device gate plans the pick at tick "
+          f"{switch}, the host planner at tick {switch + 1}; fields parting there: "
+          f"{sorted(k for k, (t, _) in first.items() if t == part)}; success tick per tick {per_tick_success}, "
+          f"chunked {chunked_success} ({card})")
+    assert part == switch, f"F3: the runs part at tick {part}, the device gate plans the pick at tick {switch}"
+    assert per_tick[switch]["task_id"] == 4 and per_tick[switch + 1]["task_id"] == 5, "F3: the host switch is not one tick late"
+    assert per_tick_success is not None and chunked_success is not None, "F3: a run did not latch success"
 
 
 def _rpc_run(label: str, config_name: str, overrides: list, n_ticks: int, until=None) -> tuple:
@@ -2052,6 +2103,186 @@ def phase_family_bench(card: str, config_name: str, label: str) -> float:
     return phase_benchmark(loop, card, label)
 
 
+def phase_pipelined(card: str) -> tuple:
+    """The main path with one chunk in flight (``run_chunked(pipelined=True)``)
+    against serial chunks: gated, in chunks of PIPELINE_CHUNK, the two must
+    latch at the same tick with bit-equal logs, K1 and K2 launched once per
+    dispatched tick (the discarded in-flight chunk's ticks included), and no
+    enqueue of a pipelined chunk may synchronise the host with the device
+    (``torch.cuda.set_sync_debug_mode`` around each, 0 warnings); then the
+    benchmark-mode rates in turns (serial, pipelined, pipelined, serial) and a
+    profile of PROFILE_TICKS ticks of each (device idle share).  Returns (launch counts
+    of the gated pipelined run, its K1 calls, its K2 calls)."""
+    import warnings
+
+    from m3p2i_aip_tpu_torch.config.config_store import load_config
+    from m3p2i_aip_tpu_torch.ops import rollout as ro
+    from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
+
+    logs, syncs = {}, []
+    for pipelined in (False, True):
+        loop = SimLoop(load_config("config_point", MAIN_PATH), device="cuda")
+        loop.warmup(50)
+        dispatched, run_chunk, enqueue = 0, loop.tamp.run_chunk, loop._enqueue_chunk
+
+        def counted_run_chunk(ms, rs, task, i0, length, run_chunk=run_chunk):
+            nonlocal dispatched
+            dispatched += length
+            return run_chunk(ms, rs, task, i0, length)
+
+        def watched_enqueue(*args, enqueue=enqueue):
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    out = enqueue(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            syncs.append([str(w.message) for w in caught if "synchroniz" in str(w.message).lower()])
+            return out
+
+        loop.tamp.run_chunk, loop._enqueue_chunk = counted_run_chunk, watched_enqueue
+        _zero_launches()
+        with _recorded(ro, "point_rollout") as k1_calls, _recorded_weights("multimodal_weights") as k2_calls:
+            logs[pipelined] = loop.run_chunked(1000, chunk=PIPELINE_CHUNK, pipelined=pipelined)
+        torch.cuda.synchronize()
+        counts = _read_launches()
+        label = "pipelined gated" if pipelined else "serial gated"
+        print(f"[{label}] {logs[pipelined].steps} ticks logged, {dispatched} dispatched, success tick "
+              f"{logs[pipelined].success_step}")
+        _expect_launches(label, counts, {"rollout_launches": dispatched, "weights_launches": dispatched})
+    serial, piped = logs[False], logs[True]
+    assert serial.success_step is not None and piped.success_step == serial.success_step, (
+        f"pipelined latch {piped.success_step}, serial {serial.success_step}"
+    )
+    assert piped.steps == serial.steps and piped.task == serial.task
+    for name in ("robot_pos", "robot_vel", "box_pos"):
+        assert np.array_equal(np.asarray(getattr(piped, name)), np.asarray(getattr(serial, name))), name
+    print(f"[pipelined gated] logs bit-equal to the serial run's; host syncs per enqueue {[len(x) for x in syncs]}")
+    assert syncs and not any(syncs), f"a pipelined enqueue synchronised the host: {syncs}"
+
+    def bench(pipelined: bool) -> tuple:
+        loop = SimLoop(load_config("config_point", MAIN_PATH), device="cuda")
+        loop.warmup(50)
+        loop.tamp.task_planner.check_task_success = lambda view: False
+        loop.tamp.device_gate = False
+        loop.run_chunked(BENCH_CHUNK, chunk=BENCH_CHUNK, pipelined=pipelined)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop.run_chunked(PIPELINE_TIMED * BENCH_CHUNK, chunk=BENCH_CHUNK, pipelined=pipelined)
+        torch.cuda.synchronize()
+        return loop, PIPELINE_TIMED * BENCH_CHUNK / (time.perf_counter() - t0)
+
+    rates = {False: [], True: []}
+    for pipelined in (False, True, True, False):
+        loop, hz = bench(pipelined)
+        rates[pipelined].append(hz)
+    for pipelined, label in ((False, "serial"), (True, "pipelined")):
+        print(f"[pipelined-bench {label}] {', '.join(f'{hz:.2f}' for hz in rates[pipelined])} Hz replan+step in turns, "
+              f"K=200 x T=15, {PIPELINE_TIMED * BENCH_CHUNK} timed ticks in chunks of {BENCH_CHUNK} ({card})")
+        _profile_ticks(f"pipelined-bench {label}", card,
+                       lambda: loop.run_chunked(PROFILE_TICKS, chunk=PROFILE_TICKS // 2, pipelined=pipelined),
+                       PROFILE_TICKS, {"K1": "point_rollout", "K2": "weights"})
+    return {"point_rollout": dispatched, "multimodal_weights": dispatched}, k1_calls, k2_calls
+
+
+def phase_grad_refine(card: str) -> tuple:
+    """The round-4 panda setting (``config/mppi/panda.yaml:25-32``: eight
+    gradient steps on the plain step and costs, no refine ladder,
+    multi-modal) at K=200 x T=12 for GRAD_REFINE_TICKS chunked ticks: K3 and
+    K2 once a tick, finite means every tick, the tick's time and the
+    gradient chain's share of it; then the last tick's ``_grad_refine``
+    repeated on the CPU from the same inputs, its three means within
+    GRAD_REFINE_ATOL of the card's.  Returns (launch counts, K3 calls, K2
+    calls)."""
+    from m3p2i_aip_tpu_torch.config.config_store import load_config
+    from m3p2i_aip_tpu_torch.ops import panda_rollout as pr
+    from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMP
+    from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
+    from m3p2i_aip_tpu_torch.utils.tree import tree_map
+
+    cfg = load_config("config_panda", GRAD_REFINE)
+    loop = SimLoop(cfg, device="cuda")
+    loop.warmup(50)
+    mp = loop.tamp.motion_planner
+    grad_refine, chain_s, recorded = mp._grad_refine, [], {}
+
+    def timed_grad_refine(state, sim_state_k, task):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = grad_refine(state, sim_state_k, task)
+        torch.cuda.synchronize()
+        chain_s.append(time.perf_counter() - t0)
+        recorded.update(inputs=(state, sim_state_k, task), out=out)
+        return out
+
+    mp._grad_refine = timed_grad_refine
+    tick_s = []
+    _zero_launches()
+    with _recorded(pr, "panda_rollout") as k3_calls, _recorded_weights("multimodal_weights") as k2_calls:
+        for i in range(GRAD_REFINE_TICKS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loop.run_chunked(1, chunk=1)
+            torch.cuda.synchronize()
+            tick_s.append(time.perf_counter() - t0)
+            means = torch.stack([loop.tamp.mppi_state.mean_action, loop.tamp.mppi_state.mean_action_1,
+                                 loop.tamp.mppi_state.mean_action_2])
+            assert torch.isfinite(means).all(), f"grad-refine tick {i}: non-finite means"
+    mp._grad_refine = grad_refine
+    counts = _read_launches()
+    _expect_launches("grad-refine panda", counts,
+                     {"panda_rollout_launches": GRAD_REFINE_TICKS, "weights_launches": GRAD_REFINE_TICKS})
+    tick_ms, chain_ms = float(np.median(tick_s)) * 1e3, float(np.median(chain_s)) * 1e3
+    print(f"[grad-refine panda] {GRAD_REFINE_TICKS} ticks at K={mp.K} x T={mp.T}, {mp.grad_refine_steps} gradient steps "
+          f"of 3 chains: median tick {tick_ms:.1f} ms, of it the chain {chain_ms:.1f} ms "
+          f"({100 * chain_ms / tick_ms:.1f}%); ticks {', '.join(f'{t * 1e3:.1f}' for t in tick_s)} ms ({card})")
+
+    cpu_mp = ReactiveTAMP(cfg, device="cpu").motion_planner
+    state, sim_state_k, task = (tree_map(lambda x: x.cpu(), x) for x in recorded["inputs"])
+    ref = cpu_mp._grad_refine(state, sim_state_k, task)
+    err = max(float(torch.max(torch.abs(getattr(recorded["out"], f).cpu() - getattr(ref, f))))
+              for f in ("mean_action", "mean_action_1", "mean_action_2"))
+    moved = float(torch.max(torch.abs(recorded["out"].mean_action - recorded["inputs"][0].mean_action)))
+    print(f"[grad-refine panda] the last tick's refinement on the card against the port on the CPU from the same inputs: "
+          f"max abs err {err:.3e} (bar {GRAD_REFINE_ATOL}); it moved the global mean by up to {moved:.4f}")
+    assert err <= GRAD_REFINE_ATOL, f"grad-refine: card vs CPU means differ by {err}"
+    return {"panda_rollout": GRAD_REFINE_TICKS, "multimodal_weights": GRAD_REFINE_TICKS}, k3_calls, k2_calls
+
+
+def phase_urdf(card: str) -> None:
+    """The URDF FK cross-check on the card: the vendored franka URDF's
+    chain (``utils/urdf.py``, read in place) against ``panda_fk.fk`` on
+    URDF_SAMPLES random joint vectors, and the vendored albert URDF's chain
+    at the base pose against ``albert.fk``, within URDF_ATOL."""
+    from m3p2i_aip_tpu_torch.models import albert, panda_fk
+    from m3p2i_aip_tpu_torch.utils import urdf
+    from m3p2i_aip_tpu_torch.utils.path_utils import get_assets_path
+
+    root = get_assets_path() / "urdf"
+    g = torch.Generator(device="cuda").manual_seed(0)
+    lo = torch.as_tensor(panda_fk.JOINT_LOWER, device="cuda")
+    hi = torch.as_tensor(panda_fk.JOINT_UPPER, device="cuda")
+    q9 = lo + (hi - lo) * torch.rand(URDF_SAMPLES, 9, generator=g, device="cuda")
+    chain = urdf.load_chain(str(root / "franka_description/robots/franka_panda.urdf"), "panda_hand")
+    n_pos, n_rot = panda_fk.fk(q9, torch.zeros(3, device="cuda"))["hand"]
+    u_pos, u_rot = chain.fk(q9[:, :7])["panda_hand"]
+    err = max(float(torch.max(torch.abs(u_pos - n_pos))), float(torch.max(torch.abs(u_rot - n_rot))))
+    base = torch.rand(URDF_SAMPLES, 3, generator=g, device="cuda") * 4.0 - 2.0
+    q = torch.cat([base, q9], dim=1)
+    z = torch.zeros(URDF_SAMPLES, device="cuda")
+    state = albert.AlbertState(q=q, qd=torch.zeros_like(q), box_pos=torch.zeros_like(base[:, :2]), box_yaw=z,
+                               box_vel=torch.zeros_like(base[:, :2]), box_om=z)
+    a_pos, a_rot = albert.fk(state)["hand"]
+    achain = urdf.load_chain(str(root / "albert/albert.urdf"), "panda_hand", root_link="base_link")
+    base_pos = torch.cat([q[:, :2], z[:, None]], dim=1)
+    b_pos, b_rot = achain.fk(q[:, 3:10], base_pos=base_pos, base_rot=panda_fk._rot_z(q[:, 2]))["panda_hand"]
+    a_err = max(float(torch.max(torch.abs(b_pos - a_pos))), float(torch.max(torch.abs(b_rot - a_rot))))
+    print(f"[urdf] {URDF_SAMPLES} joint vectors on the card: franka URDF chain vs panda_fk max abs err {err:.3e}, "
+          f"albert URDF chain at the base pose vs albert.fk {a_err:.3e} (bar {URDF_ATOL}; {card})")
+    assert err <= URDF_ATOL and a_err <= URDF_ATOL, "the URDF chains disagree with the native FK"
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device; this script runs only on a GPU")
@@ -2153,8 +2384,18 @@ def main() -> None:
     for extra in (counts, phase_two_terminal(card, in_process_ms), phase_checkpoint()):
         for name, n in extra.items():
             launches[name] += n
-    # 31. K1, K1b, K3, K3b, K4 and K4b on the closed loops' inputs (K1 on every call of
-    # step 25's and 26's runs), then K2 and K2b; 32. the scaling sweeps
+    # 31. pipelined chunks on the main path; 32. the round-4 panda's gradient refinement;
+    # 33. the URDF FK cross-check
+    counts, k1_runs["pipelined gated"], k2_runs["pipelined gated"] = phase_pipelined(card)
+    grad_counts, k3_grad, k2_runs["panda grad-refine"] = phase_grad_refine(card)
+    for extra in (counts, grad_counts):
+        for name, n in extra.items():
+            launches[name] += n
+    phase_every_call("K3 grad-refine panda", k3_grad, pr.panda_rollout, _panda_plain_flat)
+    del k3_grad
+    phase_urdf(card)
+    # 34. K1, K1b, K3, K3b, K4 and K4b on the closed loops' inputs (K1 on every call of
+    # steps 25, 26 and 31's runs), then K2 and K2b; 35. the scaling sweeps
     slowest = {}
     for name, label, calls, kernel, plain, ops, single in (
         ("point_rollout", "K1", k1_calls, ro.point_rollout, ro.point_rollout_batched_plain, _point_rollout_ops, None),

@@ -8,7 +8,7 @@ quaternion) and ``plot/plot_panda.py:23-29`` (cube-vs-goal pose errors).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -59,3 +59,23 @@ def per_seed(data: np.ndarray, env: str = "point") -> Dict[str, np.ndarray]:
 def summarize(data: np.ndarray, env: str = "point") -> Dict[str, Tuple[float, float]]:
     """mean±std of each of :func:`per_seed`'s arrays."""
     return {k: mean_std(v) for k, v in per_seed(data, env).items()}
+
+
+def box_plot(groups: Dict[str, np.ndarray], path: str) -> Optional[str]:
+    """Grouped box plot PNG at ``path`` (plot_point.py:105+); returns the
+    path, or None when matplotlib is not installed."""
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        return None
+    fig, ax = plt.subplots(figsize=(1.5 + 1.2 * len(groups), 4))
+    try:
+        ax.boxplot(list(groups.values()), tick_labels=list(groups.keys()))
+    except TypeError:  # matplotlib before 3.9 names them labels
+        ax.boxplot(list(groups.values()), labels=list(groups.keys()))
+    fig.savefig(path, dpi=100, bbox_inches="tight")
+    plt.close(fig)
+    return path

@@ -104,8 +104,8 @@ class MPPIConfig:
     # construction: the pure per-mode means ride in the refine batch, so the
     # argmin can never rank the incumbent plan out.
     refine_greedy: bool = True
-    # unroll the refinement's T-step rollout scan (fwd + induced reverse):
-    # faster per tick for small T, at added compile time
+    # the JAX package's XLA hint to unroll the refinement's T-step scan; the
+    # port's chain is an eager loop, so it is accepted and has no effect
     grad_refine_unroll: bool = False
     # per-tick jitter on the cached Halton deltas (extension; breaks
     # deterministic replanning fixed points — see _command_halton)

@@ -22,6 +22,7 @@ import torch
 
 from m3p2i_aip_tpu_torch.models import panda_fk
 from m3p2i_aip_tpu_torch.ops import quat as quat_ops
+from m3p2i_aip_tpu_torch.ops.norm import vector_norm
 from m3p2i_aip_tpu_torch.sim.sim_config import ActorCfg, SimConfig
 
 GRAVITY = 9.8
@@ -192,7 +193,7 @@ def sphere_vs_aabb(center, radius, bmin, bmax):
     share the push (one-hot divided by the tie count)."""
     closest = torch.minimum(torch.maximum(center, bmin), bmax)
     diff = center - closest
-    dist = torch.linalg.vector_norm(diff, dim=-1)
+    dist = vector_norm(diff, dim=-1)
     inside = torch.all((center > bmin) & (center < bmax), dim=-1)
     sep_lo = center - bmin
     sep_hi = bmax - center
@@ -254,7 +255,7 @@ def step(params: PandaEnvParams, state: PandaEnvState, u_target: torch.Tensor, e
 
         # --- grasp attach / detach -----------------------------------------
         cube_pos = bpos[..., 1, :]  # the substep-start position (held velocity)
-        near = torch.linalg.vector_norm(tip_pos - cube_pos, dim=-1) < p.grasp_range
+        near = vector_norm(tip_pos - cube_pos, dim=-1) < p.grasp_range
         do_attach = (attached < 0.5) & gripper_closing & near
         rel_pos = torch.matmul((cube_pos - hand_pos)[..., None, :], hand_rot)[..., 0, :]
         rel_rot = torch.matmul(hand_rot.transpose(-1, -2), quat_ops.quat_to_rotmat(bquat[..., 1, :]))
@@ -287,7 +288,7 @@ def step(params: PandaEnvParams, state: PandaEnvState, u_target: torch.Tensor, e
         new_pos = torch.cat([new_pos[..., :2], torch.where(landing, rest_z, new_pos[..., 2])[..., None]], dim=-1)
         vz = torch.where(landing, 0.0, bvel[..., 2])
         # support friction on xy while resting
-        speed = torch.linalg.vector_norm(bvel[..., :2], dim=-1)
+        speed = vector_norm(bvel[..., :2], dim=-1)
         scale = torch.clamp(1.0 - GROUND_MU * GRAVITY * h / torch.clamp(speed, min=1e-9), min=0.0)
         vxy = torch.where(landing[..., None], bvel[..., :2] * scale[..., None], bvel[..., :2])
         bvel = torch.cat([vxy, vz[..., None]], dim=-1)

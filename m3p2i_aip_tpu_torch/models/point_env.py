@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from m3p2i_aip_tpu_torch.ops import quat
+from m3p2i_aip_tpu_torch.ops.norm import vector_norm
 from m3p2i_aip_tpu_torch.ops.quat_np import yaw_from_quat
 from m3p2i_aip_tpu_torch.sim import pbd2d
 from m3p2i_aip_tpu_torch.sim.sim_config import ActorCfg, SimConfig
@@ -306,12 +307,12 @@ def step(
             qd_target = u_target  # world-frame dof velocities (point/heijn)
         qd = qd_target + (qd - qd_target) * decay
         # robot speed cap: one substep can never out-run the contact envelope
-        qspeed = torch.linalg.vector_norm(qd[..., :2], dim=-1, keepdim=True)
+        qspeed = vector_norm(qd[..., :2], dim=-1, keepdim=True)
         qcap = torch.clamp(6.0 / torch.clamp(qspeed, min=1e-9), max=1.0)
         qd = _set_xy(qd, qd[..., :2] * qcap)
         dvel = dvel + ext.dyn * (params.dyn_inv_mass[:, None] * h)
         dvel, dom = pbd2d.ground_friction(dvel, dom, mu_ground, GRAVITY, h, ang_radius)
-        speed = torch.linalg.vector_norm(dvel, dim=-1, keepdim=True)
+        speed = vector_norm(dvel, dim=-1, keepdim=True)
         dvel = dvel * torch.clamp(params.max_dyn_speed / torch.clamp(speed, min=1e-9), max=1.0)
 
         # --- position integration --------------------------------------------

@@ -274,5 +274,13 @@ def make_albert_rollout(env_params: albert.AlbertParams, objective: AlbertObject
         wrapper = albert_rollout_batched if acts.dim() == 4 else albert_rollout  # a leading seed axis?
         return wrapper(spec, *rollout_inputs(sim_state_k, task, k0), acts.contiguous())
 
+    def chain(sim_state_k, acts, task, mode):
+        """The plain rollout's costs [N, T] of N sequences ``acts`` [N, T, 13]
+        from the start state of ``sim_state_k`` (the albert's costs take no
+        mode): the differentiable chain of gradient refinement (no kernel
+        has a backward)."""
+        return albert_rollout_plain(spec, *rollout_inputs(sim_state_k, task), acts)[0]
+
     rollout.spec = spec
+    rollout.chain = chain
     return rollout

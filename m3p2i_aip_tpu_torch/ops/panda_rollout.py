@@ -198,16 +198,19 @@ def rollout_inputs(sim_state_k, task, k0=None):
     return task_vec, state0
 
 
-def panda_rollout_plain(spec: PandaRolloutSpec, task_vec, state0, acts):
+def panda_rollout_plain(spec: PandaRolloutSpec, task_vec, state0, acts, mode=None):
     """The rollout as plain tensor code: a loop over T of the batched
     ``panda_env.step`` and ``PandaObjective.compute``, with the EE's xy from
     ``fk``.  ``task_vec`` [10] and ``state0`` [56] as :func:`rollout_inputs`
-    makes them; ``acts`` [K, T, 9]."""
+    makes them; ``acts`` [K, T, 9].  ``mode`` [K] scores each sample under a
+    given mode instead of the one its global index gives it (the chains of
+    gradient refinement)."""
     p = spec.env_params
     K = acts.shape[0]
     state = unpack_state(state0, K, p)
-    gk = torch.arange(K, device=acts.device, dtype=torch.float32) + task_vec[8]
-    mode = ((gk >= spec.K // 2) & (gk < spec.K)).to(torch.int32)
+    if mode is None:
+        gk = torch.arange(K, device=acts.device, dtype=torch.float32) + task_vec[8]
+        mode = ((gk >= spec.K // 2) & (gk < spec.K)).to(torch.int32)
     task = SimpleNamespace(task_id=task_vec[0], goal=task_vec[1:8], zup_gate=task_vec[9])
     ext = panda_env.zero_ext(p, (K,))
     costs, points = [], []
@@ -323,5 +326,13 @@ def make_panda_rollout(env_params: panda_env.PandaEnvParams, pre_height_diff: fl
         wrapper = panda_rollout_batched if acts.dim() == 4 else panda_rollout  # a leading seed axis?
         return wrapper(spec, *rollout_inputs(sim_state_k, task, k0), acts.contiguous())
 
+    def chain(sim_state_k, acts, task, mode):
+        """The plain rollout's costs [N, T] of N sequences ``acts`` [N, T, 9]
+        from the start state of ``sim_state_k``, sequence n scored under
+        ``mode[n]``: the differentiable chain of gradient refinement (no
+        kernel has a backward)."""
+        return panda_rollout_plain(spec, *rollout_inputs(sim_state_k, task), acts, mode)[0]
+
     rollout.spec = spec
+    rollout.chain = chain
     return rollout

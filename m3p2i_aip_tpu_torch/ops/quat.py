@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from m3p2i_aip_tpu_torch.ops.norm import vector_norm
+
 
 def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     """Rotation matrix [..., 3, 3] (local -> global) of an (x, y, z, w)
@@ -73,7 +75,7 @@ def yaw_from_quat(q: torch.Tensor) -> torch.Tensor:
 
 
 def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
-    return q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True), min=eps)
+    return q / torch.clamp(vector_norm(q, dim=-1, keepdim=True), min=eps)
 
 
 def quat_integrate(q: torch.Tensor, omega: torch.Tensor, dt: float) -> torch.Tensor:

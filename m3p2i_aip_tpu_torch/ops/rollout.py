@@ -149,12 +149,14 @@ def rollout_inputs(sim_state_k, task, k0=None):
     return task_vec, state0, fric_k
 
 
-def point_rollout_plain(spec: RolloutSpec, task_vec, state0, fric_k, acts):
+def point_rollout_plain(spec: RolloutSpec, task_vec, state0, fric_k, acts, mode=None):
     """The rollout as plain tensor code: a loop over T of the batched
     ``point_env.step`` and ``PointObjective.compute``.
 
     ``task_vec`` = [task_id, goal_x, goal_y, k0] (float32, device);
     ``state0`` the packed start state; ``fric_k`` [K, D]; ``acts`` [K, T, n_u].
+    ``mode`` [K] scores each sample under a given mode instead of the one
+    its global index gives it (the chains of gradient refinement).
     """
     p, D, n_q = spec.env_params, spec.D, spec.n_q
     K = acts.shape[0]
@@ -169,8 +171,9 @@ def point_rollout_plain(spec: RolloutSpec, task_vec, state0, fric_k, acts):
         contact_force=torch.zeros(K, p.num_actors, 3, dtype=acts.dtype, device=acts.device),
         fric_scale=fric_k,
     )
-    gk = torch.arange(K, device=acts.device, dtype=torch.float32) + task_vec[3]
-    mode = ((gk >= spec.K // 2) & (gk < spec.K)).to(torch.int32)
+    if mode is None:
+        gk = torch.arange(K, device=acts.device, dtype=torch.float32) + task_vec[3]
+        mode = ((gk >= spec.K // 2) & (gk < spec.K)).to(torch.int32)
     task = SimpleNamespace(task_id=task_vec[0], goal=task_vec[1:3])
     ext = point_env.zero_ext(p, (K,))
     costs, points = [], []
@@ -304,5 +307,14 @@ def make_point_rollout(
         wrapper = point_rollout_batched if acts.dim() == 4 else point_rollout  # a leading seed axis?
         return wrapper(spec, *rollout_inputs(sim_state_k, task, k0), acts.contiguous())
 
+    def chain(sim_state_k, acts, task, mode):
+        """The plain rollout's costs [N, T] of N sequences ``acts`` [N, T,
+        n_u] from the start state of ``sim_state_k`` (its sample 0's friction
+        scales), sequence n scored under ``mode[n]``: the differentiable
+        chain of gradient refinement (no kernel has a backward)."""
+        task_vec, state0, fric_k = rollout_inputs(sim_state_k, task)
+        return point_rollout_plain(spec, task_vec, state0, fric_k[:1].expand(acts.shape[0], -1), acts, mode)[0]
+
     rollout.spec = spec
+    rollout.chain = chain
     return rollout

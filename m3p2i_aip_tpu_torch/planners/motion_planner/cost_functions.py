@@ -20,6 +20,7 @@ from m3p2i_aip_tpu_torch.models import albert
 from m3p2i_aip_tpu_torch.models import panda_env as pa
 from m3p2i_aip_tpu_torch.models import panda_fk
 from m3p2i_aip_tpu_torch.models import point_env as pe
+from m3p2i_aip_tpu_torch.ops.norm import vector_norm
 from m3p2i_aip_tpu_torch.ops.quat import general_ori_cube2goal, general_ori_ee2cube_mat
 from m3p2i_aip_tpu_torch.sim import pbd2d
 from m3p2i_aip_tpu_torch.utils.skill_utils import calculate_suction
@@ -62,8 +63,8 @@ class PointObjective:
         block_pos = state.dyn_pos[..., self.box_dyn_slot, :]
         robot_to_block = state.q[..., :2] - block_pos
         block_to_goal = goal - block_pos
-        d_rb = torch.linalg.vector_norm(robot_to_block, dim=-1)
-        d_bg = torch.linalg.vector_norm(block_to_goal, dim=-1)
+        d_rb = vector_norm(robot_to_block, dim=-1)
+        d_bg = vector_norm(block_to_goal, dim=-1)
         dist_cost = d_rb + d_bg * 10.0
         cos_theta = torch.sum(robot_to_block * block_to_goal, dim=-1) / torch.clamp(
             d_rb * d_bg, min=1e-9
@@ -77,7 +78,7 @@ class PointObjective:
         return torch.where(coll > 0.1, 1000.0, 0.0)
 
     def _navigation(self, state, goal):
-        return torch.linalg.vector_norm(state.q[..., :2] - goal, dim=-1) + self._motion_cost(state)
+        return vector_norm(state.q[..., :2] - goal, dim=-1) + self._motion_cost(state)
 
     def _push(self, terms):
         dist_cost, cos_theta = terms[0], terms[1]
@@ -213,7 +214,7 @@ class PandaObjective:
             tilt_cost = torch.where(m0, tilt0, general_ori_ee2cube_mat(ee_rot, cube_quat, tilt_value=tilt))
         else:
             goal, tilt_cost = top_goal, tilt0
-        return 10.0 * torch.linalg.vector_norm(ee_pos - goal, dim=-1) + 3.0 * tilt_cost
+        return 10.0 * vector_norm(ee_pos - goal, dim=-1) + 3.0 * tilt_cost
 
     def _zup_clearance(self, state):
         """Height deficit of the cube wedged beside (or dragging on) a static
@@ -234,11 +235,11 @@ class PandaObjective:
     def _pick(self, state, links, task):
         cube_pos = state.body_pos[..., self.cubeA_slot, :]
         cube_quat = state.body_quat[..., self.cubeA_slot, :]
-        goal_cost = torch.linalg.vector_norm(task.goal[:3] - cube_pos, dim=-1)
+        goal_cost = vector_norm(task.goal[:3] - cube_pos, dim=-1)
         ori_cost = general_ori_cube2goal(cube_quat, task.goal[3:7])
         # re-grasp term, zero while the cube is held
         ee_pos = links["ee"][0]
-        regrasp = 10.0 * torch.linalg.vector_norm(ee_pos - cube_pos, dim=-1) * (1.0 - state.attached)
+        regrasp = 10.0 * vector_norm(ee_pos - cube_pos, dim=-1) * (1.0 - state.attached)
         return (
             10.0 * goal_cost
             + 15.0 * ori_cost
@@ -248,7 +249,7 @@ class PandaObjective:
         )
 
     def _place(self, links):
-        gripper_dist = torch.linalg.vector_norm(links["leftfinger"][0] - links["rightfinger"][0], dim=-1)
+        gripper_dist = vector_norm(links["leftfinger"][0] - links["rightfinger"][0], dim=-1)
         return 2.0 * (1.0 - gripper_dist)
 
     def compute(self, state: pa.PandaEnvState, u, task, mode, links=None):
@@ -294,24 +295,24 @@ class AlbertObjective:
             ee_pos = albert.fk(state)["ee"][0]
         goal = task.goal
         q_xy = state.q[..., :2]
-        ee_cost = 10.0 * torch.linalg.vector_norm(ee_pos - goal[:3], dim=-1)
-        nav_cost = torch.linalg.vector_norm(q_xy - goal[:2], dim=-1)
+        ee_cost = 10.0 * vector_norm(ee_pos - goal[:3], dim=-1)
+        nav_cost = vector_norm(q_xy - goal[:2], dim=-1)
         # base-progress shaping: ranks wheel samples apart from the arm noise
-        base_cost = 3.0 * torch.linalg.vector_norm(q_xy - goal[:2], dim=-1)
+        base_cost = 3.0 * vector_norm(q_xy - goal[:2], dim=-1)
 
         # push_reach: the base shoves the box to goal[:2] while the arm keeps
         # the EE hovering over the moving box at height goal[2]
         r2b = state.box_pos - q_xy
         b2g = goal[:2] - state.box_pos
-        d_rb = torch.linalg.vector_norm(r2b, dim=-1)
-        d_bg = torch.linalg.vector_norm(b2g, dim=-1)
+        d_rb = vector_norm(r2b, dim=-1)
+        d_bg = vector_norm(b2g, dim=-1)
         cos_theta = torch.sum(-r2b * b2g, dim=-1) / torch.clamp(d_rb * d_bg, min=1e-9)
         approach = 5.0 * torch.clamp(d_rb - self.approach_r, min=0.0)
         push_cost = 3.0 * (d_rb + d_bg * 10.0) + 1.5 * (1.0 + cos_theta) + approach
         hover = torch.cat([state.box_pos, goal[2:3].expand(state.box_pos.shape[:-1] + (1,))], dim=-1)
         # contact-gated hover weight, 1.5 far -> 4.0 in contact
         hover_w = 1.5 + 2.5 * sigmoid((self.hover_gate_r - d_rb) / 0.03)
-        hover_cost = hover_w * torch.linalg.vector_norm(ee_pos - hover, dim=-1)
+        hover_cost = hover_w * vector_norm(ee_pos - hover, dim=-1)
         # reposition: navigate around the box to the standoff
         repo_cost = nav_cost + 10.0 * torch.clamp(self.clearance_r - d_rb, min=0.0)
 

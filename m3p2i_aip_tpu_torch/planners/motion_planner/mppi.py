@@ -97,11 +97,14 @@ def make_task_params(
     goal = np.asarray(goal, dtype=np.float32).reshape(-1)
     g[: goal.shape[0]] = goal
     grip = {"none": 0, "open": 1, "close": 2}[gripper_command]
+    goal = torch.as_tensor(g)
+    if torch.device(device).type == "cuda":  # from pinned memory: no host sync inside a chunk's enqueue
+        goal = goal.pin_memory().to(device, non_blocking=True)
     return TaskParams(
-        task_id=torch.tensor(TASK_IDS[task], dtype=torch.int32, device=device),
-        goal=torch.as_tensor(g, device=device),
-        gripper=torch.tensor(grip, dtype=torch.int32, device=device),
-        zup_gate=torch.tensor(zup_gate, dtype=torch.float32, device=device),
+        task_id=torch.full((), TASK_IDS[task], dtype=torch.int32, device=device),
+        goal=goal.to(device),
+        gripper=torch.full((), grip, dtype=torch.int32, device=device),
+        zup_gate=torch.full((), zup_gate, dtype=torch.float32, device=device),
     )
 
 
@@ -136,8 +139,6 @@ class MPPI:
 
     def __init__(self, cfg, rollout, fric_noise=None, device="cuda"):
         mcfg = cfg.mppi
-        if int(mcfg.grad_refine_steps or 0) > 0:
-            raise NotImplementedError("grad_refine_steps > 0 is not ported: see ROADMAP.md M8")
         self.device = torch.device(device)
         self.env_type = cfg.env_type
         self.multi_modal = bool(cfg.multi_modal)
@@ -202,6 +203,8 @@ class MPPI:
         self.refine_scale = float(mcfg.refine_scale)
         self.refine_decay = float(mcfg.refine_decay)
         self.refine_greedy = bool(mcfg.refine_greedy)
+        self.grad_refine_steps = int(mcfg.grad_refine_steps or 0)
+        self.grad_refine_lr = float(mcfg.grad_refine_lr)
 
         # Savitzky-Golay operator (window 9 order 2, mppi.py:190-193)
         sgf_window = min(9, self.T if self.T % 2 == 1 else self.T - 1)
@@ -503,6 +506,7 @@ class MPPI:
         cost_horizon, tps = self.rollout(sim_state_k, self.u_scale * act_seq, task)
         state = self._update_halton(state, cost_horizon, act_seq)
         state = self._sample_refine(state, sim_state_k, task)
+        state = self._grad_refine(state, sim_state_k, task)
         return state, state.mean_action, tps
 
     def _sampling_scale(self, state: MPPIState) -> torch.Tensor:
@@ -605,3 +609,57 @@ class MPPI:
                 mean_action_2=self._take(actions, torch.argmin(torch.where(~m0, traj_costs, torch.inf), dim=-1)),
             )
         return dataclasses.replace(state, mean_action=self._take(actions, torch.argmin(traj_costs, dim=-1)))
+
+    def _plan_costs(self, sim_state_k, acts, task: TaskParams, modes) -> torch.Tensor:
+        """The rollout's differentiable chain (``rollout.chain``): costs
+        [..., N, T] of the sequences ``acts`` [..., N, T, nu], sequence n
+        scored under ``modes[..., n]``; a seed batch runs one chain call per
+        seed."""
+        if acts.dim() == 3:
+            return self.rollout.chain(sim_state_k, acts, task, modes)
+        rows = []
+        for b in range(acts.shape[0]):
+            sim_b, task_b = (tree_map(lambda x: x[b], tree) for tree in (sim_state_k, task))
+            rows.append(self._plan_costs(sim_b, acts[b], task_b, modes[b]))
+        return torch.stack(rows)
+
+    def _grad_refine(self, state: MPPIState, sim_state_k, task: TaskParams) -> MPPIState:
+        """First-order refinement of the mean plan(s) (mppi.py:923):
+        ``grad_refine_steps`` normalised gradient steps of size
+        ``grad_refine_lr`` on the discounted cost of the plain rollout from
+        the real state, each clamped to the control bounds.  The gradient is
+        autograd's through the plain step and costs (the kernels have no
+        backward); non-finite entries count as 0, and the step is divided by
+        the Frobenius norm over [T, nu] (at least 1e-6).  Multi-modal, the
+        global mean (under the mode whose half holds more weight) and the two
+        mode means run as one batch of three chains."""
+        if self.grad_refine_steps <= 0:
+            return state
+        if self.multi_modal:
+            half = self.half_K
+            win = (torch.sum(state.weights[..., half:], dim=-1) > torch.sum(state.weights[..., :half], dim=-1)).to(
+                torch.int32
+            )
+            means = torch.stack([state.mean_action, state.mean_action_1, state.mean_action_2], dim=-3)
+            modes = torch.stack([win, torch.zeros_like(win), torch.ones_like(win)], dim=-1)
+        else:
+            means = state.mean_action[..., None, :, :]
+            modes = self.sample_mode[:1].expand(means.shape[:-2])
+        for _ in range(self.grad_refine_steps):
+            with torch.enable_grad():
+                leaf = means.detach().requires_grad_(True)
+                acts = self._gripper_override(leaf.clone(), task)
+                costs = self._plan_costs(sim_state_k, self.u_scale * acts, task, modes)
+                (g,) = torch.autograd.grad(torch.sum(costs * self.gamma_seq), leaf)
+            g = torch.where(torch.isfinite(g), g, 0.0)
+            g = g / torch.clamp(torch.linalg.vector_norm(g, dim=(-2, -1), keepdim=True), min=1e-6)
+            means = torch.clamp(means - self.grad_refine_lr * g, self.u_min, self.u_max)
+        means = self._gripper_override(means, task)  # means is fresh from the clamp
+        if self.multi_modal:
+            return dataclasses.replace(
+                state,
+                mean_action=means[..., 0, :, :],
+                mean_action_1=means[..., 1, :, :],
+                mean_action_2=means[..., 2, :, :],
+            )
+        return dataclasses.replace(state, mean_action=means[..., 0, :, :])

@@ -16,6 +16,8 @@ from typing import NamedTuple
 
 import torch
 
+from m3p2i_aip_tpu_torch.ops.norm import vector_norm
+
 
 class Contact(NamedTuple):
     pen: torch.Tensor  # [...]: penetration depth, <= 0 means no contact
@@ -74,7 +76,7 @@ def circle_vs_obb(center, radius, box_pos, box_yaw, box_half) -> Contact:
     surf_local = torch.where(inside[..., None], face_pt, clamped)
 
     diff = local - surf_local
-    dist = torch.linalg.vector_norm(diff, dim=-1)
+    dist = vector_norm(diff, dim=-1)
     n_local_out = torch.where(
         inside[..., None],
         _face(use_x, sign),
@@ -206,7 +208,7 @@ def resolve_contact(
 def ground_friction(vel, omega, mu, g: float, dt: float, ang_radius):
     """Coulomb ground friction for planar bodies resting on the floor:
     decelerates linear and angular velocity without sign flips."""
-    speed = torch.linalg.vector_norm(vel, dim=-1)
+    speed = vector_norm(vel, dim=-1)
     scale = torch.clamp(1.0 - mu * g * dt / torch.clamp(speed, min=1e-9), min=0.0)
     om_scale = torch.clamp(
         1.0 - mu * g * dt / torch.clamp(torch.abs(omega) * ang_radius, min=1e-9),

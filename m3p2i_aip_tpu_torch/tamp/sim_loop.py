@@ -1,14 +1,16 @@
 """Real-system loop: the single "actuated" env driven by the TAMP planner.
 
 Port of ``m3p2i_aip_tpu/tamp/sim_loop.py`` (point family, panda and albert,
-per tick and in serial chunks).  The same engine runs the rollouts and the
-real env, in one process.  ``run`` ticks one replan+step at a time, with one
-device->host transfer a tick (the view) and the host task planner on every
-tick (the panda's active-inference planner too), optionally paced to real
-time and open to live keyboard shoves; ``run_sim`` is the one-process
-replacement of the reference's two terminals.  The chunked loop syncs with
-the device once per chunk: one transfer brings back the chunk's per-tick
-views with the latch scalars.
+per tick, in serial chunks and with one chunk in flight).  The same engine
+runs the rollouts and the real env, in one process.  ``run`` ticks one
+replan+step at a time, with one device->host transfer a tick (the view) and
+the host task planner on every tick (the panda's active-inference planner
+too), optionally paced to real time and open to live keyboard shoves;
+``run_sim`` is the one-process replacement of the reference's two
+terminals.  The chunked loop syncs with the device once per chunk: one
+transfer brings back the chunk's per-tick views with the latch scalars;
+pipelined, that transfer is a non-blocking copy the host waits on only
+after it has enqueued the next chunk.
 """
 from __future__ import annotations
 
@@ -45,6 +47,22 @@ def real_suction_ext(cfg, env: Env, state, action):
     dyn = ext.dyn.clone()
     dyn[env.box_slot] = f_box
     return dataclasses.replace(ext, robot=f_robot, dyn=dyn)
+
+
+def _pack_chunk(views: torch.Tensor, n_ticks, dev_done) -> torch.Tensor:
+    """A chunk's views flattened, followed by its latch scalars (n_ticks,
+    done) when the gate is on: what one device->host copy brings back."""
+    if not torch.is_tensor(n_ticks):  # gates off: the chunk length and "not done" are known on the host
+        return views.reshape(-1)
+    return torch.cat([views.reshape(-1), torch.stack([n_ticks.float(), dev_done.float()])])
+
+
+def _unpack_chunk(packed, chunk: int, n_ticks) -> tuple:
+    """(views [chunk, nv], n_ticks, done) of a packed chunk on the host;
+    ``n_ticks`` is the chunk's own return (a tensor when gated)."""
+    if not torch.is_tensor(n_ticks):
+        return packed.reshape(chunk, -1), n_ticks, False
+    return packed[:-2].reshape(chunk, -1), int(packed[-2]), bool(packed[-1])
 
 
 @dataclass
@@ -180,14 +198,16 @@ class SimLoop:
 
         The symbolic plan is refreshed between chunks, so a task switch waits
         at most ``chunk - 1`` ticks; the device latch stops state at the
-        success tick inside a chunk.
+        success tick inside a chunk.  ``pipelined`` keeps one chunk in flight
+        (:meth:`_run_chunked_pipelined`); the panda takes its own chunk loop
+        either way, its plan being decided on the device every tick.
         """
-        if pipelined:
-            raise NotImplementedError("pipelined chunks are not ported yet: see ROADMAP.md Queue 1 (M5)")
         if self._view is None:
             self.warmup(0)
         if self.env.env_type == "panda_env":
             return self._run_chunked_panda(n_steps, chunk)
+        if pipelined:
+            return self._run_chunked_pipelined(n_steps, chunk)
         i = 0
         while i < n_steps:
             t0 = time.perf_counter()
@@ -198,19 +218,69 @@ class SimLoop:
             ms, rs, views, n_ticks, dev_done = self.tamp.run_chunk(
                 self.tamp.mppi_state, self.state, task_params, i, chunk
             )
-            if torch.is_tensor(n_ticks):
-                # ONE device->host transfer: the views and the latch scalars together
-                latch = torch.stack([n_ticks.float(), dev_done.float()])
-                packed = torch.cat([views.reshape(-1), latch]).cpu().numpy()
-                views, n_ticks, dev_done = packed[:-2].reshape(chunk, -1), int(packed[-2]), bool(packed[-1])
-            else:  # gates off: the chunk length and "not done" are known on the host
-                views = views.cpu().numpy()
+            # ONE device->host transfer: the views and the latch scalars together
+            packed = _pack_chunk(views, n_ticks, dev_done).cpu().numpy()
             t1 = time.perf_counter()
             self.tamp.mppi_state, self.state = ms, rs
-            done_at = self._drain_chunk(i, views, n_ticks, dev_done, t1 - t0)
+            done_at = self._drain_chunk(i, *_unpack_chunk(packed, chunk, n_ticks), t1 - t0)
             if done_at is not None:
                 break
             i += chunk
+        return self.log
+
+    def _enqueue_chunk(self, i: int, chunk: int, host: Optional[torch.Tensor]) -> tuple:
+        """Plan chunk ``i`` from the newest host view and enqueue it with no
+        host sync: its carry becomes the loop's state, and its packed views
+        start a copy into the host buffer ``host`` (pinned; made here when
+        None or of another size), after which a CUDA event is recorded.  On
+        the CPU the copy is a plain one and there is no event.  Returns
+        (i, host buffer, event, chunk's n_ticks, enqueue time)."""
+        task_params = self.tamp.tamp_interface_view(self._view)
+        ms, rs, views, n_ticks, dev_done = self.tamp.run_chunk(self.tamp.mppi_state, self.state, task_params, i, chunk)
+        self.tamp.mppi_state, self.state = ms, rs  # chunk i + chunk chains on this carry
+        packed = _pack_chunk(views, n_ticks, dev_done)
+        on_card = packed.device.type == "cuda"
+        if host is None or host.numel() != packed.numel():
+            host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=on_card)
+        host.copy_(packed, non_blocking=on_card)
+        event = None
+        if on_card:
+            event = torch.cuda.Event()
+            event.record()
+        return i, host, event, n_ticks, time.perf_counter()
+
+    def _run_chunked_pipelined(self, n_steps: int, chunk: int) -> TickLog:
+        """Chunks with one in flight (sim_loop.py:344): chunk N+1 is enqueued
+        from chunk N's device carry before N's views are fetched and
+        drained, so the host's drain and planning overlap the device's work.
+        The plan then reacts one chunk later (at most ``2 * chunk - 1``
+        ticks); a chunk enqueued past success is discarded unfetched, its
+        carry committed, as in the JAX package.  Two pinned host buffers
+        alternate, so N+1's copy never lands in the buffer N is read from."""
+        buffers: List[Optional[torch.Tensor]] = [None, None]
+        pending = None
+        i, slot = 0, 0
+        while True:
+            nxt = None
+            if i < n_steps and not self.tamp.task_success:
+                nxt = self._enqueue_chunk(i, chunk, buffers[slot])
+                buffers[slot] = nxt[1]
+                slot ^= 1
+                i += chunk
+            if pending is not None:
+                i0, host, event, n_ticks, t0 = pending
+                if event is not None:
+                    event.synchronize()
+                packed = host.numpy().copy()  # the log keeps rows past the buffer's reuse
+                t1 = time.perf_counter()
+                if self._drain_chunk(i0, *_unpack_chunk(packed, chunk, n_ticks), t1 - t0) is not None:
+                    break
+            if nxt is None:
+                if pending is None:
+                    break
+                pending = None
+            else:
+                pending = nxt
         return self.log
 
     def _drain_chunk(self, i: int, views, n_ticks: int, dev_done: bool, elapsed: float) -> Optional[int]:

@@ -29,6 +29,12 @@ def get_config_path() -> pathlib.Path:
     return get_reference_package_path() / "config"
 
 
+def get_plot_path() -> pathlib.Path:
+    """The repository's ``plot/`` directory: the committed run logs the plot
+    scripts read (path_utils.py:23)."""
+    return get_package_path().parent / "plot"
+
+
 def load_yaml(file_path):
     with open(file_path) as f:
         return yaml.safe_load(f)

@@ -48,6 +48,28 @@ def check_suction_condition(task: str, suction_active: bool, robot_pos, box_pos,
     return dist < 0.6 and align > 0
 
 
+def apply_fk(robot: str, u: torch.Tensor) -> torch.Tensor:
+    """Wheel speeds from (v, omega) for the differential drives
+    (skill_utils.py:62; r = 0.08, L = 2 * 0.157): the boxer's channels 0, 1,
+    the albert's 11, 12; other robots' actions pass through.  Returns a new
+    tensor."""
+    r, L = 0.08, 2 * 0.157
+    cols = {"boxer": (0, 1), "albert": (11, 12)}.get(robot)
+    if cols is None:
+        return u
+    v, w = u[..., cols[0]], u[..., cols[1]]
+    out = u.clone()
+    out[..., cols[0]] = (v / r) - (L * w) / (2 * r)
+    out[..., cols[1]] = (v / r) + (L * w) / (2 * r)
+    return out
+
+
+def apply_ik(robot: str, u: torch.Tensor) -> torch.Tensor:
+    """The batched variant ([num_envs, dofs], skill_utils.py:79): the same
+    (v, omega) -> wheel-speed map."""
+    return apply_fk(robot, u)
+
+
 def time_tracking(t: float, dt: float, verbose: bool = True) -> float:
     """Soft real-time pacing of an interactive loop (skill_utils.py:88):
     sleep off what is left of the control period ``dt`` since ``t``, print

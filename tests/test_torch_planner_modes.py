@@ -242,16 +242,21 @@ def test_simple_mode_drives_toward_goal():
         (["multi_modal=True", "mppi.update_cov=True"], ValueError),
         (["mppi.mppi_mode=simple", "mppi.update_cov=True"], ValueError),
         (["mppi.update_cov_per_mode=True"], ValueError),
-        (["mppi.grad_refine_steps=2"], NotImplementedError),
+        (["mppi.grad_refine_steps=2"], None),
     ],
 )
 def test_construction_rejects_what_the_jax_package_rejects(overrides, error):
-    """The JAX package's two ValueErrors (mppi.py:315-324), and the
-    gradient refinement the port does not carry."""
+    """The JAX package's two ValueErrors (mppi.py:315-324); gradient
+    refinement (``error`` None) both packages build, the port with its
+    step count and rate (tests/test_torch_grad_refine.py runs it)."""
     cfg = ["mppi.num_samples=16", *overrides]
-    if error is ValueError:
-        with pytest.raises(ValueError):
-            JaxSimLoop(jax_load_config("config_point", cfg))
+    if error is None:
+        JaxSimLoop(jax_load_config("config_point", cfg))
+        planner = ReactiveTAMP(load_config("config_point", cfg), device="cpu").motion_planner
+        assert (planner.grad_refine_steps, planner.grad_refine_lr) == (2, 0.02)
+        return
+    with pytest.raises(error):
+        JaxSimLoop(jax_load_config("config_point", cfg))
     with pytest.raises(error):
         ReactiveTAMP(load_config("config_point", cfg), device="cpu")
 
