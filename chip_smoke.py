@@ -69,7 +69,20 @@ paths through ``SimLoop.run_chunked``:
   share of it, and one tick's refinement repeated on the CPU from the same
   inputs within 1e-4;
 * the URDF FK cross-check: the vendored franka and albert URDFs' chains
-  (``utils/urdf.py``) against ``panda_fk.fk`` and ``albert.fk`` on the card.
+  (``utils/urdf.py``) against ``panda_fk.fk`` and ``albert.fk`` on the card;
+* the sample axis split over shards of the card (``parallel.shard_planner``
+  on a mesh that repeats ``cuda:0``): the gated main path over 8 shards
+  (pipelined, no host sync in any enqueue) and over 5, each latching at the
+  unsharded tick with bit-equal logs, every K1 call at its shard's global
+  offset equal to the plain version; the multi-modal panda and the albert
+  push_reach over 8 shards, tick for tick equal to their unsharded runs,
+  every K3 / K4 call held to its plain version; the gather's time, a
+  profile, and ``scripts/bench_sharded.py``'s sweep (K = 512, 2048, 8192,
+  unsharded against 8 shards, in turns);
+* the seed axis over 4 shards of the card (``BatchSimLoop(shard=mesh)``):
+  the n=20 point and panda batches, every seed's row and success tick equal
+  to the unsharded batch's, the seed-tick rate beside the unsharded in
+  turns, and ``run_experiments parallel_seeds=shard`` on the default mesh.
 
 The inputs the point, panda and albert main paths and their n=20 batches
 gave K1, K1b, K3, K3b, K4 and K4b are recorded, each timed, and the slowest
@@ -186,13 +199,27 @@ CKPT_TICKS = 20  # ticks before and after the checkpoint
 LOOP_CHUNK = 10  # the n=20 campaigns' chunked=10 (scripts/run_quality_campaign_r3.sh)
 CHECK_GROUP = 100  # recorded K1 calls held to the batched plain version at once
 PIPELINE_CHUNK = 10  # the gated serial / pipelined main-path runs' chunk
-PIPELINE_TIMED = 3  # the benchmark-mode rates in turns: 1 warm-up chunk, then this many of BENCH_CHUNK
+PIPELINE_TIMED = 2  # the benchmark-mode rates in turns: 1 warm-up chunk, then this many of BENCH_CHUNK
+FAMILY_TIMED = 2  # the heijn and boxer rates' timed chunks of BENCH_CHUNK
 PROFILE_TICKS = 10  # each mode's profiled ticks, in two chunks (a point tick is ~4,700 device kernels)
 GRAD_REFINE = ["multi_modal=True", "mppi.grad_refine_steps=8", "mppi.grad_refine_unroll=True", "mppi.refine_iters=0"]
-GRAD_REFINE_TICKS = 6  # ticks of the round-4 panda setting (config/mppi/panda.yaml:25-32)
+GRAD_REFINE_TICKS = 2  # ticks of the round-4 panda setting (config/mppi/panda.yaml:25-32), seconds each
 GRAD_REFINE_ATOL = 1e-4  # its refined means on the card against the port on the CPU, one recorded tick
 URDF_SAMPLES = 1024  # joint vectors of the URDF cross-check
 URDF_ATOL = 1e-5  # tests/test_urdf.py's bar
+# the sample axis split over shards of one card (parallel/mesh.py): the main
+# path over 8 shards (25 samples each, the pull half from shard 4's start)
+# and over 5 (40 each, half_K = 100 at local index 20 of shard 2); the
+# multi-modal panda and the albert push_reach over 8
+SAMPLE_SHARDS = (8, 5)
+FAMILY_SHARDS = 8
+PANDA_SHARD_TICKS = 30  # the sharded and unsharded multi-modal panda, tick for tick
+SWEEP_K = (512, 2048, 8192)  # scripts/bench_sharded.py's sweep (horizon 12), unsharded against 8 shards
+SWEEP_TICKS = 20  # its timed replans a turn (scripts/bench_sharded.py --ticks)
+SEED_SHARDS = 4  # the n=20 point and panda batches over 4 shards of one card: 5 seeds each
+SEED_BENCH_CHUNKS = 1  # the seed-shard rate: 1 warm-up chunk, then this many of LOOP_CHUNK a turn
+SHARD_PROFILE_TICKS = 2  # the sharded runs' profiled ticks (a 4-shard batched tick is ~19,000 device kernels)
+SIM_COLUMNS = {"point": [*range(1, 14), 17, 18], "panda": list(range(1, 15))}  # a row's columns that are not clocks
 # four point tasks for the batched checks: (name, goal)
 POINT_TASKS = [("push_pull", [-3.75, -3.75]), ("pull", [1.0, 3.0]), ("push", [-1.0, -1.0]), ("navigation", [1.5, 1.0])]
 
@@ -851,9 +878,9 @@ def phase_main_path(cfg) -> tuple:
     return loop, launches, calls
 
 
-def phase_benchmark(loop, card: str, label: str = "bench") -> float:
+def phase_benchmark(loop, card: str, label: str = "bench", timed: int = 4) -> float:
     """Benchmark mode (bench.py:40-41): both gates off, 2 warm-up chunks of
-    BENCH_CHUNK, then 4 timed chunks."""
+    BENCH_CHUNK, then ``timed`` timed chunks."""
     loop.tamp.task_planner.check_task_success = lambda view: False
     loop.tamp.device_gate = False
     chunk = BENCH_CHUNK
@@ -861,10 +888,10 @@ def phase_benchmark(loop, card: str, label: str = "bench") -> float:
         loop.run_chunked(chunk, chunk=chunk)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(4):
+    for _ in range(timed):
         loop.run_chunked(chunk, chunk=chunk)
-    hz = 4 * chunk / (time.perf_counter() - t0)
-    print(f"[{label}] {hz:.2f} Hz replan+step, K=200 x T=15, {4 * chunk} timed ticks ({card})")
+    hz = timed * chunk / (time.perf_counter() - t0)
+    print(f"[{label}] {hz:.2f} Hz replan+step, K=200 x T=15, {timed * chunk} timed ticks ({card})")
     return hz
 
 
@@ -940,6 +967,20 @@ def _count_panda_ticks(loop) -> list:
         return out
 
     loop.tamp.run_chunk_panda = counted
+    return record
+
+
+def _count_chunk_views(loop) -> list:
+    """Wrap the loop's chunk entry to record each chunk's length and views
+    (read after the run, not inside it)."""
+    record, run_chunk = [], loop.tamp.run_chunk
+
+    def counted(ms, rs, task, i0, length):
+        out = run_chunk(ms, rs, task, i0, length)
+        record.append((length, out[2]))
+        return out
+
+    loop.tamp.run_chunk = counted
     return record
 
 
@@ -1132,15 +1173,7 @@ def _albert_gated_run(label: str, overrides: list, n_ticks: int):
     cfg = load_config("config_albert", overrides)
     loop = SimLoop(cfg, device="cuda")
     loop.warmup(20)
-    record = []
-    run_chunk = loop.tamp.run_chunk
-
-    def counted(ms, rs, task, i0, length):
-        out = run_chunk(ms, rs, task, i0, length)
-        record.append((length, out[2]))
-        return out
-
-    loop.tamp.run_chunk = counted
+    record = _count_chunk_views(loop)
     view0 = loop.env.view_vec(loop.state).cpu().numpy()
     ar.albert_rollout_launches = 0
     weights.weights_launches = 0
@@ -1294,6 +1327,14 @@ def _launch_counters() -> list:
         (pr, "panda_rollout_launches"), (pr, "panda_rollout_batched_launches"),
         (ar, "albert_rollout_launches"), (ar, "albert_rollout_batched_launches"),
     ]
+
+
+KERNEL_OF_COUNTER = {
+    "rollout_launches": "point_rollout", "rollout_batched_launches": "point_rollout_batched",
+    "weights_launches": "multimodal_weights", "weights_batched_launches": "multimodal_weights_batched",
+    "panda_rollout_launches": "panda_rollout", "panda_rollout_batched_launches": "panda_rollout_batched",
+    "albert_rollout_launches": "albert_rollout", "albert_rollout_batched_launches": "albert_rollout_batched",
+}
 
 
 def _zero_launches() -> None:
@@ -1522,28 +1563,32 @@ def phase_albert_batched() -> tuple:
 
 
 def _count_batch_ticks(batch) -> list:
-    """Wrap the batch's chunk entry to record each dispatched chunk length."""
+    """Wrap the chunk entry of each of the batch's shards to record each
+    dispatched chunk length (a chunk of a sharded batch counts once a shard)."""
     record = []
     name = "_run_chunk_panda_impl" if batch.is_panda else "_run_chunk_impl"
-    chunk_fn = getattr(batch.tamp, name)
+    for tamp in batch._tamps:
+        chunk_fn = getattr(tamp, name)
 
-    def counted(*args, **kwargs):
-        record.append(args[4])  # the chunk length of either entry
-        return chunk_fn(*args, **kwargs)
+        def counted(*args, chunk_fn=chunk_fn, **kwargs):
+            record.append(args[4])  # the chunk length of either entry
+            return chunk_fn(*args, **kwargs)
 
-    setattr(batch.tamp, name, counted)
+        setattr(tamp, name, counted)
     return record
 
 
-def phase_seed_batch(label: str, config_name: str, overrides: list, chunk: int, max_ticks: int, per_tick: dict):
+def phase_seed_batch(label: str, config_name: str, overrides: list, chunk: int, max_ticks: int, per_tick: dict,
+                     shard=False):
     """One n=20 batch through ``BatchSimLoop`` (seeds 0-19, warm-up 20, gates
-    on), as ``run_experiments parallel_seeds=True`` runs it: every launch
-    count set to 0 just before ``run_chunked`` and read just after; each
-    batched kernel in ``per_tick`` launched that many times per dispatched
-    tick for the whole batch, every other kernel never.  The panda batch
-    settles 150 steps before its rows are logged.  Prints each seed's row
-    (``_seed_rows``), the success count and the row statistics of
-    ``analysis.summarize``; returns the counts."""
+    on), as ``run_experiments parallel_seeds=True`` runs it (``shard``: as
+    ``parallel_seeds=shard`` runs it, over that mesh): every launch count set
+    to 0 just before ``run_chunked`` and read just after; each batched
+    kernel in ``per_tick`` launched that many times per dispatched tick of
+    each shard, every other kernel never.  The panda batch settles 150 steps
+    before its rows are logged.  Prints each seed's row (``_seed_rows``),
+    the success count and the row statistics of ``analysis.summarize``;
+    returns the counts, the rows and the success ticks."""
     from m3p2i_aip_tpu_torch.analysis import (
         finalize_albert_row,
         finalize_panda_row,
@@ -1555,7 +1600,7 @@ def phase_seed_batch(label: str, config_name: str, overrides: list, chunk: int, 
     from m3p2i_aip_tpu_torch.tamp.batch_loop import BatchSimLoop
 
     cfg = load_config(config_name, overrides)
-    batch = BatchSimLoop(cfg, list(range(N_SEEDS)), device="cuda")
+    batch = BatchSimLoop(cfg, list(range(N_SEEDS)), shard=shard, device="cuda")
     batch.warmup(20)
     record = _count_batch_ticks(batch)
     _zero_launches()
@@ -1566,8 +1611,8 @@ def phase_seed_batch(label: str, config_name: str, overrides: list, chunk: int, 
     wall = time.perf_counter() - t0
     counts = _read_launches()
     dispatched = sum(record)
-    print(f"[{label}] {len(record)} chunks, {dispatched} batched ticks dispatched for {N_SEEDS} seeds in {wall:.2f} s; "
-          f"launches {counts}")
+    print(f"[{label}] {len(record)} chunks, {dispatched} batched ticks dispatched for {N_SEEDS} seeds in "
+          f"{len(batch._shards)} shard(s) in {wall:.2f} s; launches {counts}")
     for name, n in counts.items():
         want = per_tick.get(name, 0) * dispatched
         assert n == want, f"{label}: {name} launched {n} times, expected {want}"
@@ -1597,7 +1642,7 @@ def phase_seed_batch(label: str, config_name: str, overrides: list, chunk: int, 
         print(f"[{label}] task time {np.mean(done) * cfg.sim.dt:.4f} ± {np.std(done) * cfg.sim.dt:.4f} s "
               f"over the {len(done)} successful seeds")
     assert sum(ok) >= MIN_SUCCESS, f"{label}: only {sum(ok)}/{N_SEEDS} seeds succeeded"
-    return counts
+    return counts, rows, steps
 
 
 def _seed_rows(per_seed: dict, steps: list, cubes=None) -> list:
@@ -1744,20 +1789,47 @@ def phase_gated_loop(label: str, config_name: str, overrides: list, max_ticks: i
     return counts, calls
 
 
-def _point_plain_flat(spec, task_vec, state0, fric_k, acts) -> tuple:
-    """K1's plain version on B recorded calls of one task at once: the
-    calls' K samples side by side as one [B K] plain rollout (each sample
-    from its own call's start state, in its own call's mode half), the same
-    ``point_env.step`` and objective as ``rollout.point_rollout_plain``,
-    which takes one start state and one call at a time.  ``task_vec`` [B, 4]
-    (every row equal), ``state0`` [B, n_state], ``fric_k`` [B, K, D],
-    ``acts`` [B, K, T, n_u]; returns [B, K, T] costs and [B, K, T, 2]
-    trajectory points."""
+class _SampleGoals:
+    """The goals [n, G] of n samples, indexed as one goal [G] is (``goal[:2]``
+    -> [n, 2]): a flat plain call's per-sample task."""
+
+    def __init__(self, goals):
+        self.goals = goals
+
+    def __getitem__(self, idx):
+        return self.goals[:, idx]
+
+
+def _flat_task(task_vec, K: int, goal: slice, zup: int = None):
+    """The task of B recorded calls laid side by side, per sample: call b's
+    task id and goal columns ``goal`` of ``task_vec`` [B, ...] (and its
+    ``zup_gate`` column) for its K samples."""
     from types import SimpleNamespace
 
+    rows = lambda x: x.repeat_interleave(K, dim=0)  # noqa: E731 (sample k of call b takes call b's row)
+    task = SimpleNamespace(task_id=rows(task_vec[:, 0]), goal=_SampleGoals(rows(task_vec[:, goal])))
+    if zup is not None:
+        task.zup_gate = rows(task_vec[:, zup])
+    return task
+
+
+def _flat_mode(spec, task_vec, K: int, k0: int):
+    """Each sample's mode from its call's global offset (column ``k0`` of
+    ``task_vec``): the second half of the ``spec.K`` samples pulls."""
+    gk = torch.arange(K, device=task_vec.device, dtype=torch.float32) + task_vec[:, k0 : k0 + 1]
+    return ((gk >= spec.K // 2) & (gk < spec.K)).to(torch.int32).reshape(-1)
+
+
+def _point_plain_flat(spec, task_vec, state0, fric_k, acts) -> tuple:
+    """K1's plain version on B recorded calls at once: the calls' K samples
+    side by side as one [B K] plain rollout (each sample from its own call's
+    start state, with its own call's task and global offset ``k0``), the
+    same ``point_env.step`` and objective as ``rollout.point_rollout_plain``,
+    which takes one start state and one call at a time.  ``task_vec`` [B, 4],
+    ``state0`` [B, n_state], ``fric_k`` [B, K, D], ``acts`` [B, K, T, n_u];
+    returns [B, K, T] costs and [B, K, T, 2] trajectory points."""
     from m3p2i_aip_tpu_torch.models import point_env
 
-    assert bool((task_vec == task_vec[0]).all()), "one task a flat plain call"
     p, D, n_q = spec.env_params, spec.D, spec.n_q
     B, K, T = acts.shape[:3]
     n, o = B * K, 2 * n_q
@@ -1768,9 +1840,7 @@ def _point_plain_flat(spec, task_vec, state0, fric_k, acts) -> tuple:
         contact_force=torch.zeros(n, p.num_actors, 3, dtype=acts.dtype, device=acts.device),
         fric_scale=fric_k.reshape(n, D),
     )
-    gk = torch.arange(K, device=acts.device, dtype=torch.float32) + task_vec[0, 3]
-    mode = ((gk >= spec.K // 2) & (gk < spec.K)).to(torch.int32).repeat(B)
-    task = SimpleNamespace(task_id=task_vec[0, 0], goal=task_vec[0, 1:3])
+    mode, task = _flat_mode(spec, task_vec, K, 3), _flat_task(task_vec, K, slice(1, 3))
     ext, flat = point_env.zero_ext(p, (n,)), acts.reshape(n, T, -1)
     costs, points = [], []
     for t in range(T):
@@ -1791,23 +1861,18 @@ def _stacked_starts(rows) -> object:
 
 
 def _panda_plain_flat(spec, task_vec, state0, acts) -> tuple:
-    """K3's plain version on B recorded calls of one task at once, as
+    """K3's plain version on B recorded calls at once, as
     ``_point_plain_flat`` does K1's: the calls' K samples side by side as one
     [B K] plain rollout, the same ``panda_env.step``, ``panda_fk.fk`` and
-    objective as ``panda_rollout.panda_rollout_plain``.  ``task_vec`` [B, 10]
-    (every row equal), ``state0`` [B, 56], ``acts`` [B, K, T, 9]; returns
-    [B, K, T] costs and [B, K, T, 2] trajectory points."""
-    from types import SimpleNamespace
-
+    objective as ``panda_rollout.panda_rollout_plain``.  ``task_vec`` [B, 10],
+    ``state0`` [B, 56], ``acts`` [B, K, T, 9]; returns [B, K, T] costs and
+    [B, K, T, 2] trajectory points."""
     from m3p2i_aip_tpu_torch.models import panda_env, panda_fk
     from m3p2i_aip_tpu_torch.ops import panda_rollout as pr
 
-    assert bool((task_vec == task_vec[0]).all()), "one task a flat plain call"
     p, (B, K, T) = spec.env_params, acts.shape[:3]
     state = _stacked_starts([pr.unpack_state(row, K, p) for row in state0])
-    gk = torch.arange(K, device=acts.device, dtype=torch.float32) + task_vec[0, 8]
-    mode = ((gk >= spec.K // 2) & (gk < spec.K)).to(torch.int32).repeat(B)
-    task = SimpleNamespace(task_id=task_vec[0, 0], goal=task_vec[0, 1:8], zup_gate=task_vec[0, 9])
+    mode, task = _flat_mode(spec, task_vec, K, 8), _flat_task(task_vec, K, slice(1, 8), zup=9)
     ext, flat = panda_env.zero_ext(p, (B * K,)), acts.reshape(B * K, T, -1)
     costs, points = [], []
     for t in range(T):
@@ -1820,19 +1885,16 @@ def _panda_plain_flat(spec, task_vec, state0, acts) -> tuple:
 
 
 def _albert_plain_flat(spec, task_vec, state0, acts) -> tuple:
-    """K4's plain version on B recorded calls of one task at once, as
+    """K4's plain version on B recorded calls at once, as
     ``_panda_plain_flat``, with ``albert_rollout.albert_rollout_plain``'s
-    ``albert.step``, ``albert.fk`` and objective.  ``task_vec`` [B, 5],
-    ``state0`` [B, 30], ``acts`` [B, K, T, 13]."""
-    from types import SimpleNamespace
-
+    ``albert.step``, ``albert.fk`` and objective (single mode: ``k0`` unused).
+    ``task_vec`` [B, 5], ``state0`` [B, 30], ``acts`` [B, K, T, 13]."""
     from m3p2i_aip_tpu_torch.models import albert
     from m3p2i_aip_tpu_torch.ops import albert_rollout as ar
 
-    assert bool((task_vec == task_vec[0]).all()), "one task a flat plain call"
     B, K, T = acts.shape[:3]
     state = _stacked_starts([ar.unpack_state(row, K) for row in state0])
-    task = SimpleNamespace(task_id=task_vec[0, 0], goal=task_vec[0, 1:4])
+    task = _flat_task(task_vec, K, slice(1, 4))
     flat = acts.reshape(B * K, T, -1)
     costs, points = [], []
     for t in range(T):
@@ -1843,30 +1905,33 @@ def _albert_plain_flat(spec, task_vec, state0, acts) -> tuple:
     return torch.stack(costs, dim=1).reshape(B, K, T), torch.stack(points, dim=1).reshape(B, K, T, 2)
 
 
-def phase_every_call(label: str, calls: list, kernel, flat=_point_plain_flat, bars: tuple = PLANAR_BARS) -> None:
+def phase_every_call(label: str, calls: list, kernel, flat=_point_plain_flat, bars: tuple = PLANAR_BARS) -> float:
     """A rollout kernel on every recorded (spec, inputs) call of one run,
     held to its plain version laid flat (``_point_plain_flat``,
     ``_panda_plain_flat`` or ``_albert_plain_flat``: up to CHECK_GROUP
-    consecutive calls of one task in one plain rollout) sample by sample at
-    ``bars`` (``_closed_loop_check``: every sample beyond them must be
-    explained by a nudge of its own actions)."""
+    consecutive calls in one plain rollout, each sample under its own call's
+    task and global offset) sample by sample at ``bars``
+    (``_closed_loop_check``: every sample beyond them must be explained by a
+    nudge of its own actions).  Returns the largest cost or trajectory
+    difference from the plain version over every call."""
     spec = calls[0][0]
     assert all(s is spec for s, _ in calls), f"{label}: one rollout spec a run"
-    groups, beyond, explained = [], 0, 0
-    for _, x in calls:
-        if groups and len(groups[-1]) < CHECK_GROUP and torch.equal(groups[-1][0][0], x[0]):
-            groups[-1].append(x)
-        else:
-            groups.append([x])
+    groups = [calls[i : i + CHECK_GROUP] for i in range(0, len(calls), CHECK_GROUP)]
+    beyond = explained = 0
+    worst = 0.0
     t0 = time.perf_counter()
     for group in groups:
-        xb = tuple(torch.stack(v) for v in zip(*group))
-        out = tuple(torch.stack(v) for v in zip(*(kernel(spec, *x) for x in group)))
+        xb = tuple(torch.stack(v) for v in zip(*(x for _, x in group)))
+        out = tuple(torch.stack(v) for v in zip(*(kernel(spec, *x) for _, x in group)))
+        ref = flat(spec, *xb)
+        worst = max([worst] + [float(torch.abs(o - r).max()) for o, r in zip(out, ref)])
         nb, ne = _closed_loop_check(f"every call {label}, {len(group)} calls", lambda *a: flat(spec, *a), xb, out,
-                                    bars=bars)
+                                    ref=ref, bars=bars)
         beyond, explained = beyond + nb, explained + ne
     print(f"[every call {label}] {len(calls)} recorded calls in {len(groups)} groups held to the plain version in "
-          f"{time.perf_counter() - t0:.1f} s: {beyond} samples beyond the bars, {explained} explained")
+          f"{time.perf_counter() - t0:.1f} s: {beyond} samples beyond the bars, {explained} explained; max err "
+          f"{worst:.3e}")
+    return worst
 
 
 def _expect_launches(label: str, counts: dict, want: dict) -> None:
@@ -2092,15 +2157,34 @@ def phase_checkpoint() -> dict:
 
 
 def phase_family_bench(card: str, config_name: str, label: str) -> float:
-    """``scripts/bench_family.py``'s protocol on the port: push_pull
-    multi-modal to the corner goal, warm-up 50, both gates off, then
-    ``phase_benchmark``'s chunks."""
+    """``scripts/bench_family.py``'s protocol on the port at a shorter depth:
+    push_pull multi-modal to the corner goal, warm-up 50, both gates off,
+    then ``phase_benchmark``'s chunks, FAMILY_TIMED of them timed."""
     from m3p2i_aip_tpu_torch.config.config_store import load_config
     from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
 
     loop = SimLoop(load_config(config_name, MAIN_PATH), device="cuda")
     loop.warmup(50)
-    return phase_benchmark(loop, card, label)
+    return phase_benchmark(loop, card, label, FAMILY_TIMED)
+
+
+def _watch_syncs(fn, syncs: list):
+    """``fn`` run with ``torch.cuda.set_sync_debug_mode("warn")``: each call
+    appends to ``syncs`` the host-device synchronisations it made."""
+    import warnings
+
+    def watched(*args):
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                out = fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        syncs.append([str(w.message) for w in caught if "synchroniz" in str(w.message).lower()])
+        return out
+
+    return watched
 
 
 def phase_pipelined(card: str) -> tuple:
@@ -2113,8 +2197,6 @@ def phase_pipelined(card: str) -> tuple:
     benchmark-mode rates in turns (serial, pipelined, pipelined, serial) and a
     profile of PROFILE_TICKS ticks of each (device idle share).  Returns (launch counts
     of the gated pipelined run, its K1 calls, its K2 calls)."""
-    import warnings
-
     from m3p2i_aip_tpu_torch.config.config_store import load_config
     from m3p2i_aip_tpu_torch.ops import rollout as ro
     from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
@@ -2130,18 +2212,7 @@ def phase_pipelined(card: str) -> tuple:
             dispatched += length
             return run_chunk(ms, rs, task, i0, length)
 
-        def watched_enqueue(*args, enqueue=enqueue):
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                with warnings.catch_warnings(record=True) as caught:
-                    warnings.simplefilter("always")
-                    out = enqueue(*args)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-            syncs.append([str(w.message) for w in caught if "synchroniz" in str(w.message).lower()])
-            return out
-
-        loop.tamp.run_chunk, loop._enqueue_chunk = counted_run_chunk, watched_enqueue
+        loop.tamp.run_chunk, loop._enqueue_chunk = counted_run_chunk, _watch_syncs(enqueue, syncs)
         _zero_launches()
         with _recorded(ro, "point_rollout") as k1_calls, _recorded_weights("multimodal_weights") as k2_calls:
             logs[pipelined] = loop.run_chunked(1000, chunk=PIPELINE_CHUNK, pipelined=pipelined)
@@ -2283,6 +2354,293 @@ def phase_urdf(card: str) -> None:
     assert err <= URDF_ATOL and a_err <= URDF_ATOL, "the URDF chains disagree with the native FK"
 
 
+# ------------------------------------------------------------------------
+# the sample axis and the seed axis split over a mesh of one card's shards
+
+def _card_mesh(n: int):
+    """A mesh of ``n`` shards of the first card (``parallel.make_mesh``)."""
+    from m3p2i_aip_tpu_torch.parallel import make_mesh
+
+    return make_mesh([torch.device("cuda", 0)] * n)
+
+
+def _log_record(log) -> dict:
+    """A TickLog's ticks, success tick, tasks and positions, to compare runs."""
+    return {"steps": log.steps, "success_step": log.success_step, "task": list(log.task),
+            **{name: np.asarray(getattr(log, name)) for name in ("robot_pos", "robot_vel", "box_pos")}}
+
+
+def _assert_same_log(label: str, log, ref: dict) -> None:
+    for key, want in _log_record(log).items():
+        same = np.array_equal(want, ref[key]) if isinstance(want, np.ndarray) else want == ref[key]
+        assert same, f"{label}: {key} differs from the unsharded run's"
+
+
+def _k0s(calls, column: int) -> list:
+    """The global offsets of a run's recorded rollout calls, in order of first use."""
+    return sorted({int(x[0][column]) for _, x in calls})
+
+
+def phase_sample_shard(card: str, main_log: dict) -> tuple:
+    """The sample axis split over shards of one card (``shard_planner``):
+    the gated main path over each of SAMPLE_SHARDS (the 8-shard run
+    pipelined, each enqueue watched for host syncs; the 5-shard run serial)
+    must latch at the unsharded main path's tick with logs bit-equal to its
+    (``main_log``), K1 launched once a shard and K2 once per dispatched
+    tick; every K1 call, each at its shard's global offset, equal to the
+    plain version bit for bit.  Then the multi-modal panda (PANDA_SHARD_TICKS,
+    chunks of 10) and the albert push_reach (gated) over FAMILY_SHARDS,
+    each tick for tick equal to its unsharded run with K3 / K4 launched once
+    a shard a rollout, every call held to its plain version.  A profile of
+    the 8-shard main path in benchmark mode, the gather's time, and the
+    sweep of ``phase_shard_sweep``.  Returns (launch counts, K2 calls by run)."""
+    from m3p2i_aip_tpu_torch.config.config_store import load_config
+    from m3p2i_aip_tpu_torch.ops import albert_rollout as ar
+    from m3p2i_aip_tpu_torch.ops import panda_rollout as pr
+    from m3p2i_aip_tpu_torch.ops import rollout as ro
+    from m3p2i_aip_tpu_torch.parallel import sample_sharding, shard_planner
+    from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
+
+    launches = {"point_rollout": 0, "multimodal_weights": 0, "panda_rollout": 0, "albert_rollout": 0}
+    k2_runs = {}
+    for n in SAMPLE_SHARDS:
+        label, pipelined = f"sample-shard point x{n}", n == SAMPLE_SHARDS[0]
+        loop = SimLoop(load_config("config_point", MAIN_PATH), device="cuda")
+        shard_planner(loop.tamp.motion_planner, _card_mesh(n))
+        loop.warmup(50)
+        dispatched, run_chunk, syncs = 0, loop.tamp.run_chunk, []
+
+        def counted_run_chunk(ms, rs, task, i0, length, run_chunk=run_chunk):
+            nonlocal dispatched
+            dispatched += length
+            return run_chunk(ms, rs, task, i0, length)
+
+        loop.tamp.run_chunk = counted_run_chunk
+        loop._enqueue_chunk = _watch_syncs(loop._enqueue_chunk, syncs)
+        _zero_launches()
+        t0 = time.perf_counter()
+        with _recorded(ro, "point_rollout") as k1_calls, _recorded_weights("multimodal_weights") as k2_calls:
+            log = loop.run_chunked(1000, chunk=50, pipelined=pipelined)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_launches()
+        print(f"[{label}] {'pipelined' if pipelined else 'serial'}: {log.steps} ticks logged, {dispatched} dispatched "
+              f"in {wall:.2f} s, success tick {log.success_step} (unsharded {main_log['success_step']}); host syncs "
+              f"per enqueue {[len(x) for x in syncs]}")
+        _expect_launches(label, counts, {"rollout_launches": n * dispatched, "weights_launches": dispatched})
+        assert log.success_step is not None and log.success_step == main_log["success_step"]
+        _assert_same_log(label, log, main_log)
+        assert not pipelined or (syncs and not any(syncs)), f"{label}: an enqueue synchronised the host: {syncs}"
+        k_loc = loop.tamp.motion_planner.K // n
+        assert _k0s(k1_calls, 3) == list(range(0, n * k_loc, k_loc)), _k0s(k1_calls, 3)
+        err = phase_every_call(f"K1 {label}", k1_calls, ro.point_rollout)
+        assert err == 0.0, f"{label}: K1 differs from its plain version by {err}"
+        launches["point_rollout"] += counts["rollout_launches"]
+        launches["multimodal_weights"] += counts["weights_launches"]
+        k2_runs[label] = k2_calls
+        if pipelined:  # the split's costs on the main path: the gather and the device's idle share
+            costs = torch.randn(loop.tamp.motion_planner.K, loop.tamp.motion_planner.T, device="cuda")
+            shard = sample_sharding(loop.tamp.motion_planner.mesh)
+            parts = shard.split(costs)
+            print(f"[{label}] gather of the [K, T] costs from {n} shards: {_time_ms(lambda: shard.gather(parts)):.4f} "
+                  f"ms single, {_device_ms(lambda: shard.gather(parts)):.4f} ms replayed ({card})")
+            loop.tamp.task_planner.check_task_success = lambda view: False
+            loop.tamp.device_gate = False
+            _profile_ticks(label, card, lambda: loop.run_chunked(SHARD_PROFILE_TICKS, chunk=SHARD_PROFILE_TICKS // 2),
+                           SHARD_PROFILE_TICKS, {"K1": "point_rollout", "K2": "weights"})
+        del loop
+
+    for label, config_name, overrides, mod, name, flat, bars, col in (
+        ("sample-shard panda", "config_panda", ["multi_modal=True"], pr, "panda_rollout", _panda_plain_flat,
+         PLANAR_BARS, 8),
+        ("sample-shard albert", "config_albert", PUSH_REACH, ar, "albert_rollout", _albert_plain_flat, ALBERT_BARS, 4),
+    ):
+        panda, runs = config_name == "config_panda", {}
+        cfg = load_config(config_name, overrides)
+        for n in (None, FAMILY_SHARDS):
+            loop = SimLoop(load_config(config_name, overrides), device="cuda")
+            if n is not None:
+                shard_planner(loop.tamp.motion_planner, _card_mesh(n))
+            loop.warmup(50 if panda else 20)
+            record = _count_panda_ticks(loop) if panda else _count_chunk_views(loop)
+            _zero_launches()
+            with _recorded(mod, name) as calls, _recorded_weights("multimodal_weights") as k2_calls:
+                log = loop.run_chunked(PANDA_SHARD_TICKS if panda else PUSH_REACH_TICKS, chunk=10)
+            torch.cuda.synchronize()
+            views = torch.cat([v for _, v in record]).cpu().numpy()
+            runs[n] = (log, views, calls, k2_calls, _read_launches(), sum(k for k, _ in record))
+        (log, views, *_), (slog, sviews, calls, k2_calls, counts, dispatched) = runs[None], runs[FAMILY_SHARDS]
+        rungs = 1 + int(cfg.mppi.refine_iters)
+        k2_per_tick = int(cfg.mppi.refine_iters) if cfg.multi_modal else 0  # the greedy last rung takes no weights
+        print(f"[{label} x{FAMILY_SHARDS}] {slog.steps} ticks logged, {dispatched} dispatched, success tick "
+              f"{slog.success_step} (unsharded {log.success_step}); tasks {sorted(set(slog.task))}")
+        _expect_launches(f"{label} x{FAMILY_SHARDS}", counts, {
+            f"{name}_launches": FAMILY_SHARDS * rungs * dispatched, "weights_launches": k2_per_tick * dispatched,
+        })
+        assert (slog.steps, slog.success_step, slog.task) == (log.steps, log.success_step, log.task), label
+        assert np.array_equal(sviews, views) and np.isfinite(views).all(), f"{label}: the views differ tick for tick"
+        assert panda or slog.success_step is not None, f"{label}: no success in {PUSH_REACH_TICKS} ticks"
+        print(f"[{label} x{FAMILY_SHARDS}] {views.shape[0]} ticks' views bit-equal to the unsharded run's")
+        k_loc = cfg.mppi.num_samples // FAMILY_SHARDS
+        assert _k0s(calls, col) == list(range(0, FAMILY_SHARDS * k_loc, k_loc)), _k0s(calls, col)
+        phase_every_call(f"{name} {label}", calls, getattr(mod, name), flat, bars)
+        launches[name] += counts[f"{name}_launches"]
+        launches["multimodal_weights"] += counts["weights_launches"]
+        if k2_calls:
+            k2_runs[label] = k2_calls
+    phase_shard_sweep(card)
+    return launches, k2_runs
+
+
+def phase_shard_sweep(card: str) -> None:
+    """``scripts/bench_sharded.py``'s sweep on one card: the main path's
+    planner at K in SWEEP_K (horizon 12) unsharded, over a mesh of 1 shard
+    (the sharded code path alone) and over 8 shards of the card; one command
+    from identical planner states must give equal actions, then SWEEP_TICKS
+    chained commands from the start state timed on the host clock (ending in
+    a synchronize), in turns (unsharded, 1, 8, 8, 1, unsharded): ms a
+    replan, and each split's ratio to unsharded."""
+    from m3p2i_aip_tpu_torch.config.config_store import load_config
+    from m3p2i_aip_tpu_torch.parallel import shard_planner
+    from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMP
+
+    splits = (None, 1, 8)
+    for K in SWEEP_K:
+        overrides = [*MAIN_PATH, f"mppi.num_samples={K}", "mppi.horizon=12", "mppi.u_per_command=12"]
+        tamps = {n: ReactiveTAMP(load_config("config_point", overrides), device="cuda") for n in splits}
+        for n in splits[1:]:
+            shard_planner(tamps[n].motion_planner, _card_mesh(n))
+        state = tamps[None].env.init_state()
+        task = tamps[None].tamp_interface(state)
+        first = {n: tamp.motion_planner.command(tamp.mppi_state, state, task)[0] for n, tamp in tamps.items()}
+        assert all(torch.equal(first[None], first[n]) for n in splits), f"K={K}: a sharded command differs"
+
+        def replan_ms(tamp) -> float:
+            mp, ms = tamp.motion_planner, tamp.mppi_state
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(SWEEP_TICKS):
+                _, ms, _ = mp.command(ms, state, task)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / SWEEP_TICKS * 1e3
+
+        times = {n: [] for n in splits}
+        for n in splits + splits[::-1]:
+            times[n].append(replan_ms(tamps[n]))
+        base = np.median(times[None])
+        cells = "; ".join(f"{'unsharded' if n is None else f'{n} shard(s)'} {', '.join(f'{t:.3f}' for t in times[n])} ms"
+                          f" (x{np.median(times[n]) / base:.3f})" for n in splits)
+        print(f"[shard-sweep] K={K}, ms a replan in turns U 1 8 8 1 U: {cells}; first commands equal ({card})")
+
+
+def _chunk_bench(batch, tasks: list, n_chunks: int, i0: int, chunk: int = LOOP_CHUNK) -> None:
+    """``n_chunks`` benchmark-mode chunks of ``chunk`` ticks of every shard
+    of ``batch`` (gates off): every shard's chunk enqueued, then each
+    shard's views fetched, as ``BatchSimLoop.run_chunked`` does."""
+    for c in range(n_chunks):
+        outs = [sh.tamp._run_chunk_impl(sh.mppi_state, sh.state, task, i0 + c * chunk, chunk, gate=False)
+                for sh, task in zip(batch._shards, tasks)]
+        for sh, (ms, rs, views, _, _) in zip(batch._shards, outs):
+            sh.mppi_state, sh.state = ms, rs
+            views.cpu()
+
+
+def phase_seed_shard(card: str, unsharded: dict) -> dict:
+    """The seed axis over SEED_SHARDS shards of one card
+    (``BatchSimLoop(shard=mesh)``): the n=20 point and panda batches of
+    ``phase_seed_batch`` must give every seed the unsharded batch's row (in
+    every column but the clocks) and success tick (``unsharded``: family ->
+    (rows, success ticks)), each batched kernel launched once a shard per
+    tick; then the point batch's seed-ticks/s sharded beside unsharded in
+    turns (benchmark mode, warm-up 50), and ``run_experiments
+    parallel_seeds=shard`` on the default mesh (every visible card).
+    Returns the launch counts summed."""
+    import tempfile
+
+    from m3p2i_aip_tpu_torch.config.config_store import load_config
+    from m3p2i_aip_tpu_torch.scripts import run_experiments
+    from m3p2i_aip_tpu_torch.tamp import batch_loop
+    from m3p2i_aip_tpu_torch.tamp.batch_loop import BatchSimLoop
+
+    total = {}
+    mesh = _card_mesh(SEED_SHARDS)
+    for family, config_name, overrides, chunk, cap, per_tick in (
+        ("point", "config_point", MAIN_PATH, 4, 300, {"rollout_batched_launches": 1, "weights_batched_launches": 1}),
+        ("panda", "config_panda", ["multi_modal=True"], 10, 600,
+         {"panda_rollout_batched_launches": 4, "weights_batched_launches": 3}),
+    ):
+        label = f"seed-shard {family} x{SEED_SHARDS}"
+        counts, rows, steps = phase_seed_batch(label, config_name, overrides, chunk, cap, per_tick, shard=mesh)
+        ref_rows, ref_steps = unsharded[family]
+        cols = SIM_COLUMNS[family]
+        assert steps == ref_steps, f"{label}: success ticks {steps}, unsharded {ref_steps}"
+        assert np.array_equal(rows[:, cols], ref_rows[:, cols]), f"{label}: rows differ from the unsharded batch's"
+        print(f"[{label}] every seed's row and success tick equal to the unsharded batch's")
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+
+    batches = {}
+    for sharded in (False, True):
+        batch = BatchSimLoop(load_config("config_point", MAIN_PATH), list(range(N_SEEDS)),
+                             shard=mesh if sharded else False, device="cuda")
+        batch.warmup(50)
+        for b, tp in enumerate(batch.planners):
+            tp.update_plan(batch.views[b])
+        batches[sharded] = (batch, [batch._stacked_task_params(sh.seeds, sh.tamp.device) for sh in batch._shards])
+    rates, i0 = {False: [], True: []}, {False: 0, True: 0}
+    for sharded in (False, True, True, False):
+        batch, tasks = batches[sharded]
+        _chunk_bench(batch, tasks, 1, i0[sharded])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _chunk_bench(batch, tasks, SEED_BENCH_CHUNKS, i0[sharded] + LOOP_CHUNK)
+        wall = time.perf_counter() - t0
+        i0[sharded] += (1 + SEED_BENCH_CHUNKS) * LOOP_CHUNK
+        rates[sharded].append(SEED_BENCH_CHUNKS * LOOP_CHUNK * N_SEEDS / wall)
+    print(f"[seed-shard bench] B={N_SEEDS}, chunks of {LOOP_CHUNK}: unsharded "
+          f"{', '.join(f'{r:.2f}' for r in rates[False])} seed-ticks/s, {SEED_SHARDS} shards "
+          f"{', '.join(f'{r:.2f}' for r in rates[True])} seed-ticks/s (in turns U S S U; {SEED_BENCH_CHUNKS * LOOP_CHUNK} "
+          f"timed ticks a turn) ({card})")
+    _profile_ticks(f"seed-shard bench x{SEED_SHARDS}", card,
+                   lambda: _chunk_bench(*batches[True], 1, 0, SHARD_PROFILE_TICKS), SHARD_PROFILE_TICKS,
+                   {"K1b": "point_rollout", "K2b": "multimodal_weights"})
+    del batches
+
+    made, init = [], BatchSimLoop.__init__
+
+    def recording_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        made.append(self)
+
+    batch_loop.BatchSimLoop.__init__ = recording_init
+    _zero_launches()
+    try:
+        with tempfile.TemporaryDirectory() as out:
+            run_experiments.main([*MAIN_PATH, "n_runs=4", "chunked=4", "parallel_seeds=shard", f"out={out}/rows.npy"])
+    finally:
+        batch_loop.BatchSimLoop.__init__ = init
+    torch.cuda.synchronize()
+    counts = _read_launches()
+    (batch,) = made
+    ok = [log.success_step is not None for log in batch.logs]
+    print(f"[seed-shard run_experiments] parallel_seeds=shard: a mesh of {batch.mesh.size} card(s), "
+          f"{len(batch._shards)} shard(s); {sum(ok)}/4 succeeded; launches {counts}")
+    assert batch.mesh is not None and batch.mesh.size == torch.cuda.device_count() == len(batch._shards)
+    assert all(ok), "parallel_seeds=shard: a seed did not reach the goal"
+    assert counts["rollout_batched_launches"] > 0 and counts["rollout_launches"] == 0, counts
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+    return total
+
+
+_START = time.perf_counter()
+
+
+def _stamp(label: str) -> None:
+    """The smoke's elapsed wall time at the end of a step of ``main``."""
+    print(f"[elapsed] {time.perf_counter() - _START:.1f} s after {label}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device; this script runs only on a GPU")
@@ -2308,15 +2666,19 @@ def main() -> None:
 
     cfg = load_config("config_point", MAIN_PATH)
     tamp = ReactiveTAMP(cfg, device="cuda")
+    _stamp("the build")
     # 3. / 4. each kernel against its plain version
     stats = {"multimodal_weights": phase_weights(tamp.motion_planner), "point_rollout": phase_rollout(tamp)}
     del tamp
+    _stamp("the K1 / K2 checks")
     # 5. / 6. the point main path
     with _recorded_weights("multimodal_weights") as k2_point:
         loop, launches, k1_calls = phase_main_path(load_config("config_point", MAIN_PATH))
     point_chunked_tick = loop.log.success_step
+    main_log = _log_record(loop.log)
     hz = phase_benchmark(loop, card)
     del loop
+    _stamp("the point path")
     # 7. K3 against its plain version; 8. / 9. / 10. the panda path
     stats["panda_rollout"], w_err, k3_parity = phase_panda_rollout()
     launches["panda_rollout"], k3_calls, panda_chunked_tick = phase_panda_main()
@@ -2325,6 +2687,7 @@ def main() -> None:
     k2 = stats["multimodal_weights"]
     k2["max_abs_err"] = max(k2["max_abs_err"], w_err)  # over the point and the panda shapes and costs
     panda_hz = phase_panda_bench(card)
+    _stamp("the panda path")
     # 11. K4 against its plain version; 12. - 15. the albert path
     stats["albert_rollout"], k4_parity = phase_albert_rollout(card)
     with _recorded(ar, "albert_rollout") as k4_calls:
@@ -2332,27 +2695,29 @@ def main() -> None:
         phase_albert_push()
     albert_hz = phase_albert_bench(card)
     phase_albert_breakdown(card)
+    _stamp("the albert path")
     # 16. - 18. the batched kernels against their plain versions and single launches, timed at B=20
     stats["point_rollout_batched"], stats["multimodal_weights_batched"] = phase_point_batched()
     stats["panda_rollout_batched"], w_err, k3b_parity = phase_panda_batched()
     k2b = stats["multimodal_weights_batched"]
     k2b["max_abs_err"] = max(k2b["max_abs_err"], w_err)
     stats["albert_rollout_batched"], k4b_parity = phase_albert_batched()
+    _stamp("the batched kernels' checks")
     # 19. - 21. the three n=20 batches through BatchSimLoop
     with _recorded(ro, "point_rollout_batched") as k1b_calls, \
             _recorded_weights("multimodal_weights_batched") as k2b_point:
-        point_counts = phase_seed_batch(
+        point_counts, point_rows, point_steps = phase_seed_batch(
             "batch-point", "config_point", MAIN_PATH, 4, 300,
             {"rollout_batched_launches": 1, "weights_batched_launches": 1},
         )
     with _recorded(pr, "panda_rollout_batched") as k3b_calls, \
             _recorded_weights("multimodal_weights_batched") as k2b_panda:
-        panda_counts = phase_seed_batch(
+        panda_counts, panda_rows, panda_steps = phase_seed_batch(
             "batch-panda", "config_panda", ["multi_modal=True"], 10, 600,
             {"panda_rollout_batched_launches": 4, "weights_batched_launches": 3},
         )
     with _recorded(ar, "albert_rollout_batched") as k4b_calls:
-        albert_counts = phase_seed_batch(
+        albert_counts, _, _ = phase_seed_batch(
             "batch-albert", "config_albert", [], 10, 300, {"albert_rollout_batched_launches": 4}
         )
     launches["point_rollout_batched"] = point_counts["rollout_batched_launches"]
@@ -2361,10 +2726,12 @@ def main() -> None:
     )
     launches["panda_rollout_batched"] = panda_counts["panda_rollout_batched_launches"]
     launches["albert_rollout_batched"] = albert_counts["albert_rollout_batched_launches"]
+    _stamp("the n=20 batches")
     # 22. / 23. three seeds batched against three serial runs; 24. the batch's rate
     phase_batch_vs_serial("batch-vs-serial point", "config_point", MAIN_PATH, 4, 300)
     phase_batch_vs_serial("batch-vs-serial panda", "config_panda", ["multi_modal=True"], 10, 600)
     phase_batch_bench(card, hz)
+    _stamp("batched vs serial and the batch rate")
     # 25. / 26. the heijn and boxer closed loops and the planner-mode runs, each gated;
     # 27. the heijn and boxer rates
     k1_runs, k2_runs = {}, {}
@@ -2376,6 +2743,7 @@ def main() -> None:
         launches["point_rollout"] += counts["rollout_launches"]
         launches["multimodal_weights"] += counts["weights_launches"]
     family_hz = {name: phase_family_bench(card, f"config_{name}", f"family-bench {name}") for name in ("heijn", "boxer")}
+    _stamp("the family and planner-mode runs")
     # 28. - 30. the README's entry points: the run_tamp script per tick, the two terminals over a
     # socket, checkpoint / resume
     counts, k2_runs["point per-tick"], in_process_ms = phase_run_sim(
@@ -2384,6 +2752,7 @@ def main() -> None:
     for extra in (counts, phase_two_terminal(card, in_process_ms), phase_checkpoint()):
         for name, n in extra.items():
             launches[name] += n
+    _stamp("the entry points")
     # 31. pipelined chunks on the main path; 32. the round-4 panda's gradient refinement;
     # 33. the URDF FK cross-check
     counts, k1_runs["pipelined gated"], k2_runs["pipelined gated"] = phase_pipelined(card)
@@ -2394,8 +2763,18 @@ def main() -> None:
     phase_every_call("K3 grad-refine panda", k3_grad, pr.panda_rollout, _panda_plain_flat)
     del k3_grad
     phase_urdf(card)
-    # 34. K1, K1b, K3, K3b, K4 and K4b on the closed loops' inputs (K1 on every call of
-    # steps 25, 26 and 31's runs), then K2 and K2b; 35. the scaling sweeps
+    _stamp("pipelined chunks, gradient refinement and the URDF check")
+    # 34. the sample axis over shards of the card: the main path, the panda and the albert, the
+    # sweep; 35. the seed axis: the n=20 point and panda batches, the rate, run_experiments
+    counts, shard_k2 = phase_sample_shard(card, main_log)
+    k2_runs.update(shard_k2)
+    seed_counts = phase_seed_shard(card, {"point": (point_rows, point_steps), "panda": (panda_rows, panda_steps)})
+    for extra in (counts, {KERNEL_OF_COUNTER[name]: n for name, n in seed_counts.items()}):
+        for name, n in extra.items():
+            launches[name] += n
+    _stamp("the sample and seed shards")
+    # 36. K1, K1b, K3, K3b, K4 and K4b on the closed loops' inputs (K1 on every call of
+    # steps 25, 26 and 31's runs), then K2 and K2b; 37. the scaling sweeps
     slowest = {}
     for name, label, calls, kernel, plain, ops, single in (
         ("point_rollout", "K1", k1_calls, ro.point_rollout, ro.point_rollout_batched_plain, _point_rollout_ops, None),
@@ -2447,6 +2826,7 @@ def main() -> None:
     phase_weights_scaling(card, {"random": w_random[0], "closed-loop": slowest["K2"]},
                           {"random": w_random[1], "closed-loop": slowest["K2b"]})
 
+    _stamp("the closed-loop checks and the sweeps")
     sources = {
         "point_rollout": ("m3p2i_aip_tpu_torch/csrc/point_rollout.cu", "m3p2i_aip_tpu/ops/pallas_rollout.py:189"),
         "multimodal_weights": (

@@ -13,6 +13,8 @@ one NVIDIA H100 (``sm_90a``).  The layout mirrors the JAX package:
   * ``planners`` — the halton-spline M3P2I planner, the point costs, and the
                    host-side task planners
   * ``tamp``     — ``ReactiveTAMP`` and the chunked ``SimLoop``
+  * ``parallel`` — the sample axis (and a seed batch) split over a list of
+                   devices, one kernel launch per shard
   * ``utils``    — suction model, paths, and the JAX-to-torch state converters
 
 The package imports ``torch`` and numpy and never ``jax``.  Every tensor

@@ -14,7 +14,9 @@ call, ``pallas_albert_rollout.py:425``).
 ``make_albert_rollout`` returns ``rollout(sim_state_k, acts, task, k0=None)
 -> (cost_horizon [K, T], traj_points [K, T, 2])``: ``acts`` arrive already
 ``u_scale``-scaled and all K states are the broadcast start state.  The
-albert is single-mode, so ``k0`` only rides along in the task vector.
+albert is single-mode, so ``k0`` only rides along in the task vector.  The
+callable launches on the device of ``acts``, with the scene's constants
+copied there once.
 """
 from __future__ import annotations
 
@@ -207,12 +209,13 @@ def _launch(fn: str, spec: AlbertRolloutSpec, task_vec, state0, acts):
     cost = torch.empty(B, K, spec.T, dtype=torch.float32, device=acts.device)
     traj = torch.empty(B, K, spec.T, 2, dtype=torch.float32, device=acts.device)
     lib = cuda_build.load_kernels()
-    err = lib.m3p2i_albert_rollout(
-        spec.params_buf.data_ptr(), task_vec.data_ptr(), state0.data_ptr(), acts.data_ptr(),
-        cost.data_ptr(), traj.data_ptr(), B, K, spec.T, spec.env_params.substeps,
-        int(spec.env_params.has_box), spec.params_buf.numel(),
-        torch.cuda.current_stream(acts.device).cuda_stream,
-    )
+    with torch.cuda.device(acts.device):  # the launch goes to the context of the tensors' card
+        err = lib.m3p2i_albert_rollout(
+            spec.params_buf.data_ptr(), task_vec.data_ptr(), state0.data_ptr(), acts.data_ptr(),
+            cost.data_ptr(), traj.data_ptr(), B, K, spec.T, spec.env_params.substeps,
+            int(spec.env_params.has_box), spec.params_buf.numel(),
+            torch.cuda.current_stream(acts.device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"{fn} kernel launch failed: cudaError {err}")
     return cost, traj
@@ -270,9 +273,13 @@ def make_albert_rollout(env_params: albert.AlbertParams, objective: AlbertObject
         params_buf=torch.as_tensor(_param_buffer(env_params, objective), device=env_params.device),
     )
 
+    on_device = {spec.params_buf.device: spec}  # the spec with its constants on each device a shard runs on
+
     def rollout(sim_state_k, acts, task, k0=None):
+        if acts.device not in on_device:
+            on_device[acts.device] = replace(spec, params_buf=spec.params_buf.to(acts.device))
         wrapper = albert_rollout_batched if acts.dim() == 4 else albert_rollout  # a leading seed axis?
-        return wrapper(spec, *rollout_inputs(sim_state_k, task, k0), acts.contiguous())
+        return wrapper(on_device[acts.device], *rollout_inputs(sim_state_k, task, k0), acts.contiguous())
 
     def chain(sim_state_k, acts, task, mode):
         """The plain rollout's costs [N, T] of N sequences ``acts`` [N, T, 13]

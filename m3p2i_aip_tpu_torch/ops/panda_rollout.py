@@ -11,7 +11,9 @@ EE's xy.
 -> (cost_horizon [K, T], traj_points [K, T, 2])``: ``acts`` arrive already
 ``u_scale``-scaled with the gripper channels overridden, all K states are the
 broadcast start state, and ``k0`` is the global index of the first sample
-(a later multi-device split keeps the mode assignment by global index).
+(a shard of a mesh, ``parallel/mesh.py``, keeps the mode assignment by
+global index).  The callable launches on the device of ``acts``, with the
+scene's constants copied there once.
 
 The kernel carries cubeA's orientation as a quaternion, as ``panda_env.step``
 does (the TPU kernel used a rotation matrix and Rodrigues), and does not
@@ -256,12 +258,13 @@ def _launch(fn: str, spec: PandaRolloutSpec, task_vec, state0, acts):
     cost = torch.empty(B, K, spec.T, dtype=torch.float32, device=acts.device)
     traj = torch.empty(B, K, spec.T, 2, dtype=torch.float32, device=acts.device)
     lib = cuda_build.load_kernels()
-    err = lib.m3p2i_panda_rollout(
-        spec.params_buf.data_ptr(), task_vec.data_ptr(), state0.data_ptr(), acts.data_ptr(),
-        cost.data_ptr(), traj.data_ptr(), B, K, spec.K, spec.T, spec.S, spec.env_params.substeps,
-        spec.table_slot, spec.shelf_slot, int(spec.multi_modal), spec.params_buf.numel(),
-        torch.cuda.current_stream(acts.device).cuda_stream,
-    )
+    with torch.cuda.device(acts.device):  # the launch goes to the context of the tensors' card
+        err = lib.m3p2i_panda_rollout(
+            spec.params_buf.data_ptr(), task_vec.data_ptr(), state0.data_ptr(), acts.data_ptr(),
+            cost.data_ptr(), traj.data_ptr(), B, K, spec.K, spec.T, spec.S, spec.env_params.substeps,
+            spec.table_slot, spec.shelf_slot, int(spec.multi_modal), spec.params_buf.numel(),
+            torch.cuda.current_stream(acts.device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"{fn} kernel launch failed: cudaError {err}")
     return cost, traj
@@ -322,9 +325,13 @@ def make_panda_rollout(env_params: panda_env.PandaEnvParams, pre_height_diff: fl
         params_buf=torch.as_tensor(_param_buffer(env_params, float(pre_height_diff)), device=env_params.device),
     )
 
+    on_device = {spec.params_buf.device: spec}  # the spec with its constants on each device a shard runs on
+
     def rollout(sim_state_k, acts, task, k0=None):
+        if acts.device not in on_device:
+            on_device[acts.device] = replace(spec, params_buf=spec.params_buf.to(acts.device))
         wrapper = panda_rollout_batched if acts.dim() == 4 else panda_rollout  # a leading seed axis?
-        return wrapper(spec, *rollout_inputs(sim_state_k, task, k0), acts.contiguous())
+        return wrapper(on_device[acts.device], *rollout_inputs(sim_state_k, task, k0), acts.contiguous())
 
     def chain(sim_state_k, acts, task, mode):
         """The plain rollout's costs [N, T] of N sequences ``acts`` [N, T, 9]

@@ -11,19 +11,21 @@ into the next step.
 ``rollout(sim_state_k, acts, task, k0=None) -> (cost_horizon [K, T],
 traj_points [K, T, 2])``: ``acts`` arrive already ``u_scale``-scaled, all K
 states are the broadcast start state except their ``fric_scale`` rows, and
-``k0`` is the global index of the first sample (a later multi-device split
-keeps the mode assignment by global index).
+``k0`` is the global index of the first sample (a shard of a mesh,
+``parallel/mesh.py``, keeps the mode assignment by global index).  The
+callable launches on the device of ``acts``, with the scene's constants
+copied there once.
 
 With a leading seed axis (``sim_state_k`` fields [B, K, ...], ``acts``
 [B, K, T, n_u], a batched TaskParams) the same callable rolls B seeds out in
 ONE launch of the batched kernel (``point_rollout_batched``, the port of
 the TPU kernel's ``grid=(B,)`` call, ``pallas_rollout.py:802``) and returns
-[B, K, T] costs and [B, K, T, 2] points.  A batched call never shards K:
-the multi-seed runner leaves ``k0`` at 0 for every seed.
+[B, K, T] costs and [B, K, T, 2] points.  The seed-batch runner shards
+seeds, not K, so it leaves ``k0`` at 0 for every seed.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from types import SimpleNamespace
 
 import numpy as np
@@ -221,14 +223,15 @@ def _launch(fn: str, spec: RolloutSpec, task_vec, state0, fric_k, acts):
     traj = torch.empty(B, K, T, 2, dtype=torch.float32, device=acts.device)
     lib = cuda_build.load_kernels()
     p = spec.env_params
-    err = lib.m3p2i_point_rollout(
-        spec.params_buf.data_ptr(), task_vec.data_ptr(), state0.data_ptr(),
-        fric_k.data_ptr(), acts.data_ptr(), cost.data_ptr(), traj.data_ptr(),
-        B, K, spec.K, T, D, S, p.substeps, p.pos_iters, spec.box_slot, spec.dynobs_slot,
-        _ROBOT_TYPES[p.robot_type], spec.n_q, n_u, int(spec.multi_modal),
-        int(spec.boxer_continuous_align), spec.params_buf.numel(),
-        torch.cuda.current_stream(acts.device).cuda_stream,
-    )
+    with torch.cuda.device(acts.device):  # the launch goes to the context of the tensors' card
+        err = lib.m3p2i_point_rollout(
+            spec.params_buf.data_ptr(), task_vec.data_ptr(), state0.data_ptr(),
+            fric_k.data_ptr(), acts.data_ptr(), cost.data_ptr(), traj.data_ptr(),
+            B, K, spec.K, T, D, S, p.substeps, p.pos_iters, spec.box_slot, spec.dynobs_slot,
+            _ROBOT_TYPES[p.robot_type], spec.n_q, n_u, int(spec.multi_modal),
+            int(spec.boxer_continuous_align), spec.params_buf.numel(),
+            torch.cuda.current_stream(acts.device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"{fn} kernel launch failed: cudaError {err}")
     return cost, traj
@@ -303,9 +306,13 @@ def make_point_rollout(
         ),
     )
 
+    on_device = {spec.params_buf.device: spec}  # the spec with its constants on each device a shard runs on
+
     def rollout(sim_state_k, acts, task, k0=None):
+        if acts.device not in on_device:
+            on_device[acts.device] = replace(spec, params_buf=spec.params_buf.to(acts.device))
         wrapper = point_rollout_batched if acts.dim() == 4 else point_rollout  # a leading seed axis?
-        return wrapper(spec, *rollout_inputs(sim_state_k, task, k0), acts.contiguous())
+        return wrapper(on_device[acts.device], *rollout_inputs(sim_state_k, task, k0), acts.contiguous())
 
     def chain(sim_state_k, acts, task, mode):
         """The plain rollout's costs [N, T] of N sequences ``acts`` [N, T,

@@ -119,11 +119,12 @@ def _launch(fn: str, cost, gamma, half_K: int, eta_u: float, eta_l: float):
         raise ValueError(f"{fn}: K = {K} samples, the kernel takes at most {MAX_K}")
     out = torch.empty(B, 3, K, dtype=torch.float32, device=cost.device)
     lib = cuda_build.load_kernels()
-    err = lib.m3p2i_multimodal_weights(
-        cost.data_ptr(), gamma.data_ptr(), out.data_ptr(),
-        B, K, T, int(half_K), ctypes.c_float(eta_u), ctypes.c_float(eta_l),
-        torch.cuda.current_stream(cost.device).cuda_stream,
-    )
+    with torch.cuda.device(cost.device):  # the launch goes to the context of the tensors' card
+        err = lib.m3p2i_multimodal_weights(
+            cost.data_ptr(), gamma.data_ptr(), out.data_ptr(),
+            B, K, T, int(half_K), ctypes.c_float(eta_u), ctypes.c_float(eta_l),
+            torch.cuda.current_stream(cost.device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"{fn} kernel launch failed: cudaError {err}")
     return out

@@ -10,7 +10,11 @@ arrive as :class:`TaskParams` tensors, never as a host branch.
 The K rollouts go through an injected ``rollout(sim_state_k, acts, task)``
 (``ops/rollout.py`` or ``ops/panda_rollout.py``: the CUDA kernel for CUDA
 tensors, its plain version for CPU tensors), and the multi-modal weights
-through ``ops/weights.py``.  After the first update, ``refine_iters`` more
+through ``ops/weights.py``.  With a mesh (``set_mesh``, through
+``parallel.shard_planner``) each rollout runs as one call per shard on the
+shard's K/n samples and device, at the shard's global sample offset, and
+the weights run once on the costs gathered onto the mesh's first device
+(``_rollout``).  After the first update, ``refine_iters`` more
 rollouts re-sample the cached deltas at a shrinking scale around the new
 means (the annealed refine ladder); the last rung optionally picks the argmin
 sample instead of the weighted mean.  ``update_cov`` (single mode) and
@@ -55,6 +59,7 @@ from m3p2i_aip_tpu_torch.ops.filters import savgol_matrix
 from m3p2i_aip_tpu_torch.ops.sampling import gaussian_halton_samples
 from m3p2i_aip_tpu_torch.ops.spline import bspline_interp_matrix
 from m3p2i_aip_tpu_torch.ops.weights import multimodal_weights, multimodal_weights_batched
+from m3p2i_aip_tpu_torch.parallel.mesh import sample_sharding
 from m3p2i_aip_tpu_torch.utils.tree import tree_map, tree_stack
 
 
@@ -211,6 +216,7 @@ class MPPI:
         self._sgf = self._t(savgol_matrix(self.T, sgf_window, 2).astype(np.float32)).double()
         self.sample_mode = self._t((np.arange(self.K) >= self.half_K).astype(np.int32))
         self.rollout = rollout
+        self.mesh = None  # optional device mesh over the samples; see parallel/mesh.py
         self.fric_noise = None if fric_noise is None else np.asarray(fric_noise)
         self.generator = torch.Generator(device=self.device)
         self.seed_generators: list = []  # one per seed of a batch (init_state_batch)
@@ -218,6 +224,30 @@ class MPPI:
 
     def _t(self, x: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device)
+
+    def set_mesh(self, mesh) -> None:
+        """Split the K sample axis of every rollout over ``mesh``
+        (``parallel.shard_planner`` checks K and the first device)."""
+        self.mesh = mesh
+
+    def _rollout(self, sim_state_k, acts: torch.Tensor, task: TaskParams):
+        """The rollout of all K samples (mppi.py:546-550): one call of
+        ``self.rollout``, or with a mesh one call per shard on its device's
+        current stream, shard i on samples i K/n .. (i+1) K/n - 1 with the
+        global offset ``k0`` (so a shard keeps the half-batch mode split by
+        global index), the costs and trajectories gathered onto the mesh's
+        first device in shard order.  Returns ([..., K, T], [..., K, T, 2])."""
+        if self.mesh is None:
+            return self.rollout(sim_state_k, acts, task)
+        shard = sample_sharding(self.mesh)
+        nb = acts.dim() - 3  # the K axis, behind a seed axis if any
+        k_loc = self.K // self.mesh.size
+        outs = []
+        for i, a in enumerate(shard.split(acts, nb)):
+            s = tree_map(lambda x: shard.piece(x, i, nb), sim_state_k)
+            t = tree_map(lambda x: x.to(a.device), task)
+            outs.append(self.rollout(s, a, t, k0=i * k_loc))
+        return shard.gather([c for c, _ in outs], nb), shard.gather([t for _, t in outs], nb)
 
     # ------------------------------------------------------------------ init
     def _make_halton_spline_deltas(self) -> np.ndarray:
@@ -503,7 +533,7 @@ class MPPI:
         if self.sample_null_action:
             act_seq[..., self.K - 1, :, :] = 0.0  # braking sample (mppi.py:300-302)
 
-        cost_horizon, tps = self.rollout(sim_state_k, self.u_scale * act_seq, task)
+        cost_horizon, tps = self._rollout(sim_state_k, self.u_scale * act_seq, task)
         state = self._update_halton(state, cost_horizon, act_seq)
         state = self._sample_refine(state, sim_state_k, task)
         state = self._grad_refine(state, sim_state_k, task)
@@ -542,7 +572,7 @@ class MPPI:
         perturbed = self._gripper_override(perturbed, task)
         if self.sample_null_action:
             perturbed[..., self.K - 1, :, :] = 0.0  # in place on the fresh clamp
-        cost_horizon, tps = self.rollout(sim_state_k, self.u_scale * perturbed, task)
+        cost_horizon, tps = self._rollout(sim_state_k, self.u_scale * perturbed, task)
         noise_b = perturbed - U[..., None, :, :]  # post-bounding noise (mppi.py:356)
         dev = torch.abs(noise_b) if self.cfg.noise_abs_cost else noise_b
         acc = dev[..., 0:1] * self._sigma_inv[0]  # dev @ noise_sigma^-1 in a fixed order
@@ -589,7 +619,7 @@ class MPPI:
             elif self.cfg.sample_best_traj:
                 act_seq[..., 0, :, :] = state.best_traj
             act_seq = self._gripper_override(act_seq, task)
-            cost_horizon, _ = self.rollout(sim_state_k, self.u_scale * act_seq, task)
+            cost_horizon, _ = self._rollout(sim_state_k, self.u_scale * act_seq, task)
             if self.refine_greedy and i == self.refine_iters - 1:
                 state = self._greedy_pick(state, cost_horizon, act_seq)
             else:

@@ -8,7 +8,10 @@ config overrides and ``-cn NAME`` of ``load_config_from_argv``, plus
 ``cpu``).  Seeds ``seed_offset .. seed_offset + n_runs - 1`` run serially
 through one ``SimLoop`` (``chunked=N``: N ticks per device round trip), or
 with ``parallel_seeds=True`` all together through ``BatchSimLoop`` (one
-batched kernel launch per rollout per tick for the whole batch).
+batched kernel launch per rollout per tick for the whole batch), or with
+``parallel_seeds=shard`` split over every visible card (``BatchSimLoop(
+shard=True)``: one launch per rollout per tick on each card's seeds; on the
+CPU, one shard).
 
 Run from the repository root:
 

@@ -1,42 +1,68 @@
 """Batched seed evaluation: B seeded runs advanced together, one chunk at a
-time.
+time, optionally with the seeds split over a device mesh.
 
-Port of ``m3p2i_aip_tpu/tamp/batch_loop.py`` (``BatchSimLoop``) without its
-sharded mode.  The JAX package vmaps the chunk program over the seeds; here
-every state carries an explicit leading seed axis B instead: the planner
-state (``MPPI.init_state_batch``: each seed's Halton deltas, friction scales
-and exploration generator), the real-env state and the per-seed
-``TaskParams``.  Each rollout of a tick is ONE launch of a batched kernel
-for the whole batch (``ops/rollout.py``, ``ops/panda_rollout.py``,
+Port of ``m3p2i_aip_tpu/tamp/batch_loop.py`` (``BatchSimLoop``).  The JAX
+package vmaps the chunk program over the seeds; here every state carries an
+explicit leading seed axis B instead: the planner state
+(``MPPI.init_state_batch``: each seed's Halton deltas, friction scales and
+exploration generator), the real-env state and the per-seed ``TaskParams``.
+Each rollout of a tick is ONE launch of a batched kernel for the whole
+batch (``ops/rollout.py``, ``ops/panda_rollout.py``,
 ``ops/albert_rollout.py``: the seed on the grid's y axis) and each
 multi-modal weight update one launch of the batched weights kernel (one
 block per seed), so a batch of B costs about the host dispatch of one
 serial tick per tick.
 
 The host keeps B independent symbolic planners (their latches and stall
-detectors are per-run state) and drains B logs at each chunk boundary from
-ONE device-to-host transfer.  Seeds finish at different ticks: the chunk's
-success gate takes a ``done0`` pre-latch per seed
-(``ReactiveTAMP._run_chunk_impl`` / ``_run_chunk_panda_impl``), so a
-finished seed's state is frozen mid-batch as if the host had stopped
-dispatching it.
+detectors are per-run state) and drains B logs at each chunk boundary.
+Seeds finish at different ticks: the chunk's success gate takes a ``done0``
+pre-latch per seed (``ReactiveTAMP._run_chunk_impl`` /
+``_run_chunk_panda_impl``), so a finished seed's state is frozen mid-batch
+as if the host had stopped dispatching it.
+
+``shard`` (``True`` for ``parallel.make_mesh()``, or a ``parallel`` Mesh)
+lays the seed axis over the mesh's devices: shard i holds seeds
+i B/n .. (i+1) B/n - 1 with their own ``ReactiveTAMP`` on its device (its
+planner's generators are those seeds'), so each chunk launches the batched
+kernels once per shard on that shard's seeds.  Every shard's chunk is
+enqueued before any shard's views are fetched (one device-to-host transfer
+per shard), so on several cards they overlap.  No cross-shard collective
+is needed: a chunk has a fixed length and a per-seed done latch.  Unlike
+the JAX package, whose sharded batch falls back to the XLA rollout (GSPMD
+cannot partition a ``pallas_call``), every shard keeps the batched kernels.
 
 Parity: the logs equal those of B serial ``SimLoop.run_chunked`` runs at the
 same chunk size, seed b drawing its exploration noise from a generator
-seeded as the serial run with seed b seeds its own.
+seeded as the serial run with seed b seeds its own, however the seeds are
+sharded.
 """
 from __future__ import annotations
 
 import time
-from typing import List, Optional, Sequence
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from m3p2i_aip_tpu_torch.planners.motion_planner.mppi import TASK_IDS, TaskParams
+from m3p2i_aip_tpu_torch.parallel.mesh import Mesh, make_mesh
+from m3p2i_aip_tpu_torch.planners.motion_planner.mppi import TASK_IDS, MPPIState, TaskParams
 from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMP, build_task_planner
 from m3p2i_aip_tpu_torch.tamp.sim_loop import _STAGE_TASK, SimLoop, TickLog
 from m3p2i_aip_tpu_torch.utils.tree import tree_map
+
+
+@dataclass
+class _Shard:
+    """One device's slice of the batch: seeds ``seeds`` (a slice of the
+    batch), its planner and device states (panda: AIF stage and stall carry)."""
+
+    tamp: ReactiveTAMP
+    seeds: slice
+    mppi_state: Optional[MPPIState] = None
+    state: object = None
+    stage: Optional[torch.Tensor] = None
+    zs: Optional[torch.Tensor] = None
 
 
 class BatchSimLoop:
@@ -46,66 +72,111 @@ class BatchSimLoop:
     same seeds, same logs, B-fold fewer kernel launches.
     """
 
-    def __init__(self, cfg, seeds: Sequence[int], shard: bool = False, device="cuda") -> None:
-        if shard:
-            raise NotImplementedError("a seed batch sharded over devices is not ported yet: see ROADMAP.md M11")
+    def __init__(self, cfg, seeds: Sequence[int], shard: Union[bool, Mesh] = False, device="cuda") -> None:
+        """``shard=True`` takes ``make_mesh()`` (every visible card) on a
+        CUDA ``device`` and a one-device mesh of ``device`` otherwise; a Mesh
+        is taken as it is, and its devices replace ``device``."""
         self.cfg = cfg
-        self.tamp = ReactiveTAMP(cfg, device=device)
+        self.mesh = None
+        if isinstance(shard, Mesh):
+            self.mesh = shard
+        elif shard:
+            self.mesh = make_mesh(None if torch.device(device).type == "cuda" else [device])
+        if self.mesh is not None:
+            self._check_batch(len(seeds))
+        devices = self.mesh.devices if self.mesh is not None else (device,)
+        self._tamps = [ReactiveTAMP(cfg, device=d) for d in devices]
+        self.tamp = self._tamps[0]
         self.env = self.tamp.env
         self.device = self.tamp.device
         self.is_panda = self.env.env_type == "panda_env"
         self.reset(seeds)
 
+    def _check_batch(self, B: int) -> None:
+        n = self.mesh.size
+        if B % n != 0:
+            raise ValueError(
+                f"B={B} seeds must divide the {n}-device mesh; pad the seed list (pad rows are cheap: drop their logs)"
+            )
+
     # ------------------------------------------------------------------ setup
     def reset(self, seeds: Optional[Sequence[int]] = None) -> None:
-        """A fresh seeded batch without rebuilding the planner: seed b's
+        """A fresh seeded batch without rebuilding the planners: seed b's
         Halton deltas, friction scales and exploration generator are those of
-        a serial ``SimLoop.reset(seeds[b])``."""
+        a serial ``SimLoop.reset(seeds[b])``, whichever shard holds it."""
         if seeds is not None:
             self.seeds = list(seeds)
         B = len(self.seeds)
+        if self.mesh is not None:
+            self._check_batch(B)
         # per-seed host symbolic planners (their latches are mutable state);
         # the panda runs its AIF gate on the device and only needs the labels
         self.planners = [build_task_planner(self.cfg, self.env, self.tamp.objective) for _ in range(B)]
-        self.mppi_state = self.tamp.motion_planner.init_state_batch(self.seeds)
-        self.state = None  # set by warmup()
+        per = B // len(self._tamps)
+        self._shards = []
+        for i, tamp in enumerate(self._tamps):
+            part = slice(i * per, (i + 1) * per)
+            shard = _Shard(tamp, part, mppi_state=tamp.motion_planner.init_state_batch(self.seeds[part]))
+            if self.is_panda:
+                shard.stage = torch.zeros(per, dtype=torch.int32, device=tamp.device)
+                shard.zs = tamp.zup_zs0().expand(per, 4).clone()
+            self._shards.append(shard)
         self.logs: List[TickLog] = [TickLog() for _ in range(B)]
         self.views: List[Optional[dict]] = [None] * B  # frozen at success
         self.done = np.zeros(B, dtype=bool)
-        if self.is_panda:
-            self._stage = torch.zeros(B, dtype=torch.int32, device=self.device)
-            self._zs = self.tamp.zup_zs0().expand(B, 4).clone()
 
     def warmup(self, n: int = 20) -> None:
-        """Settle ONE scene and give every seed a copy: the warmup is
-        zero-action and deterministic, so every seed starts from the same
-        settled state, as ``SimLoop.warmup`` gives each serial run.  The
-        copies are materialised (no stride-0 broadcast), so a later in-place
-        write reaches one seed only."""
+        """Settle ONE scene and give every seed a copy on its shard's device:
+        the warmup is zero-action and deterministic, so every seed starts
+        from the same settled state, as ``SimLoop.warmup`` gives each serial
+        run.  The copies are materialised (no stride-0 broadcast), so a later
+        in-place write reaches one seed only."""
         single = SimLoop(self.cfg, tamp=self.tamp)
         single.warmup(n)
-        B = len(self.seeds)
-        self.state = tree_map(lambda x: x.expand((B,) + x.shape).clone(), single.state)
-        self.views = [single._view] * B
+        for shard in self._shards:
+            per = shard.seeds.stop - shard.seeds.start
+            shard.state = tree_map(lambda x: x.to(shard.tamp.device).expand((per,) + x.shape).clone(), single.state)
+        self.views = [single._view] * len(self.seeds)
+
+    # ------------------------------------------------------ one shard's states
+    def _one_shard(self) -> _Shard:
+        if len(self._shards) != 1:
+            raise AttributeError("a sharded batch keeps its states per shard (_shards)")
+        return self._shards[0]
+
+    def _shard_field(name: str):  # noqa: N805 (a class-body helper)
+        """The batch's ``name`` state (planner, env, panda stage or stall
+        carry) for an unsharded batch: its one shard's."""
+        return property(lambda self: getattr(self._one_shard(), name),
+                        lambda self, value: setattr(self._one_shard(), name, value))
+
+    mppi_state = _shard_field("mppi_state")
+    state = _shard_field("state")
+    _stage = _shard_field("stage")
+    _zs = _shard_field("zs")
+    del _shard_field
 
     # --------------------------------------------------------------- internals
-    def _stacked_task_params(self) -> TaskParams:
-        """The seeds' symbolic decisions as ONE batched TaskParams (four
-        host-to-device copies per chunk boundary, not 4 B)."""
-        B = len(self.planners)
+    def _stacked_task_params(self, seeds: slice = slice(None), device=None) -> TaskParams:
+        """The symbolic decisions of the seeds ``seeds`` as ONE batched
+        TaskParams on ``device`` (the batch's by default): four
+        host-to-device copies per shard and chunk boundary, not four a seed."""
+        planners = self.planners[seeds]
+        device = self.device if device is None else device
+        B = len(planners)
         ids = np.zeros(B, np.int32)
         goals = np.zeros((B, 7), np.float32)
         zups = np.zeros(B, np.float32)
-        for b, tp in enumerate(self.planners):
+        for b, tp in enumerate(planners):
             ids[b] = TASK_IDS[tp.task]
             g = np.asarray(tp.curr_goal, np.float32).reshape(-1)
             goals[b, : g.shape[0]] = g
             zups[b] = float(getattr(tp, "zup_gate", 0.0))
         return TaskParams(
-            task_id=torch.as_tensor(ids, device=self.device),
-            goal=torch.as_tensor(goals, device=self.device),
-            gripper=torch.zeros(B, dtype=torch.int32, device=self.device),  # point / albert: "none"
-            zup_gate=torch.as_tensor(zups, device=self.device),
+            task_id=torch.as_tensor(ids, device=device),
+            goal=torch.as_tensor(goals, device=device),
+            gripper=torch.zeros(B, dtype=torch.int32, device=device),  # point / albert: "none"
+            zup_gate=torch.as_tensor(zups, device=device),
         )
 
     def _drain_seed(self, b: int, i: int, views_b, n_ticks: int, dev_done: bool, per: float) -> None:
@@ -140,37 +211,50 @@ class BatchSimLoop:
             self.done[b] = True
 
     # ---------------------------------------------------------------- running
+    @staticmethod
+    def _fetch(*tensors) -> np.ndarray:
+        """One device-to-host transfer of a shard's chunk outputs, flat."""
+        return torch.cat([t.float().reshape(-1) for t in tensors]).cpu().numpy()
+
     def run_chunked(self, n_steps: int, chunk: int = 10) -> List[TickLog]:
         """Run every seed to success or ``n_steps``; returns the B TickLogs
         (``self.views`` holds each seed's success-tick observation)."""
-        if self.state is None:
+        if self._shards[0].state is None:
             self.warmup(0)
         if self.is_panda:
             return self._run_chunked_panda(n_steps, chunk)
-        B = len(self.seeds)
         i = 0
         while i < n_steps and not self.done.all():
             t0 = time.perf_counter()
-            for b in range(B):
+            for b, tp in enumerate(self.planners):
                 if not self.done[b]:
-                    self.planners[b].update_plan(self.views[b])
-            task = self._stacked_task_params()
-            done0 = torch.as_tensor(self.done, device=self.device)
-            ms, rs, views, n_ticks, dev_done = self.tamp._run_chunk_impl(
-                self.mppi_state, self.state, task, i, chunk, gate=True, done0=done0
-            )
-            # ONE device-to-host transfer: every seed's views and latches
-            nv = views.shape[-1]
-            packed = torch.cat([views.reshape(-1), n_ticks.float(), dev_done.float()]).cpu().numpy()
+                    tp.update_plan(self.views[b])
+            inputs = [
+                (self._stacked_task_params(sh.seeds, sh.tamp.device),
+                 torch.as_tensor(self.done[sh.seeds], device=sh.tamp.device))
+                for sh in self._shards
+            ]
+            # every shard's chunk enqueued before any shard's views are fetched
+            outs = [
+                sh.tamp._run_chunk_impl(sh.mppi_state, sh.state, task, i, chunk, gate=True, done0=done0)
+                for sh, (task, done0) in zip(self._shards, inputs)
+            ]
+            packed = [self._fetch(views, n_ticks, dev_done) for _, _, views, n_ticks, dev_done in outs]
             t1 = time.perf_counter()
-            views = packed[: B * chunk * nv].reshape(B, chunk, nv)
-            n_ticks = packed[B * chunk * nv : B * chunk * nv + B].astype(int)
-            dev_done = packed[B * chunk * nv + B :] > 0.5
-            self.mppi_state, self.state = ms, rs
-            per = (t1 - t0) / max(int(n_ticks.sum()), 1)  # B seeds share one dispatch
-            for b in range(B):
-                if not self.done[b] and n_ticks[b] > 0:
-                    self._drain_seed(b, i, views[b], int(n_ticks[b]), bool(dev_done[b]), per)
+            seeds = []
+            for sh, (ms, rs, views, _, _), flat in zip(self._shards, outs, packed):
+                sh.mppi_state, sh.state = ms, rs
+                per, nv = sh.seeds.stop - sh.seeds.start, views.shape[-1]
+                n_view = per * chunk * nv
+                views_h = flat[:n_view].reshape(per, chunk, nv)
+                n_ticks = flat[n_view : n_view + per].astype(int)
+                dev_done = flat[n_view + per :] > 0.5
+                for j, b in enumerate(range(sh.seeds.start, sh.seeds.stop)):
+                    seeds.append((b, views_h[j], int(n_ticks[j]), bool(dev_done[j])))
+            per_tick = (t1 - t0) / max(sum(n for _, _, n, _ in seeds), 1)  # the seeds share one dispatch
+            for b, views_b, n, dev_done in seeds:
+                if not self.done[b] and n > 0:
+                    self._drain_seed(b, i, views_b, n, dev_done, per_tick)
             i += chunk
         return self._finish_logs()
 
@@ -179,41 +263,40 @@ class BatchSimLoop:
         run on the device per seed.  A finished seed freezes through the
         ``done0`` pre-latch; its post-success zero-action ticks match the
         serial path's within-chunk freeze."""
-        B = len(self.seeds)
         i = 0
         while i < n_steps and not self.done.all():
             t0 = time.perf_counter()
-            done0 = torch.as_tensor(self.done, device=self.device)
-            ms, rs, stage, zs, _, views, stages, dones = self.tamp._run_chunk_panda_impl(
-                self.mppi_state, self.state, self._stage, self._zs, chunk, done0=done0
-            )
-            # ONE device-to-host transfer: views, stages and latches together
-            nv = views.shape[-1]
-            packed = torch.cat([views.reshape(-1), stages.float().reshape(-1), dones.float().reshape(-1)])
-            packed = packed.cpu().numpy()
+            done0 = [torch.as_tensor(self.done[sh.seeds], device=sh.tamp.device) for sh in self._shards]
+            # every shard's chunk enqueued before any shard's views are fetched
+            outs = [
+                sh.tamp._run_chunk_panda_impl(sh.mppi_state, sh.state, sh.stage, sh.zs, chunk, done0=d)
+                for sh, d in zip(self._shards, done0)
+            ]
+            packed = [self._fetch(views, stages, dones) for *_, views, stages, dones in outs]
             t1 = time.perf_counter()
-            n_view = B * chunk * nv
-            views = packed[:n_view].reshape(B, chunk, nv)
-            stages = packed[n_view : n_view + B * chunk].reshape(B, chunk).astype(int)
-            dones = packed[n_view + B * chunk :].reshape(B, chunk) > 0.5
-            self.mppi_state, self.state = ms, rs
-            self._stage, self._zs = stage, zs
             live = max(int((~self.done).sum()), 1)
-            per = (t1 - t0) / (chunk * live)
-            for b in range(B):
-                if self.done[b]:
-                    continue
-                log = self.logs[b]
-                for k in range(chunk):
-                    self.views[b] = self.env.view_unpack(views[b, k])
-                    log.steps += 1
-                    log.replan_s.append(per)
-                    log.sim_s.append(per)
-                    log.task.append(_STAGE_TASK[stages[b, k]])
-                    if dones[b, k]:
-                        log.success_step = i + k
-                        self.done[b] = True
-                        break  # freeze the log and view at the success tick
+            per_tick = (t1 - t0) / (chunk * live)
+            for sh, (ms, rs, stage, zs, _, views, _, _), flat in zip(self._shards, outs, packed):
+                sh.mppi_state, sh.state, sh.stage, sh.zs = ms, rs, stage, zs
+                per, nv = sh.seeds.stop - sh.seeds.start, views.shape[-1]
+                n_view = per * chunk * nv
+                views_h = flat[:n_view].reshape(per, chunk, nv)
+                stages = flat[n_view : n_view + per * chunk].reshape(per, chunk).astype(int)
+                dones = flat[n_view + per * chunk :].reshape(per, chunk) > 0.5
+                for j, b in enumerate(range(sh.seeds.start, sh.seeds.stop)):
+                    if self.done[b]:
+                        continue
+                    log = self.logs[b]
+                    for k in range(chunk):
+                        self.views[b] = self.env.view_unpack(views_h[j, k])
+                        log.steps += 1
+                        log.replan_s.append(per_tick)
+                        log.sim_s.append(per_tick)
+                        log.task.append(_STAGE_TASK[stages[j, k]])
+                        if dones[j, k]:
+                            log.success_step = i + k
+                            self.done[b] = True
+                            break  # freeze the log and view at the success tick
             i += chunk
         return self._finish_logs()
 
@@ -228,14 +311,15 @@ class BatchSimLoop:
         """Batched twin of ``SimLoop.settle``: ``n`` zero-action steps for
         every seed at once (the panda with the place stage's open gripper,
         so the cube releases), then every seed's view refreshed from ONE
-        transfer.  Call before logging panda rows: the reference logs the
-        released, settled cube."""
-        B = len(self.seeds)
-        zero_u = torch.zeros(B, self.env.nu, dtype=torch.float32, device=self.device)
-        if self.is_panda:
-            zero_u[:, 7:9] = 1.5
-        ext = self.env.zero_ext((B,))
-        for _ in range(n):
-            self.state = self.env.step(self.state, zero_u, ext)
-        views = self.env.view_vec(self.state).cpu().numpy()
-        self.views = [self.env.view_unpack(views[b]) for b in range(B)]
+        transfer per shard.  Call before logging panda rows: the reference
+        logs the released, settled cube."""
+        for sh in self._shards:
+            env, per = sh.tamp.env, sh.seeds.stop - sh.seeds.start
+            zero_u = torch.zeros(per, env.nu, dtype=torch.float32, device=sh.tamp.device)
+            if self.is_panda:
+                zero_u[:, 7:9] = 1.5
+            ext = env.zero_ext((per,))
+            for _ in range(n):
+                sh.state = env.step(sh.state, zero_u, ext)
+        views = np.concatenate([sh.tamp.env.view_vec(sh.state).cpu().numpy() for sh in self._shards])
+        self.views = [self.env.view_unpack(v) for v in views]

@@ -1,8 +1,9 @@
 """The port's experiment runner (``m3p2i_aip_tpu_torch/scripts/
 run_experiments.py``) on the CPU at tiny K and T: ``parallel_seeds=True``
 runs the seeds as one ``BatchSimLoop`` batch and writes one .npy row per
-run in the reference's schema; the sharded mode and a batch with domain
-noise are refused."""
+run in the reference's schema; ``parallel_seeds=shard`` runs them through
+the sharded batch over the default mesh (here one CPU device) and writes
+the same rows; a batch with domain noise is refused."""
 import numpy as np
 import pytest
 
@@ -45,9 +46,17 @@ def test_family_rows_serial_equal_parallel_seeds(tmp_path, config_name):
     assert not np.array_equal(s[0, 1:3], s[1, 1:3])  # two seeds, two runs
 
 
-def test_parallel_seeds_shard_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="M11"):
-        run_experiments.main([*TINY, "parallel_seeds=shard", f"out={tmp_path / 'x.npy'}"])
+def test_parallel_seeds_shard_equals_parallel_seeds_true(tmp_path):
+    """The sharded runner's rows equal the batched runner's in every column
+    that is not a wall-clock time or rate."""
+    argv = ["task=push_pull", "multi_modal=True", "goal=[-3.75,-3.75]", *TINY]
+    batch, shard = tmp_path / "batch.npy", tmp_path / "shard.npy"
+    run_experiments.main([*argv, "parallel_seeds=True", f"out={batch}"])
+    run_experiments.main([*argv, "parallel_seeds=shard", f"out={shard}"])
+    b, s = np.load(batch), np.load(shard)
+    assert b.shape == s.shape == (2, 19)
+    sim = [*range(1, 14), 17, 18]  # positions, velocities, box pose, goal, collisions, task time
+    np.testing.assert_array_equal(s[:, sim], b[:, sim])
 
 
 def test_parallel_seeds_refuses_domain_noise(tmp_path):

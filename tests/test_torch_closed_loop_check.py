@@ -6,6 +6,8 @@ a sample that no nudge of its own actions explains and names it, and lets a
 sample through only when a nudge of all that sample's actions by at most
 ``NUDGE_ULPS`` ulp carries the plain version to the kernel's output
 there."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -75,18 +77,29 @@ FLAT = {"point": chip_smoke._point_plain_flat, "panda": chip_smoke._panda_plain_
         "albert": chip_smoke._albert_plain_flat}
 
 
+BATCHED = {"point": ro.point_rollout_batched_plain, "panda": pr.panda_rollout_batched_plain,
+           "albert": ar.albert_rollout_batched_plain}
+K0_COLUMN = {"point": 3, "panda": 8, "albert": 4}  # the global offset's column of each task vector
+
+
 @pytest.mark.parametrize("family", list(FAMILIES))
 def test_flat_plain_equals_the_plain_version_per_call(family):
-    """``phase_every_call`` lays B recorded calls of one task side by side in
-    one plain rollout; on the CPU that equals the plain version run per
-    call bit for bit, for calls from different start states."""
+    """``phase_every_call`` lays B recorded calls side by side in one plain
+    rollout; on the CPU that equals the plain version run per call bit for
+    bit, for calls from different start states, with different goals, and
+    at different global offsets: here two shards of a 2K-sample rollout,
+    call 1 at offset K/2 (the multi-modal point's mode boundary inside it)."""
     plain, (task_vec, state0, *rest) = FAMILIES[family]()
-    state0 = state0.clone()
+    spec = dataclasses.replace(plain.spec, K=2 * K)
+    state0, task_vec = state0.clone(), task_vec.clone()
     state0[1, :2] += 0.05  # call 1 from another start
+    task_vec[1, 1] += 0.25  # with another goal
+    task_vec[1, K0_COLUMN[family]] = K // 2  # at another offset
     inputs = (task_vec, state0, *rest)
-    for got, ref in zip(FLAT[family](plain.spec, *inputs), plain(*inputs)):
-        assert torch.equal(got, ref)
-    assert not torch.equal(plain(*inputs)[1][0], plain(*inputs)[1][1])
+    ref = BATCHED[family](spec, *inputs)
+    for got, want in zip(FLAT[family](spec, *inputs), ref):
+        assert torch.equal(got, want)
+    assert not torch.equal(ref[1][0], ref[1][1])
 
 
 @pytest.mark.parametrize("family", list(FAMILIES))

@@ -25,7 +25,7 @@ for name in (
     "scripts.run_tamp", "scripts.reactive_tamp", "scripts.sim",
     "utils.urdf", "assets.urdf_gen", "analysis.dashboard", "ops.norm", "scripts.trace_tick_paths",
     "scripts.plot_point", "scripts.plot_panda", "examples.example_key", "examples.example_aip_panda",
-    "examples.example_aip_parallel",
+    "examples.example_aip_parallel", "parallel.mesh",
 ):
     assert pkg.__name__ + "." + name in names, name
 leaked = sorted(m for m in sys.modules if m == "m3p2i_aip_tpu" or m.startswith("m3p2i_aip_tpu."))
@@ -51,7 +51,7 @@ def test_port_covers_the_mirrored_layout():
     assert proc.returncode == 0, proc.stderr
     for sub in (
         "config", "sim", "models", "ops", "planners/motion_planner", "planners/task_planner", "tamp", "utils",
-        "analysis", "scripts", "assets", "examples",
+        "analysis", "scripts", "assets", "examples", "parallel",
     ):
         assert os.path.isfile(os.path.join(_REPO, "m3p2i_aip_tpu_torch", sub, "__init__.py")), sub
     assert int(proc.stdout.strip()) >= 25
