@@ -78,11 +78,20 @@ paths through ``SimLoop.run_chunked``:
   push_reach over 8 shards, tick for tick equal to their unsharded runs,
   every K3 / K4 call held to its plain version; the gather's time, a
   profile, and ``scripts/bench_sharded.py``'s sweep (K = 512, 2048, 8192,
-  unsharded against 8 shards, in turns);
+  unsharded against 8 shards, in turns, and against a mesh of 1 shard);
 * the seed axis over 4 shards of the card (``BatchSimLoop(shard=mesh)``):
   the n=20 point and panda batches, every seed's row and success tick equal
   to the unsharded batch's, the seed-tick rate beside the unsharded in
-  turns, and ``run_experiments parallel_seeds=shard`` on the default mesh.
+  turns, and ``run_experiments parallel_seeds=shard`` on the default mesh;
+* the benchmark twins (``m3p2i_aip_tpu_torch/scripts/bench*.py``,
+  ``analyze_utilization``): every rate above is measured by a twin's
+  ``measure`` (the point, panda, albert, heijn and boxer rates) or
+  ``sweep_row`` (the sharded sweep, K = 512 to 16384), each with its
+  per-chunk spread; the north-star shape K=500 x T=30 (every K1 call of 20
+  recorded ticks held to the plain version, then its rate against 100 Hz);
+  K2 and K2b at K = 16384 and 65536 against their plain versions (the
+  cost-to-go in opted-in shared memory, then in global scratch); and the
+  utilization table of the reference and north-star workloads.
 
 The inputs the point, panda and albert main paths and their n=20 batches
 gave K1, K1b, K3, K3b, K4 and K4b are recorded, each timed, and the slowest
@@ -124,14 +133,17 @@ from __future__ import annotations
 import contextlib
 import json
 import re
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
 
-MAIN_PATH = ["task=push_pull", "multi_modal=True", "goal=[-3.75,-3.75]"]
+from m3p2i_aip_tpu_torch.analysis import bench_record, roofline
+from m3p2i_aip_tpu_torch.analysis.bench_record import event_ms as _time_ms
+from m3p2i_aip_tpu_torch.analysis.bench_record import host_ms as _host_ms
+from m3p2i_aip_tpu_torch.analysis.bench_record import replayed_ms as _device_ms
+from m3p2i_aip_tpu_torch.scripts.bench import MAIN_PATH
 # start states of tests/test_pallas.py:212-232: (q, qd[, box position])
 STARTS = [
     ([-0.3, 1.4], [0.5, 0.5]),
@@ -199,11 +211,12 @@ CKPT_TICKS = 20  # ticks before and after the checkpoint
 LOOP_CHUNK = 10  # the n=20 campaigns' chunked=10 (scripts/run_quality_campaign_r3.sh)
 CHECK_GROUP = 100  # recorded K1 calls held to the batched plain version at once
 PIPELINE_CHUNK = 10  # the gated serial / pipelined main-path runs' chunk
-PIPELINE_TIMED = 2  # the benchmark-mode rates in turns: 1 warm-up chunk, then this many of BENCH_CHUNK
+PIPELINE_TIMED = 1  # the benchmark-mode rates in turns: 1 warm-up chunk, then this many of BENCH_CHUNK
 FAMILY_TIMED = 2  # the heijn and boxer rates' timed chunks of BENCH_CHUNK
+BATCH_TIMED = 2  # the B=20 batch rate's timed chunks of BENCH_CHUNK
 PROFILE_TICKS = 10  # each mode's profiled ticks, in two chunks (a point tick is ~4,700 device kernels)
 GRAD_REFINE = ["multi_modal=True", "mppi.grad_refine_steps=8", "mppi.grad_refine_unroll=True", "mppi.refine_iters=0"]
-GRAD_REFINE_TICKS = 2  # ticks of the round-4 panda setting (config/mppi/panda.yaml:25-32), seconds each
+GRAD_REFINE_TICKS = 1  # ticks of the round-4 panda setting (config/mppi/panda.yaml:25-32), seconds each
 GRAD_REFINE_ATOL = 1e-4  # its refined means on the card against the port on the CPU, one recorded tick
 URDF_SAMPLES = 1024  # joint vectors of the URDF cross-check
 URDF_ATOL = 1e-5  # tests/test_urdf.py's bar
@@ -214,132 +227,18 @@ URDF_ATOL = 1e-5  # tests/test_urdf.py's bar
 SAMPLE_SHARDS = (8, 5)
 FAMILY_SHARDS = 8
 PANDA_SHARD_TICKS = 30  # the sharded and unsharded multi-modal panda, tick for tick
-SWEEP_K = (512, 2048, 8192)  # scripts/bench_sharded.py's sweep (horizon 12), unsharded against 8 shards
+SWEEP_K = (512, 2048, 8192, 16384)  # scripts/bench_sharded.py's sweep (horizon 12), unsharded against 8 shards
 SWEEP_TICKS = 20  # its timed replans a turn (scripts/bench_sharded.py --ticks)
 SEED_SHARDS = 4  # the n=20 point and panda batches over 4 shards of one card: 5 seeds each
+NORTHSTAR_CHECKED = 20  # the north-star's recorded ticks, every K1 call held to the plain version
+NORTHSTAR_CHUNK, NORTHSTAR_TIMED = 25, 50  # its rate: 2 chunks to settle, then the timed ticks
+UTIL_CHUNK_TICKS = 4  # the utilization table's chunk: the tick in a chunk, and the profile
+WEIGHTS_LARGE_K = (16384, 65536)  # K2 / K2b with the cost-to-go in opted-in shared memory, then in global scratch
 SEED_BENCH_CHUNKS = 1  # the seed-shard rate: 1 warm-up chunk, then this many of LOOP_CHUNK a turn
 SHARD_PROFILE_TICKS = 2  # the sharded runs' profiled ticks (a 4-shard batched tick is ~19,000 device kernels)
 SIM_COLUMNS = {"point": [*range(1, 14), 17, 18], "panda": list(range(1, 15))}  # a row's columns that are not clocks
 # four point tasks for the batched checks: (name, goal)
 POINT_TASKS = [("push_pull", [-3.75, -3.75]), ("pull", [1.0, 3.0]), ("push", [-1.0, -1.0]), ("navigation", [1.5, 1.0])]
-
-# H100 SXM data-sheet peaks: device memory rate and f32 rate outside the tensor cores
-PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
-# f32 operations reckoned from the kernels' code, counting each add, multiply,
-# compare or select, division, square root, sine, cosine and exponential as
-# one (so the bound is a lower bound: a transcendental costs the card more)
-CIRCLE_TEST_OPS, CORNER_TEST_OPS = 55, 120  # circle_vs_obb (csrc/pbd2d.cuh), corners_vs_obb (point_rollout.cu)
-RESOLVE_OPS = 90  # the projection of one contact or corner (resolve, csrc/pbd2d.cuh)
-CIRCLE_CONTACT_OPS = CIRCLE_TEST_OPS + RESOLVE_OPS  # a contact the albert kernel always projects
-PANDA_FK_OPS = 330  # seven joints with a sin/cos each, the hand, the fingers (panda_fk.cuh)
-
-
-def _nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def _time_ms(fn, calls: int = TIMED_CALLS, warmup: int = 5) -> float:
-    """Median device time of one call, by CUDA events around each call."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    pairs = []
-    for _ in range(calls):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        pairs.append((start, end))
-    torch.cuda.synchronize()
-    return float(np.median([s.elapsed_time(e) for s, e in pairs]))
-
-
-def _device_ms(fn, launches: int = 20, reps: int = 5) -> float:
-    """Device time of one call, without the host's time to issue it: ``fn``
-    captured ``launches`` times into a CUDA graph and the graph replayed
-    between CUDA events, so the calls run back to back however long the
-    wrapper takes on the host (single calls between events take that time
-    in wherever the kernel is shorter); the median over ``reps`` replays,
-    per call."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm-up off the capture, as torch.cuda.graphs asks
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(launches):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / launches)
-    return float(np.median(times))
-
-
-def _bytes(*tensors) -> int:
-    return sum(x.numel() * x.element_size() for x in tensors)
-
-
-def _bound(n_bytes: int, n_ops: float) -> dict:
-    """The least time the card could take: bytes moved once over the memory
-    rate, or f32 operations over the f32 rate, whichever is longer."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / PEAK_F32_S
-    return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-
-
-def _point_rollout_ops(spec, K: int, live: int) -> float:
-    """K1 on K samples: per position iteration the contact tests of the five
-    Jacobi passes (robot vs boxes, box pairs, boxes vs statics, robot vs
-    statics, robot vs held boxes) for every contact; per substep the drive,
-    ground friction and integration; per step the costs with the
-    wall-crush probe; and one projection for each of the ``live`` contacts
-    (pen > 0, counted by ``_live_contacts`` on the same inputs), since a
-    contact that is not live projects to zero and needs no projection."""
-    D, S, p = spec.D, spec.S, spec.env_params
-    per_iter = (
-        2 * D * (2 + CIRCLE_TEST_OPS) + D * (D - 1) * (2 + CORNER_TEST_OPS)
-        + D * S * (CORNER_TEST_OPS + 10) + S * CIRCLE_TEST_OPS
-    )
-    per_sub = 40 + 40 * D + p.pos_iters * per_iter + 4
-    return K * spec.T * (p.substeps * per_sub + 150 + 55 * S) + RESOLVE_OPS * live
-
-
-@contextlib.contextmanager
-def _live_contacts():
-    """Inside the block, each contact that the plain point rollout projects
-    live (pen > 0: a robot-circle contact or one corner of a box) is
-    counted; the yielded list holds one device count per projection call
-    (``_total`` sums them)."""
-    from m3p2i_aip_tpu_torch.sim import pbd2d
-
-    resolve, live = pbd2d.resolve_contact, []
-
-    def counted(contact, *args, **kwargs):
-        live.append(torch.count_nonzero(contact.pen > 0))
-        return resolve(contact, *args, **kwargs)
-
-    pbd2d.resolve_contact = counted
-    try:
-        yield live
-    finally:
-        pbd2d.resolve_contact = resolve
-
-
-def _total(live: list) -> int:
-    return int(torch.stack(live).sum()) if live else 0
-
 
 @contextlib.contextmanager
 def _recorded(mod, name: str):
@@ -381,43 +280,6 @@ def _recorded_weights(name: str):
         setattr(mppi, name, fn)
 
 
-def _weights_ops(args) -> float:
-    """K2 on the [..., K, T] costs of ``args`` (cost, gamma, half_K, eta_u,
-    eta_l): the cost-to-go, the group minima, each group's beta search for
-    the rounds it needs (``weights.beta_rounds``, the plain version's round
-    by round; the kernel stops each group at its own first round inside
-    [eta_l, eta_u]) plus the round that finds it there, four operations a
-    sample a round (the shift, the division, the exponential, the add), then
-    the normalised weights."""
-    from m3p2i_aip_tpu_torch.ops import weights
-
-    cost, _, half_K = args[:3]
-    K, T = cost.shape[-2:]
-    n = cost[..., 0, 0].numel()
-    rounds = weights.beta_rounds(*args)[0].reshape(-1, 3)
-    sizes = np.asarray([min(half_K, K), K - min(half_K, K), K])
-    return n * (2 * K * T + 3 * K + 2 * K * 4) + 4 * float(((rounds + 1) * sizes).sum())
-
-
-def _panda_rollout_ops(spec, K: int) -> float:
-    """K3: per substep the 9-joint drive, the FK, the grasp test, the cube's
-    quaternion, three bodies against the supports and statics, the held cube,
-    and the seven arm probes against the table, shelf and cubeB; per step the
-    costs."""
-    S = spec.S
-    bodies = 3 * (28 + 8 * (S + 1) + 57 * S)
-    per_sub = 108 + PANDA_FK_OPS + 10 + 35 + bodies + 60 + 7 * 3 * 45 + 55
-    return K * spec.T * (spec.env_params.substeps * per_sub + 200)
-
-
-def _albert_rollout_ops(spec, K: int) -> float:
-    """K4: per substep the base and arm drive with the clip, and with a box
-    its ground friction, integration and two base-vs-box contact passes; per
-    step the base-composed FK and the costs."""
-    per_sub = 87 + (26 + 2 * (2 + CIRCLE_CONTACT_OPS) if spec.env_params.has_box else 0)
-    return K * spec.T * (spec.env_params.substeps * per_sub + 2 + PANDA_FK_OPS + 60)
-
-
 def _weights_check(mp, cost, label: str) -> float:
     """K2 against its plain version on one [K, T] cost with planner ``mp``'s
     discount, halves and eta bounds; returns the max error."""
@@ -448,7 +310,7 @@ def phase_weights(mp) -> dict:
     ms = _time_ms(lambda: weights.multimodal_weights(*args))
     dev_ms = _device_ms(lambda: weights.multimodal_weights(*args))
     plain_ms = _time_ms(lambda: weights.multimodal_weights_plain(*args))
-    bound = _bound(_bytes(cost, mp.gamma_seq) + 3 * cost.shape[0] * 4, _weights_ops(args))
+    bound = roofline.weights_bound(args)
     print(f"[weights] kernel {ms:.4f} ms ({dev_ms:.4f} replayed from a graph), plain {plain_ms:.4f} ms (median of "
           f"{TIMED_CALLS}); bound {bound}")
     return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, **bound, "library_ms": None}
@@ -490,7 +352,7 @@ def phase_rollout(tamp) -> dict:
         acts = torch.as_tensor(rng.uniform(-3, 3, size=(mp.K, mp.T, env.nu)).astype(np.float32), device="cuda")
         inputs = ro.rollout_inputs(sk, task, k0)
         c_k, t_k = ro.point_rollout(spec, *inputs, acts)
-        with _live_contacts() as live:
+        with roofline.live_contacts() as live:
             c_p, t_p = ro.point_rollout_plain(spec, *inputs, acts)
         torch.cuda.synchronize()
         ce = float(torch.max(torch.abs(c_k - c_p)))
@@ -500,13 +362,13 @@ def phase_rollout(tamp) -> dict:
         assert ce <= COST_ATOL and te <= TRAJ_ATOL, f"rollout kernel disagrees with its plain version in case {n}"
         cost_err, traj_err = max(cost_err, ce), max(traj_err, te)
         if timed is None:
-            timed = (inputs, acts, _total(live))
+            timed = (inputs, acts, roofline.total(live))
     inputs, acts, n_live = timed
     ms = _time_ms(lambda: ro.point_rollout(spec, *inputs, acts))
     dev_ms = _device_ms(lambda: ro.point_rollout(spec, *inputs, acts))
     plain_ms = _time_ms(lambda: ro.point_rollout_plain(spec, *inputs, acts), calls=5, warmup=1)
     K, T = acts.shape[:2]
-    bound = _bound(_bytes(spec.params_buf, *inputs, acts) + K * T * 3 * 4, _point_rollout_ops(spec, K, n_live))
+    bound = roofline.rollout_bound(spec, inputs + (acts,), K, roofline.point_rollout_ops(spec, K, n_live))
     print(f"[rollout] max cost err {cost_err:.3e}, max traj err {traj_err:.3e}; "
           f"case 0 (timed) projects {n_live} live contacts")
     print(f"[rollout] kernel {ms:.4f} ms (median of {TIMED_CALLS}; {dev_ms:.4f} replayed from a graph), plain {plain_ms:.4f} "
@@ -642,9 +504,9 @@ def phase_closed_loop(card: str, label: str, calls: list, kernel, plain, ops, si
     med, (spec, x) = _slowest(calls, kernel)
     out = kernel(spec, *x)
     xb, out = (x, out) if single is not None else (tuple(v[None] for v in x), tuple(v[None] for v in out))
-    with _live_contacts() if live else contextlib.nullcontext([]) as counted:
+    with roofline.live_contacts() if live else contextlib.nullcontext([]) as counted:
         ref = plain(spec, *xb)
-    n_live = _total(counted)
+    n_live = roofline.total(counted)
     _closed_loop_check(f"closed-loop {label}, slowest of {len(calls)} recorded calls", lambda *a: plain(spec, *a),
                        xb, out, ref, bars)
     if single is not None:
@@ -657,7 +519,7 @@ def phase_closed_loop(card: str, label: str, calls: list, kernel, plain, ops, si
     ms = _time_ms(lambda: kernel(spec, *x))
     dev_ms = _device_ms(lambda: kernel(spec, *x))
     n, T = x[-1].shape[:-2].numel(), x[-1].shape[-2]
-    bound = _bound(_bytes(spec.params_buf, *x) + n * T * 3 * 4, ops(spec, n, n_live) if live else ops(spec, n))
+    bound = roofline.rollout_bound(spec, x, n, ops(spec, n, n_live) if live else ops(spec, n))
     counted_note = f", {n_live} live contacts" if live else ""
     print(f"[closed-loop {label}] {tuple(x[-1].shape[:-2])} samples: slowest input {ms:.4f} ms (median of "
           f"{TIMED_CALLS}; {dev_ms:.4f} replayed from a graph){counted_note}, bound {bound}; median over the recorded "
@@ -726,7 +588,7 @@ def phase_weights_closed_loop(card: str, label: str, paths: dict, kernel, plain,
     ms = _time_ms(lambda: kernel(*slowest))
     dev_ms = _device_ms(lambda: kernel(*slowest))
     cost = slowest[0]
-    bound = _bound(_bytes(cost, slowest[1]) + 3 * cost[..., 0].numel() * 4, _weights_ops(slowest))
+    bound = roofline.weights_bound(slowest)
     most = weights.beta_rounds(*slowest)[0].reshape(-1, 3).max(0).tolist()
     print(f"[closed-loop {label}] slowest of {len(inputs)} recorded calls {tuple(cost.shape)} (most rounds per group "
           f"{most}): {ms:.4f} ms (median of {TIMED_CALLS}; {dev_ms:.4f} replayed from a graph), bound "
@@ -878,21 +740,22 @@ def phase_main_path(cfg) -> tuple:
     return loop, launches, calls
 
 
+def _rate_line(rate: dict) -> str:
+    """A twin's rate with its per-chunk spread."""
+    return (f"{rate['value']:.2f} Hz replan+step (chunks: median {rate['chunk_hz_median']:.2f}, quartiles "
+            f"{rate['chunk_hz_q1']:.2f} / {rate['chunk_hz_q3']:.2f}, {rate['chunk_clock']})")
+
+
 def phase_benchmark(loop, card: str, label: str = "bench", timed: int = 4) -> float:
-    """Benchmark mode (bench.py:40-41): both gates off, 2 warm-up chunks of
-    BENCH_CHUNK, then ``timed`` timed chunks."""
-    loop.tamp.task_planner.check_task_success = lambda view: False
-    loop.tamp.device_gate = False
-    chunk = BENCH_CHUNK
-    for _ in range(2):
-        loop.run_chunked(chunk, chunk=chunk)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(timed):
-        loop.run_chunked(chunk, chunk=chunk)
-    hz = timed * chunk / (time.perf_counter() - t0)
-    print(f"[{label}] {hz:.2f} Hz replan+step, K=200 x T=15, {timed * chunk} timed ticks ({card})")
-    return hz
+    """Benchmark mode through the bench twin (``scripts/bench.py``'s
+    ``measure``): both gates off, 2 chunks of BENCH_CHUNK to settle, then
+    ``timed`` timed chunks, serial."""
+    from m3p2i_aip_tpu_torch.scripts import bench
+
+    rate = bench.measure(loop, BENCH_CHUNK, timed * BENCH_CHUNK, pipelined=False)
+    K, T = loop.tamp.motion_planner.K, loop.tamp.motion_planner.T
+    print(f"[{label}] {_rate_line(rate)}, K={K} x T={T}, {timed * BENCH_CHUNK} timed ticks ({card})")
+    return rate["value"]
 
 
 def phase_panda_rollout() -> tuple:
@@ -946,7 +809,7 @@ def phase_panda_rollout() -> tuple:
     plain_ms = _time_ms(lambda: pr.panda_rollout_plain(spec, *inputs, acts), calls=10, warmup=2)
     w_ms = _time_ms(lambda: weights.multimodal_weights(*w_timed))
     K, T = acts.shape[:2]
-    bound = _bound(_bytes(spec.params_buf, *inputs, acts) + K * T * 3 * 4, _panda_rollout_ops(spec, K))
+    bound = roofline.rollout_bound(spec, inputs + (acts,), K, roofline.panda_rollout_ops(spec, K))
     print(f"[panda-rollout] max cost err {cost_err:.3e}, max traj err {traj_err:.3e}")
     print(f"[panda-rollout] kernel {ms:.4f} ms (median of {TIMED_CALLS}; {dev_ms:.4f} replayed from a graph), plain "
           f"{plain_ms:.4f} ms (median of 10); bound {bound}")
@@ -1071,33 +934,23 @@ def phase_panda_shelf() -> float:
 
 
 def phase_panda_bench(card: str) -> float:
-    """The panda replan+step rate, scripts/bench_panda.py:58-77's protocol
-    at a shorter depth: multi-modal K=200 x T=12, warm-up 50, two warm-up
-    chunks of BENCH_CHUNK, then 4 timed chunks chained from the start
-    state; then a profile of one 20-tick chunk from the start state."""
-    from m3p2i_aip_tpu_torch.config.config_store import load_config
+    """The panda replan+step rate through the bench_panda twin
+    (``measure``: chunks chained from the start state, one sync at the end)
+    at a shorter depth: multi-modal K=200 x T=12, warm-up 50, two chunks of
+    BENCH_CHUNK to settle, then 4 timed chunks; then a profile of one
+    20-tick chunk from the start state."""
+    from m3p2i_aip_tpu_torch.scripts import bench_panda
     from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
 
-    loop = SimLoop(load_config("config_panda", ["multi_modal=True"]), device="cuda")
+    loop = SimLoop(bench_panda.config(), device="cuda")
     loop.warmup(50)
-    tamp, chunk = loop.tamp, BENCH_CHUNK
-
-    def run(n_ticks):
-        ms, rs, stage, zs = tamp.mppi_state, loop.state, 0, tamp.zup_zs0()
-        for _ in range(n_ticks // chunk):
-            ms, rs, stage, zs, _, views, _, _ = tamp.run_chunk_panda(ms, rs, stage, zs, chunk)
-        torch.cuda.synchronize()
-        return views
-
-    run(2 * chunk)
-    t0 = time.perf_counter()
-    run(4 * chunk)
-    hz = 4 * chunk / (time.perf_counter() - t0)
-    print(f"[panda-bench] {hz:.2f} Hz replan+step, K=200 x T=12, multi-modal, {4 * chunk} timed ticks ({card})")
+    tamp = loop.tamp
+    rate = bench_panda.measure(loop, BENCH_CHUNK, 4 * BENCH_CHUNK)
+    print(f"[panda-bench] {_rate_line(rate)}, K=200 x T=12, multi-modal, {4 * BENCH_CHUNK} timed ticks ({card})")
     _profile_ticks("panda-bench", card,
                    lambda: tamp.run_chunk_panda(tamp.mppi_state, loop.state, 0, tamp.zup_zs0(), 20), 20,
                    {"K3": "panda_rollout", "K2": "multimodal_weights"})
-    return hz
+    return rate["value"]
 
 
 def phase_albert_rollout(card: str) -> tuple:
@@ -1142,7 +995,7 @@ def phase_albert_rollout(card: str) -> tuple:
     ms = _time_ms(lambda: ar.albert_rollout(spec, *inputs, acts))
     dev_ms = _device_ms(lambda: ar.albert_rollout(spec, *inputs, acts))
     plain_ms = _time_ms(lambda: ar.albert_rollout_plain(spec, *inputs, acts), calls=10, warmup=2)
-    bound = _bound(_bytes(spec.params_buf, *inputs, acts) + K * T * 3 * 4, _albert_rollout_ops(spec, K))
+    bound = roofline.rollout_bound(spec, inputs + (acts,), K, roofline.albert_rollout_ops(spec, K))
     print(f"[albert-rollout] max cost err {cost_err:.3e}, max traj err {traj_err:.3e}")
     print(f"[albert-rollout] kernel {ms:.4f} ms (median of {TIMED_CALLS}; {dev_ms:.4f} replayed from a graph), plain "
           f"{plain_ms:.4f} ms (median of 10); bound {bound}")
@@ -1219,66 +1072,33 @@ def phase_albert_push() -> None:
 
 
 def phase_albert_bench(card: str) -> float:
-    """The albert replan+step rate, scripts/bench_albert.py's protocol:
-    push_reach to [3, 0, 0.6], warm-up 20, both gates off, two warm-up chunks
-    of 100, then 400 timed ticks in chunks of 100."""
-    from m3p2i_aip_tpu_torch.config.config_store import load_config
+    """The albert replan+step rate through the bench_albert twin, at
+    ``scripts/bench_albert.py``'s protocol: push_reach to [3, 0, 0.6],
+    warm-up 20, both gates off, two chunks of 100 to settle, then 400 timed
+    ticks in chunks of 100."""
+    from m3p2i_aip_tpu_torch.scripts import bench_albert
     from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
 
-    loop = SimLoop(load_config("config_albert", PUSH_REACH), device="cuda")
+    loop = SimLoop(bench_albert.config(), device="cuda")
     loop.warmup(20)
-    loop.tamp.task_planner.check_task_success = lambda view: False
-    loop.tamp.device_gate = False
-    chunk = 100
-    for _ in range(2):
-        loop.run_chunked(chunk, chunk=chunk)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(4):
-        loop.run_chunked(chunk, chunk=chunk)
-    hz = 4 * chunk / (time.perf_counter() - t0)
-    print(f"[albert-bench] {hz:.2f} Hz replan+step, K=128 x T=12, push_reach, 400 timed ticks ({card})")
-    return hz
+    rate = bench_albert.measure(loop, 100, 400)
+    print(f"[albert-bench] {_rate_line(rate)}, K=128 x T=12, push_reach, 400 timed ticks ({card})")
+    return rate["value"]
 
 
 def _profile_ticks(label: str, card: str, run, n: int, kernels: dict) -> None:
-    """``torch.profiler`` over ``run()``, a chunk of n ticks: device kernels
-    and device time a tick, the time a tick of each kernel in ``kernels``
-    ({label: a substring of its name}), the profiled wall a tick and the
-    device's idle share."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not events:
+    """``bench_record.profile`` over ``run()``, a chunk of n ticks, printed:
+    device kernels and device time a tick, the time a tick of each kernel in
+    ``kernels`` ({label: a substring of its name}), the profiled wall a tick
+    and the device's idle share."""
+    p = bench_record.profile(run, n, kernels)
+    if p is None:
         print(f"[{label}] torch.profiler recorded no device kernels: device time not measured")
         return
-    dev_us = sum(e.time_range.elapsed_us() for e in events)
-    parts = ", ".join(
-        f"{k} {sum(e.time_range.elapsed_us() for e in events if sub in e.name) / n / 1e3:.3f} ms"
-        for k, sub in kernels.items()
-    )
-    print(f"[{label}] profiler over {n} ticks: {len(events) / n:.0f} device kernels a tick, "
-          f"{dev_us / n / 1e3:.3f} ms device time a tick ({parts}), profiled wall {wall / n * 1e3:.3f} ms a tick, "
-          f"device idle {100 * (1 - dev_us / 1e6 / wall):.1f}% ({card})")
-
-
-def _host_ms(fn, calls: int = 10) -> float:
-    """Median host time of one call that ends in a synchronize."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(calls):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    return float(np.median(times)) * 1e3
+    parts = ", ".join(f"{k} {ms:.3f} ms" for k, ms in p["kernel_ms_per_tick"].items())
+    print(f"[{label}] profiler over {n} ticks: {p['kernels_per_tick']:.0f} device kernels a tick, "
+          f"{p['device_ms_per_tick']:.3f} ms device time a tick ({parts}), profiled wall {p['wall_ms_per_tick']:.3f} "
+          f"ms a tick, device idle {p['idle_pct']:.1f}% ({card})")
 
 
 def phase_albert_breakdown(card: str) -> None:
@@ -1316,17 +1136,7 @@ def phase_albert_breakdown(card: str) -> None:
 
 def _launch_counters() -> list:
     """(module, attribute) of every kernel wrapper's launch count."""
-    from m3p2i_aip_tpu_torch.ops import albert_rollout as ar
-    from m3p2i_aip_tpu_torch.ops import panda_rollout as pr
-    from m3p2i_aip_tpu_torch.ops import rollout as ro
-    from m3p2i_aip_tpu_torch.ops import weights
-
-    return [
-        (ro, "rollout_launches"), (ro, "rollout_batched_launches"),
-        (weights, "weights_launches"), (weights, "weights_batched_launches"),
-        (pr, "panda_rollout_launches"), (pr, "panda_rollout_batched_launches"),
-        (ar, "albert_rollout_launches"), (ar, "albert_rollout_batched_launches"),
-    ]
+    return list(bench_record.launch_counters().values())
 
 
 KERNEL_OF_COUNTER = {
@@ -1394,12 +1204,11 @@ def _batched_weights_check(mp, cost, label: str) -> float:
     return err
 
 
-def _time_batched(label: str, kernel, plain, inputs, n_bytes: int, n_ops: float, plain_calls: int) -> dict:
-    """Kernel and plain-version times at the inputs' width, and the bound."""
+def _time_batched(label: str, kernel, plain, inputs, bound: dict, plain_calls: int) -> dict:
+    """Kernel and plain-version times at the inputs' width, beside ``bound``."""
     ms = _time_ms(lambda: kernel(*inputs))
     dev_ms = _device_ms(lambda: kernel(*inputs))
     plain_ms = _time_ms(lambda: plain(*inputs), calls=plain_calls, warmup=0)
-    bound = _bound(n_bytes, n_ops)
     print(f"[{label}] kernel {ms:.4f} ms (median of {TIMED_CALLS}; {dev_ms:.4f} replayed from a graph), plain {plain_ms:.4f} "
           f"ms (median of {plain_calls}); bound {bound}")
     return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, **bound, "library_ms": None}
@@ -1457,11 +1266,11 @@ def phase_point_batched() -> tuple:
 
     inputs = _point_batch_inputs(tamp, N_SEEDS, rng)
     B, K, T = inputs[-1].shape[:3]
-    with _live_contacts() as live:
+    with roofline.live_contacts() as live:
         k1b_err = max(k1b_err, _batched_check("point-batched K1b", *fns, inputs, COST_ATOL, TRAJ_ATOL))
     k1b = _time_batched(
         f"point-batched K1b at B={B}", fns[0], fns[1], inputs,
-        _bytes(spec.params_buf, *inputs) + B * K * T * 3 * 4, _point_rollout_ops(spec, B * K, _total(live)),
+        roofline.rollout_bound(spec, inputs, B * K, roofline.point_rollout_ops(spec, B * K, roofline.total(live))),
         plain_calls=1,
     )
     cost = fns[0](*inputs)[0]
@@ -1469,7 +1278,7 @@ def phase_point_batched() -> tuple:
     args = (cost, mp.gamma_seq, mp.half_K, mp.eta_u, mp.eta_l)
     k2b = _time_batched(
         f"point-batched K2b at B={B}", weights.multimodal_weights_batched, weights.multimodal_weights_batched_plain,
-        args, _bytes(cost, mp.gamma_seq) + 3 * B * K * 4, _weights_ops(args), plain_calls=5,
+        args, roofline.weights_bound(args), plain_calls=5,
     )
     return {"max_abs_err": k1b_err, **k1b}, {"max_abs_err": k2b_err, **k2b}
 
@@ -1515,7 +1324,7 @@ def phase_panda_batched() -> tuple:
     B = inputs[-1].shape[0]
     stats = _time_batched(
         f"panda-batched K3b at B={B}", fns[0], fns[1], inputs,
-        _bytes(spec.params_buf, *inputs) + B * K * T * 3 * 4, _panda_rollout_ops(spec, B * K), plain_calls=1,
+        roofline.rollout_bound(spec, inputs, B * K, roofline.panda_rollout_ops(spec, B * K)), plain_calls=1,
     )
     return {"max_abs_err": err, **stats}, w_err, (spec, inputs)
 
@@ -1557,7 +1366,7 @@ def phase_albert_batched() -> tuple:
     B = inputs[-1].shape[0]
     stats = _time_batched(
         f"albert-batched K4b at B={B}", fns[0], fns[1], inputs,
-        _bytes(spec.params_buf, *inputs) + B * K * T * 3 * 4, _albert_rollout_ops(spec, B * K), plain_calls=1,
+        roofline.rollout_bound(spec, inputs, B * K, roofline.albert_rollout_ops(spec, B * K)), plain_calls=1,
     )
     return {"max_abs_err": err, **stats}, (spec, inputs)
 
@@ -1699,7 +1508,7 @@ def phase_batch_vs_serial(label: str, config_name: str, overrides: list, chunk: 
 
 def phase_batch_bench(card: str, serial_hz: float) -> None:
     """The B=20 point batch in benchmark mode (gates off, warm-up 50): the
-    same 2 warm-up + 4 timed chunks of BENCH_CHUNK as the serial benchmark,
+    2 warm-up chunks of BENCH_CHUNK as the serial benchmark, BATCH_TIMED timed,
     each chunk's views fetched to the host, in batched ticks and seed-ticks
     per second beside the serial rate; then ``torch.profiler`` over a
     10-tick batched chunk: device kernels and device time per tick, the
@@ -1724,9 +1533,9 @@ def phase_batch_bench(card: str, serial_hz: float) -> None:
     run(2, BENCH_CHUNK)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    run(4, BENCH_CHUNK, 2 * BENCH_CHUNK)
+    run(BATCH_TIMED, BENCH_CHUNK, 2 * BENCH_CHUNK)
     wall = time.perf_counter() - t0
-    ticks = 4 * BENCH_CHUNK
+    ticks = BATCH_TIMED * BENCH_CHUNK
     hz = ticks / wall
     print(f"[batch-bench] B={N_SEEDS}: {hz:.2f} batched ticks/s = {hz * N_SEEDS:.2f} seed-ticks/s "
           f"({wall / ticks * 1e3:.3f} ms a batched tick, {ticks} timed ticks); serial {serial_hz:.2f} ticks/s; "
@@ -2157,15 +1966,17 @@ def phase_checkpoint() -> dict:
 
 
 def phase_family_bench(card: str, config_name: str, label: str) -> float:
-    """``scripts/bench_family.py``'s protocol on the port at a shorter depth:
-    push_pull multi-modal to the corner goal, warm-up 50, both gates off,
-    then ``phase_benchmark``'s chunks, FAMILY_TIMED of them timed."""
-    from m3p2i_aip_tpu_torch.config.config_store import load_config
+    """The bench_family twin's protocol at a shorter depth: push_pull
+    multi-modal to the corner goal, warm-up 50, both gates off, two chunks
+    of BENCH_CHUNK to settle, then FAMILY_TIMED timed chunks, pipelined."""
+    from m3p2i_aip_tpu_torch.scripts import bench_family
     from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
 
-    loop = SimLoop(load_config(config_name, MAIN_PATH), device="cuda")
+    loop = SimLoop(bench_family.config(["-cn", config_name, *MAIN_PATH]), device="cuda")
     loop.warmup(50)
-    return phase_benchmark(loop, card, label, FAMILY_TIMED)
+    rate = bench_family.measure(loop, BENCH_CHUNK, FAMILY_TIMED * BENCH_CHUNK)
+    print(f"[{label}] {_rate_line(rate)}, K=200 x T=15, {FAMILY_TIMED * BENCH_CHUNK} timed ticks, pipelined ({card})")
+    return rate["value"]
 
 
 def _watch_syncs(fn, syncs: list):
@@ -2235,8 +2046,7 @@ def phase_pipelined(card: str) -> tuple:
     def bench(pipelined: bool) -> tuple:
         loop = SimLoop(load_config("config_point", MAIN_PATH), device="cuda")
         loop.warmup(50)
-        loop.tamp.task_planner.check_task_success = lambda view: False
-        loop.tamp.device_gate = False
+        bench_record.gates_off(loop)
         loop.run_chunked(BENCH_CHUNK, chunk=BENCH_CHUNK, pipelined=pipelined)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2444,8 +2254,7 @@ def phase_sample_shard(card: str, main_log: dict) -> tuple:
             parts = shard.split(costs)
             print(f"[{label}] gather of the [K, T] costs from {n} shards: {_time_ms(lambda: shard.gather(parts)):.4f} "
                   f"ms single, {_device_ms(lambda: shard.gather(parts)):.4f} ms replayed ({card})")
-            loop.tamp.task_planner.check_task_success = lambda view: False
-            loop.tamp.device_gate = False
+            bench_record.gates_off(loop)
             _profile_ticks(label, card, lambda: loop.run_chunked(SHARD_PROFILE_TICKS, chunk=SHARD_PROFILE_TICKS // 2),
                            SHARD_PROFILE_TICKS, {"K1": "point_rollout", "K2": "weights"})
         del loop
@@ -2493,44 +2302,108 @@ def phase_sample_shard(card: str, main_log: dict) -> tuple:
 
 
 def phase_shard_sweep(card: str) -> None:
-    """``scripts/bench_sharded.py``'s sweep on one card: the main path's
-    planner at K in SWEEP_K (horizon 12) unsharded, over a mesh of 1 shard
-    (the sharded code path alone) and over 8 shards of the card; one command
-    from identical planner states must give equal actions, then SWEEP_TICKS
-    chained commands from the start state timed on the host clock (ending in
-    a synchronize), in turns (unsharded, 1, 8, 8, 1, unsharded): ms a
-    replan, and each split's ratio to unsharded."""
-    from m3p2i_aip_tpu_torch.config.config_store import load_config
+    """The bench_sharded twin's sweep on one card (``sweep_row``): the main
+    path's planner at K in SWEEP_K (horizon 12) unsharded and over 8 shards
+    of the card; the first commands from identical planner states must be
+    equal (K=16384 included: K2 past its old 12288 samples), then
+    SWEEP_TICKS chained commands timed in turns (unsharded, 8, 8,
+    unsharded): ms a replan and the ratio.  At each K a mesh of 1 shard (the
+    sharded code path alone) must give exactly the unsharded command, one
+    command from identical planner states."""
     from m3p2i_aip_tpu_torch.parallel import shard_planner
+    from m3p2i_aip_tpu_torch.scripts import bench_sharded
     from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMP
 
-    splits = (None, 1, 8)
     for K in SWEEP_K:
-        overrides = [*MAIN_PATH, f"mppi.num_samples={K}", "mppi.horizon=12", "mppi.u_per_command=12"]
-        tamps = {n: ReactiveTAMP(load_config("config_point", overrides), device="cuda") for n in splits}
-        for n in splits[1:]:
-            shard_planner(tamps[n].motion_planner, _card_mesh(n))
-        state = tamps[None].env.init_state()
-        task = tamps[None].tamp_interface(state)
-        first = {n: tamp.motion_planner.command(tamp.mppi_state, state, task)[0] for n, tamp in tamps.items()}
-        assert all(torch.equal(first[None], first[n]) for n in splits), f"K={K}: a sharded command differs"
+        row = bench_sharded.sweep_row(K, SWEEP_TICKS, torch.device("cuda"), _card_mesh(8))
+        print(f"[shard-sweep] K={row['K']}, ms a replan in turns U 8 8 U: unsharded "
+              f"{', '.join(f'{t:.3f}' for t in row['unsharded_runs_ms'])}, 8 shards "
+              f"{', '.join(f'{t:.3f}' for t in row['sharded_runs_ms'])} (x{row['sharded_over_unsharded']:.3f}); first "
+              f"commands' max |diff| {row['action_maxdiff']} ({card})")
+        assert row["action_maxdiff"] == 0.0, f"K={row['K']}: the sharded first command differs"
+        tamps = [ReactiveTAMP(bench_sharded.config(row["K"]), device="cuda") for _ in range(2)]
+        shard_planner(tamps[1].motion_planner, _card_mesh(1))
+        state = tamps[0].env.init_state()
+        task = tamps[0].tamp_interface(state)
+        first = [tamp.motion_planner.command(tamp.mppi_state, state, task)[0] for tamp in tamps]
+        assert torch.equal(*first), f"K={row['K']}: the 1-shard command differs from the unsharded one"
+        print(f"[shard-sweep] K={row['K']}: the 1-shard mesh's first command equals the unsharded one")
 
-        def replan_ms(tamp) -> float:
-            mp, ms = tamp.motion_planner, tamp.mppi_state
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(SWEEP_TICKS):
-                _, ms, _ = mp.command(ms, state, task)
-            torch.cuda.synchronize()
-            return (time.perf_counter() - t0) / SWEEP_TICKS * 1e3
 
-        times = {n: [] for n in splits}
-        for n in splits + splits[::-1]:
-            times[n].append(replan_ms(tamps[n]))
-        base = np.median(times[None])
-        cells = "; ".join(f"{'unsharded' if n is None else f'{n} shard(s)'} {', '.join(f'{t:.3f}' for t in times[n])} ms"
-                          f" (x{np.median(times[n]) / base:.3f})" for n in splits)
-        print(f"[shard-sweep] K={K}, ms a replan in turns U 1 8 8 1 U: {cells}; first commands equal ({card})")
+def phase_northstar(card: str) -> tuple:
+    """The north-star shape K=500 x T=30 through the bench_northstar twin:
+    NORTHSTAR_CHECKED benchmark-mode ticks recorded, every K1 call held to
+    the plain version (K1's 63 blocks of 8 samples, the last partial, and
+    its chain twice the main path's), then ``measure`` at a shorter depth
+    (two chunks of NORTHSTAR_CHUNK to settle, NORTHSTAR_TIMED timed ticks)
+    against the 100 Hz target.  Returns (launch counts of the whole run,
+    the recorded K2 calls)."""
+    from m3p2i_aip_tpu_torch.ops import rollout as ro
+    from m3p2i_aip_tpu_torch.scripts import bench_northstar
+    from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
+
+    loop = SimLoop(bench_northstar.config(), device="cuda")
+    loop.warmup(50)
+    bench_record.gates_off(loop)
+    _zero_launches()
+    with _recorded(ro, "point_rollout") as k1_calls, _recorded_weights("multimodal_weights") as k2_calls:
+        loop.run_chunked(NORTHSTAR_CHECKED, chunk=NORTHSTAR_CHECKED)
+    torch.cuda.synchronize()
+    counts = _read_launches()
+    err = phase_every_call("K1 north-star K=500 x T=30", k1_calls, ro.point_rollout)
+    _zero_launches()
+    rate = bench_northstar.measure(loop, NORTHSTAR_CHUNK, NORTHSTAR_TIMED)
+    torch.cuda.synchronize()
+    counts = {name: n + counts[name] for name, n in _read_launches().items()}
+    ticks = NORTHSTAR_CHECKED + 2 * NORTHSTAR_CHUNK + NORTHSTAR_TIMED
+    _expect_launches("north-star", counts, {"rollout_launches": ticks, "weights_launches": ticks})
+    print(f"[north-star] K=500 x T=30: {_rate_line(rate)}, {rate['value'] / bench_northstar.TARGET_HZ:.3f} of the "
+          f"100 Hz target, {NORTHSTAR_TIMED} timed ticks in chunks of {NORTHSTAR_CHUNK}; K1 max err {err:.3e} "
+          f"({card})")
+    return {"point_rollout": ticks, "multimodal_weights": ticks}, k2_calls
+
+
+def phase_weights_large(card: str) -> None:
+    """K2 and K2b past the 12288 samples the kernel once took: at K in
+    WEIGHTS_LARGE_K on uniform(0, 50) costs (T=15, the main path's
+    discount, half_K = K / 2), the cost-to-go in opted-in shared memory
+    (16384) and in global scratch (65536), against the plain version within
+    K2's bars (each seed of a B=2 batch too); timed single and replayed."""
+    from m3p2i_aip_tpu_torch.ops import weights
+
+    gamma = torch.as_tensor(np.cumprod([1.0] + [0.95] * 14).astype(np.float32), device="cuda")
+    for K in WEIGHTS_LARGE_K:
+        rng = np.random.default_rng(K)
+        cost = torch.as_tensor(rng.uniform(0, 50, size=(2, K, 15)).astype(np.float32), device="cuda")
+        single = (cost[0], gamma, K // 2, 10.0, 3.0)
+        batched = (cost, gamma, K // 2, 10.0, 3.0)
+        errs = []
+        for kernel, plain, args in ((weights.multimodal_weights, weights.multimodal_weights_plain, single),
+                                    (weights.multimodal_weights_batched, weights.multimodal_weights_plain, batched)):
+            got, ref = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            errs.append(max(float(torch.max(torch.abs(g - r))) for g, r in zip(got, ref)))
+            sums = torch.stack([g.sum(-1) for g in got]).flatten().tolist()
+            assert errs[-1] <= WEIGHTS_ATOL and all(abs(x - 1.0) < SUM_TOL for x in sums), (K, errs[-1], sums)
+        print(f"[weights-large] K={K}: max |kernel - plain| K2 {errs[0]:.3e}, K2b (B=2) {errs[1]:.3e}; rounds "
+              f"{weights.beta_rounds(*single)[0].tolist()}; K2 {_time_ms(lambda: weights.multimodal_weights(*single)):.4f}"
+              f" ms single, {_device_ms(lambda: weights.multimodal_weights(*single)):.4f} replayed; K2b "
+              f"{_device_ms(lambda: weights.multimodal_weights_batched(*batched)):.4f} replayed; bound "
+              f"{roofline.weights_bound(single)} ({card})")
+
+
+def phase_utilization(card: str) -> None:
+    """The analyze_utilization twin's table (``workload``, chunks of
+    UTIL_CHUNK_TICKS): the reference and north-star workloads' K1 and K2
+    against their bounds, the tick and the device's idle share."""
+    from m3p2i_aip_tpu_torch.scripts import analyze_utilization
+
+    rows = [analyze_utilization.workload(K, T, torch.device("cuda"), UTIL_CHUNK_TICKS)
+            for K, T in analyze_utilization.SHAPES]
+    print(json.dumps(rows))
+    print(analyze_utilization.table(rows))
+    assert all(r["kernel_ms"] > 0 and r["weights_ms"] > 0 for r in rows), rows
+    print(f"[utilization] {len(rows)} workloads, chunks of {UTIL_CHUNK_TICKS} ({card})")
 
 
 def _chunk_bench(batch, tasks: list, n_chunks: int, i0: int, chunk: int = LOOP_CHUNK) -> None:
@@ -2655,7 +2528,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
-    card = _nvidia_smi()
+    card = bench_record.nvidia_smi()
     print(f"[device] {kind}; nvidia-smi: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # 2. build
@@ -2773,20 +2646,30 @@ def main() -> None:
         for name, n in extra.items():
             launches[name] += n
     _stamp("the sample and seed shards")
-    # 36. K1, K1b, K3, K3b, K4 and K4b on the closed loops' inputs (K1 on every call of
-    # steps 25, 26 and 31's runs), then K2 and K2b; 37. the scaling sweeps
+    # 36. the twins' new paths: the north-star shape, K2 / K2b at K = 16384 and 65536, the
+    # utilization table (the sharded K=16384 tick is step 34's sweep)
+    counts, k2_runs["north-star"] = phase_northstar(card)
+    for name, n in counts.items():
+        launches[name] += n
+    phase_weights_large(card)
+    phase_utilization(card)
+    _stamp("the north-star, K2 at large K and the utilization table")
+    # 37. K1, K1b, K3, K3b, K4 and K4b on the closed loops' inputs (K1 on every call of
+    # steps 25, 26 and 31's runs), then K2 and K2b; 38. the scaling sweeps
     slowest = {}
     for name, label, calls, kernel, plain, ops, single in (
-        ("point_rollout", "K1", k1_calls, ro.point_rollout, ro.point_rollout_batched_plain, _point_rollout_ops, None),
+        ("point_rollout", "K1", k1_calls, ro.point_rollout, ro.point_rollout_batched_plain,
+         roofline.point_rollout_ops, None),
         ("point_rollout_batched", "K1b", k1b_calls, ro.point_rollout_batched, ro.point_rollout_batched_plain,
-         _point_rollout_ops, ro.point_rollout),
-        ("panda_rollout", "K3", k3_calls, pr.panda_rollout, pr.panda_rollout_batched_plain, _panda_rollout_ops, None),
+         roofline.point_rollout_ops, ro.point_rollout),
+        ("panda_rollout", "K3", k3_calls, pr.panda_rollout, pr.panda_rollout_batched_plain,
+         roofline.panda_rollout_ops, None),
         ("panda_rollout_batched", "K3b", k3b_calls, pr.panda_rollout_batched, pr.panda_rollout_batched_plain,
-         _panda_rollout_ops, pr.panda_rollout),
-        ("albert_rollout", "K4", k4_calls, ar.albert_rollout, ar.albert_rollout_batched_plain, _albert_rollout_ops,
-         None),
+         roofline.panda_rollout_ops, pr.panda_rollout),
+        ("albert_rollout", "K4", k4_calls, ar.albert_rollout, ar.albert_rollout_batched_plain,
+         roofline.albert_rollout_ops, None),
         ("albert_rollout_batched", "K4b", k4b_calls, ar.albert_rollout_batched, ar.albert_rollout_batched_plain,
-         _albert_rollout_ops, ar.albert_rollout),
+         roofline.albert_rollout_ops, ar.albert_rollout),
     ):
         live = name.startswith("point")  # the point kernel's bound counts its live contacts
         bars = ALBERT_BARS if name.startswith("albert") else PLANAR_BARS
@@ -2796,7 +2679,7 @@ def main() -> None:
     for label, calls in k1_runs.items():
         phase_every_call(f"K1 {label}", calls, ro.point_rollout)
         phase_closed_loop(card, f"K1 {label}", calls, ro.point_rollout, ro.point_rollout_batched_plain,
-                          _point_rollout_ops, None, True, PLANAR_BARS)
+                          roofline.point_rollout_ops, None, True, PLANAR_BARS)
         calls.clear()
     from m3p2i_aip_tpu_torch.ops import weights
 

@@ -56,7 +56,8 @@ namespace {
 
 constexpr int kMaxThreads = 512;       // the block; 128 registers a thread at most
 constexpr int kParentThreads = 1024;   // the round-by-round block, whose sums the etas keep
-constexpr int kMaxK = 12288;           // tc[K] in the 48 KB of dynamic shared memory
+constexpr int kSmemMaxK = 49152;       // tc[K] in dynamic shared memory (192 KB, opted in); above, in global scratch
+constexpr int kMaxB = 65535;           // seeds a launch takes, one block each
 constexpr int kBetaIters = 64;         // the reference's unbounded while, bounded
 constexpr int kCandidates = 8;         // betas evaluated a step, a team of warps each
 constexpr int kLanes = 4;              // lanes that share one parent warp's 32 samples
@@ -154,15 +155,22 @@ __device__ __forceinline__ float warp_min_all(float v) {
   return v;
 }
 
+// kScratch: the [K] discounted cost-to-go lies in the block's row of the
+// global scratch (K > kSmemMaxK; 256 KB at K = 65536, held in L2), else in
+// shared memory.  Either way every read and sum below is the same, so the
+// weights are too; the shared form keeps its shared-memory loads.
+template <bool kScratch>
 __global__ void __launch_bounds__(kMaxThreads)
 multimodal_weights_kernel(const float* __restrict__ cost,   // [B, K, T]
                           const float* __restrict__ gamma,  // [T]
                           float* __restrict__ out,          // [B, 3, K]
+                          float* __restrict__ scratch,      // [B, K] with kScratch, else unused
                           int K, int T, int half_K, float eta_u, float eta_l,
                           int team /* warps a candidate */, int parent_threads) {
   cost += static_cast<size_t>(blockIdx.x) * K * T;
   out += static_cast<size_t>(blockIdx.x) * 3 * K;
-  extern __shared__ float tc[];                 // [K] discounted cost-to-go
+  extern __shared__ float smem_tc[];
+  float* tc = kScratch ? scratch + static_cast<size_t>(blockIdx.x) * K : smem_tc;
   __shared__ float part[kCandidates][3][32];    // each candidate's parent-warp partials
   __shared__ float etas[2][kCandidates][3];     // each candidate's etas and betas, by step parity
   __shared__ float betas[2][kCandidates][3];
@@ -172,7 +180,7 @@ multimodal_weights_kernel(const float* __restrict__ cost,   // [B, K, T]
   // 1. tc[k]: one sample per thread, summed in horizon order
   for (int k = tid; k < K; k += blockDim.x) {
     float s = 0.0f;
-    for (int t = 0; t < T; ++t) s += cost[k * T + t] * gamma[t];
+    for (int t = 0; t < T; ++t) s += cost[static_cast<size_t>(k) * T + t] * gamma[t];
     tc[k] = s;
   }
   __syncthreads();
@@ -352,30 +360,43 @@ multimodal_weights_kernel(const float* __restrict__ cost,   // [B, K, T]
       const bool in = g == 2 || (g == 0 ? k < half_K : k >= half_K);
       float q = neg_quotient(tc[k] - mins[g], beta[g], rb[g]);
       if (!safe && !in_range(tc[k] - mins[g])) q = -(tc[k] - mins[g]) / beta[g];
-      out[g * K + k] = in ? expf(q) / eta[g] : 0.0f;
+      out[static_cast<size_t>(g) * K + k] = in ? expf(q) / eta[g] : 0.0f;
     }
   }
 }
 
 }  // namespace
 
-extern "C" int m3p2i_multimodal_weights(const float* cost, const float* gamma, float* out, int B,
-                                        int K, int T, int half_K, float eta_u, float eta_l,
+// scratch: [B, K] floats of device memory when K > kSmemMaxK (the cost-to-go
+// then lives there), else null.  Above 48 KB a block's shared memory is an
+// opt-in (cudaFuncAttributeMaxDynamicSharedMemorySize), made per launch for
+// the size it needs.
+extern "C" int m3p2i_multimodal_weights(const float* cost, const float* gamma, float* out, float* scratch,
+                                        int B, int K, int T, int half_K, float eta_u, float eta_l,
                                         void* stream) {
-  if (B <= 0 || B > 65535 || K <= 0 || K > kMaxK || T <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || B > kMaxB || K <= 0 || T <= 0 || (K > kSmemMaxK) != (scratch != nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   int parent_threads = ((K + 31) / 32) * 32;
   if (parent_threads > kParentThreads) parent_threads = kParentThreads;
   const int passes = (parent_threads / 32 + kSlots - 1) / kSlots;
   int team = kMaxThreads / (32 * kCandidates);
   if (team > passes) team = passes;
+  const dim3 grid(B), block(32 * kCandidates * team);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (scratch != nullptr) {
+    multimodal_weights_kernel<true><<<grid, block, 0, s>>>(cost, gamma, out, scratch, K, T, half_K, eta_u, eta_l,
+                                                           team, parent_threads);
+    return static_cast<int>(cudaGetLastError());
+  }
   const size_t smem = static_cast<size_t>(K) * sizeof(float);
   if (smem > 32 * 1024) {  // tc beside the static arrays passes the default 48 KB
-    const cudaError_t err = cudaFuncSetAttribute(multimodal_weights_kernel,
+    const cudaError_t err = cudaFuncSetAttribute(multimodal_weights_kernel<false>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  multimodal_weights_kernel<<<B, 32 * kCandidates * team, smem, static_cast<cudaStream_t>(stream)>>>(
-      cost, gamma, out, K, T, half_K, eta_u, eta_l, team, parent_threads);
+  multimodal_weights_kernel<false><<<grid, block, smem, s>>>(cost, gamma, out, nullptr, K, T, half_K, eta_u, eta_l,
+                                                            team, parent_threads);
   return static_cast<int>(cudaGetLastError());
 }

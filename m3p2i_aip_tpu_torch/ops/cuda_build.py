@@ -50,7 +50,7 @@ _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # one entry point per kernel; each takes the seed count B (a single rollout
 # or weight update is a launch with B = 1)
 _SIGNATURES = {
-    "m3p2i_multimodal_weights": [_VP, _VP, _VP, _I, _I, _I, _I, _F, _F, _VP],
+    "m3p2i_multimodal_weights": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _F, _VP],
     "m3p2i_point_rollout": [_VP] * 7 + [_I] * 16 + [_VP],
     "m3p2i_panda_rollout": [_VP] * 6 + [_I] * 10 + [_VP],
     "m3p2i_albert_rollout": [_VP] * 6 + [_I] * 6 + [_VP],

@@ -24,7 +24,8 @@ import torch
 from m3p2i_aip_tpu_torch.ops import cuda_build
 
 BETA_ITERS = 64
-MAX_K = 12288  # the kernel keeps the [K] cost-to-go in 48 KB of shared memory
+MAX_B = 65535  # seeds one launch takes (a block each); any K goes
+SMEM_MAX_K = 49152  # the kernel keeps the [K] cost-to-go in shared memory up to here, above in a global scratch
 
 # Number of CUDA kernel launches made by ``multimodal_weights`` and by
 # ``multimodal_weights_batched`` (CPU calls run the plain versions and do
@@ -115,13 +116,14 @@ def _launch(fn: str, cost, gamma, half_K: int, eta_u: float, eta_l: float):
         raise ValueError(f"{fn}: unsupported device {cost.device}")
     _check_batch(fn, cost, gamma)
     B, K, T = cost.shape
-    if K > MAX_K:
-        raise ValueError(f"{fn}: K = {K} samples, the kernel takes at most {MAX_K}")
+    if B > MAX_B:
+        raise ValueError(f"{fn}: B = {B} seeds, a launch takes at most {MAX_B}")
     out = torch.empty(B, 3, K, dtype=torch.float32, device=cost.device)
+    scratch = torch.empty(B, K, dtype=torch.float32, device=cost.device) if K > SMEM_MAX_K else None
     lib = cuda_build.load_kernels()
     with torch.cuda.device(cost.device):  # the launch goes to the context of the tensors' card
         err = lib.m3p2i_multimodal_weights(
-            cost.data_ptr(), gamma.data_ptr(), out.data_ptr(),
+            cost.data_ptr(), gamma.data_ptr(), out.data_ptr(), None if scratch is None else scratch.data_ptr(),
             B, K, T, int(half_K), ctypes.c_float(eta_u), ctypes.c_float(eta_l),
             torch.cuda.current_stream(cost.device).cuda_stream,
         )

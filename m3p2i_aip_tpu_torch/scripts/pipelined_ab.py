@@ -15,25 +15,23 @@ Runs on the card only: without CUDA it exits non-zero.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
 
+from m3p2i_aip_tpu_torch.analysis import bench_record as br
 from m3p2i_aip_tpu_torch.config.config_store import load_config
+from m3p2i_aip_tpu_torch.scripts.bench import MAIN_PATH
 from m3p2i_aip_tpu_torch.scripts.run_tamp import pop_option
 from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
-
-MAIN_PATH = ["task=push_pull", "multi_modal=True", "goal=[-3.75,-3.75]"]
 
 
 def _bench_loop() -> SimLoop:
     loop = SimLoop(load_config("config_point", MAIN_PATH), device="cuda")
     loop.warmup(50)
-    loop.tamp.task_planner.check_task_success = lambda view: False
-    loop.tamp.device_gate = False
+    br.gates_off(loop)
     return loop
 
 
@@ -53,8 +51,7 @@ def main(argv) -> dict:
     ticks, argv = pop_option(argv, "ticks", "150")
     chunk, argv = pop_option(argv, "chunk", "50")
     pairs, ticks, chunk = int(pairs), int(ticks), int(chunk)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True).stdout.strip()
+    card = br.nvidia_smi()
     loops = {False: _bench_loop(), True: _bench_loop()}
     rates = {False: [], True: []}
     for p in range(pairs):

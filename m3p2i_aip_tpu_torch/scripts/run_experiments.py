@@ -11,18 +11,21 @@ with ``parallel_seeds=True`` all together through ``BatchSimLoop`` (one
 batched kernel launch per rollout per tick for the whole batch), or with
 ``parallel_seeds=shard`` split over every visible card (``BatchSimLoop(
 shard=True)``: one launch per rollout per tick on each card's seeds; on the
-CPU, one shard).
+CPU, one shard).  The log goes to ``out=``, by default
+``results_h100/{point,panda,albert}/<task>[_mm].npy`` under the working
+directory: ``plot/`` holds the JAX package's committed logs.
 
 Run from the repository root:
 
     python -m m3p2i_aip_tpu_torch.scripts.run_experiments task=push_pull \\
         multi_modal=True goal="[-3.75,-3.75]" n_runs=20 chunked=4 \\
-        parallel_seeds=True out=plot/point/hybrid_torch.npy
+        parallel_seeds=True out=results_h100/point/hybrid.npy
     python -m m3p2i_aip_tpu_torch.scripts.run_experiments -cn config_panda \\
         multi_modal=True n_runs=20 parallel_seeds=True
 """
 from __future__ import annotations
 
+import os
 import sys
 import time
 
@@ -35,6 +38,7 @@ from m3p2i_aip_tpu_torch.analysis import (
     finalize_point_row,
     summarize,
 )
+from m3p2i_aip_tpu_torch.analysis.bench_record import RESULTS_DIR, require_device
 from m3p2i_aip_tpu_torch.config.config_store import load_config_from_argv
 from m3p2i_aip_tpu_torch.sim.sim_config import load_env_cfgs
 from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
@@ -151,8 +155,9 @@ def _run_serial(cfg, opts, family: str, out: str, domain_noise: bool) -> None:
 
 def main(argv) -> None:
     opts, cfg = _parse(argv)
+    require_device(opts["device"], "run_experiments")
     family = {"panda_env": "panda", "albert_env": "albert"}.get(cfg.env_type, "point")
-    out = opts["out"] or f"plot/{family}/{cfg.task}{'_mm' if cfg.multi_modal else ''}.npy"
+    out = opts["out"] or os.path.join(RESULTS_DIR, family, f"{cfg.task}{'_mm' if cfg.multi_modal else ''}.npy")
     domain_noise = float(getattr(cfg, "fric_noise", 0.0)) > 0.0 or any(
         a.noise_percentage_friction or a.noise_sigma_size for a in load_env_cfgs(cfg.env_type)
     )

@@ -33,7 +33,8 @@ import sys
 import numpy as np
 import torch
 
-from m3p2i_aip_tpu_torch.ops import cuda_build
+from m3p2i_aip_tpu_torch.analysis import bench_record as br
+from m3p2i_aip_tpu_torch.ops import cuda_build, weights
 
 AB_DIR = cuda_build.BUILD_DIR / "ab"
 CLOCK_SRC = pathlib.Path(__file__).resolve().with_name("weights_round_clock.cu")
@@ -110,16 +111,27 @@ def _build(sources: dict) -> dict:
     return built
 
 
-def _launcher(lib):
+def _takes_scratch(text: str) -> bool:
+    """Whether a form's entry point takes the global scratch pointer (the
+    shipped form) or not (forms before it)."""
+    return re.search(r"m3p2i_multimodal_weights\([^)]*float\* scratch", text) is not None
+
+
+def _launcher(lib, scratch: bool):
     fn = lib.m3p2i_multimodal_weights
-    fn.argtypes = cuda_build._SIGNATURES["m3p2i_multimodal_weights"]
+    sig = cuda_build._SIGNATURES["m3p2i_multimodal_weights"]
+    fn.argtypes = sig if scratch else sig[:3] + sig[4:]
     fn.restype = ctypes.c_int
 
     def run(cost, gamma, half_K, eta_u, eta_l):
         c = cost if cost.dim() == 3 else cost[None]
         B, K, T = c.shape
         out = torch.empty(B, 3, K, dtype=torch.float32, device=c.device)
-        err = fn(c.data_ptr(), gamma.data_ptr(), out.data_ptr(), B, K, T, int(half_K), ctypes.c_float(eta_u),
+        ptrs = [c.data_ptr(), gamma.data_ptr(), out.data_ptr()]
+        if scratch:
+            tc = torch.empty(B, K, device=c.device) if K > weights.SMEM_MAX_K else None
+            ptrs.append(None if tc is None else tc.data_ptr())
+        err = fn(*ptrs, B, K, T, int(half_K), ctypes.c_float(eta_u),
                  ctypes.c_float(eta_l), torch.cuda.current_stream().cuda_stream)
         assert err == 0, f"launch failed: cudaError {err}"
         return out
@@ -224,14 +236,13 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("weights_ab: no CUDA device")
-    import chip_smoke as cs
-
-    card = cs._nvidia_smi()
+    card = br.nvidia_smi()
     print(f"[ab] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    built = _build(_sources(args.parent, args.variant))
+    sources = _sources(args.parent, args.variant)
+    built = _build(sources)
     clock_lib = built.pop("clock")[0]
     stamped_lib = built.pop("stamped")[0]
-    forms = {name: _launcher(lib) for name, (lib, _) in built.items()}
+    forms = {name: _launcher(lib, _takes_scratch(sources[name])) for name, (lib, _) in built.items()}
     for name, (_, report) in built.items():
         print(f"[ab] {name}: {report}")
     sets = _inputs(args.record)
@@ -258,7 +269,7 @@ def main(argv=None) -> None:
             continue
         med = {}
         for name in forms:
-            t = [cs._device_ms(lambda: forms[name](*a), launches=10, reps=3) for a in calls]
+            t = [br.replayed_ms(lambda: forms[name](*a), launches=10, reps=3) for a in calls]
             med[name] = float(np.median(t))
             if name == "before":
                 timed[f"{label}, slowest"] = calls[int(np.argmax(t))]
@@ -267,12 +278,10 @@ def main(argv=None) -> None:
     for label, a in timed.items():
         reads = {name: [] for name in forms}
         for name in order:
-            reads[name].append(cs._device_ms(lambda: forms[name](*a)))
-        single = {name: cs._time_ms(lambda: forms[name](*a)) for name in ("before", "shipped")}
+            reads[name].append(br.replayed_ms(lambda: forms[name](*a)))
+        single = {name: br.event_ms(lambda: forms[name](*a)) for name in ("before", "shipped")}
         rounds = None
         if a[0].shape[-2] >= 2:
-            from m3p2i_aip_tpu_torch.ops import weights
-
             rounds = weights.beta_rounds(*a)[0].reshape(-1, 3).max(0).tolist()
         print(f"[ab] {label} {tuple(a[0].shape)}, most rounds {rounds}: replayed ms in turns {reads}; single ms "
               f"{single} ({card})")
@@ -289,7 +298,7 @@ def main(argv=None) -> None:
     # the shipped form's step, in parts
     read = stamped_lib.m3p2i_weights_steps_read
     read.argtypes, read.restype = [ctypes.c_void_p], ctypes.c_int
-    stamped = _launcher(stamped_lib)
+    stamped = _launcher(stamped_lib, _takes_scratch(sources["stamped"]))
     for label in ("random K=200", "tied K=200", "K1b costs B=20", "point main path, slowest", "panda shelf, slowest"):
         if label not in timed:
             continue
@@ -307,8 +316,8 @@ def main(argv=None) -> None:
         print(f"[ab] shipped form, clock, {label} (block 0): {steps} steps, {c[:7].sum():.0f} cycles; cycles {parts}; "
               f"a step's parts {per} ({card})")
         summary.setdefault("step_clock", {})[label] = {"steps": steps, "cycles": parts}
-    empty = {"single_ms": cs._time_ms(lambda: torch.cuda._sleep(0)),
-             "device_ms": cs._device_ms(lambda: torch.cuda._sleep(0))}
+    empty = {"single_ms": br.event_ms(lambda: torch.cuda._sleep(0)),
+             "device_ms": br.replayed_ms(lambda: torch.cuda._sleep(0))}
     print(f"[ab] an empty kernel (torch.cuda._sleep(0)): {empty} ({card})")
     summary["empty_kernel"] = empty
     args.out.parent.mkdir(parents=True, exist_ok=True)

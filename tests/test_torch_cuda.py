@@ -50,8 +50,9 @@ def cuda():
 
 
 # 200 = the main path, 37 = odd halves, 1500 > 1024 = the strided samples,
-# 5 = one parent warp, 1024 = 32 full parent warps, 4096 = four passes a team
-@pytest.mark.parametrize("K", [200, 37, 1500, 5, 1024, 4096])
+# 5 = one parent warp, 1024 = 32 full parent warps, 4096 = four passes a team,
+# 16384 = the cost-to-go in opted-in shared memory, 65536 = in global scratch
+@pytest.mark.parametrize("K", [200, 37, 1500, 5, 1024, 4096, 16384, 65536])
 def test_weights_kernel_matches_plain(cuda, K):
     rng = np.random.default_rng(K)
     cost = torch.as_tensor(rng.uniform(0, 50, size=(K, 15)).astype(np.float32), device=cuda)
@@ -393,8 +394,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         weights.multimodal_weights(cost, torch.ones(15, device=cuda), 20)
     with pytest.raises(ValueError):
         weights.multimodal_weights(torch.rand(40, 15, device=cuda, dtype=torch.float64), torch.ones(15, device=cuda), 20)
-    with pytest.raises(ValueError):  # the [K] cost-to-go passes 48 KB of shared memory
-        weights.multimodal_weights(torch.rand(weights.MAX_K + 1, 2, device=cuda), torch.ones(2, device=cuda), 20)
+    with pytest.raises(ValueError):  # more seeds than a launch's blocks
+        weights.multimodal_weights_batched(torch.rand(weights.MAX_B + 1, 2, 2, device=cuda), torch.ones(2, device=cuda),
+                                           1)
     cfg = load_config("config_panda")
     env = make_env(cfg, device=cuda)
     spec = pr.make_panda_rollout(env.params, cfg.pre_height_diff, 8, 4, False).spec

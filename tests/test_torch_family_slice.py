@@ -40,6 +40,7 @@ VARIANTS = {
     "boxer_push_pull": ("config_boxer", [*HYBRID, *COMMON]),
     "boxer_push_beta_adapt": ("config_boxer", [*PUSH, *COMMON]),
     "boxer_parity_push": ("config_boxer", [*PUSH, "mppi=boxer_parity", *COMMON]),
+    "boxer_parity_push_pull": ("config_boxer", [*HYBRID, "mppi=boxer_parity", *COMMON]),
 }
 # test_torch_slice.py's bar and reason: f32 work in another summation order
 # (the port's K-sample sums are float64) moves actions by ~1e-5 a tick; 1e-3

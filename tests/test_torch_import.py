@@ -26,6 +26,9 @@ for name in (
     "utils.urdf", "assets.urdf_gen", "analysis.dashboard", "ops.norm", "scripts.trace_tick_paths",
     "scripts.plot_point", "scripts.plot_panda", "examples.example_key", "examples.example_aip_panda",
     "examples.example_aip_parallel", "parallel.mesh",
+    "analysis.bench_record", "analysis.roofline", "scripts.bench", "scripts.bench_panda", "scripts.bench_albert",
+    "scripts.bench_family", "scripts.bench_batch_eval", "scripts.bench_northstar", "scripts.bench_sharded",
+    "scripts.analyze_utilization", "scripts.recompute_results", "scripts.run_quality_campaign",
 ):
     assert pkg.__name__ + "." + name in names, name
 leaked = sorted(m for m in sys.modules if m == "m3p2i_aip_tpu" or m.startswith("m3p2i_aip_tpu."))

@@ -67,8 +67,11 @@ def _check_albert(c: dict) -> None:
 
 def _check_weights(c: dict) -> None:
     assert c["kBetaIters"] == weights.BETA_ITERS
-    # the [K] cost-to-go fills at most 48 KB of shared memory
-    assert c["kMaxK"] == weights.MAX_K and 4 * c["kMaxK"] <= 48 * 1024
+    # the [K] cost-to-go lies in shared memory up to kSmemMaxK samples, which
+    # with the static arrays fit the 227 KB a block may opt in to; above, in
+    # the wrapper's global scratch; a launch takes at most kMaxB seeds
+    assert c["kSmemMaxK"] == weights.SMEM_MAX_K and 4 * c["kSmemMaxK"] + 8 * 1024 <= 227 * 1024
+    assert c["kMaxB"] == weights.MAX_B == 65535
     # one warp at least per candidate beta, and the first step's split has
     # a candidate each way
     assert 2 <= c["kCandidates"] and 32 * c["kCandidates"] <= c["kMaxThreads"]

@@ -135,3 +135,21 @@ def test_cpu_wrapper_launches_no_kernel():
     cost = torch.rand(16, T)
     weights.multimodal_weights(cost, torch.ones(T), 8)
     assert weights.weights_launches == before
+
+
+# 16384: the sharded sweep's largest K (scripts/bench_sharded.py), past the
+# 12288 samples the kernel once took; spreads as above
+@pytest.mark.parametrize("spread", [50.0, 0.5])
+def test_weights_at_large_K_match_jax_package(spread):
+    """The plain version and the CPU wrapper at K = 16384 against the JAX
+    package's XLA weights (the path its sharded planner takes at any K)."""
+    K = 16384
+    mp, xla_fn = _jax_planner(K)
+    cost = np.random.default_rng(K).uniform(0, spread, size=(K, T)).astype(np.float32)
+    ref = xla_fn(jnp.asarray(cost))
+    args = (torch.as_tensor(cost), torch.as_tensor(np.array(mp.gamma_seq)), mp.half_K, mp.eta_u, mp.eta_l)
+    for pname, got in {"plain": weights.multimodal_weights_plain(*args),
+                       "wrapper_cpu": weights.multimodal_weights(*args)}.items():
+        for i, (g, r) in enumerate(zip(got, ref)):
+            assert abs(float(torch.sum(g)) - 1.0) < SUM_TOL, pname
+            np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=ATOL, rtol=0, err_msg=f"{pname} w{i}")
