@@ -3,22 +3,23 @@
 
 Builds the port's CUDA kernels from ``m3p2i_aip_tpu_torch/csrc``, holds each
 against its plain PyTorch version on the card, then drives the port's three
-paths through ``SimLoop.run_chunked``:
+paths through ``SimLoop.run_chunked``.  The runs that record every kernel
+call's inputs from Python run the eager tick (``graphs=False``, ``--eager``);
+the compiled tick, the entry points' default on the card (one CUDA graph a
+tick, replayed), is held to them bit for bit in its own phase, and the runs
+that record nothing run it (``graphs=True``, or the default):
 
-* the point-robot push_pull multi-modal M3P2I loop at K=200 x T=15, first
-  with the success gates on (the box must reach the corner goal) and then in
-  benchmark mode (gates off);
+* the point-robot push_pull multi-modal M3P2I loop at K=200 x T=15 with the
+  success gates on (the box must reach the corner goal);
 * the panda active-inference pick-place loop (``-cn config_panda``) at
   K=200 x T=12 with the refine ladder: the table pick-place must grasp the
-  cube and latch success, a short multi-modal shelf run must stay finite,
-  the replan+step rate is measured with ``scripts/bench_panda.py``'s
-  protocol, and one 20-tick chunk is profiled (``torch.profiler``);
+  cube and latch success, and a short multi-modal shelf run must stay
+  finite;
 * the albert mobile manipulator (``-cn config_albert``) at K=128 x T=12
   with the softmax-only refine ladder: the ee_reach must latch success
   within 150 ticks with the base driven, the push_reach must push the box to
-  its goal within 500 ticks, the replan+step rate is measured with
-  ``scripts/bench_albert.py``'s protocol, and one tick is broken down into
-  its pieces (host clock) and its device kernels (``torch.profiler``);
+  its goal within 500 ticks, and one tick is broken down into its pieces
+  (host clock) and its device kernels (``torch.profiler``);
 * batched seed evaluation (``BatchSimLoop``): the four batched kernels
   (K1b-K4b, one launch per rollout per tick for the whole batch) against
   their plain versions and against serial single-kernel launches on four
@@ -27,10 +28,8 @@ paths through ``SimLoop.run_chunked``:
   settle, the albert ee_reach), each of which must succeed on at least 18
   seeds with the batched kernels launched once per rollout per tick and the
   single kernels not at all, and each of which prints its per-seed rows;
-  three seeds batched against three serial runs
-  (point and panda: equal tick counts and success ticks, positions within
-  1e-4); and the B=20 point batch's rate in benchmark mode beside the serial
-  rate, with a profile of one batched tick;
+  and three seeds batched against three serial runs, compiled (point and
+  panda: equal tick counts and success ticks, positions within 1e-4);
 * the heijn (3-dof omni) and boxer (differential drive) bases and the
   planner modes beyond the default, each a gated ``run_chunked`` at
   K=200 x T=15 that must reach its goal, with its launch counts and success
@@ -39,7 +38,7 @@ paths through ``SimLoop.run_chunked``:
   sampling and update_cov navigation and the update_cov_per_mode hybrid.
   Every K1 call of these runs is held to the plain version
   (``phase_every_call``), their K2 calls join K2's closed-loop phase, and
-  the heijn and boxer replan+step rates are measured with
+  the heijn and boxer replan+step rates, compiled, are measured with
   ``scripts/bench_family.py``'s protocol;
 * the README's entry points: the port's ``run_tamp`` script (``main``,
   one replan+step a tick through ``SimLoop.run``, the host task planner
@@ -51,8 +50,8 @@ paths through ``SimLoop.run_chunked``:
   point push to [-1, -1] must reach its goal within 300 ticks; 20 ticks of
   the panda and of the albert), with the round trip per tick beside the
   in-process tick; and checkpoint / resume of the point main path and the
-  panda, 20 ticks, a checkpoint, a fresh loop, 20 ticks, bit-equal to 40
-  uninterrupted ticks.  Every launch count is set to 0 just before each of
+  panda, compiled, 20 ticks, a checkpoint, a fresh loop, 20 ticks,
+  bit-equal to 40 uninterrupted ticks.  Every launch count is set to 0 just before each of
   these runs and read just after, and every K1, K3 and K4 call of them is
   held to its plain version (their K2 calls join K2's closed-loop phase).
   F3: the per-tick and chunked panda runs recorded tick by tick from one
@@ -61,8 +60,7 @@ paths through ``SimLoop.run_chunked``:
 * pipelined chunks (``run_chunked(pipelined=True)``, one chunk in flight) on
   the main path: gated, the same latch and bit-equal logs as serial chunks,
   no host sync in any enqueue (``torch.cuda.set_sync_debug_mode``), K1 and
-  K2 once per dispatched tick; the benchmark-mode rates of both in turns,
-  each profiled (device idle share);
+  K2 once per dispatched tick;
 * gradient refinement, the round-4 panda setting (``mppi.grad_refine_steps=8
   mppi.refine_iters=0``, multi-modal) at K=200 x T=12: finite means every
   tick, K3 and K2 once a tick, the tick's time and the autograd chain's
@@ -70,6 +68,19 @@ paths through ``SimLoop.run_chunked``:
   inputs within 1e-4;
 * the URDF FK cross-check: the vendored franka and albert URDFs' chains
   (``utils/urdf.py``) against ``panda_fk.fk`` and ``albert.fk`` on the card;
+* the compiled tick (``tamp/graph_tick.py``, ``scripts/graph_ab.py``): the
+  gated main path (latch 47), the point in benchmark mode and per tick, the
+  gated panda table (latch 83), the albert push_reach and the n=20 point and
+  panda batches, each compiled and bit-equal to its eager run (chunk
+  outputs, log, final carry), with its launches (captured launches x
+  replays) once per dispatched tick per rollout and weight update, each
+  graph's capture time, nodes and pool; the gated main path pipelined and
+  compiled, equal to the eager serial run, with no host sync in any
+  enqueue after the one that captures; and the rates eager and compiled
+  in turns (serial, pipelined, per tick, the B=20 batched tick, the panda,
+  the albert, the north-star shape), each mode profiled (device time, idle
+  share), each profile's kernel events equal to the launches its wrappers
+  counted (eager) or its graph replays made (compiled);
 * the sample axis split over shards of the card (``parallel.shard_planner``
   on a mesh that repeats ``cuda:0``): the gated main path over 8 shards
   (pipelined, no host sync in any enqueue) and over 5, each latching at the
@@ -79,19 +90,21 @@ paths through ``SimLoop.run_chunked``:
   every K3 / K4 call held to its plain version; the gather's time, a
   profile, and ``scripts/bench_sharded.py``'s sweep (K = 512, 2048, 8192,
   unsharded against 8 shards, in turns, and against a mesh of 1 shard);
-* the seed axis over 4 shards of the card (``BatchSimLoop(shard=mesh)``):
-  the n=20 point and panda batches, every seed's row and success tick equal
-  to the unsharded batch's, the seed-tick rate beside the unsharded in
-  turns, and ``run_experiments parallel_seeds=shard`` on the default mesh;
+* the seed axis over 4 shards of the card (``BatchSimLoop(shard=mesh)``),
+  compiled: the n=20 point and panda batches, every seed's row and success
+  tick equal to the unsharded eager batch's, the compiled seed-tick rate
+  beside the unsharded in turns, and ``run_experiments
+  parallel_seeds=shard`` on the default mesh;
 * the benchmark twins (``m3p2i_aip_tpu_torch/scripts/bench*.py``,
   ``analyze_utilization``): every rate above is measured by a twin's
   ``measure`` (the point, panda, albert, heijn and boxer rates) or
   ``sweep_row`` (the sharded sweep, K = 512 to 16384), each with its
   per-chunk spread; the north-star shape K=500 x T=30 (every K1 call of 20
-  recorded ticks held to the plain version, then its rate against 100 Hz);
-  K2 and K2b at K = 16384 and 65536 against their plain versions (the
-  cost-to-go in opted-in shared memory, then in global scratch); and the
-  utilization table of the reference and north-star workloads.
+  recorded ticks held to the plain version; its rates are the compiled
+  tick's phase's); K2 and K2b at K = 16384 and 65536 against their plain
+  versions (the cost-to-go in opted-in shared memory, then in global
+  scratch; at 16384 a captured launch bit-equal to an eager one); and the
+  utilization table of the reference and north-star workloads, compiled.
 
 The inputs the point, panda and albert main paths and their n=20 batches
 gave K1, K1b, K3, K3b, K4 and K4b are recorded, each timed, and the slowest
@@ -113,7 +126,11 @@ and calls replayed back to back from a CUDA graph (``device_ms``,
 ``closed_loop_device_ms``, which leave out the host's time to issue a
 call).
 
-Each kernel's entry in the kernel table carries its bound: the least time
+Each kernel's entry in the kernel table carries ``launches``, the launches
+its wrapper counted on the runs above (every kernel must have some), and
+``graph_launches``, those the compiled runs' graph replays made (captured
+launches x replays; the profiled chunks show them as kernel events), and its
+bound: the least time
 the card could take for the same work, the larger of the bytes it must move
 over 3.35 TB/s and the f32 operations it does over 67 TFLOP/s (the H100 SXM
 data-sheet peaks), the operations reckoned from the kernel's code at this
@@ -143,7 +160,9 @@ from m3p2i_aip_tpu_torch.analysis import bench_record, roofline
 from m3p2i_aip_tpu_torch.analysis.bench_record import event_ms as _time_ms
 from m3p2i_aip_tpu_torch.analysis.bench_record import host_ms as _host_ms
 from m3p2i_aip_tpu_torch.analysis.bench_record import replayed_ms as _device_ms
+from m3p2i_aip_tpu_torch.scripts import graph_ab
 from m3p2i_aip_tpu_torch.scripts.bench import MAIN_PATH
+from m3p2i_aip_tpu_torch.tamp import graph_tick
 # start states of tests/test_pallas.py:212-232: (q, qd[, box position])
 STARTS = [
     ([-0.3, 1.4], [0.5, 0.5]),
@@ -162,7 +181,7 @@ ALBERT_ATOL = 1e-4  # K4 vs its plain version, cost and trajectory (tests/test_p
 ALBERT_BARS = (ALBERT_ATOL, ALBERT_ATOL)
 EE_REACH_TICKS, PUSH_REACH_TICKS = 150, 500  # tests/test_albert.py:37, :193
 PUSH_REACH = ["task=push_reach", "goal=[3.0,0.0,0.6]"]
-BENCH_CHUNK = 50  # the point and panda benchmark phases: 2 warm-up chunks, then 4 timed chunks
+BENCH_CHUNK = 50  # the heijn and boxer rates' chunk: 2 warm-up chunks, then FAMILY_TIMED timed chunks
 N_SEEDS = 20  # the n=20 protocol of RESULTS.md
 CHECK_SEEDS = 4  # seeds of the batched kernels' checks against their plain versions
 SERIAL_ATOL = 0.0  # a batched kernel against its single kernel per seed: the same body, so the same bits
@@ -211,10 +230,7 @@ CKPT_TICKS = 20  # ticks before and after the checkpoint
 LOOP_CHUNK = 10  # the n=20 campaigns' chunked=10 (scripts/run_quality_campaign_r3.sh)
 CHECK_GROUP = 100  # recorded K1 calls held to the batched plain version at once
 PIPELINE_CHUNK = 10  # the gated serial / pipelined main-path runs' chunk
-PIPELINE_TIMED = 1  # the benchmark-mode rates in turns: 1 warm-up chunk, then this many of BENCH_CHUNK
 FAMILY_TIMED = 2  # the heijn and boxer rates' timed chunks of BENCH_CHUNK
-BATCH_TIMED = 2  # the B=20 batch rate's timed chunks of BENCH_CHUNK
-PROFILE_TICKS = 10  # each mode's profiled ticks, in two chunks (a point tick is ~4,700 device kernels)
 GRAD_REFINE = ["multi_modal=True", "mppi.grad_refine_steps=8", "mppi.grad_refine_unroll=True", "mppi.refine_iters=0"]
 GRAD_REFINE_TICKS = 1  # ticks of the round-4 panda setting (config/mppi/panda.yaml:25-32), seconds each
 GRAD_REFINE_ATOL = 1e-4  # its refined means on the card against the port on the CPU, one recorded tick
@@ -228,15 +244,28 @@ SAMPLE_SHARDS = (8, 5)
 FAMILY_SHARDS = 8
 PANDA_SHARD_TICKS = 30  # the sharded and unsharded multi-modal panda, tick for tick
 SWEEP_K = (512, 2048, 8192, 16384)  # scripts/bench_sharded.py's sweep (horizon 12), unsharded against 8 shards
-SWEEP_TICKS = 20  # its timed replans a turn (scripts/bench_sharded.py --ticks)
+SWEEP_TICKS = 10  # its timed replans a turn (scripts/bench_sharded.py --ticks)
 SEED_SHARDS = 4  # the n=20 point and panda batches over 4 shards of one card: 5 seeds each
 NORTHSTAR_CHECKED = 20  # the north-star's recorded ticks, every K1 call held to the plain version
-NORTHSTAR_CHUNK, NORTHSTAR_TIMED = 25, 50  # its rate: 2 chunks to settle, then the timed ticks
 UTIL_CHUNK_TICKS = 4  # the utilization table's chunk: the tick in a chunk, and the profile
 WEIGHTS_LARGE_K = (16384, 65536)  # K2 / K2b with the cost-to-go in opted-in shared memory, then in global scratch
 SEED_BENCH_CHUNKS = 1  # the seed-shard rate: 1 warm-up chunk, then this many of LOOP_CHUNK a turn
 SHARD_PROFILE_TICKS = 2  # the sharded runs' profiled ticks (a 4-shard batched tick is ~19,000 device kernels)
 SIM_COLUMNS = {"point": [*range(1, 14), 17, 18], "panda": list(range(1, 15))}  # a row's columns that are not clocks
+GRAPH_RATE_CHUNK, GRAPH_RATE_TIMED = 10, 20  # the paired eager / compiled rates: 2 chunks to settle, then these
+# the eager runs held against their compiled twins in phase_graphs (graph_ab's record of each: chunk outputs, log,
+# final carry), kept by the phases that run them, under graph_ab.LOOPS's and graph_ab.BATCHES's labels
+EAGER_RUNS: dict = {}
+# a compiled run's launches a dispatched tick, by counter (graph_ab's labels)
+GRAPH_LAUNCHES = {
+    "point gated": {"rollout_launches": 1, "weights_launches": 1},
+    "point benchmark": {"rollout_launches": 1, "weights_launches": 1},
+    "panda gated": {"panda_rollout_launches": 4},
+    "albert push_reach": {"albert_rollout_launches": 4},
+    "point per tick": {"rollout_launches": 1, "weights_launches": 1},
+    "point batch": {"rollout_batched_launches": 1, "weights_batched_launches": 1},
+    "panda batch": {"panda_rollout_batched_launches": 4, "weights_batched_launches": 3},
+}
 # four point tasks for the batched checks: (name, goal)
 POINT_TASKS = [("push_pull", [-3.75, -3.75]), ("pull", [1.0, 3.0]), ("push", [-1.0, -1.0]), ("navigation", [1.5, 1.0])]
 
@@ -605,7 +634,7 @@ def phase_weights_random_inputs() -> tuple:
     from m3p2i_aip_tpu_torch.config.config_store import load_config
     from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMP
 
-    mp = ReactiveTAMP(load_config("config_point", MAIN_PATH), device="cuda").motion_planner
+    mp = ReactiveTAMP(load_config("config_point", MAIN_PATH), device="cuda", graphs=False).motion_planner
     rng = np.random.default_rng(0)
     cost = torch.as_tensor(rng.uniform(0, 50, size=(N_SEEDS + 1, mp.K, mp.T)).astype(np.float32), device="cuda")
     rest = (mp.gamma_seq, mp.half_K, mp.eta_u, mp.eta_l)
@@ -655,7 +684,7 @@ def _point_random_inputs() -> tuple:
     from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMP
     from m3p2i_aip_tpu_torch.utils.tree import tree_map
 
-    tamp = ReactiveTAMP(load_config("config_point", MAIN_PATH), device="cuda")
+    tamp = ReactiveTAMP(load_config("config_point", MAIN_PATH), device="cuda", graphs=False)
     env, spec = tamp.env, tamp.motion_planner.rollout.spec
     rng = np.random.default_rng(13)
     state = replace(env.init_state(), q=torch.tensor(STARTS[0][0], device="cuda"),
@@ -707,7 +736,7 @@ def phase_main_path(cfg) -> tuple:
     from m3p2i_aip_tpu_torch.ops import weights
     from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
 
-    loop = SimLoop(cfg, device="cuda")
+    loop = SimLoop(cfg, device="cuda", graphs=False)
     loop.warmup(50)
     dispatched = 0
     run_chunk = loop.tamp.run_chunk
@@ -718,12 +747,14 @@ def phase_main_path(cfg) -> tuple:
         return run_chunk(ms, rs, task, i0, length)
 
     loop.tamp.run_chunk = counted_run_chunk
+    outputs = graph_ab.record_chunks(loop)
     ro.rollout_launches = 0
     weights.weights_launches = 0
     t0 = time.perf_counter()
     with _recorded(ro, "point_rollout") as calls:
         log = loop.run_chunked(1000, chunk=50)
     wall = time.perf_counter() - t0
+    EAGER_RUNS["point gated"] = graph_ab.loop_record(loop, outputs)
     launches = {"point_rollout": ro.rollout_launches, "multimodal_weights": weights.weights_launches}
     loop.tamp.run_chunk = run_chunk
     print(f"[main] {log.steps} ticks logged, {dispatched} dispatched in {wall:.2f} s; launches {launches}")
@@ -746,18 +777,6 @@ def _rate_line(rate: dict) -> str:
             f"{rate['chunk_hz_q1']:.2f} / {rate['chunk_hz_q3']:.2f}, {rate['chunk_clock']})")
 
 
-def phase_benchmark(loop, card: str, label: str = "bench", timed: int = 4) -> float:
-    """Benchmark mode through the bench twin (``scripts/bench.py``'s
-    ``measure``): both gates off, 2 chunks of BENCH_CHUNK to settle, then
-    ``timed`` timed chunks, serial."""
-    from m3p2i_aip_tpu_torch.scripts import bench
-
-    rate = bench.measure(loop, BENCH_CHUNK, timed * BENCH_CHUNK, pipelined=False)
-    K, T = loop.tamp.motion_planner.K, loop.tamp.motion_planner.T
-    print(f"[{label}] {_rate_line(rate)}, K={K} x T={T}, {timed * BENCH_CHUNK} timed ticks ({card})")
-    return rate["value"]
-
-
 def phase_panda_rollout() -> tuple:
     """K3 against its plain version at K=200, T=12 (config_panda physics),
     from the seven parity starts, for multi_modal False and True; in the
@@ -776,7 +795,7 @@ def phase_panda_rollout() -> tuple:
     cost_err = traj_err = w_err = 0.0
     timed = w_timed = None
     for mm in (False, True):
-        tamp = ReactiveTAMP(load_config("config_panda", [f"multi_modal={mm}"]), device="cuda")
+        tamp = ReactiveTAMP(load_config("config_panda", [f"multi_modal={mm}"]), device="cuda", graphs=False)
         mp, base = tamp.motion_planner, tamp.env.init_state()
         spec, K, T = mp.rollout.spec, mp.K, mp.T
         for name, start, task_name, grip, zup in pr.PARITY_CASES:
@@ -860,9 +879,10 @@ def phase_panda_main() -> tuple:
     from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
 
     cfg = load_config("config_panda")
-    loop = SimLoop(cfg, device="cuda")
+    loop = SimLoop(cfg, device="cuda", graphs=False)
     loop.warmup(50)
     record = _count_panda_ticks(loop)
+    outputs = graph_ab.record_chunks(loop)
     per_tick = 1 + int(cfg.mppi.refine_iters)
     pr.panda_rollout_launches = 0
     weights.weights_launches = 0
@@ -870,6 +890,7 @@ def phase_panda_main() -> tuple:
     with _recorded(pr, "panda_rollout") as calls:
         log = loop.run_chunked(PANDA_TICKS, chunk=50)
     wall = time.perf_counter() - t0
+    EAGER_RUNS["panda gated"] = graph_ab.loop_record(loop, outputs)
     launches = pr.panda_rollout_launches
     dispatched = sum(n for n, _ in record)
     views = torch.cat([v for _, v in record]).cpu().numpy()
@@ -905,7 +926,7 @@ def phase_panda_shelf() -> float:
     from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
 
     cfg = load_config("config_panda", ["multi_modal=True", "cube_on_shelf=True"])
-    loop = SimLoop(cfg, device="cuda")
+    loop = SimLoop(cfg, device="cuda", graphs=False)
     loop.warmup(50)
     record = _count_panda_ticks(loop)
     mp = loop.tamp.motion_planner
@@ -933,26 +954,6 @@ def phase_panda_shelf() -> float:
     return max(_weights_check(mp, c, f"panda-shelf K2, rollout {n}") for n, c in list(enumerate(costs))[::10])
 
 
-def phase_panda_bench(card: str) -> float:
-    """The panda replan+step rate through the bench_panda twin
-    (``measure``: chunks chained from the start state, one sync at the end)
-    at a shorter depth: multi-modal K=200 x T=12, warm-up 50, two chunks of
-    BENCH_CHUNK to settle, then 4 timed chunks; then a profile of one
-    20-tick chunk from the start state."""
-    from m3p2i_aip_tpu_torch.scripts import bench_panda
-    from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
-
-    loop = SimLoop(bench_panda.config(), device="cuda")
-    loop.warmup(50)
-    tamp = loop.tamp
-    rate = bench_panda.measure(loop, BENCH_CHUNK, 4 * BENCH_CHUNK)
-    print(f"[panda-bench] {_rate_line(rate)}, K=200 x T=12, multi-modal, {4 * BENCH_CHUNK} timed ticks ({card})")
-    _profile_ticks("panda-bench", card,
-                   lambda: tamp.run_chunk_panda(tamp.mppi_state, loop.state, 0, tamp.zup_zs0(), 20), 20,
-                   {"K3": "panda_rollout", "K2": "multimodal_weights"})
-    return rate["value"]
-
-
 def phase_albert_rollout(card: str) -> tuple:
     """K4 against its plain version at K=128 x T=12 (config_albert physics)
     on the five starts and tasks of ``albert_rollout.PARITY_CASES``, each
@@ -964,7 +965,7 @@ def phase_albert_rollout(card: str) -> tuple:
     from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMP
     from m3p2i_aip_tpu_torch.utils.tree import tree_map
 
-    tamp = ReactiveTAMP(load_config("config_albert"), device="cuda")
+    tamp = ReactiveTAMP(load_config("config_albert"), device="cuda", graphs=False)
     mp = tamp.motion_planner
     spec, K, T = mp.rollout.spec, mp.K, mp.T
     rng = np.random.default_rng(2)
@@ -1011,28 +1012,31 @@ def phase_albert_rollout(card: str) -> tuple:
     return stats, (spec, inputs + (acts,))
 
 
-def _albert_gated_run(label: str, overrides: list, n_ticks: int):
+def _albert_gated_run(label: str, overrides: list, n_ticks: int, keep: str = None):
     """One gated albert run through ``run_chunked(n_ticks, chunk=10)`` with
     the launch counts set to 0 just before and read just after: K4 launched
     1 + refine_iters times per dispatched tick, K2 never, every view finite,
     success latched.  The chunk entry records each chunk's length and views
-    (read after the run, not inside it).  Returns (cfg, views, log, K4
-    launches)."""
+    (read after the run, not inside it); ``keep`` names the run's record in
+    EAGER_RUNS.  Returns (cfg, views, log, K4 launches)."""
     from m3p2i_aip_tpu_torch.config.config_store import load_config
     from m3p2i_aip_tpu_torch.ops import albert_rollout as ar
     from m3p2i_aip_tpu_torch.ops import weights
     from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
 
     cfg = load_config("config_albert", overrides)
-    loop = SimLoop(cfg, device="cuda")
+    loop = SimLoop(cfg, device="cuda", graphs=False)
     loop.warmup(20)
     record = _count_chunk_views(loop)
+    outputs = graph_ab.record_chunks(loop) if keep is not None else None
     view0 = loop.env.view_vec(loop.state).cpu().numpy()
     ar.albert_rollout_launches = 0
     weights.weights_launches = 0
     t0 = time.perf_counter()
     log = loop.run_chunked(n_ticks, chunk=10)
     wall = time.perf_counter() - t0
+    if keep is not None:
+        EAGER_RUNS[keep] = graph_ab.loop_record(loop, outputs)
     launches, w_launches = ar.albert_rollout_launches, weights.weights_launches
     dispatched = sum(n for n, _ in record)
     views = np.concatenate([view0[None]] + [v.cpu().numpy() for _, v in record])
@@ -1063,27 +1067,12 @@ def phase_albert_main() -> int:
 def phase_albert_push() -> None:
     """The albert push_reach to [3, 0, 0.6]: success within 500 ticks
     (tests/test_albert.py:193), the box finite and moved toward the goal."""
-    cfg, views, log, _ = _albert_gated_run("albert-push", PUSH_REACH, PUSH_REACH_TICKS)
+    cfg, views, log, _ = _albert_gated_run("albert-push", PUSH_REACH, PUSH_REACH_TICKS, keep="albert push_reach")
     goal = np.asarray(cfg.goal, np.float32)[:2]
     d0, d1 = (float(np.linalg.norm(views[i, 9:11] - goal)) for i in (0, -1))
     hover = float(np.linalg.norm(views[-1, 6:9] - np.r_[views[-1, 9:11], cfg.goal[2]]))
     print(f"[albert-push] box-to-goal {d0:.3f} -> {d1:.4f} m; ee hover error at success {hover:.4f} m")
     assert d1 < d0 and d1 <= 0.1 + 1e-6, "the box did not reach the goal"
-
-
-def phase_albert_bench(card: str) -> float:
-    """The albert replan+step rate through the bench_albert twin, at
-    ``scripts/bench_albert.py``'s protocol: push_reach to [3, 0, 0.6],
-    warm-up 20, both gates off, two chunks of 100 to settle, then 400 timed
-    ticks in chunks of 100."""
-    from m3p2i_aip_tpu_torch.scripts import bench_albert
-    from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
-
-    loop = SimLoop(bench_albert.config(), device="cuda")
-    loop.warmup(20)
-    rate = bench_albert.measure(loop, 100, 400)
-    print(f"[albert-bench] {_rate_line(rate)}, K=128 x T=12, push_reach, 400 timed ticks ({card})")
-    return rate["value"]
 
 
 def _profile_ticks(label: str, card: str, run, n: int, kernels: dict) -> None:
@@ -1110,7 +1099,7 @@ def phase_albert_breakdown(card: str) -> None:
     from m3p2i_aip_tpu_torch.config.config_store import load_config
     from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
 
-    loop = SimLoop(load_config("config_albert", PUSH_REACH), device="cuda")
+    loop = SimLoop(load_config("config_albert", PUSH_REACH), device="cuda", graphs=False)
     loop.warmup(20)
     tamp, env = loop.tamp, loop.env
     task = tamp.tamp_interface_view(loop._view)
@@ -1150,10 +1139,31 @@ KERNEL_OF_COUNTER = {
 def _zero_launches() -> None:
     for mod, name in _launch_counters():
         setattr(mod, name, 0)
+    graph_tick.replayed_launches.clear()
 
 
 def _read_launches() -> dict:
-    return {name: getattr(mod, name) for mod, name in _launch_counters()}
+    """Every kernel's launches since ``_zero_launches``, by wrapper count:
+    those its wrapper made plus those graph replays made (captured launches
+    x replays, ``graph_tick.replayed_launches``)."""
+    return {name: getattr(mod, name) + graph_tick.replayed_launches.get(name, 0) for mod, name in _launch_counters()}
+
+
+def _read_replayed() -> dict:
+    """The part of ``_read_launches`` that graph replays made, by kernel:
+    the smoke's ``kernels`` line reports it as ``graph_launches``, apart from
+    the launches the wrappers counted (``phase_graphs`` holds it to the
+    profiler's kernel events)."""
+    return {KERNEL_OF_COUNTER[name]: n for name, n in graph_tick.replayed_launches.items() if n}
+
+
+def _add_launches(launches: dict, graph_launches: dict, counts: dict, replayed: dict) -> None:
+    """Add a phase's launches by kernel (``counts``, replays included) to the
+    wrapper-counted ``launches`` and its replayed part to ``graph_launches``."""
+    for name, n in counts.items():
+        launches[name] += n - replayed.get(name, 0)
+    for name, n in replayed.items():
+        graph_launches[name] = graph_launches.get(name, 0) + n
 
 
 def _stack_rows(rows, acts) -> tuple:
@@ -1252,7 +1262,7 @@ def phase_point_batched() -> tuple:
     from m3p2i_aip_tpu_torch.ops import weights
     from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMP
 
-    tamp = ReactiveTAMP(load_config("config_point", MAIN_PATH), device="cuda")
+    tamp = ReactiveTAMP(load_config("config_point", MAIN_PATH), device="cuda", graphs=False)
     mp, spec = tamp.motion_planner, tamp.motion_planner.rollout.spec
     rng = np.random.default_rng(10)
     fns = (
@@ -1294,7 +1304,7 @@ def phase_panda_batched() -> tuple:
     from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMP
     from m3p2i_aip_tpu_torch.utils.tree import tree_map
 
-    tamp = ReactiveTAMP(load_config("config_panda", ["multi_modal=True"]), device="cuda")
+    tamp = ReactiveTAMP(load_config("config_panda", ["multi_modal=True"]), device="cuda", graphs=False)
     mp, base = tamp.motion_planner, tamp.env.init_state()
     spec, K, T = mp.rollout.spec, mp.K, mp.T
     rng = np.random.default_rng(11)
@@ -1340,7 +1350,7 @@ def phase_albert_batched() -> tuple:
     from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMP
     from m3p2i_aip_tpu_torch.utils.tree import tree_map
 
-    tamp = ReactiveTAMP(load_config("config_albert"), device="cuda")
+    tamp = ReactiveTAMP(load_config("config_albert"), device="cuda", graphs=False)
     mp = tamp.motion_planner
     spec, K, T = mp.rollout.spec, mp.K, mp.T
     rng = np.random.default_rng(12)
@@ -1388,7 +1398,7 @@ def _count_batch_ticks(batch) -> list:
 
 
 def phase_seed_batch(label: str, config_name: str, overrides: list, chunk: int, max_ticks: int, per_tick: dict,
-                     shard=False):
+                     shard=False, keep: str = None, graphs=None):
     """One n=20 batch through ``BatchSimLoop`` (seeds 0-19, warm-up 20, gates
     on), as ``run_experiments parallel_seeds=True`` runs it (``shard``: as
     ``parallel_seeds=shard`` runs it, over that mesh): every launch count set
@@ -1397,7 +1407,10 @@ def phase_seed_batch(label: str, config_name: str, overrides: list, chunk: int, 
     each shard, every other kernel never.  The panda batch settles 150 steps
     before its rows are logged.  Prints each seed's row (``_seed_rows``),
     the success count and the row statistics of ``analysis.summarize``;
-    returns the counts, the rows and the success ticks."""
+    ``keep`` names the run's record in EAGER_RUNS (taken before the settle);
+    ``graphs`` goes to the batch.  Returns the counts (replays included),
+    the rows, the success ticks and the replayed part of the counts by
+    kernel."""
     from m3p2i_aip_tpu_torch.analysis import (
         finalize_albert_row,
         finalize_panda_row,
@@ -1409,16 +1422,19 @@ def phase_seed_batch(label: str, config_name: str, overrides: list, chunk: int, 
     from m3p2i_aip_tpu_torch.tamp.batch_loop import BatchSimLoop
 
     cfg = load_config(config_name, overrides)
-    batch = BatchSimLoop(cfg, list(range(N_SEEDS)), shard=shard, device="cuda")
+    batch = BatchSimLoop(cfg, list(range(N_SEEDS)), shard=shard, device="cuda", graphs=graphs)
     batch.warmup(20)
     record = _count_batch_ticks(batch)
+    outputs = graph_ab.record_chunks(batch) if keep is not None else None
     _zero_launches()
     t_start = time.time()
     t0 = time.perf_counter()
     logs = batch.run_chunked(max_ticks, chunk=chunk)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = _read_launches()
+    if keep is not None:
+        EAGER_RUNS[keep] = graph_ab.batch_record(batch, outputs, logs)
+    counts, replayed = _read_launches(), _read_replayed()
     dispatched = sum(record)
     print(f"[{label}] {len(record)} chunks, {dispatched} batched ticks dispatched for {N_SEEDS} seeds in "
           f"{len(batch._shards)} shard(s) in {wall:.2f} s; launches {counts}")
@@ -1451,7 +1467,7 @@ def phase_seed_batch(label: str, config_name: str, overrides: list, chunk: int, 
         print(f"[{label}] task time {np.mean(done) * cfg.sim.dt:.4f} ± {np.std(done) * cfg.sim.dt:.4f} s "
               f"over the {len(done)} successful seeds")
     assert sum(ok) >= MIN_SUCCESS, f"{label}: only {sum(ok)}/{N_SEEDS} seeds succeeded"
-    return counts, rows, steps
+    return counts, rows, steps, replayed
 
 
 def _seed_rows(per_seed: dict, steps: list, cubes=None) -> list:
@@ -1469,8 +1485,9 @@ def _seed_rows(per_seed: dict, steps: list, cubes=None) -> list:
 
 def phase_batch_vs_serial(label: str, config_name: str, overrides: list, chunk: int, max_ticks: int) -> None:
     """Seeds 0-2 through ``BatchSimLoop`` against three serial
-    ``SimLoop.run_chunked`` runs at the same chunk size (warm-up 20 each):
-    equal tick counts and success ticks, positions within 1e-4."""
+    ``SimLoop.run_chunked`` runs at the same chunk size (warm-up 20 each),
+    all compiled (the serial loop ``reset`` between seeds): equal tick
+    counts and success ticks, positions within 1e-4."""
     from m3p2i_aip_tpu_torch.config.config_store import load_config
     from m3p2i_aip_tpu_torch.tamp.batch_loop import BatchSimLoop
     from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
@@ -1481,12 +1498,12 @@ def phase_batch_vs_serial(label: str, config_name: str, overrides: list, chunk: 
     for s in seeds:
         cfg.mppi.seed_val = s
         if loop is None:
-            loop = SimLoop(cfg, device="cuda")
+            loop = SimLoop(cfg, device="cuda", graphs=True)
         else:
-            loop.reset(s)
+            loop.reset(s)  # the same graphs: reset re-seeds in place and re-captures nothing
         loop.warmup(20)
         serial.append((loop.run_chunked(max_ticks, chunk=chunk), loop._view))
-    batch = BatchSimLoop(load_config(config_name, overrides), seeds, device="cuda")
+    batch = BatchSimLoop(load_config(config_name, overrides), seeds, device="cuda", graphs=True)
     batch.warmup(20)
     logs = batch.run_chunked(max_ticks, chunk=chunk)
     worst = 0.0
@@ -1506,46 +1523,6 @@ def phase_batch_vs_serial(label: str, config_name: str, overrides: list, chunk: 
     assert worst <= BATCH_PARITY_ATOL, f"{label}: batched and serial positions differ by {worst}"
 
 
-def phase_batch_bench(card: str, serial_hz: float) -> None:
-    """The B=20 point batch in benchmark mode (gates off, warm-up 50): the
-    2 warm-up chunks of BENCH_CHUNK as the serial benchmark, BATCH_TIMED timed,
-    each chunk's views fetched to the host, in batched ticks and seed-ticks
-    per second beside the serial rate; then ``torch.profiler`` over a
-    10-tick batched chunk: device kernels and device time per tick, the
-    batched kernels' share, the idle share."""
-    from m3p2i_aip_tpu_torch.config.config_store import load_config
-    from m3p2i_aip_tpu_torch.tamp.batch_loop import BatchSimLoop
-
-    batch = BatchSimLoop(load_config("config_point", MAIN_PATH), list(range(N_SEEDS)), device="cuda")
-    batch.warmup(50)
-    for b, tp in enumerate(batch.planners):
-        tp.update_plan(batch.views[b])
-    task = batch._stacked_task_params()
-    tamp = batch.tamp
-
-    def run(n_chunks: int, chunk: int, i0: int = 0):
-        ms, rs = batch.mppi_state, batch.state
-        for c in range(n_chunks):
-            ms, rs, views, _, _ = tamp._run_chunk_impl(ms, rs, task, i0 + c * chunk, chunk, gate=False)
-            views.cpu()  # the host fetch of each chunk, as the serial run_chunked does
-        batch.mppi_state, batch.state = ms, rs
-
-    run(2, BENCH_CHUNK)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run(BATCH_TIMED, BENCH_CHUNK, 2 * BENCH_CHUNK)
-    wall = time.perf_counter() - t0
-    ticks = BATCH_TIMED * BENCH_CHUNK
-    hz = ticks / wall
-    print(f"[batch-bench] B={N_SEEDS}: {hz:.2f} batched ticks/s = {hz * N_SEEDS:.2f} seed-ticks/s "
-          f"({wall / ticks * 1e3:.3f} ms a batched tick, {ticks} timed ticks); serial {serial_hz:.2f} ticks/s; "
-          f"ratio {hz * N_SEEDS / serial_hz:.2f}x ({card})")
-
-    _profile_ticks("batch-bench", card, lambda: tamp._run_chunk_impl(batch.mppi_state, batch.state, task, 0, 10,
-                                                                      gate=False),
-                   10, {"K1b": "point_rollout", "K2b": "multimodal_weights"})
-
-
 # ------------------------------------------------------------------------
 # the heijn and boxer bases, and the planner modes beyond the default
 
@@ -1562,7 +1539,7 @@ def phase_gated_loop(label: str, config_name: str, overrides: list, max_ticks: i
     from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
 
     cfg = load_config(config_name, overrides)
-    loop = SimLoop(cfg, device="cuda")
+    loop = SimLoop(cfg, device="cuda", graphs=False)
     mp = loop.tamp.motion_planner
     assert mp.refine_iters == 0, f"{label}: one rollout a tick expected"
     loop.warmup(10)
@@ -1779,7 +1756,7 @@ def phase_run_sim(card: str, chunked_ticks: dict) -> tuple:
 
     _zero_launches()
     with _recorded(ro, "point_rollout") as k1_calls, _recorded_weights("multimodal_weights") as k2_calls:
-        log = run_tamp.main(list(MAIN_PATH))
+        log = run_tamp.main([*MAIN_PATH, "--eager"])
     torch.cuda.synchronize()
     counts = _read_launches()
     replans, point_ms = report("run_sim point", log, chunked_ticks["point"])
@@ -1795,7 +1772,7 @@ def phase_run_sim(card: str, chunked_ticks: dict) -> tuple:
 
     _zero_launches()
     with _recorded(pr, "panda_rollout") as k3_calls:
-        log = run_tamp.main(["-cn", "config_panda", f"n_steps={RUN_SIM_PANDA_TICKS}"])
+        log = run_tamp.main(["-cn", "config_panda", f"n_steps={RUN_SIM_PANDA_TICKS}", "--eager"])
     torch.cuda.synchronize()
     counts = _read_launches()
     replans, _ = report("run_sim panda", log, chunked_ticks["panda"])
@@ -1913,13 +1890,16 @@ def phase_two_terminal(card: str, in_process_ms: float) -> dict:
     return total
 
 
-def phase_checkpoint() -> dict:
+def phase_checkpoint() -> tuple:
     """Checkpoint / resume on the card, point main path and ``config_panda``
-    per tick: CKPT_TICKS ticks, ``save_checkpoint``, a fresh loop
-    ``load_checkpoint``s it and ticks CKPT_TICKS more; its real state,
-    planner state, task and log rows must equal 2 x CKPT_TICKS uninterrupted
-    ticks bit for bit (the exploration noise on).  Returns the launch
-    counts summed."""
+    per tick, compiled (one replay a tick; the checkpoint reads the states
+    copied out of the graphs' buffers and the resumed loop's first tick
+    copies the loaded ones in): CKPT_TICKS ticks, ``save_checkpoint``, a
+    fresh loop ``load_checkpoint``s it and ticks CKPT_TICKS more; its real
+    state, planner state, task and log rows must equal 2 x CKPT_TICKS
+    uninterrupted ticks bit for bit (the exploration noise on).  Returns the
+    launch counts summed by kernel and their replayed part (captured
+    launches x replays)."""
     import dataclasses
     import os
     import tempfile
@@ -1928,18 +1908,18 @@ def phase_checkpoint() -> dict:
     from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
     from m3p2i_aip_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
-    total = {}
+    total, replayed = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for label, config_name, overrides in (("point", "config_point", MAIN_PATH), ("panda", "config_panda", [])):
             _zero_launches()
-            ref = SimLoop(load_config(config_name, overrides), device="cuda")
+            ref = SimLoop(load_config(config_name, overrides), device="cuda", graphs=True)
             ref.warmup(50)
             for i in range(CKPT_TICKS):
                 ref.tick(i)
             path = save_checkpoint(os.path.join(tmp, label), ref.tamp, ref.state)
             for i in range(CKPT_TICKS, 2 * CKPT_TICKS):
                 ref.tick(i)
-            loop = SimLoop(load_config(config_name, overrides), device="cuda")
+            loop = SimLoop(load_config(config_name, overrides), device="cuda", graphs=True)
             loop.state = load_checkpoint(path, loop.tamp, loop.state, device="cuda")
             for i in range(CKPT_TICKS, 2 * CKPT_TICKS):
                 loop.tick(i)
@@ -1948,11 +1928,14 @@ def phase_checkpoint() -> dict:
             mp = ref.tamp.motion_planner
             if label == "point":
                 want = {"rollout_launches": ticks, "weights_launches": ticks}
-                total["point_rollout"], total["multimodal_weights"] = ticks, ticks
             else:
                 want = {"panda_rollout_launches": (1 + mp.refine_iters) * ticks}
-                total["panda_rollout"] = (1 + mp.refine_iters) * ticks
-            _expect_launches(f"checkpoint {label}", _read_launches(), want)
+            counts = _read_launches()
+            _expect_launches(f"checkpoint {label}", counts, want)
+            for name, n in counts.items():
+                total[KERNEL_OF_COUNTER[name]] = total.get(KERNEL_OF_COUNTER[name], 0) + n
+            for name, n in _read_replayed().items():
+                replayed[name] = replayed.get(name, 0) + n
             differ = [f.name for a, b in ((ref.state, loop.state), (ref.tamp.mppi_state, loop.tamp.mppi_state))
                       for f in dataclasses.fields(a) if not torch.equal(getattr(a, f.name), getattr(b, f.name))]
             rows = ref.log.task[CKPT_TICKS:] == loop.log.task and all(
@@ -1962,17 +1945,18 @@ def phase_checkpoint() -> dict:
                   f"differ from {2 * CKPT_TICKS} uninterrupted ticks {differ}, log rows equal {rows}, exploration "
                   f"noise {mp.exploration_noise}, task {loop.tamp.task_planner.task}")
             assert not differ and rows, f"checkpoint {label}: the resumed run differs from the uninterrupted one"
-    return total
+    return total, replayed
 
 
 def phase_family_bench(card: str, config_name: str, label: str) -> float:
     """The bench_family twin's protocol at a shorter depth: push_pull
     multi-modal to the corner goal, warm-up 50, both gates off, two chunks
-    of BENCH_CHUNK to settle, then FAMILY_TIMED timed chunks, pipelined."""
+    of BENCH_CHUNK to settle, then FAMILY_TIMED timed chunks, pipelined,
+    compiled (a CUDA graph a tick)."""
     from m3p2i_aip_tpu_torch.scripts import bench_family
     from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
 
-    loop = SimLoop(bench_family.config(["-cn", config_name, *MAIN_PATH]), device="cuda")
+    loop = SimLoop(bench_family.config(["-cn", config_name, *MAIN_PATH]), device="cuda", graphs=True)
     loop.warmup(50)
     rate = bench_family.measure(loop, BENCH_CHUNK, FAMILY_TIMED * BENCH_CHUNK)
     print(f"[{label}] {_rate_line(rate)}, K=200 x T=15, {FAMILY_TIMED * BENCH_CHUNK} timed ticks, pipelined ({card})")
@@ -2004,17 +1988,16 @@ def phase_pipelined(card: str) -> tuple:
     latch at the same tick with bit-equal logs, K1 and K2 launched once per
     dispatched tick (the discarded in-flight chunk's ticks included), and no
     enqueue of a pipelined chunk may synchronise the host with the device
-    (``torch.cuda.set_sync_debug_mode`` around each, 0 warnings); then the
-    benchmark-mode rates in turns (serial, pipelined, pipelined, serial) and a
-    profile of PROFILE_TICKS ticks of each (device idle share).  Returns (launch counts
-    of the gated pipelined run, its K1 calls, its K2 calls)."""
+    (``torch.cuda.set_sync_debug_mode`` around each, 0 warnings).  Returns
+    (launch counts of the gated pipelined run, its K1 calls, its K2 calls,
+    the serial run's log).  The eager rates of both are phase_graphs'."""
     from m3p2i_aip_tpu_torch.config.config_store import load_config
     from m3p2i_aip_tpu_torch.ops import rollout as ro
     from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
 
     logs, syncs = {}, []
     for pipelined in (False, True):
-        loop = SimLoop(load_config("config_point", MAIN_PATH), device="cuda")
+        loop = SimLoop(load_config("config_point", MAIN_PATH), device="cuda", graphs=False)
         loop.warmup(50)
         dispatched, run_chunk, enqueue = 0, loop.tamp.run_chunk, loop._enqueue_chunk
 
@@ -2042,29 +2025,81 @@ def phase_pipelined(card: str) -> tuple:
         assert np.array_equal(np.asarray(getattr(piped, name)), np.asarray(getattr(serial, name))), name
     print(f"[pipelined gated] logs bit-equal to the serial run's; host syncs per enqueue {[len(x) for x in syncs]}")
     assert syncs and not any(syncs), f"a pipelined enqueue synchronised the host: {syncs}"
+    return {"point_rollout": dispatched, "multimodal_weights": dispatched}, k1_calls, k2_calls, serial
 
-    def bench(pipelined: bool) -> tuple:
-        loop = SimLoop(load_config("config_point", MAIN_PATH), device="cuda")
-        loop.warmup(50)
-        bench_record.gates_off(loop)
-        loop.run_chunked(BENCH_CHUNK, chunk=BENCH_CHUNK, pipelined=pipelined)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loop.run_chunked(PIPELINE_TIMED * BENCH_CHUNK, chunk=BENCH_CHUNK, pipelined=pipelined)
-        torch.cuda.synchronize()
-        return loop, PIPELINE_TIMED * BENCH_CHUNK / (time.perf_counter() - t0)
 
-    rates = {False: [], True: []}
-    for pipelined in (False, True, True, False):
-        loop, hz = bench(pipelined)
-        rates[pipelined].append(hz)
-    for pipelined, label in ((False, "serial"), (True, "pipelined")):
-        print(f"[pipelined-bench {label}] {', '.join(f'{hz:.2f}' for hz in rates[pipelined])} Hz replan+step in turns, "
-              f"K=200 x T=15, {PIPELINE_TIMED * BENCH_CHUNK} timed ticks in chunks of {BENCH_CHUNK} ({card})")
-        _profile_ticks(f"pipelined-bench {label}", card,
-                       lambda: loop.run_chunked(PROFILE_TICKS, chunk=PROFILE_TICKS // 2, pipelined=pipelined),
-                       PROFILE_TICKS, {"K1": "point_rollout", "K2": "weights"})
-    return {"point_rollout": dispatched, "multimodal_weights": dispatched}, k1_calls, k2_calls
+# ------------------------------------------------------------------------
+# the compiled tick: one CUDA graph a tick, replayed through every chunk
+
+def phase_graphs(card: str, serial_log) -> tuple:
+    """The compiled tick (``tamp/graph_tick.py``) against the eager tick,
+    through ``scripts/graph_ab.py``.
+
+    Each of graph_ab's parity runs compiled (``graphs=True``), every launch
+    count set to 0 just before and read just after (captured launches x
+    replays, plus the first tick's, which runs eagerly before the capture),
+    and held bit for bit against its eager twin: chunk outputs (views,
+    n_ticks and done; the panda's stages and dones), log and final carry.
+    The eager twins are the runs the earlier phases made and kept
+    (EAGER_RUNS: the gated main path latching at 47, the panda table at 83,
+    the albert push_reach, the n=20 point and panda batches); the point in
+    benchmark mode and per tick run both here.  Then the gated main path
+    pipelined and compiled: its log equal to the eager serial run's
+    (``serial_log``), no host sync in any enqueue after the first (which
+    captures the gated tick).  Then the rates in turns with a profile of each
+    mode (``graph_ab.paired_rates``), each profile's kernel events held to
+    the launches counted and replayed while it ran.  Prints each graph's
+    capture time, nodes, pool and launches a replay.  Returns (the launch
+    counts by kernel, their replayed part, the rates)."""
+    from m3p2i_aip_tpu_torch.config.config_store import load_config
+    from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
+
+    launches, replayed = {}, {}
+
+    def compiled_run(label: str, run):
+        _zero_launches()
+        rec = run()
+        torch.cuda.synchronize()
+        counts = _read_launches()
+        outs = rec["outputs"]
+        dispatched = len(outs) if label == "point per tick" else sum(o[0].shape[-2] for o in outs)  # views first
+        _expect_launches(f"graphs {label}", counts, {k: n * dispatched for k, n in GRAPH_LAUNCHES[label].items()})
+        for name, n in counts.items():
+            if n:
+                launches[KERNEL_OF_COUNTER[name]] = launches.get(KERNEL_OF_COUNTER[name], 0) + n
+        for name, n in _read_replayed().items():
+            replayed[name] = replayed.get(name, 0) + n
+        return rec
+
+    for label, config_name, overrides, warmup, ticks, chunk, gated in graph_ab.LOOPS:
+        args = (config_name, overrides, warmup, ticks, chunk, gated)
+        eager = EAGER_RUNS.pop(label, None) or graph_ab.run_loop(config_name, overrides, False, *args[2:])
+        graph_ab.parity(label, eager, compiled_run(label, lambda: graph_ab.run_loop(config_name, overrides, True,
+                                                                                    *args[2:])))
+    eager = graph_ab.run_loop("config_point", MAIN_PATH, False, 50, graph_ab.PER_TICK, 1, True, per_tick=True)
+    graph_ab.parity("point per tick", eager, compiled_run("point per tick", lambda: graph_ab.run_loop(
+        "config_point", MAIN_PATH, True, 50, graph_ab.PER_TICK, 1, True, per_tick=True)))
+    for label, config_name, overrides, chunk, cap in graph_ab.BATCHES:
+        graph_ab.parity(label, EAGER_RUNS.pop(label), compiled_run(
+            label, lambda: graph_ab.run_batch(config_name, overrides, True, chunk, cap)))
+
+    loop = SimLoop(load_config("config_point", MAIN_PATH), device="cuda", graphs=True)
+    loop.warmup(50)
+    syncs = []
+    loop._enqueue_chunk = _watch_syncs(loop._enqueue_chunk, syncs)
+    log = loop.run_chunked(1000, chunk=PIPELINE_CHUNK, pipelined=True)
+    torch.cuda.synchronize()
+    print(f"[graph-pipelined] compiled, chunks of {PIPELINE_CHUNK}: success tick {log.success_step} (eager serial "
+          f"{serial_log.success_step}); host syncs per enqueue {[len(x) for x in syncs]} (the first captures the "
+          f"gated tick)")
+    assert log.success_step == serial_log.success_step and log.task == serial_log.task
+    for name in ("robot_pos", "robot_vel", "box_pos"):
+        assert np.array_equal(np.asarray(getattr(log, name)), np.asarray(getattr(serial_log, name))), name
+    assert len(syncs) > 1 and not any(syncs[1:]), f"a compiled pipelined enqueue synchronised the host: {syncs}"
+    del loop
+
+    rates = graph_ab.paired_rates(card, chunk=GRAPH_RATE_CHUNK, timed=GRAPH_RATE_TIMED)
+    return launches, replayed, rates
 
 
 def phase_grad_refine(card: str) -> tuple:
@@ -2083,7 +2118,7 @@ def phase_grad_refine(card: str) -> tuple:
     from m3p2i_aip_tpu_torch.utils.tree import tree_map
 
     cfg = load_config("config_panda", GRAD_REFINE)
-    loop = SimLoop(cfg, device="cuda")
+    loop = SimLoop(cfg, device="cuda", graphs=False)
     loop.warmup(50)
     mp = loop.tamp.motion_planner
     grad_refine, chain_s, recorded = mp._grad_refine, [], {}
@@ -2215,7 +2250,7 @@ def phase_sample_shard(card: str, main_log: dict) -> tuple:
     k2_runs = {}
     for n in SAMPLE_SHARDS:
         label, pipelined = f"sample-shard point x{n}", n == SAMPLE_SHARDS[0]
-        loop = SimLoop(load_config("config_point", MAIN_PATH), device="cuda")
+        loop = SimLoop(load_config("config_point", MAIN_PATH), device="cuda", graphs=False)
         shard_planner(loop.tamp.motion_planner, _card_mesh(n))
         loop.warmup(50)
         dispatched, run_chunk, syncs = 0, loop.tamp.run_chunk, []
@@ -2267,7 +2302,7 @@ def phase_sample_shard(card: str, main_log: dict) -> tuple:
         panda, runs = config_name == "config_panda", {}
         cfg = load_config(config_name, overrides)
         for n in (None, FAMILY_SHARDS):
-            loop = SimLoop(load_config(config_name, overrides), device="cuda")
+            loop = SimLoop(load_config(config_name, overrides), device="cuda", graphs=False)
             if n is not None:
                 shard_planner(loop.tamp.motion_planner, _card_mesh(n))
             loop.warmup(50 if panda else 20)
@@ -2321,7 +2356,7 @@ def phase_shard_sweep(card: str) -> None:
               f"{', '.join(f'{t:.3f}' for t in row['sharded_runs_ms'])} (x{row['sharded_over_unsharded']:.3f}); first "
               f"commands' max |diff| {row['action_maxdiff']} ({card})")
         assert row["action_maxdiff"] == 0.0, f"K={row['K']}: the sharded first command differs"
-        tamps = [ReactiveTAMP(bench_sharded.config(row["K"]), device="cuda") for _ in range(2)]
+        tamps = [ReactiveTAMP(bench_sharded.config(row["K"]), device="cuda", graphs=False) for _ in range(2)]
         shard_planner(tamps[1].motion_planner, _card_mesh(1))
         state = tamps[0].env.init_state()
         task = tamps[0].tamp_interface(state)
@@ -2331,18 +2366,16 @@ def phase_shard_sweep(card: str) -> None:
 
 
 def phase_northstar(card: str) -> tuple:
-    """The north-star shape K=500 x T=30 through the bench_northstar twin:
-    NORTHSTAR_CHECKED benchmark-mode ticks recorded, every K1 call held to
-    the plain version (K1's 63 blocks of 8 samples, the last partial, and
-    its chain twice the main path's), then ``measure`` at a shorter depth
-    (two chunks of NORTHSTAR_CHUNK to settle, NORTHSTAR_TIMED timed ticks)
-    against the 100 Hz target.  Returns (launch counts of the whole run,
-    the recorded K2 calls)."""
+    """The north-star shape K=500 x T=30 through the bench_northstar twin's
+    config: NORTHSTAR_CHECKED benchmark-mode ticks recorded (eager), every
+    K1 call held to the plain version (K1's 63 blocks of 8 samples, the last
+    partial, and its chain twice the main path's).  Returns (launch counts
+    of the run, the recorded K2 calls)."""
     from m3p2i_aip_tpu_torch.ops import rollout as ro
     from m3p2i_aip_tpu_torch.scripts import bench_northstar
     from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
 
-    loop = SimLoop(bench_northstar.config(), device="cuda")
+    loop = SimLoop(bench_northstar.config(), device="cuda", graphs=False)
     loop.warmup(50)
     bench_record.gates_off(loop)
     _zero_launches()
@@ -2351,15 +2384,10 @@ def phase_northstar(card: str) -> tuple:
     torch.cuda.synchronize()
     counts = _read_launches()
     err = phase_every_call("K1 north-star K=500 x T=30", k1_calls, ro.point_rollout)
-    _zero_launches()
-    rate = bench_northstar.measure(loop, NORTHSTAR_CHUNK, NORTHSTAR_TIMED)
-    torch.cuda.synchronize()
-    counts = {name: n + counts[name] for name, n in _read_launches().items()}
-    ticks = NORTHSTAR_CHECKED + 2 * NORTHSTAR_CHUNK + NORTHSTAR_TIMED
+    ticks = NORTHSTAR_CHECKED
     _expect_launches("north-star", counts, {"rollout_launches": ticks, "weights_launches": ticks})
-    print(f"[north-star] K=500 x T=30: {_rate_line(rate)}, {rate['value'] / bench_northstar.TARGET_HZ:.3f} of the "
-          f"100 Hz target, {NORTHSTAR_TIMED} timed ticks in chunks of {NORTHSTAR_CHUNK}; K1 max err {err:.3e} "
-          f"({card})")
+    print(f"[north-star] K=500 x T=30: {ticks} ticks, K1 max err {err:.3e} ({card}); its rates, eager and "
+          f"compiled, are [graph-rate north-star serial]'s")
     return {"point_rollout": ticks, "multimodal_weights": ticks}, k2_calls
 
 
@@ -2368,7 +2396,10 @@ def phase_weights_large(card: str) -> None:
     WEIGHTS_LARGE_K on uniform(0, 50) costs (T=15, the main path's
     discount, half_K = K / 2), the cost-to-go in opted-in shared memory
     (16384) and in global scratch (65536), against the plain version within
-    K2's bars (each seed of a B=2 batch too); timed single and replayed."""
+    K2's bars (each seed of a B=2 batch too); timed single and replayed.
+    At 16384 a launch captured into a CUDA graph must equal an eager launch
+    bit for bit (the shared-memory opt-in is made once per device, before
+    any capture, not in the launch)."""
     from m3p2i_aip_tpu_torch.ops import weights
 
     gamma = torch.as_tensor(np.cumprod([1.0] + [0.95] * 14).astype(np.float32), device="cuda")
@@ -2390,15 +2421,17 @@ def phase_weights_large(card: str) -> None:
               f" ms single, {_device_ms(lambda: weights.multimodal_weights(*single)):.4f} replayed; K2b "
               f"{_device_ms(lambda: weights.multimodal_weights_batched(*batched)):.4f} replayed; bound "
               f"{roofline.weights_bound(single)} ({card})")
+    graph_ab.check_weights_captured(K=WEIGHTS_LARGE_K[0])
 
 
 def phase_utilization(card: str) -> None:
     """The analyze_utilization twin's table (``workload``, chunks of
-    UTIL_CHUNK_TICKS): the reference and north-star workloads' K1 and K2
-    against their bounds, the tick and the device's idle share."""
+    UTIL_CHUNK_TICKS, the compiled tick): the reference and north-star
+    workloads' K1 and K2 against their bounds, the tick and the device's
+    idle share."""
     from m3p2i_aip_tpu_torch.scripts import analyze_utilization
 
-    rows = [analyze_utilization.workload(K, T, torch.device("cuda"), UTIL_CHUNK_TICKS)
+    rows = [analyze_utilization.workload(K, T, torch.device("cuda"), UTIL_CHUNK_TICKS, graphs=True)
             for K, T in analyze_utilization.SHAPES]
     print(json.dumps(rows))
     print(analyze_utilization.table(rows))
@@ -2418,16 +2451,18 @@ def _chunk_bench(batch, tasks: list, n_chunks: int, i0: int, chunk: int = LOOP_C
             views.cpu()
 
 
-def phase_seed_shard(card: str, unsharded: dict) -> dict:
+def phase_seed_shard(card: str, unsharded: dict) -> tuple:
     """The seed axis over SEED_SHARDS shards of one card
-    (``BatchSimLoop(shard=mesh)``): the n=20 point and panda batches of
-    ``phase_seed_batch`` must give every seed the unsharded batch's row (in
+    (``BatchSimLoop(shard=mesh)``), compiled (a graph a shard): the n=20
+    point and panda batches of ``phase_seed_batch`` must give every seed
+    the unsharded eager batch's row (in
     every column but the clocks) and success tick (``unsharded``: family ->
     (rows, success ticks)), each batched kernel launched once a shard per
     tick; then the point batch's seed-ticks/s sharded beside unsharded in
     turns (benchmark mode, warm-up 50), and ``run_experiments
     parallel_seeds=shard`` on the default mesh (every visible card).
-    Returns the launch counts summed."""
+    Returns the launch counts summed by counter and their replayed part by
+    kernel."""
     import tempfile
 
     from m3p2i_aip_tpu_torch.config.config_store import load_config
@@ -2435,7 +2470,14 @@ def phase_seed_shard(card: str, unsharded: dict) -> dict:
     from m3p2i_aip_tpu_torch.tamp import batch_loop
     from m3p2i_aip_tpu_torch.tamp.batch_loop import BatchSimLoop
 
-    total = {}
+    total, replayed = {}, {}
+
+    def add(counts: dict, part: dict) -> None:
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+        for name, n in part.items():
+            replayed[name] = replayed.get(name, 0) + n
+
     mesh = _card_mesh(SEED_SHARDS)
     for family, config_name, overrides, chunk, cap, per_tick in (
         ("point", "config_point", MAIN_PATH, 4, 300, {"rollout_batched_launches": 1, "weights_batched_launches": 1}),
@@ -2443,19 +2485,19 @@ def phase_seed_shard(card: str, unsharded: dict) -> dict:
          {"panda_rollout_batched_launches": 4, "weights_batched_launches": 3}),
     ):
         label = f"seed-shard {family} x{SEED_SHARDS}"
-        counts, rows, steps = phase_seed_batch(label, config_name, overrides, chunk, cap, per_tick, shard=mesh)
+        counts, rows, steps, part = phase_seed_batch(label, config_name, overrides, chunk, cap, per_tick,
+                                                     shard=mesh, graphs=True)
         ref_rows, ref_steps = unsharded[family]
         cols = SIM_COLUMNS[family]
         assert steps == ref_steps, f"{label}: success ticks {steps}, unsharded {ref_steps}"
         assert np.array_equal(rows[:, cols], ref_rows[:, cols]), f"{label}: rows differ from the unsharded batch's"
         print(f"[{label}] every seed's row and success tick equal to the unsharded batch's")
-        for name, n in counts.items():
-            total[name] = total.get(name, 0) + n
+        add(counts, part)
 
     batches = {}
     for sharded in (False, True):
         batch = BatchSimLoop(load_config("config_point", MAIN_PATH), list(range(N_SEEDS)),
-                             shard=mesh if sharded else False, device="cuda")
+                             shard=mesh if sharded else False, device="cuda", graphs=True)
         batch.warmup(50)
         for b, tp in enumerate(batch.planners):
             tp.update_plan(batch.views[b])
@@ -2501,9 +2543,8 @@ def phase_seed_shard(card: str, unsharded: dict) -> dict:
     assert batch.mesh is not None and batch.mesh.size == torch.cuda.device_count() == len(batch._shards)
     assert all(ok), "parallel_seeds=shard: a seed did not reach the goal"
     assert counts["rollout_batched_launches"] > 0 and counts["rollout_launches"] == 0, counts
-    for name, n in counts.items():
-        total[name] = total.get(name, 0) + n
-    return total
+    add(counts, _read_replayed())
+    return total, replayed
 
 
 _START = time.perf_counter()
@@ -2537,8 +2578,14 @@ def main() -> None:
     print(f"[build] {time.perf_counter() - t0:.1f} s ({cuda_build.build_info['path']})")
     print(cuda_build.build_info["log"].strip())
 
+    # the runs that record every kernel call's inputs from Python (a replayed
+    # CUDA graph makes no call) run the eager tick (graphs=False), and
+    # phase_graphs holds the compiled tick, the entry points' default, to them
+    # bit for bit; launches made by graph replays are kept apart, in
+    # graph_launches
+    graph_launches: dict = {}
     cfg = load_config("config_point", MAIN_PATH)
-    tamp = ReactiveTAMP(cfg, device="cuda")
+    tamp = ReactiveTAMP(cfg, device="cuda", graphs=False)
     _stamp("the build")
     # 3. / 4. each kernel against its plain version
     stats = {"multimodal_weights": phase_weights(tamp.motion_planner), "point_rollout": phase_rollout(tamp)}
@@ -2549,7 +2596,6 @@ def main() -> None:
         loop, launches, k1_calls = phase_main_path(load_config("config_point", MAIN_PATH))
     point_chunked_tick = loop.log.success_step
     main_log = _log_record(loop.log)
-    hz = phase_benchmark(loop, card)
     del loop
     _stamp("the point path")
     # 7. K3 against its plain version; 8. / 9. / 10. the panda path
@@ -2559,14 +2605,12 @@ def main() -> None:
         w_err = max(w_err, phase_panda_shelf())
     k2 = stats["multimodal_weights"]
     k2["max_abs_err"] = max(k2["max_abs_err"], w_err)  # over the point and the panda shapes and costs
-    panda_hz = phase_panda_bench(card)
     _stamp("the panda path")
     # 11. K4 against its plain version; 12. - 15. the albert path
     stats["albert_rollout"], k4_parity = phase_albert_rollout(card)
     with _recorded(ar, "albert_rollout") as k4_calls:
         launches["albert_rollout"] = phase_albert_main()
         phase_albert_push()
-    albert_hz = phase_albert_bench(card)
     phase_albert_breakdown(card)
     _stamp("the albert path")
     # 16. - 18. the batched kernels against their plain versions and single launches, timed at B=20
@@ -2579,19 +2623,19 @@ def main() -> None:
     # 19. - 21. the three n=20 batches through BatchSimLoop
     with _recorded(ro, "point_rollout_batched") as k1b_calls, \
             _recorded_weights("multimodal_weights_batched") as k2b_point:
-        point_counts, point_rows, point_steps = phase_seed_batch(
+        point_counts, point_rows, point_steps, _ = phase_seed_batch(
             "batch-point", "config_point", MAIN_PATH, 4, 300,
-            {"rollout_batched_launches": 1, "weights_batched_launches": 1},
+            {"rollout_batched_launches": 1, "weights_batched_launches": 1}, keep="point batch", graphs=False,
         )
     with _recorded(pr, "panda_rollout_batched") as k3b_calls, \
             _recorded_weights("multimodal_weights_batched") as k2b_panda:
-        panda_counts, panda_rows, panda_steps = phase_seed_batch(
+        panda_counts, panda_rows, panda_steps, _ = phase_seed_batch(
             "batch-panda", "config_panda", ["multi_modal=True"], 10, 600,
-            {"panda_rollout_batched_launches": 4, "weights_batched_launches": 3},
+            {"panda_rollout_batched_launches": 4, "weights_batched_launches": 3}, keep="panda batch", graphs=False,
         )
     with _recorded(ar, "albert_rollout_batched") as k4b_calls:
-        albert_counts, _, _ = phase_seed_batch(
-            "batch-albert", "config_albert", [], 10, 300, {"albert_rollout_batched_launches": 4}
+        albert_counts, _, _, _ = phase_seed_batch(
+            "batch-albert", "config_albert", [], 10, 300, {"albert_rollout_batched_launches": 4}, graphs=False
         )
     launches["point_rollout_batched"] = point_counts["rollout_batched_launches"]
     launches["multimodal_weights_batched"] = (
@@ -2600,11 +2644,10 @@ def main() -> None:
     launches["panda_rollout_batched"] = panda_counts["panda_rollout_batched_launches"]
     launches["albert_rollout_batched"] = albert_counts["albert_rollout_batched_launches"]
     _stamp("the n=20 batches")
-    # 22. / 23. three seeds batched against three serial runs; 24. the batch's rate
+    # 22. / 23. three seeds batched against three serial runs, compiled
     phase_batch_vs_serial("batch-vs-serial point", "config_point", MAIN_PATH, 4, 300)
     phase_batch_vs_serial("batch-vs-serial panda", "config_panda", ["multi_modal=True"], 10, 600)
-    phase_batch_bench(card, hz)
-    _stamp("batched vs serial and the batch rate")
+    _stamp("batched vs serial")
     # 25. / 26. the heijn and boxer closed loops and the planner-mode runs, each gated;
     # 27. the heijn and boxer rates
     k1_runs, k2_runs = {}, {}
@@ -2622,13 +2665,14 @@ def main() -> None:
     counts, k2_runs["point per-tick"], in_process_ms = phase_run_sim(
         card, {"point": point_chunked_tick, "panda": panda_chunked_tick}
     )
-    for extra in (counts, phase_two_terminal(card, in_process_ms), phase_checkpoint()):
+    for extra in (counts, phase_two_terminal(card, in_process_ms)):
         for name, n in extra.items():
             launches[name] += n
+    _add_launches(launches, graph_launches, *phase_checkpoint())
     _stamp("the entry points")
     # 31. pipelined chunks on the main path; 32. the round-4 panda's gradient refinement;
     # 33. the URDF FK cross-check
-    counts, k1_runs["pipelined gated"], k2_runs["pipelined gated"] = phase_pipelined(card)
+    counts, k1_runs["pipelined gated"], k2_runs["pipelined gated"], serial_log = phase_pipelined(card)
     grad_counts, k3_grad, k2_runs["panda grad-refine"] = phase_grad_refine(card)
     for extra in (counts, grad_counts):
         for name, n in extra.items():
@@ -2637,14 +2681,19 @@ def main() -> None:
     del k3_grad
     phase_urdf(card)
     _stamp("pipelined chunks, gradient refinement and the URDF check")
+    # 33b. the compiled tick against the eager tick: bits, capture, launches, rates in turns
+    counts, replayed, rates = phase_graphs(card, serial_log)
+    _add_launches(launches, graph_launches, counts, replayed)
+    _stamp("the compiled tick")
     # 34. the sample axis over shards of the card: the main path, the panda and the albert, the
     # sweep; 35. the seed axis: the n=20 point and panda batches, the rate, run_experiments
     counts, shard_k2 = phase_sample_shard(card, main_log)
     k2_runs.update(shard_k2)
-    seed_counts = phase_seed_shard(card, {"point": (point_rows, point_steps), "panda": (panda_rows, panda_steps)})
-    for extra in (counts, {KERNEL_OF_COUNTER[name]: n for name, n in seed_counts.items()}):
-        for name, n in extra.items():
-            launches[name] += n
+    seed_counts, replayed = phase_seed_shard(
+        card, {"point": (point_rows, point_steps), "panda": (panda_rows, panda_steps)})
+    for name, n in counts.items():
+        launches[name] += n
+    _add_launches(launches, graph_launches, {KERNEL_OF_COUNTER[name]: n for name, n in seed_counts.items()}, replayed)
     _stamp("the sample and seed shards")
     # 36. the twins' new paths: the north-star shape, K2 / K2b at K = 16384 and 65536, the
     # utilization table (the sharded K=16384 tick is step 34's sweep)
@@ -2741,12 +2790,17 @@ def main() -> None:
             "m3p2i_aip_tpu/ops/pallas_albert_rollout.py:425",
         ),
     }
+    never = [name for name in sources if launches[name] == 0]
+    assert not never, f"kernels whose wrappers launched them no time: {never}"
     kernels = [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name], **stats[name]}
+        {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name],
+         "graph_launches": graph_launches.get(name, 0), **stats[name]}
         for name, (src, rep) in sources.items()
     ]
-    print(f"[bench] point {hz:.2f} Hz, panda {panda_hz:.2f} Hz, albert {albert_hz:.2f} Hz, heijn "
-          f"{family_hz['heijn']:.2f} Hz, boxer {family_hz['boxer']:.2f} Hz on {card}")
+    hz = {name: (float(np.median(r["compiled_hz"])), float(np.median(r["eager_hz"]))) for name, r in rates.items()}
+    print("[bench] compiled / eager (medians of the turns): " + ", ".join(
+        f"{name} {c:.2f} / {e:.2f} Hz" for name, (c, e) in hz.items()) + f"; heijn {family_hz['heijn']:.2f} Hz, "
+        f"boxer {family_hz['boxer']:.2f} Hz compiled, on {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -15,6 +15,11 @@
   ``results_h100/bench/``; :func:`emit_rate` builds a rate twin's line
   first.
 
+Every program runs the compiled tick by default (one replay of a CUDA graph
+a tick on the card, ``tamp/graph_tick.py``) and the eager tick with
+``--eager``, for the paired comparison; its JSON line's ``tick`` says which
+(``graph``, ``eager``, or ``static`` on the CPU).
+
 Every default output of the port's programs lies under :data:`RESULTS_DIR`,
 relative to the working directory: the TPU-era artifacts at the repository's
 root and the logs under ``plot/`` are the JAX package's.
@@ -180,17 +185,48 @@ def launch_counters() -> dict:
     }
 
 
+# the symbol of each wrapper's kernel in a profiler trace (a batched call
+# launches its single call's kernel, with the seed on blockIdx.y)
+KERNEL_SYMBOLS = {
+    "K1": "point_rollout_kernel", "K1b": "point_rollout_kernel",
+    "K2": "multimodal_weights_kernel", "K2b": "multimodal_weights_kernel",
+    "K3": "panda_rollout_kernel", "K3b": "panda_rollout_kernel",
+    "K4": "albert_rollout_kernel", "K4b": "albert_rollout_kernel",
+}
+
+
 def launch_counts() -> dict:
-    """Every kernel wrapper's launch count, by kernel."""
-    return {k: getattr(mod, name) for k, (mod, name) in launch_counters().items()}
+    """Every kernel's launches, by kernel: (its wrapper's own count, the
+    launches CUDA graph replays made, ``graph_tick.replayed_launches``)."""
+    from m3p2i_aip_tpu_torch.tamp import graph_tick
+
+    return {k: (getattr(mod, name), graph_tick.replayed_launches.get(name, 0))
+            for k, (mod, name) in launch_counters().items()}
 
 
 def kernel_fields(before: dict) -> dict:
-    """{"kernel", "launches"} since ``before`` (a :func:`launch_counts`):
-    ``kernel`` is true when a CUDA rollout kernel ran the planner's rollouts,
-    ``launches`` the kernels launched, by kernel."""
-    launches = {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
-    return {"kernel": any(k[:2] in ("K1", "K3", "K4") for k in launches), "launches": launches}
+    """{"kernel", "launches", "graph_launches"} since ``before`` (a
+    :func:`launch_counts`): ``kernel`` is true when a CUDA rollout kernel ran
+    the planner's rollouts, ``launches`` the kernels their wrappers launched
+    and ``graph_launches`` those graph replays launched (captured launches x
+    replays), by kernel."""
+    now = launch_counts()
+    launches, graph = ({k: n[i] - before[k][i] for k, n in now.items() if n[i] != before[k][i]} for i in (0, 1))
+    return {"kernel": any(k[:2] in ("K1", "K3", "K4") for k in (*launches, *graph)), "launches": launches,
+            "graph_launches": graph}
+
+
+def traced_launches(prof: dict, before: dict) -> dict:
+    """The kernels whose events in a :func:`profile` differ from the
+    launches counted since ``before`` (a :func:`launch_counts` taken just
+    before the profiled run: its wrappers' launches plus its graph replays'):
+    {symbol: (events traced, launches counted)}, empty when every kernel's
+    events equal its launches."""
+    now = launch_counts()
+    counted = dict.fromkeys(prof["traced_launches"], 0)
+    for k, sym in KERNEL_SYMBOLS.items():
+        counted[sym] += sum(now[k]) - sum(before[k])
+    return {sym: (n, counted[sym]) for sym, n in prof["traced_launches"].items() if n != counted[sym]}
 
 
 def env_int(name: str, default: int) -> int:
@@ -300,8 +336,10 @@ def profile(run, n: int, kernels: dict):
     """``torch.profiler`` over ``run()``, a chunk of ``n`` ticks on the card:
     {"kernels_per_tick", "device_ms_per_tick", "wall_ms_per_tick",
     "idle_pct", "kernel_ms_per_tick"} with the time a tick of each kernel in
-    ``kernels`` ({label: a substring of its name}); None when the profiler
-    saw no device kernel (device time not measured)."""
+    ``kernels`` ({label: a substring of its name}) and
+    "traced_launches", the events of each of the port's kernels
+    (:data:`KERNEL_SYMBOLS`); None when the profiler saw no device kernel
+    (device time not measured)."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     torch.cuda.synchronize()
@@ -321,4 +359,5 @@ def profile(run, n: int, kernels: dict):
         "idle_pct": 100 * (1 - dev_us / 1e6 / wall),
         "kernel_ms_per_tick": {k: sum(e.time_range.elapsed_us() for e in events if sub in e.name) / n / 1e3
                                for k, sub in kernels.items()},
+        "traced_launches": {sym: sum(sym in e.name for e in events) for sym in sorted(set(KERNEL_SYMBOLS.values()))},
     }

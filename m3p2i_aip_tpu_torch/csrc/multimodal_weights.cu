@@ -369,8 +369,10 @@ multimodal_weights_kernel(const float* __restrict__ cost,   // [B, K, T]
 
 // scratch: [B, K] floats of device memory when K > kSmemMaxK (the cost-to-go
 // then lives there), else null.  Above 48 KB a block's shared memory is an
-// opt-in (cudaFuncAttributeMaxDynamicSharedMemorySize), made per launch for
-// the size it needs.
+// opt-in (cudaFuncAttributeMaxDynamicSharedMemorySize), made once per device
+// by m3p2i_multimodal_weights_prepare before the first launch there, so that
+// no launch changes a function attribute: a launch captured into a CUDA graph
+// may not.
 extern "C" int m3p2i_multimodal_weights(const float* cost, const float* gamma, float* out, float* scratch,
                                         int B, int K, int T, int half_K, float eta_u, float eta_l,
                                         void* stream) {
@@ -390,13 +392,17 @@ extern "C" int m3p2i_multimodal_weights(const float* cost, const float* gamma, f
     return static_cast<int>(cudaGetLastError());
   }
   const size_t smem = static_cast<size_t>(K) * sizeof(float);
-  if (smem > 32 * 1024) {  // tc beside the static arrays passes the default 48 KB
-    const cudaError_t err = cudaFuncSetAttribute(multimodal_weights_kernel<false>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
   multimodal_weights_kernel<false><<<grid, block, smem, s>>>(cost, gamma, out, nullptr, K, T, half_K, eta_u, eta_l,
                                                             team, parent_threads);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The shared-memory opt-in of the kernel's block, on the calling thread's
+// current device: the largest cost-to-go it keeps there (kSmemMaxK floats,
+// 192 KB beside ~4 KB of static arrays, within the 227 KB a block may have).
+// The limit only admits launches; each launch still takes K floats.
+extern "C" int m3p2i_multimodal_weights_prepare() {
+  return static_cast<int>(cudaFuncSetAttribute(multimodal_weights_kernel<false>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(kSmemMaxK * sizeof(float))));
 }

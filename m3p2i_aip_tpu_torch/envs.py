@@ -261,14 +261,20 @@ def _make_albert_env(cfg, actors, device) -> Env:
     )
 
 
-def update_dyn_obs_device(env: Env, state, i: int, period: int = 100):
+def update_dyn_obs_device(env: Env, state, i, period: int = 100):
     """Oscillate the dynamic obstacle by +-[0.01, 0.01] per tick in a square
-    wave (``isaacgym_wrapper.py:205-220``).  ``i`` is the host tick index, so
-    the phase costs no device round trip."""
+    wave (``isaacgym_wrapper.py:205-220``).  ``i`` is the tick index: a host
+    int (the eager tick: the phase costs no device round trip), or an int64
+    device scalar (the compiled tick's counter: a graph replays the sign of
+    the tick it runs, never the one it was captured at).  Both compare the
+    phase with the same integer bounds, so the sign is the same."""
     if env.dyn_obs_slot < 0:
         return state
     phase = i % period
-    sign = 1.0 if (period // 4 < phase < 3 * period // 4) else -1.0
+    if torch.is_tensor(i):
+        sign = torch.where((period // 4 < phase) & (phase < 3 * period // 4), 1.0, -1.0)
+    else:
+        sign = 1.0 if (period // 4 < phase < 3 * period // 4) else -1.0
     return replace(state, dyn_pos=state.dyn_pos + sign * env.dyn_obs_step)
 
 

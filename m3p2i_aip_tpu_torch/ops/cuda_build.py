@@ -48,9 +48,11 @@ _lib = None
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # one entry point per kernel; each takes the seed count B (a single rollout
-# or weight update is a launch with B = 1)
+# or weight update is a launch with B = 1); and the weights kernel's once-a-
+# device opt-in to its shared memory
 _SIGNATURES = {
     "m3p2i_multimodal_weights": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _F, _VP],
+    "m3p2i_multimodal_weights_prepare": [],
     "m3p2i_point_rollout": [_VP] * 7 + [_I] * 16 + [_VP],
     "m3p2i_panda_rollout": [_VP] * 6 + [_I] * 10 + [_VP],
     "m3p2i_albert_rollout": [_VP] * 6 + [_I] * 6 + [_VP],

@@ -109,6 +109,21 @@ def _check_batch(fn: str, cost, gamma) -> None:
             raise ValueError(f"{fn}: {name} must be contiguous float32 on {cost.device}")
 
 
+_prepared: set = set()  # the devices whose kernel has its shared-memory opt-in
+
+
+def _prepare(lib, device: torch.device) -> None:
+    """The kernel's shared-memory opt-in on ``device`` (the current one),
+    once: before the first launch there, which precedes any capture of a
+    tick into a CUDA graph (the tick runs eagerly once first)."""
+    if device.index in _prepared:
+        return
+    err = lib.m3p2i_multimodal_weights_prepare()
+    if err != 0:
+        raise RuntimeError(f"multimodal_weights: shared-memory opt-in failed: cudaError {err}")
+    _prepared.add(device.index)
+
+
 def _launch(fn: str, cost, gamma, half_K: int, eta_u: float, eta_l: float):
     """ONE launch of the kernel on the current stream for B seeds' [B, K, T]
     costs (one block per seed); returns [B, 3, K] or raises."""
@@ -122,6 +137,7 @@ def _launch(fn: str, cost, gamma, half_K: int, eta_u: float, eta_l: float):
     scratch = torch.empty(B, K, dtype=torch.float32, device=cost.device) if K > SMEM_MAX_K else None
     lib = cuda_build.load_kernels()
     with torch.cuda.device(cost.device):  # the launch goes to the context of the tensors' card
+        _prepare(lib, cost.device)
         err = lib.m3p2i_multimodal_weights(
             cost.data_ptr(), gamma.data_ptr(), out.data_ptr(), None if scratch is None else scratch.data_ptr(),
             B, K, T, int(half_K), ctypes.c_float(eta_u), ctypes.c_float(eta_l),

@@ -220,6 +220,7 @@ class MPPI:
         self.fric_noise = None if fric_noise is None else np.asarray(fric_noise)
         self.generator = torch.Generator(device=self.device)
         self.seed_generators: list = []  # one per seed of a batch (init_state_batch)
+        self._seed_generator_sets: dict = {}  # seed count -> its generators, made once
         self.reseed(self.seed_val)
 
     def _t(self, x: np.ndarray) -> torch.Tensor:
@@ -319,13 +320,18 @@ class MPPI:
         """The stacked planner states of a seed batch: seed b's Halton deltas,
         friction scales and U0 draw are those of ``reseed(seeds[b])`` +
         ``init_state()``, and ``seed_generators[b]`` carries on from that
-        draw, so each seed's per-tick noise is a serial run's."""
-        states, self.seed_generators = [], []
-        for s in seeds:
+        draw, so each seed's per-tick noise is a serial run's.  The
+        generators of a seed count are made once and re-seeded in place by
+        every later batch of that count (a compiled tick keeps them
+        registered with its CUDA graph)."""
+        gens = self._seed_generator_sets.get(len(seeds))
+        if gens is None:
+            gens = self._seed_generator_sets[len(seeds)] = [torch.Generator(device=self.device) for _ in seeds]
+        self.seed_generators = gens
+        states = []
+        for s, gen in zip(seeds, self.seed_generators):
             self.reseed(int(s))
-            gen = torch.Generator(device=self.device)
             states.append(self.init_state(gen))
-            self.seed_generators.append(gen)
         return tree_stack(states)
 
     def _exploration_draw(self, shape) -> torch.Tensor:

@@ -23,7 +23,7 @@ Operations are the random-action inputs' (uniform(-3, 3), seed 0, from the
 start state).  On the CPU (``device=cpu``) only the counts and the host
 ticks are taken: no kernel time, no profile.
 
-    python -m m3p2i_aip_tpu_torch.scripts.analyze_utilization [device=cpu] [out=PATH|-]
+    python -m m3p2i_aip_tpu_torch.scripts.analyze_utilization [--eager] [device=cpu] [out=PATH|-]
 
 Writes ``results_h100/UTILIZATION.json``, prints its JSON line and a
 markdown table.  Runs on the card unless ``device=cpu``.
@@ -42,7 +42,7 @@ from m3p2i_aip_tpu_torch.config.config_store import load_config
 from m3p2i_aip_tpu_torch.ops import rollout as ro
 from m3p2i_aip_tpu_torch.ops import weights
 from m3p2i_aip_tpu_torch.scripts.bench import MAIN_PATH
-from m3p2i_aip_tpu_torch.scripts.run_tamp import pop_option
+from m3p2i_aip_tpu_torch.scripts.run_tamp import pop_flag, pop_option
 from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
 from m3p2i_aip_tpu_torch.utils.tree import tree_map
 
@@ -70,11 +70,12 @@ def _kernel_fields(prefix: str, fn, n_ops: float, n_bytes: int) -> dict:
     }
 
 
-def workload(K: int, T: int, device: torch.device, chunk_ticks: int) -> dict:
+def workload(K: int, T: int, device: torch.device, chunk_ticks: int, graphs=None) -> dict:
     """One workload's row (see the module docstring), its tick timed and
-    profiled in chunks of ``chunk_ticks``."""
+    profiled in chunks of ``chunk_ticks``; ``graphs`` as ``SimLoop``'s (the
+    row's ``tick`` says which ran)."""
     cfg = config(K, T)
-    loop = SimLoop(cfg, device=device)
+    loop = SimLoop(cfg, device=device, graphs=graphs)
     loop.warmup(50)
     tamp = loop.tamp
     mp, spec = tamp.motion_planner, tamp.motion_planner.rollout.spec
@@ -92,6 +93,7 @@ def workload(K: int, T: int, device: torch.device, chunk_ticks: int) -> dict:
     w_bytes = roofline.tensor_bytes(cost, mp.gamma_seq) + 3 * K * 4
     row = {
         "workload": f"{LABELS.get((K, T), 'point')} (K={K} x T={T})",
+        "tick": tamp.ticks.mode,
         "K": K,
         "T": T,
         "rollout_flops": flops,
@@ -141,8 +143,9 @@ def table(rows: list) -> str:
 def main(argv) -> dict:
     device, argv = pop_option(argv, "device", "cuda")
     out, argv = pop_option(argv, "out", None)
+    eager, argv = pop_flag(argv, "--eager")
     device = br.require_device(device, "analyze_utilization")
-    rows = [workload(K, T, device, CHUNK_TICKS) for K, T in SHAPES]
+    rows = [workload(K, T, device, CHUNK_TICKS, False if eager else None) for K, T in SHAPES]
     dev = br.device_record(device)
     rec = {
         "platform": dev["platform"],

@@ -19,7 +19,7 @@ line embeds the port's own panda and albert artifacts
 the ``bench_panda`` / ``bench_albert`` twins) with their age, never the
 TPU-era files at the repository's root.
 
-    python -m m3p2i_aip_tpu_torch.scripts.bench [--serial] [device=cpu] [out=PATH|-]
+    python -m m3p2i_aip_tpu_torch.scripts.bench [--serial] [--eager] [device=cpu] [out=PATH|-]
 
 Prints one JSON line and writes it to ``results_h100/bench/BENCH.json``.
 Runs on the card unless ``device=cpu`` is given; with no card it exits
@@ -34,7 +34,7 @@ import time
 
 from m3p2i_aip_tpu_torch.analysis import bench_record as br
 from m3p2i_aip_tpu_torch.config.config_store import load_config
-from m3p2i_aip_tpu_torch.scripts.run_tamp import pop_option
+from m3p2i_aip_tpu_torch.scripts.run_tamp import pop_flag, pop_option
 from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
 
 # the reference workload's task, shared by every program that drives it
@@ -73,12 +73,13 @@ def _embedded(family: str) -> dict:
 def main(argv) -> dict:
     device, argv = pop_option(argv, "device", "cuda")
     out, argv = pop_option(argv, "out", None)
+    eager, argv = pop_flag(argv, "--eager")
     device = br.require_device(device, "bench")
     pipelined = not ("--serial" in argv or os.environ.get("M3P2I_BENCH_SERIAL") == "1")
     cfg = config([a for a in argv if a != "--serial"])
     chunk = br.env_int("M3P2I_BENCH_CHUNK", 200)
 
-    loop = SimLoop(cfg, device=device)
+    loop = SimLoop(cfg, device=device, graphs=False if eager else None)
     loop.warmup(50)
     before = br.launch_counts()
     rate = measure(loop, chunk, TICKS, pipelined)
@@ -86,7 +87,7 @@ def main(argv) -> dict:
     embedded = {k: v for family in ("panda", "albert") for k, v in _embedded(family).items()}
     return br.emit_rate(f"m3p2i_replan_rate_point_K{K}_T{T}_multimodal", rate, cfg, device, chunk, TICKS, before,
                         "BENCH.json", out, vs_baseline=rate["value"] / br.BASELINE_HZ, pipelined=pipelined,
-                        **embedded)
+                        **embedded, tick=loop.tamp.ticks.mode)
 
 
 if __name__ == "__main__":

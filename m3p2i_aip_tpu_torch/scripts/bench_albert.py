@@ -10,7 +10,7 @@ metric's name carries the config's K and T (:67-70).  ``kernel`` (the JAX
 script's ``use_pallas``) is true when the CUDA rollout kernel K4 ran the
 planner's rollouts.
 
-    python -m m3p2i_aip_tpu_torch.scripts.bench_albert [device=cpu] [out=PATH|-] [overrides...]
+    python -m m3p2i_aip_tpu_torch.scripts.bench_albert [--eager] [device=cpu] [out=PATH|-] [overrides...]
 
 Prints one JSON line and writes it to ``results_h100/bench/ALBERT_BENCH.json``
 (``bench``'s line embeds it).  Runs on the card unless ``device=cpu``.
@@ -21,7 +21,7 @@ import sys
 
 from m3p2i_aip_tpu_torch.analysis import bench_record as br
 from m3p2i_aip_tpu_torch.config.config_store import load_config
-from m3p2i_aip_tpu_torch.scripts.run_tamp import pop_option
+from m3p2i_aip_tpu_torch.scripts.run_tamp import pop_flag, pop_option
 from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
 
 PUSH_REACH = ["task=push_reach", "goal=[3.0,0.0,0.6]"]
@@ -40,18 +40,20 @@ def measure(loop, chunk: int, ticks: int) -> dict:
 def main(argv) -> dict:
     device, argv = pop_option(argv, "device", "cuda")
     out, argv = pop_option(argv, "out", None)
+    eager, argv = pop_flag(argv, "--eager")
     device = br.require_device(device, "bench_albert")
     cfg = config(argv)
     chunk = br.env_int("M3P2I_BENCH_CHUNK", 100)
     ticks = br.env_int("M3P2I_BENCH_TICKS", 400)
 
-    loop = SimLoop(cfg, device=device)
+    loop = SimLoop(cfg, device=device, graphs=False if eager else None)
     loop.warmup(20)
     before = br.launch_counts()
     rate = measure(loop, chunk, ticks)
     K, T = int(cfg.mppi.num_samples), int(cfg.mppi.horizon)
     return br.emit_rate(f"m3p2i_replan_rate_albert_K{K}_T{T}_push_reach", rate, cfg, device, chunk, ticks, before,
-                        "ALBERT_BENCH.json", out, vs_baseline=rate["value"] / br.BASELINE_HZ)
+                        "ALBERT_BENCH.json", out, vs_baseline=rate["value"] / br.BASELINE_HZ,
+                        tick=loop.tamp.ticks.mode)
 
 
 if __name__ == "__main__":

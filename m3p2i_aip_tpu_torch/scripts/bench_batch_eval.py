@@ -11,7 +11,7 @@ the panda's the table pick-place.  Kernels: K1 and K1b (K2, K2b where the
 config is multi-modal) or K3 and K3b with K2 and K2b.
 
     python -m m3p2i_aip_tpu_torch.scripts.bench_batch_eval [n_runs=20] [family=point|panda] \\
-        [device=cpu] [out=PATH|-] [overrides...]
+        [--eager] [device=cpu] [out=PATH|-] [overrides...]
 
 Prints one JSON line, ``batch_eval_speedup_<family>`` with both success
 counts, and writes it to ``results_h100/bench/BATCH_EVAL_BENCH[_PANDA].json``.
@@ -24,7 +24,7 @@ import time
 
 from m3p2i_aip_tpu_torch.analysis import bench_record as br
 from m3p2i_aip_tpu_torch.config.config_store import load_config
-from m3p2i_aip_tpu_torch.scripts.run_tamp import pop_option
+from m3p2i_aip_tpu_torch.scripts.run_tamp import pop_flag, pop_option
 from m3p2i_aip_tpu_torch.tamp.batch_loop import BatchSimLoop
 from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
 
@@ -75,6 +75,8 @@ def main(argv) -> dict:
     out, argv = pop_option(argv, "out", None)
     n_runs, argv = pop_option(argv, "n_runs", "20")
     family, argv = pop_option(argv, "family", "point")
+    eager, argv = pop_flag(argv, "--eager")
+    graphs = False if eager else None
     device = br.require_device(device, "bench_batch_eval")
     n_runs, panda = int(n_runs), family == "panda"
     seeds = list(range(n_runs))
@@ -82,13 +84,13 @@ def main(argv) -> dict:
     before = br.launch_counts()
     cfg_s = config(family, argv)
     n_steps = int(cfg_s.n_steps)
-    serial_loop = SimLoop(cfg_s, device=device)
+    serial_loop = SimLoop(cfg_s, device=device, graphs=graphs)
     serial_s, serial_ticks, serial_ok = _serial(serial_loop, seeds, n_steps, panda)
     serial2_s, _, _ = _serial(serial_loop, seeds, n_steps, panda)
     serial_fields = br.kernel_fields(before)
 
     before = br.launch_counts()
-    batch = BatchSimLoop(config(family, argv), seeds, device=device)
+    batch = BatchSimLoop(config(family, argv), seeds, device=device, graphs=graphs)
     batched_s, batched_ticks, batched_ok = _batched(batch, seeds, n_steps, panda)
     batched2_s, _, _ = _batched(batch, seeds, n_steps, panda)
     batched_fields = br.kernel_fields(before)
@@ -105,6 +107,8 @@ def main(argv) -> dict:
         "kernel": serial_fields["kernel"] and batched_fields["kernel"],
         "serial_launches": serial_fields["launches"],
         "batched_launches": batched_fields["launches"],
+        "serial_graph_launches": serial_fields["graph_launches"],
+        "batched_graph_launches": batched_fields["graph_launches"],
         "serial_s": serial_s,
         "batched_s": batched_s,
         "serial_warm_s": serial2_s,
@@ -114,6 +118,7 @@ def main(argv) -> dict:
         "batched_ticks": batched_ticks,
         "serial_success": f"{serial_ok}/{n_runs}",
         "batched_success": f"{batched_ok}/{n_runs}",
+        "tick": batch.tamp.ticks.mode,
     }
     br.emit(rec, "BATCH_EVAL_BENCH_PANDA.json" if panda else "BATCH_EVAL_BENCH.json", out)
     return rec

@@ -8,7 +8,7 @@ both success gates off, two chunks to settle, then 400 timed ticks in
 chunks of 100, one after another.  The kernels on the path are K1 (63 blocks of 8 samples at K=500,
 the last one partial) and K2 (``half_K`` = 250).
 
-    python -m m3p2i_aip_tpu_torch.scripts.bench_northstar [K] [T] [chunk] [device=cpu] [out=PATH|-]
+    python -m m3p2i_aip_tpu_torch.scripts.bench_northstar [K] [T] [chunk] [--eager] [device=cpu] [out=PATH|-]
 
 Prints one JSON line and writes it to
 ``results_h100/bench/NORTHSTAR_BENCH.json``.  Runs on the card unless
@@ -21,7 +21,7 @@ import sys
 from m3p2i_aip_tpu_torch.analysis import bench_record as br
 from m3p2i_aip_tpu_torch.config.config_store import load_config
 from m3p2i_aip_tpu_torch.scripts.bench import MAIN_PATH
-from m3p2i_aip_tpu_torch.scripts.run_tamp import pop_option
+from m3p2i_aip_tpu_torch.scripts.run_tamp import pop_flag, pop_option
 from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
 
 TARGET_HZ = 100.0
@@ -41,16 +41,18 @@ def measure(loop, chunk: int, ticks: int) -> dict:
 def main(argv) -> dict:
     device, argv = pop_option(argv, "device", "cuda")
     out, argv = pop_option(argv, "out", None)
+    eager, argv = pop_flag(argv, "--eager")
     device = br.require_device(device, "bench_northstar")
     K, T, chunk = (int(a) for a in (list(argv) + ["500", "30", "100"][len(argv):])[:3])
     cfg = config(K, T)
 
-    loop = SimLoop(cfg, device=device)
+    loop = SimLoop(cfg, device=device, graphs=False if eager else None)
     loop.warmup(50)
     before = br.launch_counts()
     rate = measure(loop, chunk, TICKS)
     return br.emit_rate(f"m3p2i_replan_rate_point_K{K}_T{T}_multimodal", rate, cfg, device, chunk, TICKS, before,
-                        "NORTHSTAR_BENCH.json", out, vs_target=rate["value"] / TARGET_HZ)
+                        "NORTHSTAR_BENCH.json", out, vs_target=rate["value"] / TARGET_HZ,
+                        tick=loop.tamp.ticks.mode)
 
 
 if __name__ == "__main__":

@@ -10,7 +10,7 @@ settle, then 800 timed ticks in chunks of 200 (``M3P2I_BENCH_CHUNK``,
 the on-device AIF gate and a real-env step.  Each chunk's time comes from
 CUDA events recorded as it is enqueued (no sync between chunks).
 
-    python -m m3p2i_aip_tpu_torch.scripts.bench_panda [device=cpu] [out=PATH|-] [overrides...]
+    python -m m3p2i_aip_tpu_torch.scripts.bench_panda [--eager] [device=cpu] [out=PATH|-] [overrides...]
 
 Prints one JSON line and writes it to ``results_h100/bench/PANDA_BENCH.json``
 (``bench``'s line embeds it).  Runs on the card unless ``device=cpu``.
@@ -22,7 +22,7 @@ import time
 
 from m3p2i_aip_tpu_torch.analysis import bench_record as br
 from m3p2i_aip_tpu_torch.config.config_store import load_config
-from m3p2i_aip_tpu_torch.scripts.run_tamp import pop_option
+from m3p2i_aip_tpu_torch.scripts.run_tamp import pop_flag, pop_option
 from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
 
 
@@ -58,18 +58,20 @@ def measure(loop, chunk: int, ticks: int) -> dict:
 def main(argv) -> dict:
     device, argv = pop_option(argv, "device", "cuda")
     out, argv = pop_option(argv, "out", None)
+    eager, argv = pop_flag(argv, "--eager")
     device = br.require_device(device, "bench_panda")
     cfg = config(argv)
     chunk = br.env_int("M3P2I_BENCH_CHUNK", 200)
     ticks = br.env_int("M3P2I_BENCH_TICKS", 800)
 
-    loop = SimLoop(cfg, device=device)
+    loop = SimLoop(cfg, device=device, graphs=False if eager else None)
     loop.warmup(50)
     before = br.launch_counts()
     rate = measure(loop, chunk, ticks)
     K, T = int(cfg.mppi.num_samples), int(cfg.mppi.horizon)
     return br.emit_rate(f"m3p2i_replan_rate_panda_K{K}_T{T}_multimodal", rate, cfg, device, chunk, ticks, before,
-                        "PANDA_BENCH.json", out, vs_baseline=rate["value"] / br.BASELINE_HZ)
+                        "PANDA_BENCH.json", out, vs_baseline=rate["value"] / br.BASELINE_HZ,
+                        tick=loop.tamp.ticks.mode)
 
 
 if __name__ == "__main__":

@@ -4,7 +4,9 @@ two terminals).
 
 Port of ``scripts/run_tamp.py``, with the same argv grammar (the config
 overrides and ``-cn NAME`` of ``load_config_from_argv``, ``--interactive``
-and ``--record=DIR``) plus ``device=`` (``cuda``, the default, or ``cpu``).
+and ``--record=DIR``) plus ``device=`` (``cuda``, the default, or ``cpu``)
+and ``--eager``: each tick runs compiled by default (one replay of a CUDA
+graph on the card, ``tamp/graph_tick.py``), eagerly with ``--eager``.
 Run from the repository root:
 
     python -m m3p2i_aip_tpu_torch.scripts.run_tamp task=navigation goal="[-3, 3]"
@@ -41,13 +43,20 @@ def pop_option(argv, key: str, default):
     return value, rest
 
 
+def pop_flag(argv, flag: str):
+    """Whether ``flag`` (``--eager``) is in ``argv``, and the rest."""
+    return flag in argv, [a for a in argv if a != flag]
+
+
 def main(argv):
     """Parse, build on the device and run until success or ``n_steps``;
     prints the run's summary line and returns its TickLog."""
     device, argv = pop_option(argv, "device", "cuda")
     record, argv = pop_option(argv, "--record", None)
+    eager, argv = pop_flag(argv, "--eager")
     cfg = load_config_from_argv(argv, default_config="config_point")
-    log = run_sim(cfg, verbose=True, interactive="--interactive" in argv, device=device)
+    log = run_sim(cfg, verbose=True, interactive="--interactive" in argv, device=device,
+                  graphs=False if eager else None)
     n = max(1, len(log.replan_s))
     print(
         f"steps={log.steps} success_step={log.success_step} collisions={log.collisions} "

@@ -31,6 +31,11 @@ is needed: a chunk has a fixed length and a per-seed done latch.  Unlike
 the JAX package, whose sharded batch falls back to the XLA rollout (GSPMD
 cannot partition a ``pallas_call``), every shard keeps the batched kernels.
 
+Compiled ticks (``tamp/graph_tick.py``): a shard's B-seed tick is one CUDA
+graph, captured at the first chunk with every seed's generator registered,
+and the done pre-latch a buffer of its carry; ``reset`` with as many seeds
+re-seeds the same generators, so the graph is kept.
+
 Parity: the logs equal those of B serial ``SimLoop.run_chunked`` runs at the
 same chunk size, seed b drawing its exploration noise from a generator
 seeded as the serial run with seed b seeds its own, however the seeds are
@@ -72,10 +77,13 @@ class BatchSimLoop:
     same seeds, same logs, B-fold fewer kernel launches.
     """
 
-    def __init__(self, cfg, seeds: Sequence[int], shard: Union[bool, Mesh] = False, device="cuda") -> None:
+    def __init__(self, cfg, seeds: Sequence[int], shard: Union[bool, Mesh] = False, device="cuda",
+                 graphs: Optional[bool] = None) -> None:
         """``shard=True`` takes ``make_mesh()`` (every visible card) on a
         CUDA ``device`` and a one-device mesh of ``device`` otherwise; a Mesh
-        is taken as it is, and its devices replace ``device``."""
+        is taken as it is, and its devices replace ``device``.  ``graphs``
+        goes to each shard's ``ReactiveTAMP``: by default each shard's
+        B/n-seed tick is compiled (one CUDA graph a shard), False eager."""
         self.cfg = cfg
         self.mesh = None
         if isinstance(shard, Mesh):
@@ -85,7 +93,7 @@ class BatchSimLoop:
         if self.mesh is not None:
             self._check_batch(len(seeds))
         devices = self.mesh.devices if self.mesh is not None else (device,)
-        self._tamps = [ReactiveTAMP(cfg, device=d) for d in devices]
+        self._tamps = [ReactiveTAMP(cfg, device=d, graphs=graphs) for d in devices]
         self.tamp = self._tamps[0]
         self.env = self.tamp.env
         self.device = self.tamp.device

@@ -12,6 +12,14 @@ device-side done latch that freezes the planner and real-env state with
 ``torch.where`` (``_run_chunk_impl``), so chunked task times equal per-tick
 task times.
 
+Compiled ticks (``tamp/graph_tick.py``): each chunk and the per-tick
+``tick_fused`` run one tick body over static buffers, captured once on the
+card as a CUDA graph and replayed every tick (the JAX package's jitted tick
+and scan); ``graphs=False`` keeps the eager tick, the same body called with
+a host tick index and fresh tensors, which the compiled one equals bit for
+bit.  Gradient refinement and a sample-sharded planner run the eager tick by
+rule.
+
 The panda chunk (``_run_chunk_panda_impl``) runs the active-inference
 reach -> pick -> place decision on the device every tick
 (``_panda_gate_device``, with the wedged-pick stall detector
@@ -53,6 +61,7 @@ from m3p2i_aip_tpu_torch.planners.task_planner.task_planner import (
     ZUP_STALL_TICKS,
     set_task_planner,
 )
+from m3p2i_aip_tpu_torch.tamp.graph_tick import EAGER, TickGraphs, TickProgram, clone
 from m3p2i_aip_tpu_torch.utils import skill_utils
 from m3p2i_aip_tpu_torch.utils.tree import tree_where
 
@@ -79,7 +88,11 @@ def build_task_planner(cfg, env: Env, objective):
 
 
 class ReactiveTAMP:
-    def __init__(self, cfg, env: Optional[Env] = None, device="cuda") -> None:
+    """``graphs``: None (the default) compiles the tick (a CUDA graph on
+    ``cuda``, the static-buffer body on the CPU), False runs it eagerly,
+    True insists on CUDA graphs (raises on the CPU); see ``graph_tick``."""
+
+    def __init__(self, cfg, env: Optional[Env] = None, device="cuda", graphs: Optional[bool] = None) -> None:
         self.device = torch.device(device)
         if self.device.type == "cuda":
             # fp32 throughout: no TF32 in matmuls or convolutions
@@ -122,6 +135,9 @@ class ReactiveTAMP:
         self.device_gate = True
         self._tp_key = None
         self._tp_cached: Optional[TaskParams] = None
+        refine = self.motion_planner.grad_refine_steps > 0
+        self.ticks = TickGraphs(self.device, graphs, "gradient refinement (autograd through the plain step)"
+                                if refine else None)
 
     # ------------------------------------------------------------------ api
     def run_tamp(self, real_state) -> torch.Tensor:
@@ -210,8 +226,10 @@ class ReactiveTAMP:
         push_family = (task.task_id >= 1) & (task.task_id <= 3)
         return torch.where(task.task_id == 0, nav_ok, push_family & box_ok)
 
-    def _tick(self, mppi_state, real_state, task: TaskParams, i: int):
-        """One control tick: dyn-obs motion, replan, real-env suction, step."""
+    def _tick(self, mppi_state, real_state, task: TaskParams, i):
+        """One control tick: dyn-obs motion, replan, real-env suction, step.
+        ``i`` is the tick index: a host int, or the compiled tick's device
+        counter."""
         real_state = update_dyn_obs_device(self.env, real_state, i)
         pre_state = mppi_state  # the PRE-command weights drive the arbitration
         action_seq, mppi_state, aux = self.motion_planner._command_impl(mppi_state, real_state, task)
@@ -220,14 +238,74 @@ class ReactiveTAMP:
         real_state = self.env.step(real_state, action, ext)
         return action, mppi_state, real_state, aux
 
+    # ------------------------------------------------------- the tick bodies
+    # Each body maps (carry, inputs) to (next carry, outputs): the eager
+    # loops call it with a host tick index, the compiled tick
+    # (``graph_tick.TickProgram``) over static buffers with a device counter.
+    def _open_tick(self, carry, task: TaskParams):
+        """The ungated tick: carry (mppi_state, real_state, i); outputs
+        (action, view row, top trajectories)."""
+        ms, rs, i = carry
+        action, ms, rs, aux = self._tick(ms, rs, task, i)
+        return (ms, rs, i + 1), (action, self.env.view_vec(rs), aux["top_trajs"])
+
+    def _gated_tick(self, carry, task: TaskParams):
+        """The tick behind the done latch: carry (mppi_state, real_state,
+        done, n_ticks, i); output the view row, zero once latched."""
+        ms, rs, done, n_ticks, i = carry
+        active = ~done
+        _, ms_next, rs_next, _ = self._tick(ms, rs, task, i)
+        ms = tree_where(active, ms_next, ms)
+        rs = tree_where(active, rs_next, rs)
+        view = torch.where(active[..., None], self.env.view_vec(rs), 0.0)
+        n_ticks = n_ticks + active.to(torch.int32)
+        done = done | (active & self._point_success_device(rs, task))
+        return (ms, rs, done, n_ticks, i + 1), view
+
+    def _compiled(self) -> bool:
+        """Whether this planner's ticks run compiled (``graph_tick``); a
+        sample-sharded planner runs them eagerly, by rule."""
+        if self.ticks.mode == EAGER:
+            return False
+        if self.motion_planner.mesh is not None:
+            self.ticks.eager_by_rule("a sample-sharded planner (one rollout call per shard)")
+            return False
+        return True
+
+    def _program(self, kind: str, body, carry, inputs) -> TickProgram:
+        """The compiled tick of ``kind`` for this carry's seed count (made at
+        first use with ``carry`` and ``inputs`` as its buffers' templates),
+        loaded with ``carry`` and ``inputs``."""
+        lead = carry[0].mean_action.shape[:-2]
+        key = (kind, lead[0] if lead else None)
+        mp = self.motion_planner
+        gens = mp.seed_generators if lead else [mp.generator]
+        prog = self.ticks.program(key, lambda: TickProgram(self.ticks, key, body, carry, inputs, gens))
+        if len(prog.generators) != len(gens) or any(a is not b for a, b in zip(prog.generators, gens)):
+            # a graph replays the generators it registered, whatever the planner holds now
+            raise RuntimeError(f"the compiled tick {key} was made with other generators than the planner's")
+        prog.load(carry, inputs)
+        return prog
+
+    def _counter(self, i0: int) -> torch.Tensor:
+        return torch.full((), i0, dtype=torch.int64, device=self.device)
+
+    # ------------------------------------------------------------ the ticks
     def tick_fused(self, mppi_state, real_state, task: TaskParams, i: int):
         """One tick; returns (action, mppi_state, real_state, view_vec).  The
         replan's top trajectories stay on the device in ``top_trajs``
         (reactive_tamp.py:343): nothing is read back unless a caller
-        renders them."""
-        action, ms, rs, aux = self._tick(mppi_state, real_state, task, i)
-        self.top_trajs = aux["top_trajs"]
-        return action, ms, rs, self.env.view_vec(rs)
+        renders them.  Compiled, it is one replay of the ungated tick."""
+        carry = (mppi_state, real_state, i)
+        if self._compiled():
+            carry = (mppi_state, real_state, self._counter(i))
+            prog = self._program("open", self._open_tick, carry, task)
+            prog.step()
+            carry, outs = prog.carry_out(), clone(prog.outputs)
+        else:
+            carry, outs = self._open_tick(carry, task)
+        action, view, self.top_trajs = outs
+        return action, carry[0], carry[1], view
 
     def _run_chunk_impl(self, mppi_state, real_state, task, i0: int, length: int, gate: bool = True, done0=None):
         """``length`` ticks with no host sync.  Returns (mppi_state,
@@ -240,27 +318,33 @@ class ReactiveTAMP:
         still run, masked, and their view rows stay zero.  ``n_ticks``
         counts the ticks up to and including the latching one.  In a batch
         the latch is per seed, and a seed entered with ``done0`` set runs no
-        tick and keeps its state.
+        tick and keeps its state.  Compiled, each tick is a replay of the
+        (gated or open) tick's graph and its view row is copied into the
+        chunk's views after it.
         """
         lead = mppi_state.mean_action.shape[:-2]  # () or (B,)
         nv = self.env.view_vec(real_state).shape[-1]
         views = torch.zeros(lead + (length, nv), dtype=torch.float32, device=self.device)
-        if not gate:
+        body, carry = self._open_tick, (mppi_state, real_state, i0)
+        if gate:
+            done = torch.zeros(lead, dtype=torch.bool, device=self.device) if done0 is None else done0
+            body, carry = self._gated_tick, (mppi_state, real_state, done, torch.zeros(lead, dtype=torch.int32,
+                                                                                     device=self.device), i0)
+        if self._compiled():
+            carry = carry[:-1] + (self._counter(i0),)
+            prog = self._program("gated" if gate else "open", body, carry, task)
             for k in range(length):
-                _, mppi_state, real_state, _ = self._tick(mppi_state, real_state, task, i0 + k)
-                views[..., k, :] = self.env.view_vec(real_state)  # in place into the chunk buffer
-            return mppi_state, real_state, views, length, False
-        done = torch.zeros(lead, dtype=torch.bool, device=self.device) if done0 is None else done0
-        n_ticks = torch.zeros(lead, dtype=torch.int32, device=self.device)
-        for k in range(length):
-            active = ~done
-            _, ms, rs, _ = self._tick(mppi_state, real_state, task, i0 + k)
-            mppi_state = tree_where(active, ms, mppi_state)
-            real_state = tree_where(active, rs, real_state)
-            views[..., k, :] = torch.where(active[..., None], self.env.view_vec(real_state), 0.0)  # in place
-            n_ticks = n_ticks + active.to(torch.int32)
-            done = done | (active & self._point_success_device(real_state, task))
-        return mppi_state, real_state, views, n_ticks, done
+                prog.step()
+                views[..., k, :] = prog.outputs if gate else prog.outputs[1]
+            carry = prog.carry_out()
+        else:
+            for k in range(length):
+                carry, out = body(carry, task)
+                views[..., k, :] = out if gate else out[1]  # in place into the chunk buffer
+        if not gate:
+            return carry[0], carry[1], views, length, False
+        ms, rs, done, n_ticks, _ = carry
+        return ms, rs, views, n_ticks, done
 
     def run_chunk(self, mppi_state, real_state, task, i0: int, length: int):
         return self._run_chunk_impl(mppi_state, real_state, task, i0, length, self.device_gate)
@@ -324,6 +408,18 @@ class ReactiveTAMP:
         success = (new_stage == 2) & (dist_cost < 0.04)
         return task, new_stage, success, zs
 
+    def _panda_tick(self, carry, ext):
+        """The panda tick: carry (mppi_state, real_state, stage, zs, done);
+        the zero external forces as its input; outputs the view row (the
+        stage and the latch are the carry's)."""
+        ms, rs, stage, zs, done = carry
+        task, stage, succ, zs = self._panda_gate_device(rs, stage, zs)
+        done = done | succ
+        action_seq, ms, _ = self.motion_planner._command_impl(ms, rs, task)
+        action = torch.where(done[..., None], 0.0, action_seq[..., 0, :])
+        rs = self.env.step(rs, action, ext)
+        return (ms, rs, stage, zs, done), self.env.view_vec(rs)
+
     def _run_chunk_panda_impl(self, mppi_state, real_state, stage, zs, length: int, done0=None):
         """``length`` panda ticks with no host sync: the AIF gate, the replan
         and the real-env step per tick.  A latched success zeroes the action
@@ -334,24 +430,29 @@ class ReactiveTAMP:
         (reactive_tamp.py:547-578).  Returns (mppi_state, real_state, stage,
         zs, done, views [length, 22], stages [length], dones [length]); for a
         seed batch (``stage`` [B], ``zs`` [B, 4]) done is [B] and the
-        per-tick outputs are [B, length, ...]."""
+        per-tick outputs are [B, length, ...].  Compiled, each tick is a
+        replay of the panda tick's graph, its rows copied out after it."""
         lead = stage.shape
         done = torch.zeros(lead, dtype=torch.bool, device=self.device) if done0 is None else done0
         ext = self.env.zero_ext(lead)
-        views, stages, dones = [], [], []
-        for _ in range(length):
-            task, stage, succ, zs = self._panda_gate_device(real_state, stage, zs)
-            done = done | succ
-            action_seq, mppi_state, _ = self.motion_planner._command_impl(mppi_state, real_state, task)
-            action = torch.where(done[..., None], 0.0, action_seq[..., 0, :])
-            real_state = self.env.step(real_state, action, ext)
-            views.append(self.env.view_vec(real_state))
-            stages.append(stage)
-            dones.append(done)
-        return (
-            mppi_state, real_state, stage, zs, done,
-            torch.stack(views, dim=-2), torch.stack(stages, dim=-1), torch.stack(dones, dim=-1),
-        )
+        nv = self.env.view_vec(real_state).shape[-1]
+        views = torch.empty(lead + (length, nv), dtype=torch.float32, device=self.device)
+        stages = torch.empty(lead + (length,), dtype=torch.int32, device=self.device)
+        dones = torch.empty(lead + (length,), dtype=torch.bool, device=self.device)
+        carry = (mppi_state, real_state, stage, zs, done)
+        prog = None
+        if self._compiled():
+            prog = self._program("panda", self._panda_tick, carry, ext)
+        for k in range(length):
+            if prog is None:
+                carry, view = self._panda_tick(carry, ext)
+            else:
+                prog.step()
+                carry, view = prog.carry, prog.outputs
+            views[..., k, :], stages[..., k], dones[..., k] = view, carry[2], carry[4]
+        if prog is not None:
+            carry = prog.carry_out()
+        return (*carry, views, stages, dones)
 
     def run_chunk_panda(self, mppi_state, real_state, stage, zs, length: int):
         stage = torch.as_tensor(stage, dtype=torch.int32, device=self.device)

@@ -11,6 +11,13 @@ terminals.  The chunked loop syncs with the device once per chunk: one
 transfer brings back the chunk's per-tick views with the latch scalars;
 pipelined, that transfer is a non-blocking copy the host waits on only
 after it has enqueued the next chunk.
+
+Every tick, per tick or in a chunk, runs compiled by default: one replay of
+a CUDA graph on the card (``tamp/graph_tick.py``); ``graphs=False`` runs the
+eager tick.  The loop's ``state`` and ``tamp.mppi_state`` are host-owned
+copies of the graphs' carry, copied in before and out after each chunk or
+tick, so a checkpoint, a shove or a new plan between chunks reaches the next
+replay and nothing the host holds is overwritten by one.
 """
 from __future__ import annotations
 
@@ -83,9 +90,11 @@ class TickLog:
 class SimLoop:
     """Owns the real env state and the TAMP planner; steps them in lock-step."""
 
-    def __init__(self, cfg, tamp: Optional[ReactiveTAMP] = None, device="cuda") -> None:
+    def __init__(self, cfg, tamp: Optional[ReactiveTAMP] = None, device="cuda", graphs: Optional[bool] = None) -> None:
+        """``graphs`` goes to the ``ReactiveTAMP`` made here (None: compiled
+        ticks, False: eager; see ``graph_tick``)."""
         self.cfg = cfg
-        self.tamp = tamp if tamp is not None else ReactiveTAMP(cfg, device=device)
+        self.tamp = tamp if tamp is not None else ReactiveTAMP(cfg, device=device, graphs=graphs)
         self.env = self.tamp.env
         self.state = self.env.init_state()
         self.log = TickLog()
@@ -94,7 +103,9 @@ class SimLoop:
         self._panda_zs = None  # across run_chunked calls (reactive scenarios)
 
     def reset(self, seed_val: Optional[int] = None) -> None:
-        """Reset for a fresh seeded run without rebuilding the planner."""
+        """Reset for a fresh seeded run without rebuilding the planner: the
+        generator is re-seeded in place and the fresh states are copied into
+        the compiled ticks' buffers at the next tick, so nothing re-captures."""
         if seed_val is not None:
             self.cfg.mppi.seed_val = seed_val
             self.tamp.motion_planner.reseed(seed_val)
@@ -379,11 +390,13 @@ class SimLoop:
         self._view = self.env.view(self.state)
 
 
-def run_sim(cfg, n_steps: Optional[int] = None, warmup: int = 150, device="cuda", **kwargs) -> TickLog:
+def run_sim(cfg, n_steps: Optional[int] = None, warmup: int = 150, device="cuda", graphs: Optional[bool] = None,
+            **kwargs) -> TickLog:
     """Build everything from ``cfg`` on ``device``, settle the scene and
     tick until success or ``n_steps`` (``cfg.n_steps`` if None): the
-    one-process reactive TAMP (sim_loop.py:435).  ``kwargs`` go to
-    :meth:`SimLoop.run`.  Returns the TickLog."""
-    loop = SimLoop(cfg, device=device)
+    one-process reactive TAMP (sim_loop.py:435).  ``graphs`` as
+    :class:`SimLoop`'s; ``kwargs`` go to :meth:`SimLoop.run`.  Returns the
+    TickLog."""
+    loop = SimLoop(cfg, device=device, graphs=graphs)
     loop.warmup(warmup)
     return loop.run(n_steps or cfg.n_steps, **kwargs)

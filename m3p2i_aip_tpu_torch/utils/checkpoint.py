@@ -13,6 +13,13 @@ bit for bit: ``torch/generator``, the state of the planner's exploration
 ``torch.Generator``, and ``torch/host_json``, every attribute of the host
 task planner (its stall detectors, pocket-endgame latches and active-
 inference beliefs) and the gripper command.
+
+With compiled ticks (``tamp/graph_tick.py``) the loop's ``state`` and
+``tamp.mppi_state`` are the host's copies of the graphs' carry, copied out
+after every chunk or tick: a checkpoint reads them, and a loaded state is
+copied into the graphs' buffers at the next tick, so a resumed compiled run
+replays bit for bit as an uninterrupted one.  The generator's state is set
+in place, so a generator registered with a captured graph stays registered.
 """
 from __future__ import annotations
 

@@ -29,6 +29,7 @@ for name in (
     "analysis.bench_record", "analysis.roofline", "scripts.bench", "scripts.bench_panda", "scripts.bench_albert",
     "scripts.bench_family", "scripts.bench_batch_eval", "scripts.bench_northstar", "scripts.bench_sharded",
     "scripts.analyze_utilization", "scripts.recompute_results", "scripts.run_quality_campaign",
+    "tamp.graph_tick", "scripts.graph_ab",
 ):
     assert pkg.__name__ + "." + name in names, name
 leaked = sorted(m for m in sys.modules if m == "m3p2i_aip_tpu" or m.startswith("m3p2i_aip_tpu."))
