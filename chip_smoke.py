@@ -4,7 +4,8 @@
 Builds the port's CUDA kernels from ``m3p2i_aip_tpu_torch/csrc``, holds each
 against its plain PyTorch version on the card, then drives the port's three
 paths through ``SimLoop.run_chunked``.  The runs that record every kernel
-call's inputs from Python run the eager tick (``graphs=False``, ``--eager``);
+call's inputs from Python run the eager tick (``graphs=False``, ``--eager``;
+their warm-ups and settles, which launch no kernel, replay a compiled step);
 the compiled tick, the entry points' default on the card (one CUDA graph a
 tick, replayed), is held to them bit for bit in its own phase, and the runs
 that record nothing run it (``graphs=True``, or the default):
@@ -48,8 +49,11 @@ that record nothing run it (``graphs=True``, or the default):
   ``rpc.Server`` serving ``ReactiveTAMPServer`` on the card from a thread
   and the port's sim client ticking against it over a localhost socket (the
   point push to [-1, -1] must reach its goal within 300 ticks; 20 ticks of
-  the panda and of the albert), with the round trip per tick beside the
-  in-process tick; and checkpoint / resume of the point main path and the
+  the panda and of the albert), each run compiled (the server's command and
+  the client's warm-up and steps replayed from CUDA graphs, the default)
+  and then eager, the compiled run ending in the eager run's state bit for
+  bit, with the round trip per tick of both beside the in-process tick; and
+  checkpoint / resume of the point main path and the
   panda, compiled, 20 ticks, a checkpoint, a fresh loop, 20 ticks,
   bit-equal to 40 uninterrupted ticks.  Every launch count is set to 0 just before each of
   these runs and read just after, and every K1, K3 and K4 call of them is
@@ -62,16 +66,19 @@ that record nothing run it (``graphs=True``, or the default):
   no host sync in any enqueue (``torch.cuda.set_sync_debug_mode``), K1 and
   K2 once per dispatched tick;
 * gradient refinement, the round-4 panda setting (``mppi.grad_refine_steps=8
-  mppi.refine_iters=0``, multi-modal) at K=200 x T=12: finite means every
-  tick, K3 and K2 once a tick, the tick's time and the autograd chain's
-  share of it, and one tick's refinement repeated on the CPU from the same
-  inputs within 1e-4;
+  mppi.refine_iters=0``, multi-modal) at K=200 x T=12, eager and then
+  compiled (three graphs a tick: the tick up to the refinement, one
+  gradient step replayed eight times, the rest): finite means every tick,
+  K3 and K2 once a tick, the tick's time and the autograd chain's share of
+  it, one tick's refinement repeated on the CPU from the same inputs within
+  1e-4, and the compiled ticks' planner states bit-equal to the eager
+  ticks', with each graph's nodes, capture time and pool;
 * the URDF FK cross-check: the vendored franka and albert URDFs' chains
   (``utils/urdf.py``) against ``panda_fk.fk`` and ``albert.fk`` on the card;
 * the compiled tick (``tamp/graph_tick.py``, ``scripts/graph_ab.py``): the
   gated main path (latch 47), the point in benchmark mode and per tick, the
-  gated panda table (latch 83), the albert push_reach and the n=20 point and
-  panda batches, each compiled and bit-equal to its eager run (chunk
+  gated panda table (latch 83), the albert push_reach and the n=20 point,
+  panda and albert batches, each compiled and bit-equal to its eager run (chunk
   outputs, log, final carry), with its launches (captured launches x
   replays) once per dispatched tick per rollout and weight update, each
   graph's capture time, nodes and pool; the gated main path pipelined and
@@ -85,7 +92,9 @@ that record nothing run it (``graphs=True``, or the default):
   on a mesh that repeats ``cuda:0``): the gated main path over 8 shards
   (pipelined, no host sync in any enqueue) and over 5, each latching at the
   unsharded tick with bit-equal logs, every K1 call at its shard's global
-  offset equal to the plain version; the multi-modal panda and the albert
+  offset equal to the plain version, and the 8-shard run again compiled
+  (each shard's rollout a parallel branch of the tick's graph), its log and
+  launches the eager run's; the multi-modal panda and the albert
   push_reach over 8 shards, tick for tick equal to their unsharded runs,
   every K3 / K4 call held to its plain version; the gather's time, a
   profile, and ``scripts/bench_sharded.py``'s sweep (K = 512, 2048, 8192,
@@ -148,6 +157,7 @@ name and power limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import re
 import sys
@@ -232,7 +242,7 @@ CHECK_GROUP = 100  # recorded K1 calls held to the batched plain version at once
 PIPELINE_CHUNK = 10  # the gated serial / pipelined main-path runs' chunk
 FAMILY_TIMED = 2  # the heijn and boxer rates' timed chunks of BENCH_CHUNK
 GRAD_REFINE = ["multi_modal=True", "mppi.grad_refine_steps=8", "mppi.grad_refine_unroll=True", "mppi.refine_iters=0"]
-GRAD_REFINE_TICKS = 1  # ticks of the round-4 panda setting (config/mppi/panda.yaml:25-32), seconds each
+GRAD_REFINE_TICKS = 2  # ticks of the round-4 panda setting (config/mppi/panda.yaml:25-32) a mode, seconds each
 GRAD_REFINE_ATOL = 1e-4  # its refined means on the card against the port on the CPU, one recorded tick
 URDF_SAMPLES = 1024  # joint vectors of the URDF cross-check
 URDF_ATOL = 1e-5  # tests/test_urdf.py's bar
@@ -265,6 +275,7 @@ GRAPH_LAUNCHES = {
     "point per tick": {"rollout_launches": 1, "weights_launches": 1},
     "point batch": {"rollout_batched_launches": 1, "weights_batched_launches": 1},
     "panda batch": {"panda_rollout_batched_launches": 4, "weights_batched_launches": 3},
+    "albert batch": {"albert_rollout_batched_launches": 4},
 }
 # four point tasks for the batched checks: (name, goal)
 POINT_TASKS = [("push_pull", [-3.75, -3.75]), ("pull", [1.0, 3.0]), ("push", [-1.0, -1.0]), ("navigation", [1.5, 1.0])]
@@ -737,7 +748,7 @@ def phase_main_path(cfg) -> tuple:
     from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
 
     loop = SimLoop(cfg, device="cuda", graphs=False)
-    loop.warmup(50)
+    _compiled_steps(loop, "warmup", 50)
     dispatched = 0
     run_chunk = loop.tamp.run_chunk
 
@@ -880,7 +891,7 @@ def phase_panda_main() -> tuple:
 
     cfg = load_config("config_panda")
     loop = SimLoop(cfg, device="cuda", graphs=False)
-    loop.warmup(50)
+    _compiled_steps(loop, "warmup", 50)
     record = _count_panda_ticks(loop)
     outputs = graph_ab.record_chunks(loop)
     per_tick = 1 + int(cfg.mppi.refine_iters)
@@ -905,7 +916,7 @@ def phase_panda_main() -> tuple:
     print(f"[panda-main] first grasped tick {grasped[0] if grasped.size else None}; stages {sorted(set(log.task))}")
     assert grasped.size > 0, "the cube was never grasped"
     assert log.success_step is not None, "the panda pick-place did not latch success"
-    loop.settle(150)
+    _compiled_steps(loop, "settle", 150)
     view = loop._view
     pos_err = float(np.linalg.norm(view["cube_state"][:2] - view["cube_goal"][:2]))
     ori_err = float(general_ori_cube2goal(view["cube_state"][3:], view["cube_goal"][3:]))
@@ -927,7 +938,7 @@ def phase_panda_shelf() -> float:
 
     cfg = load_config("config_panda", ["multi_modal=True", "cube_on_shelf=True"])
     loop = SimLoop(cfg, device="cuda", graphs=False)
-    loop.warmup(50)
+    _compiled_steps(loop, "warmup", 50)
     record = _count_panda_ticks(loop)
     mp = loop.tamp.motion_planner
     rollout, costs = mp.rollout, []
@@ -1026,7 +1037,7 @@ def _albert_gated_run(label: str, overrides: list, n_ticks: int, keep: str = Non
 
     cfg = load_config("config_albert", overrides)
     loop = SimLoop(cfg, device="cuda", graphs=False)
-    loop.warmup(20)
+    _compiled_steps(loop, "warmup", 20)
     record = _count_chunk_views(loop)
     outputs = graph_ab.record_chunks(loop) if keep is not None else None
     view0 = loop.env.view_vec(loop.state).cpu().numpy()
@@ -1100,7 +1111,7 @@ def phase_albert_breakdown(card: str) -> None:
     from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
 
     loop = SimLoop(load_config("config_albert", PUSH_REACH), device="cuda", graphs=False)
-    loop.warmup(20)
+    _compiled_steps(loop, "warmup", 20)
     tamp, env = loop.tamp, loop.env
     task = tamp.tamp_interface_view(loop._view)
     ms, rs = tamp.mppi_state, loop.state
@@ -1542,7 +1553,7 @@ def phase_gated_loop(label: str, config_name: str, overrides: list, max_ticks: i
     loop = SimLoop(cfg, device="cuda", graphs=False)
     mp = loop.tamp.motion_planner
     assert mp.refine_iters == 0, f"{label}: one rollout a tick expected"
-    loop.warmup(10)
+    _compiled_steps(loop, "warmup", 10)
     dispatched, run_chunk = 0, loop.tamp.run_chunk
 
     def counted_run_chunk(ms, rs, task, i0, length):
@@ -1575,17 +1586,6 @@ def phase_gated_loop(label: str, config_name: str, overrides: list, max_ticks: i
     return counts, calls
 
 
-class _SampleGoals:
-    """The goals [n, G] of n samples, indexed as one goal [G] is (``goal[:2]``
-    -> [n, 2]): a flat plain call's per-sample task."""
-
-    def __init__(self, goals):
-        self.goals = goals
-
-    def __getitem__(self, idx):
-        return self.goals[:, idx]
-
-
 def _flat_task(task_vec, K: int, goal: slice, zup: int = None):
     """The task of B recorded calls laid side by side, per sample: call b's
     task id and goal columns ``goal`` of ``task_vec`` [B, ...] (and its
@@ -1593,7 +1593,7 @@ def _flat_task(task_vec, K: int, goal: slice, zup: int = None):
     from types import SimpleNamespace
 
     rows = lambda x: x.repeat_interleave(K, dim=0)  # noqa: E731 (sample k of call b takes call b's row)
-    task = SimpleNamespace(task_id=rows(task_vec[:, 0]), goal=_SampleGoals(rows(task_vec[:, goal])))
+    task = SimpleNamespace(task_id=rows(task_vec[:, 0]), goal=rows(task_vec[:, goal]))
     if zup is not None:
         task.zup_gate = rows(task_vec[:, zup])
     return task
@@ -1640,8 +1640,6 @@ def _point_plain_flat(spec, task_vec, state0, fric_k, acts) -> tuple:
 def _stacked_starts(rows) -> object:
     """One state of B x K samples from B calls' broadcast start states (each
     [K, ...]), call b's samples at b K .. b K + K - 1."""
-    import dataclasses
-
     return dataclasses.replace(rows[0], **{f.name: torch.cat([getattr(r, f.name) for r in rows])
                                            for f in dataclasses.fields(rows[0])})
 
@@ -1812,14 +1810,17 @@ def phase_f3(card: str) -> None:
     assert per_tick_success is not None and chunked_success is not None, "F3: a run did not latch success"
 
 
-def _rpc_run(label: str, config_name: str, overrides: list, n_ticks: int, until=None) -> tuple:
+def _rpc_run(label: str, config_name: str, overrides: list, n_ticks: int, until=None, graphs=None) -> tuple:
     """The two-terminal workflow on the card, in one process: the port's
     ``rpc.Server`` serves ``ReactiveTAMPServer(cfg, device="cuda")`` from a
     thread on an ephemeral localhost port, and the port's sim client
     (``scripts/sim.py`` ``drive``, pacing off) ticks against it, every
-    launch count set to 0 just before and read just after.  A failure in
-    the server reaches the client as an error.  Returns (env, final state,
-    ticks, launch counts)."""
+    launch count set to 0 just before and read just after.  ``graphs`` goes
+    to the server and the client (None, the default: the server's command
+    and the client's warm-up and steps replayed from CUDA graphs; False:
+    eager).  A failure in the server reaches the client as an error.
+    Returns (env, final state, ticks, launch counts with replays, their
+    replayed part by kernel, round-trip seconds, tick seconds)."""
     import threading
 
     from m3p2i_aip_tpu_torch.config.config_store import load_config
@@ -1827,35 +1828,41 @@ def _rpc_run(label: str, config_name: str, overrides: list, n_ticks: int, until=
     from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMPServer
     from m3p2i_aip_tpu_torch.utils import rpc
 
-    server = rpc.Server(ReactiveTAMPServer(load_config(config_name, overrides), device="cuda"), "127.0.0.1", 0)
+    server = rpc.Server(ReactiveTAMPServer(load_config(config_name, overrides), device="cuda", graphs=graphs),
+                        "127.0.0.1", 0)
     thread = threading.Thread(target=server.run, daemon=True)
     thread.start()
     client = rpc.Client().connect("127.0.0.1", server.port)
     try:
         _zero_launches()
         env, state, rpc_s, tick_s = drive(load_config(config_name, overrides), client, n_ticks=n_ticks, pace=False,
-                                          device="cuda", until=until)
+                                          device="cuda", until=until, graphs=graphs)
         torch.cuda.synchronize()
-        counts = _read_launches()
+        counts, replayed = _read_launches(), _read_replayed()
     finally:
         client.close()
         server.close()
     thread.join(timeout=60)
     assert not thread.is_alive(), f"{label}: the server thread did not stop"
-    print(f"[{label}] {len(rpc_s)} ticks over the socket: run_tamp round trip median {float(np.median(rpc_s)) * 1e3:.2f}"
-          f" ms (max {max(rpc_s) * 1e3:.2f}), the client's whole tick (with its real-env step) median "
-          f"{float(np.median(tick_s)) * 1e3:.2f} ms, {len(tick_s) / sum(tick_s):.2f} Hz")
-    return env, state, len(rpc_s), counts
+    mode = "eager" if graphs is False else "compiled"
+    print(f"[{label}] {mode}: {len(rpc_s)} ticks over the socket: run_tamp round trip median "
+          f"{float(np.median(rpc_s)) * 1e3:.2f} ms (max {max(rpc_s) * 1e3:.2f}), the client's whole tick (with its "
+          f"real-env step) median {float(np.median(tick_s)) * 1e3:.2f} ms, {len(tick_s) / sum(tick_s):.2f} Hz")
+    return env, state, len(rpc_s), counts, replayed, rpc_s, tick_s
 
 
-def phase_two_terminal(card: str, in_process_ms: float) -> dict:
-    """The reference's two terminals on the card: the point push to [-1, -1]
-    must bring the box within 0.1 m of the goal within RPC_PUSH_TICKS ticks
-    with K1 launched once a tick (every call held to the plain version);
-    then RPC_FAMILY_TICKS ticks of ``config_panda`` and ``config_albert``,
-    K3 and K4 launched 1 + refine_iters times a tick, every call held to its
-    plain version.  The round trip and the client's tick are printed beside
-    the in-process per-tick time.  Returns the launch counts summed."""
+def phase_two_terminal(card: str, in_process_ms: float) -> tuple:
+    """The reference's two terminals on the card, each run compiled (the
+    default) and then eager (``graphs=False``): the point push to [-1, -1]
+    must bring the box within 0.1 m of the goal within RPC_PUSH_TICKS ticks,
+    then RPC_FAMILY_TICKS ticks of ``config_panda`` and ``config_albert``.
+    Each run launches K1 / K3 / K4 1 + refine_iters times a tick (the
+    compiled run: its first tick's calls and its replays); the eager run's
+    calls are recorded and held to their plain versions; the compiled run
+    ends in the eager run's state bit for bit after as many ticks.  The
+    round trip and the client's tick of both are printed beside the
+    in-process per-tick time.  Returns (launch counts by kernel, their
+    replayed part)."""
     from m3p2i_aip_tpu_torch.config.config_store import load_config
     from m3p2i_aip_tpu_torch.ops import albert_rollout as ar
     from m3p2i_aip_tpu_torch.ops import panda_rollout as pr
@@ -1866,28 +1873,38 @@ def phase_two_terminal(card: str, in_process_ms: float) -> dict:
     def box_at_goal(env, state):
         return float(torch.linalg.vector_norm(state.dyn_pos[env.box_slot] - goal)) <= 0.1
 
-    with _recorded(ro, "point_rollout") as k1_calls:
-        env, state, ticks, counts = _rpc_run("rpc point push", "config_point", RPC_PUSH, RPC_PUSH_TICKS, box_at_goal)
-    _expect_launches("rpc point push", counts, {"rollout_launches": ticks})
-    final = float(torch.linalg.vector_norm(state.dyn_pos[env.box_slot] - goal))
-    print(f"[rpc point push] box {final:.4f} m from the goal after {ticks} ticks; the in-process per-tick point main "
-          f"path's median tick {in_process_ms:.2f} ms ({card})")
-    assert final <= 0.1, f"the box is {final} m from the goal after {ticks} ticks over the socket"
-    phase_every_call("K1 rpc point push", k1_calls, ro.point_rollout)
-    total = {"point_rollout": ticks}
-    for label, config_name, mod, name, flat, bars in (
-        ("rpc panda", "config_panda", pr, "panda_rollout", _panda_plain_flat, PLANAR_BARS),
-        ("rpc albert", "config_albert", ar, "albert_rollout", _albert_plain_flat, ALBERT_BARS),
+    launches, replayed = {}, {}
+    for label, config_name, overrides, n_ticks, until, mod, name, counter, flat, bars in (
+        ("rpc point push", "config_point", RPC_PUSH, RPC_PUSH_TICKS, box_at_goal, ro, "point_rollout",
+         "rollout_launches", _point_plain_flat, PLANAR_BARS),
+        ("rpc panda", "config_panda", [], RPC_FAMILY_TICKS, None, pr, "panda_rollout", "panda_rollout_launches",
+         _panda_plain_flat, PLANAR_BARS),
+        ("rpc albert", "config_albert", [], RPC_FAMILY_TICKS, None, ar, "albert_rollout", "albert_rollout_launches",
+         _albert_plain_flat, ALBERT_BARS),
     ):
+        per_tick = 1 + int(load_config(config_name, overrides).mppi.refine_iters)
+        env, state, ticks, counts, rep, _, _ = _rpc_run(label, config_name, overrides, n_ticks, until)
+        _expect_launches(f"{label} compiled", counts, {counter: per_tick * ticks})
         with _recorded(mod, name) as calls:
-            env, state, ticks, counts = _rpc_run(label, config_name, [], RPC_FAMILY_TICKS)
-        per_tick = 1 + int(load_config(config_name).mppi.refine_iters)
-        _expect_launches(label, counts, {f"{name}_launches": per_tick * ticks})
-        assert ticks == RPC_FAMILY_TICKS, f"{label}: {ticks} ticks"
-        assert torch.isfinite(env.dof_state_view(state)).all(), f"{label}: non-finite state"
+            env, ref, ref_ticks, ref_counts, _, _, _ = _rpc_run(label, config_name, overrides, n_ticks, until,
+                                                                graphs=False)
+        _expect_launches(f"{label} eager", ref_counts, {counter: per_tick * ref_ticks})
+        assert ticks == ref_ticks and (until is not None or ticks == n_ticks), f"{label}: {ticks} / {ref_ticks} ticks"
+        same = all(torch.equal(getattr(state, f.name), getattr(ref, f.name)) for f in dataclasses.fields(ref)
+                   if torch.is_tensor(getattr(ref, f.name)))
+        print(f"[{label}] compiled and eager: {ticks} ticks each, final states bit-equal {same}")
+        assert same, f"{label}: the compiled two terminals end in another state than the eager ones"
+        assert torch.isfinite(env.dof_state_view(ref)).all(), f"{label}: non-finite state"
+        if until is not None:
+            final = float(torch.linalg.vector_norm(ref.dyn_pos[env.box_slot] - goal))
+            print(f"[{label}] box {final:.4f} m from the goal after {ticks} ticks; the in-process per-tick point "
+                  f"main path's median tick {in_process_ms:.2f} ms ({card})")
+            assert final <= 0.1, f"the box is {final} m from the goal after {ticks} ticks over the socket"
         phase_every_call(f"{label[4:]} over RPC", calls, getattr(mod, name), flat, bars)
-        total[name] = len(calls)
-    return total
+        launches[name] = launches.get(name, 0) + counts[counter] + ref_counts[counter]
+        for kernel, n in rep.items():
+            replayed[kernel] = replayed.get(kernel, 0) + n
+    return launches, replayed
 
 
 def phase_checkpoint() -> tuple:
@@ -1998,7 +2015,7 @@ def phase_pipelined(card: str) -> tuple:
     logs, syncs = {}, []
     for pipelined in (False, True):
         loop = SimLoop(load_config("config_point", MAIN_PATH), device="cuda", graphs=False)
-        loop.warmup(50)
+        _compiled_steps(loop, "warmup", 50)
         dispatched, run_chunk, enqueue = 0, loop.tamp.run_chunk, loop._enqueue_chunk
 
         def counted_run_chunk(ms, rs, task, i0, length, run_chunk=run_chunk):
@@ -2042,7 +2059,7 @@ def phase_graphs(card: str, serial_log) -> tuple:
     n_ticks and done; the panda's stages and dones), log and final carry.
     The eager twins are the runs the earlier phases made and kept
     (EAGER_RUNS: the gated main path latching at 47, the panda table at 83,
-    the albert push_reach, the n=20 point and panda batches); the point in
+    the albert push_reach, the n=20 point, panda and albert batches); the point in
     benchmark mode and per tick run both here.  Then the gated main path
     pipelined and compiled: its log equal to the eager serial run's
     (``serial_log``), no host sync in any enqueue after the first (which
@@ -2098,19 +2115,27 @@ def phase_graphs(card: str, serial_log) -> tuple:
     assert len(syncs) > 1 and not any(syncs[1:]), f"a compiled pipelined enqueue synchronised the host: {syncs}"
     del loop
 
-    rates = graph_ab.paired_rates(card, chunk=GRAPH_RATE_CHUNK, timed=GRAPH_RATE_TIMED)
+    names = tuple(name for name in graph_ab.RATES if "shards" not in name)  # phase_sample_shard runs the shards
+    rates = graph_ab.paired_rates(card, names, chunk=GRAPH_RATE_CHUNK, timed=GRAPH_RATE_TIMED)
     return launches, replayed, rates
 
 
 def phase_grad_refine(card: str) -> tuple:
     """The round-4 panda setting (``config/mppi/panda.yaml:25-32``: eight
     gradient steps on the plain step and costs, no refine ladder,
-    multi-modal) at K=200 x T=12 for GRAD_REFINE_TICKS chunked ticks: K3 and
-    K2 once a tick, finite means every tick, the tick's time and the
-    gradient chain's share of it; then the last tick's ``_grad_refine``
-    repeated on the CPU from the same inputs, its three means within
-    GRAD_REFINE_ATOL of the card's.  Returns (launch counts, K3 calls, K2
-    calls)."""
+    multi-modal) at K=200 x T=12 for GRAD_REFINE_TICKS chunked ticks,
+    eagerly (``graphs=False``) and then compiled (the default: the first
+    tick runs eagerly on the capture stream and captures three graphs, the
+    tick up to the refinement, one gradient step replayed
+    ``grad_refine_steps`` times, and the rest; the later ticks replay
+    them).  Eager: K3 and K2 once a tick, finite means every tick, the
+    tick's time and the gradient chain's share of it, and the last tick's
+    ``_grad_refine`` repeated on the CPU from the same inputs, its three
+    means within GRAD_REFINE_ATOL of the card's.  Compiled: every tick's
+    planner state bit-equal to the eager tick's, K3 and K2 launched as
+    often (its first tick's calls and its replays), each graph's nodes,
+    capture time and pool.  Returns (launch counts, their replayed part, K3
+    calls, K2 calls), the calls the eager run's."""
     from m3p2i_aip_tpu_torch.config.config_store import load_config
     from m3p2i_aip_tpu_torch.ops import panda_rollout as pr
     from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMP
@@ -2118,52 +2143,76 @@ def phase_grad_refine(card: str) -> tuple:
     from m3p2i_aip_tpu_torch.utils.tree import tree_map
 
     cfg = load_config("config_panda", GRAD_REFINE)
-    loop = SimLoop(cfg, device="cuda", graphs=False)
-    loop.warmup(50)
-    mp = loop.tamp.motion_planner
-    grad_refine, chain_s, recorded = mp._grad_refine, [], {}
+    runs = {}
+    for graphs in (False, None):
+        loop = SimLoop(cfg, device="cuda", graphs=graphs)
+        _compiled_steps(loop, "warmup", 50)
+        mp = loop.tamp.motion_planner
+        grad_refine, chain_s, recorded = mp._grad_refine, [], {}
 
-    def timed_grad_refine(state, sim_state_k, task):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = grad_refine(state, sim_state_k, task)
-        torch.cuda.synchronize()
-        chain_s.append(time.perf_counter() - t0)
-        recorded.update(inputs=(state, sim_state_k, task), out=out)
-        return out
-
-    mp._grad_refine = timed_grad_refine
-    tick_s = []
-    _zero_launches()
-    with _recorded(pr, "panda_rollout") as k3_calls, _recorded_weights("multimodal_weights") as k2_calls:
-        for i in range(GRAD_REFINE_TICKS):
+        def timed_grad_refine(state, sim_state_k, task, grad_refine=grad_refine, chain_s=chain_s, recorded=recorded):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            loop.run_chunked(1, chunk=1)
+            out = grad_refine(state, sim_state_k, task)
             torch.cuda.synchronize()
-            tick_s.append(time.perf_counter() - t0)
-            means = torch.stack([loop.tamp.mppi_state.mean_action, loop.tamp.mppi_state.mean_action_1,
-                                 loop.tamp.mppi_state.mean_action_2])
-            assert torch.isfinite(means).all(), f"grad-refine tick {i}: non-finite means"
-    mp._grad_refine = grad_refine
-    counts = _read_launches()
-    _expect_launches("grad-refine panda", counts,
-                     {"panda_rollout_launches": GRAD_REFINE_TICKS, "weights_launches": GRAD_REFINE_TICKS})
-    tick_ms, chain_ms = float(np.median(tick_s)) * 1e3, float(np.median(chain_s)) * 1e3
-    print(f"[grad-refine panda] {GRAD_REFINE_TICKS} ticks at K={mp.K} x T={mp.T}, {mp.grad_refine_steps} gradient steps "
-          f"of 3 chains: median tick {tick_ms:.1f} ms, of it the chain {chain_ms:.1f} ms "
-          f"({100 * chain_ms / tick_ms:.1f}%); ticks {', '.join(f'{t * 1e3:.1f}' for t in tick_s)} ms ({card})")
+            chain_s.append(time.perf_counter() - t0)
+            recorded.update(inputs=(state, sim_state_k, task), out=out)
+            return out
 
-    cpu_mp = ReactiveTAMP(cfg, device="cpu").motion_planner
-    state, sim_state_k, task = (tree_map(lambda x: x.cpu(), x) for x in recorded["inputs"])
-    ref = cpu_mp._grad_refine(state, sim_state_k, task)
-    err = max(float(torch.max(torch.abs(getattr(recorded["out"], f).cpu() - getattr(ref, f))))
-              for f in ("mean_action", "mean_action_1", "mean_action_2"))
-    moved = float(torch.max(torch.abs(recorded["out"].mean_action - recorded["inputs"][0].mean_action)))
-    print(f"[grad-refine panda] the last tick's refinement on the card against the port on the CPU from the same inputs: "
-          f"max abs err {err:.3e} (bar {GRAD_REFINE_ATOL}); it moved the global mean by up to {moved:.4f}")
-    assert err <= GRAD_REFINE_ATOL, f"grad-refine: card vs CPU means differ by {err}"
-    return {"panda_rollout": GRAD_REFINE_TICKS, "multimodal_weights": GRAD_REFINE_TICKS}, k3_calls, k2_calls
+        if graphs is False:
+            mp._grad_refine = timed_grad_refine
+        tick_s, states = [], []
+        _zero_launches()
+        eager = graphs is False  # the compiled run records nothing: a replay makes no call
+        with (_recorded(pr, "panda_rollout") if eager else contextlib.nullcontext([])) as k3_calls, \
+                (_recorded_weights("multimodal_weights") if eager else contextlib.nullcontext([])) as k2_calls:
+            for i in range(GRAD_REFINE_TICKS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loop.run_chunked(1, chunk=1)
+                torch.cuda.synchronize()
+                tick_s.append(time.perf_counter() - t0)
+                ms = loop.tamp.mppi_state
+                states.append(graph_ab.carry_fields(ms))
+                assert torch.isfinite(torch.stack([ms.mean_action, ms.mean_action_1, ms.mean_action_2])).all(), \
+                    f"grad-refine tick {i}: non-finite means"
+        mp._grad_refine = grad_refine
+        counts, replayed = _read_launches(), _read_replayed()
+        mode = "eager" if graphs is False else "compiled"
+        _expect_launches(f"grad-refine panda {mode}", counts,
+                         {"panda_rollout_launches": GRAD_REFINE_TICKS, "weights_launches": GRAD_REFINE_TICKS})
+        runs[mode] = (states, tick_s, counts, replayed, loop.tamp.ticks.stats())
+        if graphs is False:
+            eager_calls = (k3_calls, k2_calls)
+            tick_ms, chain_ms = float(np.median(tick_s)) * 1e3, float(np.median(chain_s)) * 1e3
+            print(f"[grad-refine panda] eager: {GRAD_REFINE_TICKS} ticks at K={mp.K} x T={mp.T}, "
+                  f"{mp.grad_refine_steps} gradient steps of 3 chains: median tick {tick_ms:.1f} ms, of it the chain "
+                  f"{chain_ms:.1f} ms ({100 * chain_ms / tick_ms:.1f}%); ticks "
+                  f"{', '.join(f'{t * 1e3:.1f}' for t in tick_s)} ms ({card})")
+            cpu_mp = ReactiveTAMP(cfg, device="cpu").motion_planner
+            state, sim_state_k, task = (tree_map(lambda x: x.cpu(), x) for x in recorded["inputs"])
+            ref = cpu_mp._grad_refine(state, sim_state_k, task)
+            err = max(float(torch.max(torch.abs(getattr(recorded["out"], f).cpu() - getattr(ref, f))))
+                      for f in ("mean_action", "mean_action_1", "mean_action_2"))
+            moved = float(torch.max(torch.abs(recorded["out"].mean_action - recorded["inputs"][0].mean_action)))
+            print(f"[grad-refine panda] the last eager tick's refinement on the card against the port on the CPU "
+                  f"from the same inputs: max abs err {err:.3e} (bar {GRAD_REFINE_ATOL}); it moved the global mean "
+                  f"by up to {moved:.4f}")
+            assert err <= GRAD_REFINE_ATOL, f"grad-refine: card vs CPU means differ by {err}"
+        del loop
+    (eager, eager_s, eager_counts, _, _), (comp, comp_s, comp_counts, replayed, graphs) = runs["eager"], runs["compiled"]
+    diffs = graph_ab.differ(eager, comp)
+    print(f"[grad-refine panda] compiled: ticks {', '.join(f'{t * 1e3:.1f}' for t in comp_s)} ms (the first runs "
+          f"eagerly and captures); planner state after each tick bit-equal to the eager run's: {not diffs} ({card})")
+    for g in graphs:
+        print(f"[grad-refine panda] graph {g['key']}: capture {g['capture_s']:.2f} s, {g['nodes']} nodes, pool "
+              f"{g['pool_bytes'] / 2**20:.1f} MiB, launches a replay {g['launches']}; segments (nodes x replays, "
+              f"capture s) " + ", ".join(f"{x['nodes']} x {x['replays']} ({x['capture_s']:.2f})"
+                                         for x in g["segments"]))
+    assert not diffs, f"grad-refine: the compiled ticks differ from the eager ticks: {diffs[:5]}"
+    assert any(len(g["segments"]) == 3 for g in graphs), "grad-refine: no three-segment tick was captured"
+    counts = {KERNEL_OF_COUNTER[name]: eager_counts[name] + comp_counts[name] for name in eager_counts}
+    return counts, replayed, *eager_calls
 
 
 def phase_urdf(card: str) -> None:
@@ -2247,12 +2296,12 @@ def phase_sample_shard(card: str, main_log: dict) -> tuple:
     from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
 
     launches = {"point_rollout": 0, "multimodal_weights": 0, "panda_rollout": 0, "albert_rollout": 0}
-    k2_runs = {}
+    k2_runs, replayed = {}, {}
     for n in SAMPLE_SHARDS:
         label, pipelined = f"sample-shard point x{n}", n == SAMPLE_SHARDS[0]
         loop = SimLoop(load_config("config_point", MAIN_PATH), device="cuda", graphs=False)
         shard_planner(loop.tamp.motion_planner, _card_mesh(n))
-        loop.warmup(50)
+        _compiled_steps(loop, "warmup", 50)
         dispatched, run_chunk, syncs = 0, loop.tamp.run_chunk, []
 
         def counted_run_chunk(ms, rs, task, i0, length, run_chunk=run_chunk):
@@ -2283,6 +2332,29 @@ def phase_sample_shard(card: str, main_log: dict) -> tuple:
         launches["point_rollout"] += counts["rollout_launches"]
         launches["multimodal_weights"] += counts["weights_launches"]
         k2_runs[label] = k2_calls
+        if pipelined:  # the same split compiled: one graph a tick, each shard's rollout a branch on a stream of its own
+            cloop = SimLoop(load_config("config_point", MAIN_PATH), device="cuda")
+            shard_planner(cloop.tamp.motion_planner, _card_mesh(n))
+            cloop.warmup(50)
+            _zero_launches()
+            t0 = time.perf_counter()
+            clog = cloop.run_chunked(1000, chunk=50, pipelined=True)
+            torch.cuda.synchronize()
+            cwall = time.perf_counter() - t0
+            ccounts, crep = _read_launches(), _read_replayed()
+            print(f"[{label}] compiled, pipelined: {clog.steps} ticks logged in {cwall:.2f} s, success tick "
+                  f"{clog.success_step}; launches {ccounts} (replayed {crep}); graphs " + "; ".join(
+                      f"{g['key']}: {g['nodes']} nodes, capture {g['capture_s'] * 1e3:.1f} ms"
+                      for g in cloop.tamp.ticks.stats()))
+            _assert_same_log(f"{label} compiled", clog, main_log)
+            assert ccounts == counts, f"{label}: compiled launches {ccounts}, eager {counts}"
+            assert cloop.tamp._compiled() and any(g["key"][0] == "gated" for g in cloop.tamp.ticks.stats()), \
+                f"{label}: the sharded tick was not captured"
+            launches["point_rollout"] += ccounts["rollout_launches"]
+            launches["multimodal_weights"] += ccounts["weights_launches"]
+            for kernel, m in crep.items():
+                replayed[kernel] = replayed.get(kernel, 0) + m
+            del cloop
         if pipelined:  # the split's costs on the main path: the gather and the device's idle share
             costs = torch.randn(loop.tamp.motion_planner.K, loop.tamp.motion_planner.T, device="cuda")
             shard = sample_sharding(loop.tamp.motion_planner.mesh)
@@ -2305,7 +2377,7 @@ def phase_sample_shard(card: str, main_log: dict) -> tuple:
             loop = SimLoop(load_config(config_name, overrides), device="cuda", graphs=False)
             if n is not None:
                 shard_planner(loop.tamp.motion_planner, _card_mesh(n))
-            loop.warmup(50 if panda else 20)
+            _compiled_steps(loop, "warmup", 50 if panda else 20)
             record = _count_panda_ticks(loop) if panda else _count_chunk_views(loop)
             _zero_launches()
             with _recorded(mod, name) as calls, _recorded_weights("multimodal_weights") as k2_calls:
@@ -2333,7 +2405,7 @@ def phase_sample_shard(card: str, main_log: dict) -> tuple:
         if k2_calls:
             k2_runs[label] = k2_calls
     phase_shard_sweep(card)
-    return launches, k2_runs
+    return launches, k2_runs, replayed
 
 
 def phase_shard_sweep(card: str) -> None:
@@ -2376,7 +2448,7 @@ def phase_northstar(card: str) -> tuple:
     from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
 
     loop = SimLoop(bench_northstar.config(), device="cuda", graphs=False)
-    loop.warmup(50)
+    _compiled_steps(loop, "warmup", 50)
     bench_record.gates_off(loop)
     _zero_launches()
     with _recorded(ro, "point_rollout") as k1_calls, _recorded_weights("multimodal_weights") as k2_calls:
@@ -2550,6 +2622,20 @@ def phase_seed_shard(card: str, unsharded: dict) -> tuple:
 _START = time.perf_counter()
 
 
+def _compiled_steps(loop, method: str, n: int) -> None:
+    """``loop.warmup(n)`` or ``loop.settle(n)`` with its steps replayed from a
+    CUDA graph (``graph_tick.env_steps``) whatever the loop's tick mode: a
+    warm-up or a settle launches no kernel, so a phase that runs the eager
+    tick to record its kernel calls still steps its scene compiled (bit for
+    bit the eager steps, tests/test_torch_compiled_paths.py)."""
+    ticks = loop.tamp.ticks
+    loop.tamp.ticks = graph_tick.TickGraphs(loop.env.device, None)
+    try:
+        getattr(loop, method)(n)
+    finally:
+        loop.tamp.ticks = ticks
+
+
 def _stamp(label: str) -> None:
     """The smoke's elapsed wall time at the end of a step of ``main``."""
     print(f"[elapsed] {time.perf_counter() - _START:.1f} s after {label}")
@@ -2635,7 +2721,8 @@ def main() -> None:
         )
     with _recorded(ar, "albert_rollout_batched") as k4b_calls:
         albert_counts, _, _, _ = phase_seed_batch(
-            "batch-albert", "config_albert", [], 10, 300, {"albert_rollout_batched_launches": 4}, graphs=False
+            "batch-albert", "config_albert", [], 10, 300, {"albert_rollout_batched_launches": 4},
+            keep="albert batch", graphs=False,
         )
     launches["point_rollout_batched"] = point_counts["rollout_batched_launches"]
     launches["multimodal_weights_batched"] = (
@@ -2665,18 +2752,18 @@ def main() -> None:
     counts, k2_runs["point per-tick"], in_process_ms = phase_run_sim(
         card, {"point": point_chunked_tick, "panda": panda_chunked_tick}
     )
-    for extra in (counts, phase_two_terminal(card, in_process_ms)):
-        for name, n in extra.items():
-            launches[name] += n
+    for name, n in counts.items():
+        launches[name] += n
+    _add_launches(launches, graph_launches, *phase_two_terminal(card, in_process_ms))
     _add_launches(launches, graph_launches, *phase_checkpoint())
     _stamp("the entry points")
     # 31. pipelined chunks on the main path; 32. the round-4 panda's gradient refinement;
     # 33. the URDF FK cross-check
     counts, k1_runs["pipelined gated"], k2_runs["pipelined gated"], serial_log = phase_pipelined(card)
-    grad_counts, k3_grad, k2_runs["panda grad-refine"] = phase_grad_refine(card)
-    for extra in (counts, grad_counts):
-        for name, n in extra.items():
-            launches[name] += n
+    grad_counts, grad_replayed, k3_grad, k2_runs["panda grad-refine"] = phase_grad_refine(card)
+    for name, n in counts.items():
+        launches[name] += n
+    _add_launches(launches, graph_launches, grad_counts, grad_replayed)
     phase_every_call("K3 grad-refine panda", k3_grad, pr.panda_rollout, _panda_plain_flat)
     del k3_grad
     phase_urdf(card)
@@ -2687,12 +2774,11 @@ def main() -> None:
     _stamp("the compiled tick")
     # 34. the sample axis over shards of the card: the main path, the panda and the albert, the
     # sweep; 35. the seed axis: the n=20 point and panda batches, the rate, run_experiments
-    counts, shard_k2 = phase_sample_shard(card, main_log)
+    counts, shard_k2, shard_replayed = phase_sample_shard(card, main_log)
     k2_runs.update(shard_k2)
     seed_counts, replayed = phase_seed_shard(
         card, {"point": (point_rows, point_steps), "panda": (panda_rows, panda_steps)})
-    for name, n in counts.items():
-        launches[name] += n
+    _add_launches(launches, graph_launches, counts, shard_replayed)
     _add_launches(launches, graph_launches, {KERNEL_OF_COUNTER[name]: n for name, n in seed_counts.items()}, replayed)
     _stamp("the sample and seed shards")
     # 36. the twins' new paths: the north-star shape, K2 / K2b at K = 16384 and 65536, the

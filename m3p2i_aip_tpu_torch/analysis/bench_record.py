@@ -336,10 +336,12 @@ def profile(run, n: int, kernels: dict):
     """``torch.profiler`` over ``run()``, a chunk of ``n`` ticks on the card:
     {"kernels_per_tick", "device_ms_per_tick", "wall_ms_per_tick",
     "idle_pct", "kernel_ms_per_tick"} with the time a tick of each kernel in
-    ``kernels`` ({label: a substring of its name}) and
+    ``kernels`` ({label: a substring of its name}),
     "traced_launches", the events of each of the port's kernels
-    (:data:`KERNEL_SYMBOLS`); None when the profiler saw no device kernel
-    (device time not measured)."""
+    (:data:`KERNEL_SYMBOLS`), and, to place a lost event, "kernel_starts_ms",
+    those events' start times, and "device_span_ms", the last device
+    event's end, both from the first device event; None when the profiler
+    saw no device kernel (device time not measured)."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     torch.cuda.synchronize()
@@ -352,6 +354,8 @@ def profile(run, n: int, kernels: dict):
     if not events:
         return None
     dev_us = sum(e.time_range.elapsed_us() for e in events)
+    t_first = min(e.time_range.start for e in events)
+    symbols = sorted(set(KERNEL_SYMBOLS.values()))
     return {
         "kernels_per_tick": len(events) / n,
         "device_ms_per_tick": dev_us / n / 1e3,
@@ -359,5 +363,8 @@ def profile(run, n: int, kernels: dict):
         "idle_pct": 100 * (1 - dev_us / 1e6 / wall),
         "kernel_ms_per_tick": {k: sum(e.time_range.elapsed_us() for e in events if sub in e.name) / n / 1e3
                                for k, sub in kernels.items()},
-        "traced_launches": {sym: sum(sym in e.name for e in events) for sym in sorted(set(KERNEL_SYMBOLS.values()))},
+        "traced_launches": {sym: sum(sym in e.name for e in events) for sym in symbols},
+        "kernel_starts_ms": {sym: [round((e.time_range.start - t_first) / 1e3, 3) for e in events if sym in e.name]
+                             for sym in symbols},
+        "device_span_ms": round((max(e.time_range.end for e in events) - t_first) / 1e3, 3),
     }

@@ -367,10 +367,10 @@ def root_state_view(params: PandaEnvParams, state: PandaEnvState) -> torch.Tenso
     (``panda_env.py:423``): the dynamic bodies' position, orientation
     quaternion, linear and angular velocity; every other actor keeps its
     initial root."""
-    dyn = list(params.dyn_actor_idx)
-    root = params.init_root.clone()
-    root[dyn] = torch.cat([state.body_pos, state.body_quat, state.body_vel, state.body_om], dim=-1)
-    return root
+    moving = torch.cat([state.body_pos, state.body_quat, state.body_vel, state.body_om], dim=-1)
+    # rows picked by Python index: no index tensor, so a CUDA graph can capture it
+    slot = {a: k for k, a in enumerate(params.dyn_actor_idx)}
+    return torch.stack([moving[slot[a]] if a in slot else params.init_root[a] for a in range(params.init_root.shape[0])])
 
 
 def load_root_state(params: PandaEnvParams, state: PandaEnvState, root: torch.Tensor) -> PandaEnvState:

@@ -472,14 +472,12 @@ def root_state_view(params: PointEnvParams, state: PointEnvState) -> torch.Tenso
     quaternion, linear and angular velocity per actor;
     ``point_env.py:532``).  Fixed actors and the robot keep their initial
     root: the robot moves in its dofs."""
-    dyn = list(params.dyn_actor_idx)
     zeros = torch.zeros_like(params.dyn_z)[:, None]
-    root = params.init_root.clone()
-    root[dyn, 0:3] = torch.cat([state.dyn_pos, params.dyn_z[:, None]], dim=-1)
-    root[dyn, 3:7] = quat.quat_from_yaw(state.dyn_yaw)
-    root[dyn, 7:10] = torch.cat([state.dyn_vel, zeros], dim=-1)
-    root[dyn, 10:13] = torch.cat([zeros, zeros, state.dyn_om[:, None]], dim=-1)
-    return root
+    moving = torch.cat([state.dyn_pos, params.dyn_z[:, None], quat.quat_from_yaw(state.dyn_yaw), state.dyn_vel, zeros,
+                        zeros, zeros, state.dyn_om[:, None]], dim=-1)  # [D, 13]
+    # rows picked by Python index: no index tensor, so a CUDA graph can capture it
+    slot = {a: k for k, a in enumerate(params.dyn_actor_idx)}
+    return torch.stack([moving[slot[a]] if a in slot else params.init_root[a] for a in range(params.init_root.shape[0])])
 
 
 def load_root_state(params: PointEnvParams, state: PointEnvState, root: torch.Tensor) -> PointEnvState:

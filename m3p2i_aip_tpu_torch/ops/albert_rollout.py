@@ -135,14 +135,20 @@ def pack_state(state: albert.AlbertState) -> torch.Tensor:
 
 
 def unpack_state(state0: torch.Tensor, K: int) -> albert.AlbertState:
-    """The K broadcast states of a packed row."""
+    """The K broadcast states of a packed row [30], or the K states of K
+    packed rows [K, 30]."""
+    lead = state0.shape[:-1]
+
+    def rows(a: int, b: int, shape=()):
+        return state0[..., a:b].reshape(lead + shape).expand((K,) + shape)
+
     return albert.AlbertState(
-        q=state0[0:12].expand(K, 12),
-        qd=state0[12:24].expand(K, 12),
-        box_pos=state0[24:26].expand(K, 2),
-        box_yaw=state0[26].expand(K),
-        box_vel=state0[27:29].expand(K, 2),
-        box_om=state0[29].expand(K),
+        q=rows(0, 12, (12,)),
+        qd=rows(12, 24, (12,)),
+        box_pos=rows(24, 26, (2,)),
+        box_yaw=rows(26, 27),
+        box_vel=rows(27, 29, (2,)),
+        box_om=rows(29, 30),
     )
 
 
@@ -168,7 +174,7 @@ def albert_rollout_plain(spec: AlbertRolloutSpec, task_vec, state0, acts):
     :func:`rollout_inputs` makes them; ``acts`` [K, T, 13]."""
     p = spec.env_params
     state = unpack_state(state0, acts.shape[0])
-    task = SimpleNamespace(task_id=task_vec[0], goal=task_vec[1:4])
+    task = SimpleNamespace(task_id=task_vec[..., 0], goal=task_vec[..., 1:4])
     costs, points = [], []
     for t in range(spec.T):
         u_t = acts[:, t]
@@ -285,8 +291,14 @@ def make_albert_rollout(env_params: albert.AlbertParams, objective: AlbertObject
         """The plain rollout's costs [N, T] of N sequences ``acts`` [N, T, 13]
         from the start state of ``sim_state_k`` (the albert's costs take no
         mode): the differentiable chain of gradient refinement (no kernel
-        has a backward)."""
-        return albert_rollout_plain(spec, *rollout_inputs(sim_state_k, task), acts)[0]
+        has a backward).  A seed batch's B x N sequences [B, N, T, 13] run as
+        one plain rollout, each row with its seed's start state and task."""
+        task_vec, state0 = rollout_inputs(sim_state_k, task)
+        if acts.dim() == 3:
+            return albert_rollout_plain(spec, task_vec, state0, acts)[0]
+        B, N = acts.shape[:2]
+        rows = lambda x: x.repeat_interleave(N, dim=0)  # noqa: E731 (row b N + n takes seed b's)
+        return albert_rollout_plain(spec, rows(task_vec), rows(state0), acts.flatten(0, 1))[0].unflatten(0, (B, N))
 
     rollout.spec = spec
     rollout.chain = chain

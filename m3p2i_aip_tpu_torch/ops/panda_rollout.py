@@ -160,23 +160,29 @@ def pack_state(state: panda_env.PandaEnvState) -> torch.Tensor:
 
 
 def unpack_state(state0: torch.Tensor, K: int, p: panda_env.PandaEnvParams) -> panda_env.PandaEnvState:
-    """The K broadcast states of a packed row (dyn-obs and cubeB at rest
-    orientation; no output depends on it)."""
-    quat = torch.zeros(3, 4, dtype=state0.dtype, device=state0.device)
-    quat[:, 3] = 1.0
-    quat[1] = state0[39:43]
-    om = torch.zeros(3, 3, dtype=state0.dtype, device=state0.device)
-    om[1] = state0[36:39]
+    """The K broadcast states of a packed row [56], or the K states of K
+    packed rows [K, 56] (dyn-obs and cubeB at rest orientation; no output
+    depends on it)."""
+    lead = state0.shape[:-1]
+
+    def rows(a: int, b: int, shape=()):
+        return state0[..., a:b].reshape(lead + shape).expand((K,) + shape)
+
+    quat = torch.zeros(lead + (3, 4), dtype=state0.dtype, device=state0.device)
+    quat[..., 3] = 1.0
+    quat[..., 1, :] = state0[..., 39:43]
+    om = torch.zeros(lead + (3, 3), dtype=state0.dtype, device=state0.device)
+    om[..., 1, :] = state0[..., 36:39]
     return panda_env.PandaEnvState(
-        q=state0[0:9].expand(K, 9),
-        qd=state0[9:18].expand(K, 9),
-        body_pos=state0[18:27].reshape(3, 3).expand(K, 3, 3),
-        body_vel=state0[27:36].reshape(3, 3).expand(K, 3, 3),
+        q=rows(0, 9, (9,)),
+        qd=rows(9, 18, (9,)),
+        body_pos=rows(18, 27, (3, 3)),
+        body_vel=rows(27, 36, (3, 3)),
         body_om=om.expand(K, 3, 3),
         body_quat=quat.expand(K, 3, 4),
-        attached=state0[43].expand(K),
-        attach_pos=state0[44:47].expand(K, 3),
-        attach_rot=state0[47:56].reshape(3, 3).expand(K, 3, 3),
+        attached=rows(43, 44),
+        attach_pos=rows(44, 47, (3,)),
+        attach_rot=rows(47, 56, (3, 3)),
         contact_force=torch.zeros(K, p.num_actors, 3, dtype=state0.dtype, device=state0.device),
     )
 
@@ -206,14 +212,15 @@ def panda_rollout_plain(spec: PandaRolloutSpec, task_vec, state0, acts, mode=Non
     ``fk``.  ``task_vec`` [10] and ``state0`` [56] as :func:`rollout_inputs`
     makes them; ``acts`` [K, T, 9].  ``mode`` [K] scores each sample under a
     given mode instead of the one its global index gives it (the chains of
-    gradient refinement)."""
+    gradient refinement), and then ``task_vec`` [K, 10] and ``state0``
+    [K, 56] may give each sample a task and a start state of its own."""
     p = spec.env_params
     K = acts.shape[0]
     state = unpack_state(state0, K, p)
     if mode is None:
         gk = torch.arange(K, device=acts.device, dtype=torch.float32) + task_vec[8]
         mode = ((gk >= spec.K // 2) & (gk < spec.K)).to(torch.int32)
-    task = SimpleNamespace(task_id=task_vec[0], goal=task_vec[1:8], zup_gate=task_vec[9])
+    task = SimpleNamespace(task_id=task_vec[..., 0], goal=task_vec[..., 1:8], zup_gate=task_vec[..., 9])
     ext = panda_env.zero_ext(p, (K,))
     costs, points = [], []
     for t in range(spec.T):
@@ -334,11 +341,19 @@ def make_panda_rollout(env_params: panda_env.PandaEnvParams, pre_height_diff: fl
         return wrapper(on_device[acts.device], *rollout_inputs(sim_state_k, task, k0), acts.contiguous())
 
     def chain(sim_state_k, acts, task, mode):
-        """The plain rollout's costs [N, T] of N sequences ``acts`` [N, T, 9]
-        from the start state of ``sim_state_k``, sequence n scored under
-        ``mode[n]``: the differentiable chain of gradient refinement (no
-        kernel has a backward)."""
-        return panda_rollout_plain(spec, *rollout_inputs(sim_state_k, task), acts, mode)[0]
+        """The plain rollout's costs [..., N, T] of N sequences ``acts``
+        [..., N, T, 9] from the start state of ``sim_state_k``, sequence n
+        scored under ``mode[..., n]``: the differentiable chain of gradient
+        refinement (no kernel has a backward).  A seed batch's B x N
+        sequences run as one plain rollout, each row with its seed's start
+        state and task."""
+        task_vec, state0 = rollout_inputs(sim_state_k, task)
+        if acts.dim() == 3:
+            return panda_rollout_plain(spec, task_vec, state0, acts, mode)[0]
+        B, N = acts.shape[:2]
+        rows = lambda x: x.repeat_interleave(N, dim=0)  # noqa: E731 (row b N + n takes seed b's)
+        cost = panda_rollout_plain(spec, rows(task_vec), rows(state0), acts.flatten(0, 1), mode.flatten())[0]
+        return cost.unflatten(0, (B, N))
 
     rollout.spec = spec
     rollout.chain = chain

@@ -158,25 +158,32 @@ def point_rollout_plain(spec: RolloutSpec, task_vec, state0, fric_k, acts, mode=
     ``task_vec`` = [task_id, goal_x, goal_y, k0] (float32, device);
     ``state0`` the packed start state; ``fric_k`` [K, D]; ``acts`` [K, T, n_u].
     ``mode`` [K] scores each sample under a given mode instead of the one
-    its global index gives it (the chains of gradient refinement).
+    its global index gives it (the chains of gradient refinement), and then
+    ``task_vec`` [K, 4] and ``state0`` [K, n_state] may give each sample a
+    task and a start state of its own.
     """
     p, D, n_q = spec.env_params, spec.D, spec.n_q
     K = acts.shape[0]
     o = 2 * n_q
+    lead = state0.shape[:-1]  # () or, with per-sample start states, (K,)
+
+    def rows(a: int, b: int, shape):
+        return state0[..., a:b].reshape(lead + shape).expand((K,) + shape)
+
     state = point_env.PointEnvState(
-        q=state0[:n_q].expand(K, n_q),
-        qd=state0[n_q:o].expand(K, n_q),
-        dyn_pos=state0[o : o + 2 * D].reshape(D, 2).expand(K, D, 2),
-        dyn_yaw=state0[o + 2 * D : o + 3 * D].expand(K, D),
-        dyn_vel=state0[o + 3 * D : o + 5 * D].reshape(D, 2).expand(K, D, 2),
-        dyn_om=state0[o + 5 * D : o + 6 * D].expand(K, D),
+        q=rows(0, n_q, (n_q,)),
+        qd=rows(n_q, o, (n_q,)),
+        dyn_pos=rows(o, o + 2 * D, (D, 2)),
+        dyn_yaw=rows(o + 2 * D, o + 3 * D, (D,)),
+        dyn_vel=rows(o + 3 * D, o + 5 * D, (D, 2)),
+        dyn_om=rows(o + 5 * D, o + 6 * D, (D,)),
         contact_force=torch.zeros(K, p.num_actors, 3, dtype=acts.dtype, device=acts.device),
         fric_scale=fric_k,
     )
     if mode is None:
         gk = torch.arange(K, device=acts.device, dtype=torch.float32) + task_vec[3]
         mode = ((gk >= spec.K // 2) & (gk < spec.K)).to(torch.int32)
-    task = SimpleNamespace(task_id=task_vec[0], goal=task_vec[1:3])
+    task = SimpleNamespace(task_id=task_vec[..., 0], goal=task_vec[..., 1:3])
     ext = point_env.zero_ext(p, (K,))
     costs, points = [], []
     for t in range(spec.T):
@@ -318,9 +325,17 @@ def make_point_rollout(
         """The plain rollout's costs [N, T] of N sequences ``acts`` [N, T,
         n_u] from the start state of ``sim_state_k`` (its sample 0's friction
         scales), sequence n scored under ``mode[n]``: the differentiable
-        chain of gradient refinement (no kernel has a backward)."""
+        chain of gradient refinement (no kernel has a backward).  A seed
+        batch's B x N sequences [B, N, T, n_u] run as one plain rollout, each
+        row with its seed's start state, task and friction scales."""
         task_vec, state0, fric_k = rollout_inputs(sim_state_k, task)
-        return point_rollout_plain(spec, task_vec, state0, fric_k[:1].expand(acts.shape[0], -1), acts, mode)[0]
+        if acts.dim() == 3:
+            return point_rollout_plain(spec, task_vec, state0, fric_k[:1].expand(acts.shape[0], -1), acts, mode)[0]
+        B, N = acts.shape[:2]
+        rows = lambda x: x.repeat_interleave(N, dim=0)  # noqa: E731 (row b N + n takes seed b's)
+        fric = fric_k[:, 0].repeat_interleave(N, dim=0)
+        return point_rollout_plain(spec, rows(task_vec), rows(state0), fric, acts.flatten(0, 1),
+                                   mode.flatten())[0].unflatten(0, (B, N))
 
     rollout.spec = spec
     rollout.chain = chain

@@ -142,7 +142,7 @@ class PointObjective:
         """Task dispatch (cost_functions.py:19-36): only navigation adds the
         motion cost; push/pull return bare.  Reposition (id 8) runs the
         navigation cost.  Returns (cost [...], PointExtForces)."""
-        goal = task.goal[:2]
+        goal = task.goal[..., :2]
         terms = self._dist_terms(state, goal)
         nav = self._navigation(state, goal)
         push = self._push(terms)
@@ -235,8 +235,8 @@ class PandaObjective:
     def _pick(self, state, links, task):
         cube_pos = state.body_pos[..., self.cubeA_slot, :]
         cube_quat = state.body_quat[..., self.cubeA_slot, :]
-        goal_cost = vector_norm(task.goal[:3] - cube_pos, dim=-1)
-        ori_cost = general_ori_cube2goal(cube_quat, task.goal[3:7])
+        goal_cost = vector_norm(task.goal[..., :3] - cube_pos, dim=-1)
+        ori_cost = general_ori_cube2goal(cube_quat, task.goal[..., 3:7])
         # re-grasp term, zero while the cube is held
         ee_pos = links["ee"][0]
         regrasp = 10.0 * vector_norm(ee_pos - cube_pos, dim=-1) * (1.0 - state.attached)
@@ -295,21 +295,21 @@ class AlbertObjective:
             ee_pos = albert.fk(state)["ee"][0]
         goal = task.goal
         q_xy = state.q[..., :2]
-        ee_cost = 10.0 * vector_norm(ee_pos - goal[:3], dim=-1)
-        nav_cost = vector_norm(q_xy - goal[:2], dim=-1)
+        ee_cost = 10.0 * vector_norm(ee_pos - goal[..., :3], dim=-1)
+        nav_cost = vector_norm(q_xy - goal[..., :2], dim=-1)
         # base-progress shaping: ranks wheel samples apart from the arm noise
-        base_cost = 3.0 * vector_norm(q_xy - goal[:2], dim=-1)
+        base_cost = 3.0 * vector_norm(q_xy - goal[..., :2], dim=-1)
 
         # push_reach: the base shoves the box to goal[:2] while the arm keeps
         # the EE hovering over the moving box at height goal[2]
         r2b = state.box_pos - q_xy
-        b2g = goal[:2] - state.box_pos
+        b2g = goal[..., :2] - state.box_pos
         d_rb = vector_norm(r2b, dim=-1)
         d_bg = vector_norm(b2g, dim=-1)
         cos_theta = torch.sum(-r2b * b2g, dim=-1) / torch.clamp(d_rb * d_bg, min=1e-9)
         approach = 5.0 * torch.clamp(d_rb - self.approach_r, min=0.0)
         push_cost = 3.0 * (d_rb + d_bg * 10.0) + 1.5 * (1.0 + cos_theta) + approach
-        hover = torch.cat([state.box_pos, goal[2:3].expand(state.box_pos.shape[:-1] + (1,))], dim=-1)
+        hover = torch.cat([state.box_pos, goal[..., 2:3].expand(state.box_pos.shape[:-1] + (1,))], dim=-1)
         # contact-gated hover weight, 1.5 far -> 4.0 in contact
         hover_w = 1.5 + 2.5 * sigmoid((self.hover_gate_r - d_rb) / 0.03)
         hover_cost = hover_w * vector_norm(ee_pos - hover, dim=-1)

@@ -60,6 +60,7 @@ from m3p2i_aip_tpu_torch.ops.sampling import gaussian_halton_samples
 from m3p2i_aip_tpu_torch.ops.spline import bspline_interp_matrix
 from m3p2i_aip_tpu_torch.ops.weights import multimodal_weights, multimodal_weights_batched
 from m3p2i_aip_tpu_torch.parallel.mesh import sample_sharding
+from m3p2i_aip_tpu_torch.tamp.graph_tick import repeat
 from m3p2i_aip_tpu_torch.utils.tree import tree_map, tree_stack
 
 
@@ -217,6 +218,7 @@ class MPPI:
         self.sample_mode = self._t((np.arange(self.K) >= self.half_K).astype(np.int32))
         self.rollout = rollout
         self.mesh = None  # optional device mesh over the samples; see parallel/mesh.py
+        self._streams: list = []  # the one-card mesh's side streams (_shard_streams)
         self.fric_noise = None if fric_noise is None else np.asarray(fric_noise)
         self.generator = torch.Generator(device=self.device)
         self.seed_generators: list = []  # one per seed of a batch (init_state_batch)
@@ -234,7 +236,8 @@ class MPPI:
     def _rollout(self, sim_state_k, acts: torch.Tensor, task: TaskParams):
         """The rollout of all K samples (mppi.py:546-550): one call of
         ``self.rollout``, or with a mesh one call per shard on its device's
-        current stream, shard i on samples i K/n .. (i+1) K/n - 1 with the
+        current stream (on one card, on a side stream of its own:
+        ``_shard_streams``), shard i on samples i K/n .. (i+1) K/n - 1 with the
         global offset ``k0`` (so a shard keeps the half-batch mode split by
         global index), the costs and trajectories gathered onto the mesh's
         first device in shard order.  Returns ([..., K, T], [..., K, T, 2])."""
@@ -243,12 +246,34 @@ class MPPI:
         shard = sample_sharding(self.mesh)
         nb = acts.dim() - 3  # the K axis, behind a seed axis if any
         k_loc = self.K // self.mesh.size
+        streams = self._shard_streams()
         outs = []
         for i, a in enumerate(shard.split(acts, nb)):
             s = tree_map(lambda x: shard.piece(x, i, nb), sim_state_k)
             t = tree_map(lambda x: x.to(a.device), task)
-            outs.append(self.rollout(s, a, t, k0=i * k_loc))
+            if streams is None:
+                outs.append(self.rollout(s, a, t, k0=i * k_loc))
+                continue
+            streams[i].wait_stream(torch.cuda.current_stream(a.device))  # fork
+            with torch.cuda.stream(streams[i]):
+                outs.append(self.rollout(s, a, t, k0=i * k_loc))
+        if streams is not None:
+            for st in streams:  # join
+                torch.cuda.current_stream(acts.device).wait_stream(st)
         return shard.gather([c for c, _ in outs], nb), shard.gather([t for _, t in outs], nb)
+
+    def _shard_streams(self) -> Optional[list]:
+        """A mesh whose shards all lie on one card launches each shard's
+        rollout on a side stream of its own, forked from and joined to the
+        current stream, so a captured tick holds the shards as parallel
+        branches of one graph (``shard_map``'s run); None (the current
+        stream of each shard's device) on the CPU or over distinct cards."""
+        devices = set(self.mesh.devices)
+        if len(devices) > 1 or next(iter(devices)).type != "cuda":
+            return None
+        if len(self._streams) != self.mesh.size:
+            self._streams = [torch.cuda.Stream(self.mesh.devices[0]) for _ in range(self.mesh.size)]
+        return self._streams
 
     # ------------------------------------------------------------------ init
     def _make_halton_spline_deltas(self) -> np.ndarray:
@@ -649,15 +674,24 @@ class MPPI:
     def _plan_costs(self, sim_state_k, acts, task: TaskParams, modes) -> torch.Tensor:
         """The rollout's differentiable chain (``rollout.chain``): costs
         [..., N, T] of the sequences ``acts`` [..., N, T, nu], sequence n
-        scored under ``modes[..., n]``; a seed batch runs one chain call per
-        seed."""
-        if acts.dim() == 3:
-            return self.rollout.chain(sim_state_k, acts, task, modes)
-        rows = []
-        for b in range(acts.shape[0]):
-            sim_b, task_b = (tree_map(lambda x: x[b], tree) for tree in (sim_state_k, task))
-            rows.append(self._plan_costs(sim_b, acts[b], task_b, modes[b]))
-        return torch.stack(rows)
+        scored under ``modes[..., n]``; a seed batch's B x N sequences run
+        as one chain of B x N rows."""
+        return self.rollout.chain(sim_state_k, acts, task, modes)
+
+    def _grad_step(self, means: torch.Tensor, inputs) -> torch.Tensor:
+        """One gradient step of ``_grad_refine`` on the means [..., N, T, nu]:
+        autograd's gradient of the chains' discounted cost, non-finite
+        entries 0, divided by its Frobenius norm (at least 1e-6), a step of
+        ``grad_refine_lr``, clamped to the control bounds."""
+        sim_state_k, task, modes = inputs
+        with torch.enable_grad():
+            leaf = means.detach().requires_grad_(True)
+            acts = self._gripper_override(leaf.clone(), task)
+            costs = self._plan_costs(sim_state_k, self.u_scale * acts, task, modes)
+            (g,) = torch.autograd.grad(torch.sum(costs * self.gamma_seq), leaf)
+        g = torch.where(torch.isfinite(g), g, 0.0)
+        g = g / torch.clamp(torch.linalg.vector_norm(g, dim=(-2, -1), keepdim=True), min=1e-6)
+        return torch.clamp(means - self.grad_refine_lr * g, self.u_min, self.u_max)
 
     def _grad_refine(self, state: MPPIState, sim_state_k, task: TaskParams) -> MPPIState:
         """First-order refinement of the mean plan(s) (mppi.py:923):
@@ -668,7 +702,10 @@ class MPPI:
         backward); non-finite entries count as 0, and the step is divided by
         the Frobenius norm over [T, nu] (at least 1e-6).  Multi-modal, the
         global mean (under the mode whose half holds more weight) and the two
-        mode means run as one batch of three chains."""
+        mode means run as one batch of three chains; a seed batch's chains
+        run as one batch of B x 3 rows (``rollout.chain``).  The steps are
+        ``graph_tick.repeat``'s loop: in a captured tick one step is a graph
+        of its own, replayed ``grad_refine_steps`` times."""
         if self.grad_refine_steps <= 0:
             return state
         if self.multi_modal:
@@ -681,16 +718,8 @@ class MPPI:
         else:
             means = state.mean_action[..., None, :, :]
             modes = self.sample_mode[:1].expand(means.shape[:-2])
-        for _ in range(self.grad_refine_steps):
-            with torch.enable_grad():
-                leaf = means.detach().requires_grad_(True)
-                acts = self._gripper_override(leaf.clone(), task)
-                costs = self._plan_costs(sim_state_k, self.u_scale * acts, task, modes)
-                (g,) = torch.autograd.grad(torch.sum(costs * self.gamma_seq), leaf)
-            g = torch.where(torch.isfinite(g), g, 0.0)
-            g = g / torch.clamp(torch.linalg.vector_norm(g, dim=(-2, -1), keepdim=True), min=1e-6)
-            means = torch.clamp(means - self.grad_refine_lr * g, self.u_min, self.u_max)
-        means = self._gripper_override(means, task)  # means is fresh from the clamp
+        means = repeat(self.grad_refine_steps, self._grad_step, means, (sim_state_k, task, modes))
+        means = self._gripper_override(means, task)  # fresh from the clamp, or in a capture repeat's static carry
         if self.multi_modal:
             return dataclasses.replace(
                 state,

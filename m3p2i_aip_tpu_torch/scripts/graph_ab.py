@@ -9,8 +9,18 @@ rates and device idle shares, in one process.
    benchmark mode (gates off, two chunks of 25), the point per tick (``SimLoop.run``, the
    ``run_tamp`` script's loop), the panda table pick-place gated (chunks of
    50, the latch at 83), the albert push_reach gated (chunks of 10) and the
-   n=20 point and panda batches (``BatchSimLoop``, chunks of 4 and 10).
-2. Each graph's capture time, node count, memory pool and launches a replay.
+   n=20 point, panda and albert batches (``BatchSimLoop``, chunks of 4, 10
+   and 10).
+   Then the paths whose programs are compiled besides the tick: the
+   gradient-refined panda (the round-4 setting, ``REFINED``: three graphs a
+   tick, one gradient step replayed ``grad_refine_steps`` times), the gated
+   main path over 8 shards of one card (``SHARDED``: each shard's rollout a
+   branch of the graph), and the two terminals in process
+   (``TWO_TERMINAL``: ``scripts/sim.py``'s ``drive`` against a
+   ``ReactiveTAMPServer``, the client's steps and the server's command
+   compiled; every view sent, action returned and the final states).
+2. Each graph's capture time, node count, memory pool and launches a replay
+   (a segmented tick: each segment's nodes, replays and capture time).
 3. K2 at K = 16384 (the cost-to-go in opted-in shared memory): a launch
    captured into a CUDA graph against an eager launch, and with
    ``parent=PATH`` against the earlier source's launch (built here with the
@@ -23,7 +33,12 @@ rates and device idle shares, in one process.
    chunk of each mode (device time and idle share a tick), but for the
    pipelined and per-tick rates, whose device tick is the serial one's;
    each of the port's kernels appears in the trace as many times as its
-   wrappers launched it (eager) or its graph replays did (compiled).
+   wrappers launched it (eager) or its graph replays did (compiled).  The
+   main path over 8 shards is a rate of the list.
+5. Turns (eager, compiled, compiled, eager) of what is not a chunked rate:
+   the two terminals in process (the client's whole tick and its
+   ``run_tamp`` call, medians), ``SimLoop.warmup(150)`` and a 150-step
+   panda settle (seconds), and the gradient-refined panda tick (seconds).
 
     python -m m3p2i_aip_tpu_torch.scripts.graph_ab [parent=PATH/multimodal_weights.cu] [out=PATH|-] [--quick]
 
@@ -45,10 +60,13 @@ import torch
 
 from m3p2i_aip_tpu_torch.analysis import bench_record as br
 from m3p2i_aip_tpu_torch.config.config_store import load_config
+from m3p2i_aip_tpu_torch.parallel import make_mesh, shard_planner
 from m3p2i_aip_tpu_torch.scripts import bench, bench_albert, bench_northstar, bench_panda
 from m3p2i_aip_tpu_torch.scripts.bench import MAIN_PATH
 from m3p2i_aip_tpu_torch.scripts.run_tamp import pop_option
+from m3p2i_aip_tpu_torch.scripts.sim import drive
 from m3p2i_aip_tpu_torch.tamp.batch_loop import BatchSimLoop
+from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMPServer
 from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
 
 PUSH_REACH = ["task=push_reach", "goal=[3.0,0.0,0.6]"]
@@ -64,8 +82,22 @@ PER_TICK = 60  # the per-tick parity run's ticks, gated
 BATCHES = [
     ("point batch", "config_point", MAIN_PATH, 4, 300),
     ("panda batch", "config_panda", ["multi_modal=True"], 10, 600),
+    ("albert batch", "config_albert", [], 10, 300),
 ]
 N_SEEDS = 20
+# the round-4 panda setting (config/mppi/panda.yaml:25-32): eight gradient steps on the plain chain
+GRAD_REFINE = ["multi_modal=True", "mppi.grad_refine_steps=8", "mppi.grad_refine_unroll=True", "mppi.refine_iters=0"]
+# (label, config, overrides, warm-up, ticks, chunk, gated, shards): the compiled planner's other paths
+REFINED = ("panda grad-refine", "config_panda", GRAD_REFINE, 50, 2, 1, True, 0)
+SHARDED = ("point x8 shards", "config_point", MAIN_PATH, 50, 1000, 50, True, 8)
+# (label, config, overrides, ticks): the two terminals in process
+TWO_TERMINAL = [
+    ("two-terminal point", "config_point", ["task=push", "goal=[-1,-1]"], 60),
+    ("two-terminal panda", "config_panda", [], 20),
+    ("two-terminal albert", "config_albert", [], 20),
+]
+TURN_TICKS = 20  # the two terminals' ticks a turn
+STEPS = 150  # the warm-up's and the settle's steps a turn
 RATE_CHUNK, RATE_TIMED = 50, 100  # the rates: 2 chunks to settle, then these timed ticks
 PROFILE_TICKS = 5  # a profiled chunk's ticks (an eager point tick is ~4,700 kernel events)
 
@@ -130,10 +162,13 @@ def log_record(log) -> dict:
 
 
 def run_loop(config_name: str, overrides: list, graphs, warmup: int, ticks: int, chunk: int, gated: bool,
-             per_tick: bool = False, device="cuda") -> dict:
-    """One run of a single loop; returns its record (chunk or tick outputs,
-    log, final carry) and the loop."""
+             per_tick: bool = False, device="cuda", shards: int = 0) -> dict:
+    """One run of a single loop (its planner's samples split over ``shards``
+    shards of ``device`` when nonzero); returns its record (chunk or tick
+    outputs, log, final carry) and the loop."""
     loop = SimLoop(load_config(config_name, overrides), device=device, graphs=graphs)
+    if shards:
+        shard_planner(loop.tamp.motion_planner, make_mesh([torch.device(device)] * shards))
     loop.warmup(warmup)
     if not gated:
         br.gates_off(loop)
@@ -172,18 +207,44 @@ def run_batch(config_name: str, overrides: list, graphs, chunk: int, cap: int, d
     return batch_record(batch, rec, batch.run_chunked(cap, chunk=chunk))
 
 
+def run_two_terminal(config_name: str, overrides: list, graphs, ticks: int, device="cuda") -> dict:
+    """The two terminals in one process: ``drive`` (pacing off) against a
+    ``ReactiveTAMPServer`` called directly, both with ``graphs``.  Returns
+    its record (every tick's dof and root views sent and action returned;
+    the final planner and env states), the server as ``loop``, and each
+    tick's ``run_tamp`` and whole-tick seconds."""
+    server = ReactiveTAMPServer(load_config(config_name, overrides), device=device, graphs=graphs)
+    sent = []
+
+    class Recorder:
+        def run_tamp(self, dof, root):
+            action = server.run_tamp(dof, root)
+            sent.append([np.array(dof), np.array(root), np.asarray(action)])
+            return action
+
+        get_suction, get_trajs = server.get_suction, server.get_trajs
+
+    env, state, rpc_s, tick_s = drive(load_config(config_name, overrides), Recorder(), n_ticks=ticks, pace=False,
+                                      device=device, graphs=graphs)
+    br.synchronize(env.device)
+    return {"outputs": sent, "log": {"ticks": len(tick_s)}, "carry": carry_fields(server.tamp.mppi_state, state),
+            "loop": server, "rpc_s": rpc_s, "tick_s": tick_s}
+
+
 def parity(label: str, eager: dict, compiled: dict) -> dict:
     """Compare an eager and a compiled run's records; raises unless bit-equal."""
     diffs = {k: differ(eager[k], compiled[k]) for k in ("outputs", "log", "carry")}
     logs = compiled["log"] if isinstance(compiled["log"], list) else [compiled["log"]]
-    steps = [g["success_step"] for g in logs]
+    steps = [g.get("success_step") for g in logs]
     tamp = compiled["loop"].tamp
     graphs = tamp.ticks.stats()
     print(f"[graph-parity {label}] chunks/ticks {len(compiled['outputs'])}, success ticks {steps}; differences from "
           f"the eager run: {sum(len(d) for d in diffs.values())} {[(k, d[:3]) for k, d in diffs.items() if d]}")
     for g in graphs:
+        segments = "" if len(g["segments"]) == 1 else "; segments (nodes x replays, capture ms) " + ", ".join(
+            f"{x['nodes']} x {x['replays']} ({x['capture_s'] * 1e3:.1f})" for x in g["segments"])
         print(f"[graph-capture {label}] {g['key']}: capture {g['capture_s'] * 1e3:.1f} ms, {g['nodes']} nodes, pool "
-              f"{g['pool_bytes'] / 2**20:.2f} MiB, launches a replay {g['launches']}, replays {g['replays']}")
+              f"{g['pool_bytes'] / 2**20:.2f} MiB, launches a replay {g['launches']}, replays {g['replays']}{segments}")
     assert graphs or tamp.ticks.mode != "graph", f"{label}: the compiled run captured no graph"
     assert not any(diffs.values()), f"{label}: the compiled run differs from the eager run: {diffs}"
     return {"label": label, "success": steps, "graphs": graphs}
@@ -204,6 +265,14 @@ def check_parity(device="cuda", extra=(), cap=None, n_seeds: int = N_SEEDS) -> l
     out.append(parity("point per tick", *runs))
     for label, config_name, overrides, chunk, ticks in BATCHES:
         runs = [run_batch(config_name, [*overrides, *extra], g, chunk, min(ticks, cap or ticks), device, n_seeds)
+                for g in modes]
+        out.append(parity(label, *runs))
+    for label, config_name, overrides, warmup, ticks, chunk, gated, shards in (REFINED, SHARDED):
+        runs = [run_loop(config_name, [*overrides, *extra], g, warmup, min(ticks, cap or ticks), chunk, gated,
+                         device=device, shards=shards) for g in modes]
+        out.append(parity(label, *runs))
+    for label, config_name, overrides, ticks in TWO_TERMINAL:
+        runs = [run_two_terminal(config_name, [*overrides, *extra], g, min(ticks, cap or ticks), device)
                 for g in modes]
         out.append(parity(label, *runs))
     return out
@@ -325,6 +394,14 @@ def _batched(batch, chunk: int, timed: int) -> float:
     return 10 * n / (time.perf_counter() - t0)
 
 
+def _sharded(graphs) -> SimLoop:
+    """The main path's loop in benchmark mode over 8 shards of the card."""
+    loop = SimLoop(bench.config(), device="cuda", graphs=graphs)
+    shard_planner(loop.tamp.motion_planner, make_mesh([torch.device("cuda", 0)] * SHARDED[-1]))
+    loop.warmup(50)
+    return loop
+
+
 # name: ((make(graphs) -> loop, measure(loop, chunk, timed) -> Hz), {profile label: a substring of the kernel's
 # name}, or None: not profiled, the same device tick as "point serial")
 RATES = {
@@ -335,6 +412,7 @@ RATES = {
     "panda serial": (_twin(bench_panda), {"K3": "panda_rollout", "K2": "weights"}),
     "albert serial": (_twin(bench_albert, warmup=20), {"K4": "albert_rollout"}),
     "north-star serial": (_twin(bench_northstar), {"K1": "point_rollout", "K2": "weights"}),
+    "point x8 shards serial": ((_sharded, _twin(bench)[1]), {"K1": "point_rollout", "K2": "weights"}),
 }
 
 
@@ -353,8 +431,9 @@ def _traced_profile(loop, kernels: dict, label: str):
     """``br.profile`` of one chunk of the loop whose kernel events equal the
     launches its wrappers counted and its graph replays made while it ran
     (``br.traced_launches``).  A trace short of some events is taken once
-    more, said in one line (the profiler has lost one tick's events of an
-    eager chunk on the card); a second difference raises."""
+    more, said in one line with the differing kernels' event times (the
+    profiler has lost one tick's events of an eager chunk on the card); a
+    second difference raises."""
     for attempt in range(2):
         before = br.launch_counts()
         prof = br.profile(_profile_of(loop), PROFILE_TICKS, kernels)
@@ -363,7 +442,9 @@ def _traced_profile(loop, kernels: dict, label: str):
         diff = br.traced_launches(prof, before)
         if not diff:
             return prof
-        print(f"[graph-trace {label}] kernel events (traced, counted) differ: {diff}", flush=True)
+        starts = {sym: prof["kernel_starts_ms"][sym] for sym in diff}
+        print(f"[graph-trace {label}] kernel events (traced, counted) differ: {diff}; their start times, ms from the "
+              f"first device event: {starts}, the last device event's end {prof['device_span_ms']} ms", flush=True)
     raise AssertionError(f"{label}: the profiled kernel events differ from the launches twice: {diff}")
 
 
@@ -397,6 +478,86 @@ def paired_rates(card: str, names=tuple(RATES), chunk: int = RATE_CHUNK, timed: 
     return out
 
 
+def _turns(run) -> dict:
+    """``run(graphs)`` in turns: eager, compiled, compiled, eager; its
+    results by mode."""
+    out = {"eager": [], "compiled": []}
+    for graphs in (False, None, None, False):
+        out["eager" if graphs is False else "compiled"].append(run(graphs))
+    return out
+
+
+def two_terminal_turns(card: str, ticks: int = TURN_TICKS) -> dict:
+    """The two terminals in process, each family ``ticks`` ticks a turn:
+    the medians of the client's whole tick and of its ``run_tamp`` call, ms."""
+    out = {}
+    for label, config_name, overrides, _ in TWO_TERMINAL:
+        def run(graphs):
+            rec = run_two_terminal(config_name, overrides, graphs, ticks)
+            return float(np.median(rec["tick_s"])) * 1e3, float(np.median(rec["rpc_s"])) * 1e3
+
+        out[label] = _turns(run)
+        fmt = lambda xs: " / ".join(f"{t:.2f} ({r:.2f})" for t, r in xs)  # noqa: E731
+        print(f"[graph-turns {label}] client tick (run_tamp) ms, medians of {ticks} ticks: eager "
+              f"{fmt(out[label]['eager'])}, compiled {fmt(out[label]['compiled'])} (in turns e, c, c, e; {card})",
+              flush=True)
+    return out
+
+
+def step_turns(card: str, n: int = STEPS) -> dict:
+    """``SimLoop.warmup(n)`` of the point and the panda and a panda
+    ``settle(n)``, seconds a turn, each turn on a fresh loop (a compiled
+    turn's first step captures the step's graph: ``capture_s``)."""
+    out = {}
+    for label, config_name, method in (("point warmup", "config_point", "warmup"),
+                                       ("panda warmup", "config_panda", "warmup"),
+                                       ("panda settle", "config_panda", "settle")):
+        captures = []
+
+        def run(graphs):
+            loop = SimLoop(load_config(config_name), device="cuda", graphs=graphs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            getattr(loop, method)(n)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            captures.extend(g["capture_s"] for g in loop.tamp.ticks.stats())
+            return wall
+
+        out[label] = dict(_turns(run), capture_s=captures)
+        fmt = lambda xs: " / ".join(f"{x:.4f}" for x in xs)  # noqa: E731
+        print(f"[graph-turns {label}] {n} steps, s: eager {fmt(out[label]['eager'])}, compiled "
+              f"{fmt(out[label]['compiled'])} (in turns e, c, c, e; of each compiled turn the capture "
+              f"{fmt(captures)}; {card})", flush=True)
+    return out
+
+
+def grad_refine_turns(card: str, ticks: int = REFINED[4]) -> dict:
+    """The gradient-refined panda (``REFINED``), ``ticks`` gated ticks a
+    turn after its warm-up, seconds a tick (a compiled turn's first tick
+    runs eagerly and captures), with each compiled turn's graphs."""
+    _, config_name, overrides, warmup, _, _, _, _ = REFINED
+    graphs_seen = []
+
+    def run(graphs):
+        loop = _loop(load_config(config_name, overrides), graphs, warmup)
+        tick_s = []
+        for _ in range(ticks + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loop.run_chunked(1, chunk=1)
+            torch.cuda.synchronize()
+            tick_s.append(time.perf_counter() - t0)
+        graphs_seen.append(loop.tamp.ticks.stats())
+        return tick_s
+
+    out = dict(_turns(run), graphs=[g for g in graphs_seen if g])
+    fmt = lambda xs: " / ".join(", ".join(f"{t:.4f}" for t in x) for x in xs)  # noqa: E731
+    print(f"[graph-turns panda grad-refine] tick s (the first of each turn warms up or captures): eager "
+          f"{fmt(out['eager'])}; compiled {fmt(out['compiled'])} (in turns e, c, c, e; {card})", flush=True)
+    return out
+
+
 def main(argv) -> dict:
     out, argv = pop_option(argv, "out", None)
     parent, argv = pop_option(argv, "parent", None)
@@ -407,6 +568,8 @@ def main(argv) -> dict:
     rec = {"weights": check_weights_captured(parent), "parity": check_parity()}
     if "--quick" not in argv:
         rec["rates"] = paired_rates(card)
+        rec["turns"] = {"two_terminal": two_terminal_turns(card), "steps": step_turns(card),
+                        "grad_refine": grad_refine_turns(card)}
     dev = br.device_record(torch.device("cuda"))
     rec.update(platform=dev["platform"], device=dev)
     br.emit(rec, "GRAPH_AB.json", out)

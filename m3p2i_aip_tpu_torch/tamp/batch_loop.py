@@ -34,7 +34,9 @@ cannot partition a ``pallas_call``), every shard keeps the batched kernels.
 Compiled ticks (``tamp/graph_tick.py``): a shard's B-seed tick is one CUDA
 graph, captured at the first chunk with every seed's generator registered,
 and the done pre-latch a buffer of its carry; ``reset`` with as many seeds
-re-seeds the same generators, so the graph is kept.
+re-seeds the same generators, so the graph is kept.  The warm-up (one scene,
+``SimLoop.warmup``) and each shard's settle at its seed count replay an env
+step's graph (``graph_tick.env_steps``), as the JAX package jits them.
 
 Parity: the logs equal those of B serial ``SimLoop.run_chunked`` runs at the
 same chunk size, seed b drawing its exploration noise from a generator
@@ -52,6 +54,7 @@ import torch
 
 from m3p2i_aip_tpu_torch.parallel.mesh import Mesh, make_mesh
 from m3p2i_aip_tpu_torch.planners.motion_planner.mppi import TASK_IDS, MPPIState, TaskParams
+from m3p2i_aip_tpu_torch.tamp.graph_tick import env_steps
 from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMP, build_task_planner
 from m3p2i_aip_tpu_torch.tamp.sim_loop import _STAGE_TASK, SimLoop, TickLog
 from m3p2i_aip_tpu_torch.utils.tree import tree_map
@@ -320,14 +323,14 @@ class BatchSimLoop:
         every seed at once (the panda with the place stage's open gripper,
         so the cube releases), then every seed's view refreshed from ONE
         transfer per shard.  Call before logging panda rows: the reference
-        logs the released, settled cube."""
+        logs the released, settled cube.  Each shard's ``n`` steps are ``n``
+        replays of its compiled step at its seed count (eager with
+        ``graphs=False``)."""
         for sh in self._shards:
             env, per = sh.tamp.env, sh.seeds.stop - sh.seeds.start
             zero_u = torch.zeros(per, env.nu, dtype=torch.float32, device=sh.tamp.device)
             if self.is_panda:
                 zero_u[:, 7:9] = 1.5
-            ext = env.zero_ext((per,))
-            for _ in range(n):
-                sh.state = env.step(sh.state, zero_u, ext)
+            sh.state = env_steps(sh.tamp.ticks, env, sh.state, zero_u, env.zero_ext((per,)), n)
         views = np.concatenate([sh.tamp.env.view_vec(sh.state).cpu().numpy() for sh in self._shards])
         self.views = [self.env.view_unpack(v) for v in views]

@@ -32,7 +32,8 @@ fallback to the eager tick.
 The graphs of one ``ReactiveTAMP`` share one memory pool (:class:`TickGraphs`).
 Every tensor that outlives a replay lies outside the pool (the static
 buffers are allocated before capture), so the pool only holds a tick's
-intermediates and any order of replays of the pool's graphs is safe.  The
+intermediates and any order of the pool's programs is safe (a tick cut
+into graphs by :func:`repeat` replays them all, in order, as one step).  The
 planner's ``torch.Generator``s are registered with each graph, so a replay
 draws the numbers the eager tick would draw next.
 
@@ -40,6 +41,19 @@ Launch counts: a capture launches nothing, so the kernel wrappers' counts
 are restored after it, and each replay adds the launches the capture
 recorded to :data:`replayed_launches` (captured launches x replays), apart
 from the wrappers' counts of what they launched themselves.
+
+Loops inside a tick (:func:`repeat`: the planner's gradient steps) are not
+unrolled into the tick's graph: the capture ends before the loop, the loop's
+body is captured once into a graph of its own over a static carry and
+replayed ``n`` times, and a third graph captures the rest of the tick.  The
+three are replayed in their capture order on one stream, with no host sync
+between them.  The first (eager) run of a body on the card runs on the
+capture stream, so the lazy state autograd and cuBLAS keep per stream and
+per thread exists before the capture (PyTorch's whole-network capture).
+
+Programs without a planner (:func:`env_steps`: warm-ups and settles, the sim
+client's step) take the same :class:`TickProgram` with the env state as their
+carry.
 """
 from __future__ import annotations
 
@@ -134,6 +148,72 @@ def pool_bytes(pool) -> int:
                if tuple(s.get("segment_pool_id", ())) == tuple(pool))
 
 
+class _Segments:
+    """A capture in progress, cut into graphs at each :func:`repeat`: the
+    parts ``[graph, replays, launches counted while it was captured,
+    capture seconds]`` in replay order."""
+
+    def __init__(self, prog: "TickProgram") -> None:
+        self.prog = prog
+        self.parts: list = []
+        self.keep: list = []  # the static carries of the repeated graphs
+        self._graph = None
+
+    def begin(self) -> None:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        for gen in self.prog.generators:
+            graph.register_generator_state(gen)
+        self._counts, self._t0 = _launch_counts(), time.perf_counter()
+        graph.capture_begin(pool=self.prog.owner.pool())
+        self._graph = graph
+
+    def end(self, replays: int = 1) -> None:
+        graph, self._graph = self._graph, None
+        graph.capture_end()
+        after = _launch_counts()
+        deltas = {k: after[k] - n for k, n in self._counts.items() if after[k] != n}
+        self.parts.append([graph, replays, deltas, time.perf_counter() - self._t0])
+
+    def abort(self) -> None:
+        """End a capture a failure interrupted (the failure is raised on)."""
+        if self._graph is not None:
+            graph, self._graph = self._graph, None
+            try:
+                graph.capture_end()
+            except RuntimeError:
+                pass
+
+
+_capturing: Optional[_Segments] = None  # the capture in progress, for repeat()
+
+
+def repeat(n: int, step: Callable, carry, inputs):
+    """``carry = step(carry, inputs)`` ``n`` times; returns the last carry.
+
+    Run eagerly, or over static buffers, it is the Python loop.  Inside a
+    capture the tick's graph ends here: ``step`` is captured once into a
+    graph of its own over a static copy of ``carry`` (the copy is the last
+    node of the graph before), replayed ``n`` times, and the rest of the
+    tick goes into a new graph that reads the static carry.  ``inputs`` are
+    read where they lie: the tick's buffers or its earlier intermediates,
+    which stay referenced until the capture ends."""
+    seg = _capturing
+    if seg is None:
+        for _ in range(n):
+            carry = step(carry, inputs)
+        return carry
+    if n <= 0:
+        return carry
+    buf = clone(carry)  # captured: each replay copies the carry in
+    seg.keep.append(buf)
+    seg.end()
+    seg.begin()
+    copy_into(buf, step(buf, inputs))
+    seg.end(replays=n)
+    seg.begin()
+    return buf
+
+
 class TickProgram:
     """One control tick over static buffers (see the module docstring).
 
@@ -147,10 +227,10 @@ class TickProgram:
         self.inputs = clone(inputs)
         self.outputs = None  # static, from the first tick's outputs
         self.generators = list(generators)
-        self.graph = None
+        self.graph = None  # the captured parts ([graph, replays, launches, capture s], ...)
+        self._keep: list = []  # the static carries of its repeated parts
         self.replays = 0
-        self.stats: dict = {}  # capture_s, nodes, pool_bytes, launches (per replay)
-        self._deltas: dict = {}
+        self.stats: dict = {}  # capture_s, nodes, pool_bytes, launches (per replay), segments
 
     def load(self, carry, inputs) -> None:
         """Copy a host-side carry and inputs into the static buffers."""
@@ -170,24 +250,33 @@ class TickProgram:
             copy_into(self.outputs, outs)
 
     def step(self) -> None:
-        """One tick: a replay of the graph, or (its first tick on cuda, every
-        tick on the CPU) the body over the static buffers."""
+        """One tick: a replay of the graph (each part in turn, a repeated
+        part its ``n`` times), or (its first tick on cuda, every tick on the
+        CPU) the body over the static buffers."""
         if self.graph is not None:
-            self.graph.replay()
+            for graph, n, _, _ in self.graph:
+                for _ in range(n):
+                    graph.replay()
             self.replays += 1
-            for (_, name), n in self._deltas.items():
+            for name, n in self.stats["launches"].items():
                 replayed_launches[name] = replayed_launches.get(name, 0) + n
             return
-        self._run()
-        if self.owner.mode == GRAPH:
-            self._capture()
+        if self.owner.mode != GRAPH:
+            self._run()
+            return
+        # the warm-up: the body once, eagerly, on the capture stream
+        stream, current = self.owner.stream(), torch.cuda.current_stream(self.owner.device)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            self._run()
+        current.wait_stream(stream)
+        self._capture()
 
     def _capture(self) -> None:
+        global _capturing
         owner, dev = self.owner, self.owner.device
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        for gen in self.generators:
-            graph.register_generator_state(gen)
         before = _launch_counts()
+        seg = _Segments(self)
         # a CUDA graph that is garbage (a dropped planner's, held in a
         # reference cycle) is destroyed whenever Python's collector runs, and
         # destroying a graph during a capture invalidates the capture: collect
@@ -196,45 +285,61 @@ class TickProgram:
         gc.disable()
         t0 = time.perf_counter()
         try:
-            with torch.cuda.device(dev), torch.cuda.graph(graph, pool=owner.pool(), stream=owner.stream()):
-                self._run()
+            with torch.cuda.device(dev):
+                torch.cuda.synchronize(dev)
+                with torch.cuda.stream(owner.stream()):
+                    _capturing = seg
+                    try:
+                        seg.begin()
+                        self._run()
+                        seg.end()
+                    except BaseException:
+                        seg.abort()
+                        raise
+                    finally:
+                        _capturing = None
         finally:
             gc.enable()
-        graph.instantiate()
+        for graph, *_ in seg.parts:
+            graph.instantiate()
         capture_s = time.perf_counter() - t0
-        after = _launch_counts()
         for (mod, name), n in before.items():
             setattr(mod, name, n)  # a capture launches nothing
-        self._deltas = {k: after[k] - n for k, n in before.items() if after[k] != n}
-        self.graph = graph
+        launches: dict = {}
+        for _, n, deltas, _ in seg.parts:
+            for (_, name), d in deltas.items():
+                launches[name] = launches.get(name, 0) + n * d
+        self.graph = seg.parts
+        self._keep = seg.keep
+        segments = [{"nodes": graph_nodes(g), "replays": n, "capture_s": s} for g, n, _, s in seg.parts]
         self.stats = {
             "key": self.key,
             "capture_s": capture_s,
-            "nodes": graph_nodes(graph),
+            "nodes": sum(x["nodes"] for x in segments),
             "pool_bytes": pool_bytes(owner.pool()),
-            "launches": {name: n for (_, name), n in self._deltas.items()},
+            "launches": launches,
+            "segments": segments,
         }
 
 
 class TickGraphs:
-    """A ``ReactiveTAMP``'s compiled ticks: its mode, one :class:`TickProgram`
-    per key (family, gate on/off, seed count), one graph memory pool and one
+    """A ``ReactiveTAMP``'s compiled programs (or, for a caller without a
+    planner, such as the sim client, its own): its mode, one
+    :class:`TickProgram` per key (the tick's kind, gate on/off and seed
+    count; the command; the env steps), one graph memory pool and one
     capture stream."""
 
-    def __init__(self, device: torch.device, graphs: Optional[bool], eager_reason: Optional[str] = None) -> None:
-        self.device = device
-        self.mode = resolve_mode(graphs, device)
+    def __init__(self, device: torch.device, graphs: Optional[bool]) -> None:
+        self.device = torch.device(device)
+        self.mode = resolve_mode(graphs, self.device)
         self.programs: dict = {}
         self._pool = None
         self._stream = None
         self._said: set = set()
-        if eager_reason is not None:
-            self.eager_by_rule(eager_reason)
-            self.mode = EAGER
 
     def eager_by_rule(self, reason: str) -> None:
-        """Say once that a path runs the eager tick by rule (ROADMAP.md:
-        gradient refinement, a sample-sharded planner)."""
+        """Say once that a path runs eagerly by rule (ROADMAP.md: a
+        sample-sharded planner over distinct cards)."""
         if self.mode != EAGER and reason not in self._said:
             self._said.add(reason)
             print(f"graph_tick: {reason}: this planner runs the eager tick (no CUDA graph)", file=sys.stderr)
@@ -259,3 +364,26 @@ class TickGraphs:
         """Each captured graph's capture time, nodes, pool bytes and launches
         per replay, with its replays so far."""
         return [dict(p.stats, replays=p.replays) for p in self.programs.values() if p.graph is not None]
+
+
+def env_steps(ticks: TickGraphs, env, state, action, ext, n: int):
+    """``n`` steps of ``env`` from ``state`` under one action and one set of
+    external forces (a warm-up's or a settle's): ``n`` replays of the
+    compiled step (key: env type, seed count, "step"; the env state its
+    carry, the action and forces its inputs) with no host sync between
+    them, or ``n`` eager steps when ``ticks`` is eager.  Returns the state
+    (the host's own copy)."""
+    if n <= 0:
+        return state
+    if ticks.mode == EAGER:
+        for _ in range(n):
+            state = env.step(state, action, ext)
+        return state
+    lead = action.shape[:-1]
+    key = (env.env_type, lead[0] if lead else None, "step")
+    prog = ticks.program(key, lambda: TickProgram(ticks, key, lambda s, x: (env.step(s, *x), None), state,
+                                                  (action, ext)))
+    prog.load(state, (action, ext))
+    for _ in range(n):
+        prog.step()
+    return prog.carry_out()

@@ -17,8 +17,12 @@ Compiled ticks (``tamp/graph_tick.py``): each chunk and the per-tick
 card as a CUDA graph and replayed every tick (the JAX package's jitted tick
 and scan); ``graphs=False`` keeps the eager tick, the same body called with
 a host tick index and fresh tensors, which the compiled one equals bit for
-bit.  Gradient refinement and a sample-sharded planner run the eager tick by
-rule.
+bit.  The per-tick API's planner call (``run_tamp``, the RPC server's) is a
+compiled program too (``_command``, the JAX package's jitted
+``MPPI._command``), and so are the gradient steps inside a tick
+(``graph_tick.repeat``) and a sample-sharded planner on one card (each
+shard's rollout on a stream of its own, branches of one graph).  Only a
+planner sharded over distinct cards runs eagerly, by rule.
 
 The panda chunk (``_run_chunk_panda_impl``) runs the active-inference
 reach -> pick -> place decision on the device every tick
@@ -54,7 +58,7 @@ from m3p2i_aip_tpu_torch.planners.motion_planner.cost_functions import (
     PointObjective,
 )
 from m3p2i_aip_tpu_torch.planners.motion_planner.m3p2i import M3P2I
-from m3p2i_aip_tpu_torch.planners.motion_planner.mppi import TaskParams, make_task_params
+from m3p2i_aip_tpu_torch.planners.motion_planner.mppi import MPPIState, TaskParams, make_task_params
 from m3p2i_aip_tpu_torch.planners.task_planner.task_planner import (
     ZUP_IMPROVE_M,
     ZUP_RELEASE_M,
@@ -135,9 +139,7 @@ class ReactiveTAMP:
         self.device_gate = True
         self._tp_key = None
         self._tp_cached: Optional[TaskParams] = None
-        refine = self.motion_planner.grad_refine_steps > 0
-        self.ticks = TickGraphs(self.device, graphs, "gradient refinement (autograd through the plain step)"
-                                if refine else None)
+        self.ticks = TickGraphs(self.device, graphs)
 
     # ------------------------------------------------------------------ api
     def run_tamp(self, real_state) -> torch.Tensor:
@@ -147,9 +149,7 @@ class ReactiveTAMP:
         task_params = self.tamp_interface(real_state)
         if self.task_success:
             return self._zero_action
-        action_seq, self.mppi_state, aux = self.motion_planner.command(self.mppi_state, real_state, task_params)
-        self.top_trajs = aux["top_trajs"]
-        return action_seq[0]
+        return self._command(real_state, task_params)[0]
 
     def run_tamp_sequence(self, real_state) -> torch.Tensor:
         """:meth:`run_tamp`, returning the first ``u_per_command`` actions
@@ -158,9 +158,31 @@ class ReactiveTAMP:
         u = self.cfg.mppi.u_per_command
         if self.task_success:
             return torch.zeros(u, self.env.nu, dtype=torch.float32, device=self.device)
-        action_seq, self.mppi_state, aux = self.motion_planner.command(self.mppi_state, real_state, task_params)
+        return self._command(real_state, task_params)[:u]
+
+    def _command_body(self, mppi_state, inputs):
+        """The planner's call as a program body: carry the planner state,
+        inputs (real state, TaskParams); outputs the action sequence and the
+        top trajectories."""
+        action_seq, mppi_state, aux = self.motion_planner._command_impl(mppi_state, *inputs)
+        return mppi_state, (action_seq, aux["top_trajs"])
+
+    def _command(self, real_state, task: TaskParams) -> torch.Tensor:
+        """One replan from ``real_state`` (``MPPI.command`` with the
+        generator's draw): compiled, one replay of the command's program,
+        its outputs cloned out; the new planner state (``get_suction`` reads
+        its weights) and the top trajectories kept.  Returns the action
+        sequence [T, nu].  A call with an injected draw (``noise=``) is
+        ``MPPI.command``'s own, eager."""
+        if self._compiled():
+            prog = self._program("command", self._command_body, self.mppi_state, (real_state, task))
+            prog.step()
+            self.mppi_state = prog.carry_out()
+            action_seq, self.top_trajs = clone(prog.outputs)
+            return action_seq
+        action_seq, self.mppi_state, aux = self.motion_planner.command(self.mppi_state, real_state, task)
         self.top_trajs = aux["top_trajs"]
-        return action_seq[:u]
+        return action_seq
 
     def tamp_interface(self, real_state) -> TaskParams:
         """:meth:`tamp_interface_view` on a real state (one device->host read)."""
@@ -264,19 +286,22 @@ class ReactiveTAMP:
 
     def _compiled(self) -> bool:
         """Whether this planner's ticks run compiled (``graph_tick``); a
-        sample-sharded planner runs them eagerly, by rule."""
+        planner sharded over distinct cards runs them eagerly, by rule."""
         if self.ticks.mode == EAGER:
             return False
-        if self.motion_planner.mesh is not None:
-            self.ticks.eager_by_rule("a sample-sharded planner (one rollout call per shard)")
+        mesh = self.motion_planner.mesh
+        if mesh is not None and len(set(mesh.devices)) > 1:
+            self.ticks.eager_by_rule("a sample-sharded planner over distinct cards (a graph across cards cannot be "
+                                     "checked on one card)")
             return False
         return True
 
     def _program(self, kind: str, body, carry, inputs) -> TickProgram:
-        """The compiled tick of ``kind`` for this carry's seed count (made at
-        first use with ``carry`` and ``inputs`` as its buffers' templates),
-        loaded with ``carry`` and ``inputs``."""
-        lead = carry[0].mean_action.shape[:-2]
+        """The compiled tick (or command) of ``kind`` for this carry's seed
+        count (made at first use with ``carry`` and ``inputs`` as its
+        buffers' templates), loaded with ``carry`` and ``inputs``."""
+        ms = carry if isinstance(carry, MPPIState) else carry[0]
+        lead = ms.mean_action.shape[:-2]
         key = (kind, lead[0] if lead else None)
         mp = self.motion_planner
         gens = mp.seed_generators if lead else [mp.generator]
@@ -476,10 +501,12 @@ class ReactiveTAMPServer:
     """The reference's RPC surface (``run_tamp(dof_state, root_state)`` with
     Isaac-layout tensors, ``get_suction``, ``get_trajs``;
     reactive_tamp.py:609) over an in-process :class:`ReactiveTAMP` on
-    ``device``.  Serve it with ``m3p2i_aip_tpu_torch.utils.rpc.Server``."""
+    ``device``, its planner call compiled (``graphs`` as the planner's:
+    False runs it eagerly).  Serve it with
+    ``m3p2i_aip_tpu_torch.utils.rpc.Server``."""
 
-    def __init__(self, cfg, device="cuda") -> None:
-        self.tamp = ReactiveTAMP(cfg, device=device)
+    def __init__(self, cfg, device="cuda", graphs: Optional[bool] = None) -> None:
+        self.tamp = ReactiveTAMP(cfg, device=device, graphs=graphs)
         self._state = self.tamp.env.init_state()
 
     def run_tamp(self, dof_state, root_state) -> np.ndarray:

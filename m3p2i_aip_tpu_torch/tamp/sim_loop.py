@@ -14,7 +14,9 @@ after it has enqueued the next chunk.
 
 Every tick, per tick or in a chunk, runs compiled by default: one replay of
 a CUDA graph on the card (``tamp/graph_tick.py``); ``graphs=False`` runs the
-eager tick.  The loop's ``state`` and ``tamp.mppi_state`` are host-owned
+eager tick.  So do the warm-up and the settle: ``n`` replays of one env
+step's graph (``graph_tick.env_steps``, the JAX package's jitted ``env.step``
+and settle scan).  The loop's ``state`` and ``tamp.mppi_state`` are host-owned
 copies of the graphs' carry, copied in before and out after each chunk or
 tick, so a checkpoint, a shove or a new plan between chunks reaches the next
 replay and nothing the host holds is overwritten by one.
@@ -30,6 +32,7 @@ import torch
 
 from m3p2i_aip_tpu_torch.envs import Env, command_world_vel
 from m3p2i_aip_tpu_torch.models.panda_env import DYN_NAMES
+from m3p2i_aip_tpu_torch.tamp.graph_tick import env_steps
 from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMP
 from m3p2i_aip_tpu_torch.utils import skill_utils
 
@@ -54,6 +57,24 @@ def real_suction_ext(cfg, env: Env, state, action):
     dyn = ext.dyn.clone()
     dyn[env.box_slot] = f_box
     return dataclasses.replace(ext, robot=f_robot, dyn=dyn)
+
+
+def real_suction_ext_device(cfg, env: Env, state, action, suction: torch.Tensor):
+    """:func:`real_suction_ext` as tensor work, for a compiled step: the
+    planner's grant ``suction`` is a device bool (an input of the step,
+    never a value frozen at capture); the task (``cfg.task``) and the scene
+    are static.  The forces are :func:`real_suction_ext`'s bit for bit."""
+    ext = env.zero_ext()
+    if env.env_type != "point_env" or "box" not in env.params.actor_names or cfg.task not in ("pull", "push_pull"):
+        return ext
+    box_pos = state.dyn_pos[env.box_slot]
+    robot_pos = state.q[:2]
+    dir_rb = robot_pos - box_pos
+    cmd_vel = command_world_vel(env.params, state.q, action)
+    on = suction & (torch.sum(cmd_vel[..., :2] * dir_rb) > 0) & (torch.linalg.vector_norm(dir_rb) < 0.6)
+    f_box, f_robot = skill_utils.calculate_suction(box_pos, robot_pos, float(cfg.kp_suction), threshold=1.5)
+    dyn = torch.stack([torch.where(on, f_box, 0.0) if d == env.box_slot else ext.dyn[d] for d in range(ext.dyn.shape[0])])
+    return dataclasses.replace(ext, robot=torch.where(on, f_robot, 0.0), dyn=dyn)
 
 
 def _pack_chunk(views: torch.Tensor, n_ticks, dev_done) -> torch.Tensor:
@@ -119,11 +140,10 @@ class SimLoop:
         self._panda_zs = None
 
     def warmup(self, n: int = 150) -> None:
-        """Settle the scene with zero actions before planning (sim.py:32-33)."""
+        """Settle the scene with zero actions before planning (sim.py:32-33):
+        ``n`` replays of the compiled step (eager steps with ``graphs=False``)."""
         zero_u = torch.zeros(self.env.nu, dtype=torch.float32, device=self.env.device)
-        ext = self.env.zero_ext()
-        for _ in range(n):
-            self.state = self.env.step(self.state, zero_u, ext)
+        self.state = env_steps(self.tamp.ticks, self.env, self.state, zero_u, self.env.zero_ext(), n)
         self._view = self.env.view(self.state)
 
     def _record(self, i: int, view: dict, replan_s: float, sim_s: float) -> bool:
@@ -362,13 +382,12 @@ class SimLoop:
         """Free-run ``n`` zero-action env steps and refresh the view
         (sim_loop.py:215): the reference's logged rows come from a released,
         settled cube.  The panda keeps the place stage's OPEN gripper command,
-        or the fingers never travel and the cube never releases."""
+        or the fingers never travel and the cube never releases.  Compiled as
+        :meth:`warmup`."""
         zero_u = torch.zeros(self.env.nu, dtype=torch.float32, device=self.env.device)
         if self.env.env_type == "panda_env":
             zero_u[7:9] = 1.5
-        ext = self.env.zero_ext()
-        for _ in range(n):
-            self.state = self.env.step(self.state, zero_u, ext)
+        self.state = env_steps(self.tamp.ticks, self.env, self.state, zero_u, self.env.zero_ext(), n)
         self._view = self.env.view(self.state)
 
     def perturb_body(self, name: str, dpos) -> None:

@@ -20,8 +20,9 @@ device tick counter), which is what a capture records on the card.  Here:
   0-400; ``graphs=True`` on the CPU raises; a checkpoint taken through the
   static buffers resumes bit for bit; ``reset`` re-seeds in place and
   re-captures nothing, and a batch that returns to a seed count replays
-  the generators its program registered; gradient refinement and a sample-sharded planner run
-  the eager tick by rule.
+  the generators its program registered; gradient refinement and a planner
+  sharded over one device compile, and a planner sharded over distinct
+  devices runs the eager tick by rule.
 
 Sizes: K=8, T=8 (the panda T=4).
 """
@@ -180,7 +181,7 @@ def test_static_batch_tick_equals_eager_chunk(family):
     batch, got = _batch(config_name, overrides, None)
     _, ref = _batch(config_name, overrides, False)
     _assert_same(got, ref, family)
-    (prog,) = batch.tamp.ticks.programs.values()
+    (prog,) = [p for key, p in batch.tamp.ticks.programs.items() if key[-1] != "step"]  # the warm-up's step aside
     assert prog.key[1] == 3
     rs = got[1]
     assert torch.equal(rs.q[0], batch.state.q[0])  # seed 0 entered done: untouched
@@ -289,14 +290,24 @@ def test_program_refuses_generators_it_did_not_register():
         batch.run_chunked(2, chunk=2)
 
 
-def test_grad_refine_and_sharded_planner_run_eager_by_rule(capsys):
+def test_grad_refine_and_a_one_card_mesh_compile(capsys):
+    """A gradient-refining planner and a planner sharded over one device
+    (a mesh of repeated ``cpu``) both run the compiled tick, saying nothing."""
     tamp = ReactiveTAMP(load_config("config_point", [*SMALL, "mppi.grad_refine_steps=1"]), device="cpu")
-    assert tamp.ticks.mode == graph_tick.EAGER
-    assert "gradient refinement" in capsys.readouterr().err
+    assert tamp.ticks.mode == graph_tick.STATIC and tamp._compiled()
     tamp = ReactiveTAMP(load_config("config_point", SMALL), device="cpu")
     shard_planner(tamp.motion_planner, make_mesh([torch.device("cpu")] * 2))
+    assert tamp.ticks.mode == graph_tick.STATIC and tamp._compiled()
+    assert capsys.readouterr().err == ""
+
+
+def test_mesh_over_distinct_devices_runs_eager_by_rule(capsys):
+    """A planner sharded over distinct devices runs the eager tick, and says
+    why once (a graph across cards cannot be checked on one card)."""
+    tamp = ReactiveTAMP(load_config("config_point", SMALL), device="cpu")
+    shard_planner(tamp.motion_planner, make_mesh([torch.device("cpu"), torch.device("cuda", 0)]))
     assert tamp.ticks.mode == graph_tick.STATIC and not tamp._compiled()
-    assert "sample-sharded" in capsys.readouterr().err
+    assert "distinct cards" in capsys.readouterr().err
     assert not tamp._compiled() and capsys.readouterr().err == ""  # said once
 
 
