@@ -87,7 +87,12 @@ that record nothing run it (``graphs=True``, or the default):
   in turns (serial, pipelined, per tick, the B=20 batched tick, the panda,
   the albert, the north-star shape), each mode profiled (device time, idle
   share), each profile's kernel events equal to the launches its wrappers
-  counted (eager) or its graph replays made (compiled);
+  counted (eager) or its graph replays made (compiled); and ``MPPI.command``
+  itself compiled (one CUDA graph a command) against ``graphs=False``: ten
+  chained commands of the point main path, the panda multi-modal, the
+  albert push_reach, a B=3 point seed batch and the point over 8 shards of
+  the card, bit for bit in actions, planner states and top trajectories,
+  with each graph's nodes, capture time and ms a call in turns;
 * the sample axis split over shards of the card (``parallel.shard_planner``
   on a mesh that repeats ``cuda:0``): the gated main path over 8 shards
   (pipelined, no host sync in any enqueue) and over 5, each latching at the
@@ -97,8 +102,9 @@ that record nothing run it (``graphs=True``, or the default):
   launches the eager run's; the multi-modal panda and the albert
   push_reach over 8 shards, tick for tick equal to their unsharded runs,
   every K3 / K4 call held to its plain version; the gather's time, a
-  profile, and ``scripts/bench_sharded.py``'s sweep (K = 512, 2048, 8192,
-  unsharded against 8 shards, in turns, and against a mesh of 1 shard);
+  profile, and ``scripts/bench_sharded.py``'s sweep of compiled commands
+  (K = 512, 2048, 8192, 16384, unsharded against 8 shards, in turns, and
+  the compiled 1-shard command against an eager unsharded one);
 * the seed axis over 4 shards of the card (``BatchSimLoop(shard=mesh)``),
   compiled: the n=20 point and panda batches, every seed's row and success
   tick equal to the unsharded eager batch's, the compiled seed-tick rate
@@ -263,6 +269,23 @@ SEED_BENCH_CHUNKS = 1  # the seed-shard rate: 1 warm-up chunk, then this many of
 SHARD_PROFILE_TICKS = 2  # the sharded runs' profiled ticks (a 4-shard batched tick is ~19,000 device kernels)
 SIM_COLUMNS = {"point": [*range(1, 14), 17, 18], "panda": list(range(1, 15))}  # a row's columns that are not clocks
 GRAPH_RATE_CHUNK, GRAPH_RATE_TIMED = 10, 20  # the paired eager / compiled rates: 2 chunks to settle, then these
+# MPPI.command compiled against graphs=False: (label, config, overrides, seeds B, sample shards of the card), the
+# chained commands of each held bit for bit, then the chained commands timed a turn (eager, compiled, compiled, eager)
+COMMAND_CASES = (
+    ("point", "config_point", MAIN_PATH, 1, None),
+    ("panda multi-modal", "config_panda", ["multi_modal=True"], 1, None),
+    ("albert push_reach", "config_albert", PUSH_REACH, 1, None),
+    ("point B=3", "config_point", MAIN_PATH, 3, None),
+    ("point x8 shards", "config_point", MAIN_PATH, 1, 8),
+)
+COMMAND_CALLS, COMMAND_TIMED = 10, 20
+COMMAND_LAUNCHES = {  # a command's launches, by counter
+    "point": {"rollout_launches": 1, "weights_launches": 1},
+    "panda multi-modal": {"panda_rollout_launches": 4, "weights_launches": 3},
+    "albert push_reach": {"albert_rollout_launches": 4},
+    "point B=3": {"rollout_batched_launches": 1, "weights_batched_launches": 1},
+    "point x8 shards": {"rollout_launches": 8, "weights_launches": 1},
+}
 # the eager runs held against their compiled twins in phase_graphs (graph_ab's record of each: chunk outputs, log,
 # final carry), kept by the phases that run them, under graph_ab.LOOPS's and graph_ab.BATCHES's labels
 EAGER_RUNS: dict = {}
@@ -2066,8 +2089,10 @@ def phase_graphs(card: str, serial_log) -> tuple:
     captures the gated tick).  Then the rates in turns with a profile of each
     mode (``graph_ab.paired_rates``), each profile's kernel events held to
     the launches counted and replayed while it ran.  Prints each graph's
-    capture time, nodes, pool and launches a replay.  Returns (the launch
-    counts by kernel, their replayed part, the rates)."""
+    capture time, nodes, pool and launches a replay.  Before the rates,
+    ``MPPI.command`` itself compiled against eager (``phase_command``).
+    Returns (the launch counts by kernel, their replayed part, the
+    rates)."""
     from m3p2i_aip_tpu_torch.config.config_store import load_config
     from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
 
@@ -2115,9 +2140,103 @@ def phase_graphs(card: str, serial_log) -> tuple:
     assert len(syncs) > 1 and not any(syncs[1:]), f"a compiled pipelined enqueue synchronised the host: {syncs}"
     del loop
 
+    for name, n in phase_command(card, replayed).items():
+        launches[name] = launches.get(name, 0) + n
+
     names = tuple(name for name in graph_ab.RATES if "shards" not in name)  # phase_sample_shard runs the shards
     rates = graph_ab.paired_rates(card, names, chunk=GRAPH_RATE_CHUNK, timed=GRAPH_RATE_TIMED)
     return launches, replayed, rates
+
+
+def _command_chain(tamp, B: int, calls: int) -> tuple:
+    """``calls`` chained ``MPPI.command`` calls of ``tamp``'s planner from
+    its start scene (B > 1: seeds 0..B-1, seed b's start moved 0.01 b),
+    the real state stepped by each call's first action.  Returns (every
+    call's (actions, planner state, aux), the last (state, real state,
+    TaskParams))."""
+    from m3p2i_aip_tpu_torch.utils.tree import tree_map
+
+    mp, env = tamp.motion_planner, tamp.env
+    real = env.init_state()
+    task = tamp.tamp_interface(real)
+    state = tamp.mppi_state
+    if B > 1:
+        real = tree_map(lambda x: x.expand((B,) + x.shape).clone(), real)
+        real.q.add_(0.01 * torch.arange(B, dtype=torch.float32, device=real.q.device)[:, None])
+        state = mp.init_state_batch(list(range(B)))
+        task = tree_map(lambda x: x.expand((B,) + x.shape), task)
+    ext = env.zero_ext((B,)) if B > 1 else env.zero_ext()
+    out = []
+    for _ in range(calls):
+        action, state, aux = mp.command(state, real, task)
+        out.append((action, state, aux))
+        real = env.step(real, action[..., 0, :], ext)
+    return out, (state, real, task)
+
+
+def phase_command(card: str, replayed: dict) -> dict:
+    """``MPPI.command`` itself compiled (the default on the card: one CUDA
+    graph, captured at the first call after one eager run, replayed by each
+    later one) against ``graphs=False``, for each of COMMAND_CASES:
+    COMMAND_CALLS chained commands from the start scene, every call's
+    actions, planner state and aux (weights, top trajectories and values)
+    bit for bit, the launches of each run counted just around it (the
+    compiled run's from its first call and its replays) and held to
+    COMMAND_LAUNCHES; then COMMAND_TIMED chained commands timed in turns
+    (eager, compiled, compiled, eager; host clock to a synchronize), printed
+    with the graph's nodes and capture time.  Adds the replayed launches to
+    ``replayed`` and returns the launches by kernel (replays included)."""
+    from m3p2i_aip_tpu_torch.config.config_store import load_config
+    from m3p2i_aip_tpu_torch.parallel import shard_planner
+    from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMP
+
+    counted: dict = {}
+    for label, config_name, overrides, B, shards in COMMAND_CASES:
+        runs = {}
+        for graphs in (False, None):
+            tamp = ReactiveTAMP(load_config(config_name, overrides), device="cuda", graphs=graphs)
+            if shards:
+                shard_planner(tamp.motion_planner, _card_mesh(shards))
+            _zero_launches()
+            out, last = _command_chain(tamp, B, COMMAND_CALLS)
+            torch.cuda.synchronize()
+            counts, rep = _read_launches(), _read_replayed()
+            mode = "eager" if graphs is False else "compiled"
+            _expect_launches(f"command {label} {mode}", counts,
+                             {k: n * COMMAND_CALLS for k, n in COMMAND_LAUNCHES[label].items()})
+            for name, n in counts.items():
+                if n:
+                    counted[KERNEL_OF_COUNTER[name]] = counted.get(KERNEL_OF_COUNTER[name], 0) + n
+            for kernel, n in rep.items():
+                replayed[kernel] = replayed.get(kernel, 0) + n
+            runs[graphs] = (tamp, out, last)
+        (eager, ref, _), (tamp, got, _) = runs[False], runs[None]
+        same = [all(torch.equal(x, y) for x, y in zip(graph_tick._leaves(a), graph_tick._leaves(b)))
+                for a, b in zip(got, ref)]
+        (stats,) = tamp.ticks.stats()
+        assert stats["key"][0] == "command" and not eager.ticks.programs, f"command {label}: {stats['key'][:4]}"
+
+        def per_call(graphs) -> float:
+            mp, (state, real, task) = runs[graphs][0].motion_planner, runs[graphs][2]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(COMMAND_TIMED):
+                _, state, _ = mp.command(state, real, task)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / COMMAND_TIMED * 1e3
+
+        ms = {False: [], None: []}
+        for graphs in (False, None, None, False):
+            ms[graphs].append(per_call(graphs))
+        print(f"[command {label}] compiled against eager, {COMMAND_CALLS} chained calls: actions, planner states and "
+              f"aux bit-equal {all(same)} ({sum(same)} of {len(same)} calls); graph {stats['nodes']} nodes, capture "
+              f"{stats['capture_s'] * 1e3:.1f} ms, launches a replay {stats['launches']}; ms a call in turns, eager "
+              f"{', '.join(f'{t:.3f}' for t in ms[False])}, compiled {', '.join(f'{t:.3f}' for t in ms[None])} "
+              f"({card})")
+        assert all(same), f"command {label}: the compiled command differs from the eager one at calls " \
+                          f"{[i for i, ok in enumerate(same) if not ok]}"
+        del runs, eager, tamp
+    return counted
 
 
 def phase_grad_refine(card: str) -> tuple:
@@ -2409,32 +2528,39 @@ def phase_sample_shard(card: str, main_log: dict) -> tuple:
 
 
 def phase_shard_sweep(card: str) -> None:
-    """The bench_sharded twin's sweep on one card (``sweep_row``): the main
-    path's planner at K in SWEEP_K (horizon 12) unsharded and over 8 shards
-    of the card; the first commands from identical planner states must be
-    equal (K=16384 included: K2 past its old 12288 samples), then
-    SWEEP_TICKS chained commands timed in turns (unsharded, 8, 8,
-    unsharded): ms a replan and the ratio.  At each K a mesh of 1 shard (the
-    sharded code path alone) must give exactly the unsharded command, one
-    command from identical planner states."""
+    """The bench_sharded twin's sweep on one card (``sweep_row``), its
+    commands compiled (``MPPI.command``'s program, one CUDA graph a
+    command): the main path's planner at K in SWEEP_K (horizon 12)
+    unsharded and over 8 shards of the card; the first commands from
+    identical planner states must be equal (K=16384 included: K2 past its
+    old 12288 samples), then SWEEP_TICKS chained commands timed in turns
+    (unsharded, 8, 8, unsharded): ms a replan and the ratio.  At each K the
+    compiled command of a mesh of 1 shard (the sharded code path alone) must
+    give exactly an eager unsharded planner's command: the second command of
+    each from identical planner states (the compiled one's first replay)."""
     from m3p2i_aip_tpu_torch.parallel import shard_planner
     from m3p2i_aip_tpu_torch.scripts import bench_sharded
     from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMP
 
     for K in SWEEP_K:
         row = bench_sharded.sweep_row(K, SWEEP_TICKS, torch.device("cuda"), _card_mesh(8))
-        print(f"[shard-sweep] K={row['K']}, ms a replan in turns U 8 8 U: unsharded "
+        assert row["tick"] == "graph", row["tick"]
+        print(f"[shard-sweep] K={row['K']}, compiled, ms a replan in turns U 8 8 U: unsharded "
               f"{', '.join(f'{t:.3f}' for t in row['unsharded_runs_ms'])}, 8 shards "
               f"{', '.join(f'{t:.3f}' for t in row['sharded_runs_ms'])} (x{row['sharded_over_unsharded']:.3f}); first "
               f"commands' max |diff| {row['action_maxdiff']} ({card})")
         assert row["action_maxdiff"] == 0.0, f"K={row['K']}: the sharded first command differs"
-        tamps = [ReactiveTAMP(bench_sharded.config(row["K"]), device="cuda", graphs=False) for _ in range(2)]
+        tamps = [ReactiveTAMP(bench_sharded.config(row["K"]), device="cuda", graphs=g) for g in (False, None)]
         shard_planner(tamps[1].motion_planner, _card_mesh(1))
         state = tamps[0].env.init_state()
         task = tamps[0].tamp_interface(state)
-        first = [tamp.motion_planner.command(tamp.mppi_state, state, task)[0] for tamp in tamps]
+        first = []
+        for tamp in tamps:  # the second command from the start state: the compiled planner's first replay
+            tamp.motion_planner.command(tamp.mppi_state, state, task)
+            first.append(tamp.motion_planner.command(tamp.mppi_state, state, task)[0])
+        assert [g["key"][0] for g in tamps[1].ticks.stats()] == ["command"] and not tamps[0].ticks.programs
         assert torch.equal(*first), f"K={row['K']}: the 1-shard command differs from the unsharded one"
-        print(f"[shard-sweep] K={row['K']}: the 1-shard mesh's first command equals the unsharded one")
+        print(f"[shard-sweep] K={row['K']}: the 1-shard mesh's compiled command equals the eager unsharded one")
 
 
 def phase_northstar(card: str) -> tuple:

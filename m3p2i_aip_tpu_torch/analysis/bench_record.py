@@ -195,6 +195,15 @@ KERNEL_SYMBOLS = {
 }
 
 
+# :func:`profile`'s pads: empty kernels before and after the profiled run.
+# On the card a trace loses its first device events, more of them the more
+# profiles the process has taken (30 to 43 over ten, enough to drop an eager
+# north-star chunk's first K1 and K2), and at times up to a few hundred of
+# its last
+PAD = 4096
+PAD_SYMBOL = "spin_kernel"  # the kernel of torch.cuda._sleep
+
+
 def launch_counts() -> dict:
     """Every kernel's launches, by kernel: (its wrapper's own count, the
     launches CUDA graph replays made, ``graph_tick.replayed_launches``)."""
@@ -332,7 +341,14 @@ def host_ms(fn, calls: int = 10, device: torch.device = torch.device("cuda")) ->
     return float(np.median(times)) * 1e3
 
 
-def profile(run, n: int, kernels: dict):
+def _pad(n: int) -> None:
+    """``n`` empty kernels, waited for."""
+    for _ in range(n):
+        torch.cuda._sleep(0)
+    torch.cuda.synchronize()
+
+
+def profile(run, n: int, kernels: dict, pad: int = PAD):
     """``torch.profiler`` over ``run()``, a chunk of ``n`` ticks on the card:
     {"kernels_per_tick", "device_ms_per_tick", "wall_ms_per_tick",
     "idle_pct", "kernel_ms_per_tick"} with the time a tick of each kernel in
@@ -341,20 +357,46 @@ def profile(run, n: int, kernels: dict):
     (:data:`KERNEL_SYMBOLS`), and, to place a lost event, "kernel_starts_ms",
     those events' start times, and "device_span_ms", the last device
     event's end, both from the first device event; None when the profiler
-    saw no device kernel (device time not measured)."""
+    saw no device kernel (device time not measured).
+
+    The profiler loses events at the ends of a trace (:data:`PAD`).  So
+    the run is framed inside the profile by ``pad`` empty kernels before it
+    and ``pad`` after it (``torch.cuda._sleep(0)``, :data:`PAD_SYMBOL`),
+    each pad waited for; a loss at an end then falls on a pad.  The pads' events are left out of
+    every figure above and counted apart (:func:`summarize`)."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _pad(pad)
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        _pad(pad)
+    return summarize([e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA], n, wall,
+                     kernels, pad)
+
+
+def summarize(events: list, n: int, wall: float, kernels: dict, pad: int):
+    """:func:`profile`'s record from its device events (each with ``name``
+    and ``time_range``, in us) over a run of ``n`` ticks and ``wall``
+    seconds between two pads of ``pad`` launches of :data:`PAD_SYMBOL`;
+    None when no event of the run was traced.  Every figure leaves the pads
+    out; "pad" is a pad's launches, "pad_traced" the events kept of each
+    pad (head, tail), and "pad_gaps_ms" the device time between the head
+    pad's last event and the run's first, and between the run's last and
+    the tail pad's first (None where a pad kept nothing): a gap of a tick's
+    length places a lost tick."""
+    padded = [e for e in events if PAD_SYMBOL in e.name]
+    events = [e for e in events if PAD_SYMBOL not in e.name]
     if not events:
         return None
     dev_us = sum(e.time_range.elapsed_us() for e in events)
     t_first = min(e.time_range.start for e in events)
+    t_last = max(e.time_range.end for e in events)
+    head = [e.time_range.end for e in padded if e.time_range.start < t_first]
+    tail = [e.time_range.start for e in padded if e.time_range.start >= t_first]
     symbols = sorted(set(KERNEL_SYMBOLS.values()))
     return {
         "kernels_per_tick": len(events) / n,
@@ -366,5 +408,9 @@ def profile(run, n: int, kernels: dict):
         "traced_launches": {sym: sum(sym in e.name for e in events) for sym in symbols},
         "kernel_starts_ms": {sym: [round((e.time_range.start - t_first) / 1e3, 3) for e in events if sym in e.name]
                              for sym in symbols},
-        "device_span_ms": round((max(e.time_range.end for e in events) - t_first) / 1e3, 3),
+        "device_span_ms": round((t_last - t_first) / 1e3, 3),
+        "pad": pad,
+        "pad_traced": [len(head), len(tail)],
+        "pad_gaps_ms": [round((t_first - max(head)) / 1e3, 3) if head else None,
+                        round((min(tail) - t_last) / 1e3, 3) if tail else None],
     }

@@ -89,7 +89,10 @@ def shard_planner(planner, mesh: Optional[Mesh] = None):
 
     The planner's rollouts then run as one launch per shard on each shard's
     K/n samples.  K must be divisible by the mesh size, and the mesh's first
-    device, where the costs are gathered, must be the planner's.
+    device, where the costs are gathered, must be the planner's.  Through
+    ``set_mesh``, which drops the planner's compiled programs: on one card
+    the next command (or tick) captures the shards as parallel branches of
+    its graph; over distinct cards the planner runs eagerly.
     """
     mesh = mesh if mesh is not None else make_mesh()
     n = mesh.size

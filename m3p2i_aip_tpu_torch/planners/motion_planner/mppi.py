@@ -14,7 +14,11 @@ through ``ops/weights.py``.  With a mesh (``set_mesh``, through
 ``parallel.shard_planner``) each rollout runs as one call per shard on the
 shard's K/n samples and device, at the shard's global sample offset, and
 the weights run once on the costs gathered onto the mesh's first device
-(``_rollout``).  After the first update, ``refine_iters`` more
+(``_rollout``).  ``command`` runs compiled, as the JAX package's
+``jax.jit(self._command_impl)`` (mppi.py:372): one replay of a
+``graph_tick.TickProgram`` whose body is ``_command_impl`` (a CUDA graph on
+the card, the body over static buffers on the CPU, ``graphs=False`` the
+eager call).  After the first update, ``refine_iters`` more
 rollouts re-sample the cached deltas at a shrinking scale around the new
 means (the annealed refine ladder); the last rung optionally picks the argmin
 sample instead of the weighted mean.  ``update_cov`` (single mode) and
@@ -60,7 +64,7 @@ from m3p2i_aip_tpu_torch.ops.sampling import gaussian_halton_samples
 from m3p2i_aip_tpu_torch.ops.spline import bspline_interp_matrix
 from m3p2i_aip_tpu_torch.ops.weights import multimodal_weights, multimodal_weights_batched
 from m3p2i_aip_tpu_torch.parallel.mesh import sample_sharding
-from m3p2i_aip_tpu_torch.tamp.graph_tick import repeat
+from m3p2i_aip_tpu_torch.tamp.graph_tick import EAGER, TickGraphs, TickProgram, clone, repeat, signature
 from m3p2i_aip_tpu_torch.utils.tree import tree_map, tree_stack
 
 
@@ -140,10 +144,14 @@ class MPPI:
     (mppi.py:82-203).
 
     ``rollout(sim_state_k, acts, task) -> (cost_horizon [K, T], traj [K, T, 2])``
-    rolls out all K samples from the broadcast real state.
+    rolls out all K samples from the broadcast real state.  ``graphs``: None
+    (the default) compiles ``command`` (a CUDA graph on ``cuda``, the
+    static-buffer body on the CPU), False runs it eagerly, True insists on
+    CUDA graphs (raises on the CPU), as ``ReactiveTAMP``'s, which shares
+    the planner's :class:`~m3p2i_aip_tpu_torch.tamp.graph_tick.TickGraphs`.
     """
 
-    def __init__(self, cfg, rollout, fric_noise=None, device="cuda"):
+    def __init__(self, cfg, rollout, fric_noise=None, device="cuda", graphs: Optional[bool] = None):
         mcfg = cfg.mppi
         self.device = torch.device(device)
         self.env_type = cfg.env_type
@@ -223,6 +231,7 @@ class MPPI:
         self.generator = torch.Generator(device=self.device)
         self.seed_generators: list = []  # one per seed of a batch (init_state_batch)
         self._seed_generator_sets: dict = {}  # seed count -> its generators, made once
+        self.ticks = TickGraphs(self.device, graphs)  # the compiled command's program, and a ReactiveTAMP's ticks
         self.reseed(self.seed_val)
 
     def _t(self, x: np.ndarray) -> torch.Tensor:
@@ -230,8 +239,33 @@ class MPPI:
 
     def set_mesh(self, mesh) -> None:
         """Split the K sample axis of every rollout over ``mesh``
-        (``parallel.shard_planner`` checks K and the first device)."""
+        (``parallel.shard_planner`` checks K and the first device).  Drops
+        every program of the planner's ``ticks``, as the JAX package's
+        ``set_mesh`` re-jits (mppi.py:392): the command's and the ticks of a
+        ``ReactiveTAMP`` that shares them, whose captures bake the old mesh
+        in (an env step's, which does not, captures again at its next use)."""
         self.mesh = mesh
+        self.ticks.programs.clear()
+
+    def compiled(self) -> bool:
+        """Whether the command (and a ``ReactiveTAMP``'s ticks) run as
+        compiled programs (``graph_tick``): not with ``graphs=False``, and not
+        for a planner sharded over distinct cards, which runs eagerly by rule
+        (a graph across cards cannot be checked on one card; said once on
+        stderr)."""
+        if self.ticks.mode == EAGER:
+            return False
+        if self.mesh is not None and len(set(self.mesh.devices)) > 1:
+            self.ticks.eager_by_rule("a sample-sharded planner over distinct cards (a graph across cards cannot be "
+                                     "checked on one card)")
+            return False
+        return True
+
+    def generators(self, lead: tuple) -> list:
+        """The generators a step over a state with leading dims ``lead``
+        draws from (the planner's, or one per seed of a batch): a compiled
+        program registers them with its graph."""
+        return list(self.seed_generators) if lead else [self.generator]
 
     def _rollout(self, sim_state_k, acts: torch.Tensor, task: TaskParams):
         """The rollout of all K samples (mppi.py:546-550): one call of
@@ -491,8 +525,45 @@ class MPPI:
 
         Returns (action_sequence [T, nu], new_state, aux dict); [B, T, nu]
         for a seed batch.
-        """
-        return self._command_impl(state, sim_state, task, noise)
+
+        Compiled (:meth:`compiled`), it is one replay of the command's
+        program (:meth:`_program`), bit for bit the eager call, and
+        functional as a jitted call: ``state`` is copied in and never
+        written, and every tensor returned is a clone of the program's
+        buffers, which the next call overwrites.  It runs eagerly with
+        ``graphs=False``, over distinct cards (by rule), with an injected
+        draw (``noise=``: a test's input, not a generator's), and inside a
+        capture (a tick's graph records the body inline; no replay nests in
+        a capture)."""
+        capturing = self.device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+        if noise is not None or capturing or not self.compiled():
+            return self._command_impl(state, sim_state, task, noise)
+        prog = self._program(state, sim_state, task)
+        prog.step()
+        action, aux = clone(prog.outputs)
+        return action, prog.carry_out(), aux
+
+    def _command_body(self, state: MPPIState, inputs):
+        """The command as a program body: the planner state its carry, (real
+        state, TaskParams) its inputs, (action sequence, aux) its outputs."""
+        action, state, aux = self._command_impl(state, *inputs)
+        return state, (action, aux)
+
+    def _program(self, state: MPPIState, sim_state, task: TaskParams) -> TickProgram:
+        """The command's program for these inputs, loaded with them.  Its key
+        holds what a capture bakes in: the seed count (None without a seed
+        axis), the mesh, the gradient steps and every input's shape and
+        dtype; a new key captures a new program.  A program made with other
+        generators than the planner's (see :meth:`generators`) is made anew."""
+        lead = state.mean_action.shape[:-2]
+        inputs = (sim_state, task)
+        key = ("command", lead[0] if lead else None, self.mesh, self.grad_refine_steps, signature((state, inputs)))
+        gens = self.generators(lead)
+        prog = self.ticks.programs.get(key)
+        if prog is None or not prog.registered(gens):
+            prog = self.ticks.programs[key] = TickProgram(self.ticks, key, self._command_body, state, inputs, gens)
+        prog.load(state, inputs)
+        return prog
 
     def _command_impl(self, state: MPPIState, sim_state, task: TaskParams, noise=None):
         nb = state.mean_action.dim() - 2  # leading seed dims: 0, or 1 in a batch

@@ -9,12 +9,16 @@ identical planner states (``action_equal`` within the JAX script's
 K-scaled tolerance, ``action_maxdiff``), then ``--ticks`` chained commands
 from the start state on the host clock to a synchronize, in turns
 (unsharded, sharded, sharded, unsharded; medians), and the sharded /
-unsharded ratio.  The mesh spans every visible card, or with ``--virtual``
-8 shards of one device (``cuda:0``, or the CPU with ``--device cpu``): on
-one card the split measures its overhead only.  The affine crossover model
-of the JAX script is fitted to the sweep.
+unsharded ratio.  The commands are ``MPPI.command``'s compiled program, as
+the JAX script times the jitted one (one CUDA graph replayed a command; on
+one card the shards are parallel branches of it), or with ``--eager`` the
+eager call; every line's ``"tick"`` says which (``graph``, ``eager``, or
+``static`` on the CPU).  The mesh spans every visible card, or with
+``--virtual`` 8 shards of one device (``cuda:0``, or the CPU with
+``--device cpu``): on one card the split measures its overhead only.  The
+affine crossover model of the JAX script is fitted to the sweep.
 
-    python -m m3p2i_aip_tpu_torch.scripts.bench_sharded [--virtual] [--ticks 20] \\
+    python -m m3p2i_aip_tpu_torch.scripts.bench_sharded [--virtual] [--eager] [--ticks 20] \\
         [--sweep 512,2048,8192,16384] [--device cpu] [--out PATH|-]
 
 Prints one JSON line per K and the summary line, written to
@@ -65,12 +69,13 @@ def _first_action_and_replan(tamp, ticks: int):
     return act, replan_ms
 
 
-def sweep_row(K_req: int, ticks: int, device, mesh) -> dict:
-    """One K of the sweep: unsharded against ``mesh``."""
+def sweep_row(K_req: int, ticks: int, device, mesh, graphs=None) -> dict:
+    """One K of the sweep: unsharded against ``mesh``, both planners'
+    commands compiled (``graphs=None``) or eager (``graphs=False``)."""
     n = mesh.size
     K = K_req - K_req % (2 * n)  # an even split of each mode over the shards
-    tamp_u = ReactiveTAMP(config(K), device=device)
-    tamp_s = ReactiveTAMP(config(K), device=device)
+    tamp_u = ReactiveTAMP(config(K), device=device, graphs=graphs)
+    tamp_s = ReactiveTAMP(config(K), device=device, graphs=graphs)
     shard_planner(tamp_s.motion_planner, mesh)
     act_u, time_u = _first_action_and_replan(tamp_u, ticks)
     act_s, time_s = _first_action_and_replan(tamp_s, ticks)
@@ -83,6 +88,7 @@ def sweep_row(K_req: int, ticks: int, device, mesh) -> dict:
     dt_u, dt_s = float(np.median(runs["u"])), float(np.median(runs["s"]))
     return {
         "K": K,
+        "tick": tamp_s.ticks.mode,
         "unsharded_replan_ms": dt_u,
         "sharded_replan_ms": dt_s,
         "sharded_over_unsharded": dt_s / dt_u,
@@ -122,6 +128,7 @@ def crossover_model(rows: list, n: int):
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--virtual", action="store_true", help="8 shards of one device")
+    ap.add_argument("--eager", action="store_true", help="time the eager command, not its compiled program")
     ap.add_argument("--ticks", type=int, default=20)
     ap.add_argument("--sweep", type=str, default="512,2048,8192,16384", help="comma-separated K values")
     ap.add_argument("--device", type=str, default="cuda")
@@ -134,7 +141,7 @@ def main(argv=None) -> dict:
 
     rows, crossover_K = [], None
     for K_req in (int(x) for x in args.sweep.split(",")):
-        row = sweep_row(K_req, args.ticks, device, mesh)
+        row = sweep_row(K_req, args.ticks, device, mesh, graphs=False if args.eager else None)
         if crossover_K is None and row["sharded_over_unsharded"] < 1.0:
             crossover_K = row["K"]
         rows.append(row)
@@ -146,6 +153,7 @@ def main(argv=None) -> dict:
     dev = br.device_record(device)
     rec = {
         "devices": n,
+        "tick": rows[0]["tick"],
         "platform": dev["platform"],
         "device": dev,
         "ticks": args.ticks,

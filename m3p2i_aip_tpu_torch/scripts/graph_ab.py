@@ -40,9 +40,12 @@ rates and device idle shares, in one process.
    ``run_tamp`` call, medians), ``SimLoop.warmup(150)`` and a 150-step
    panda settle (seconds), and the gradient-refined panda tick (seconds).
 
-    python -m m3p2i_aip_tpu_torch.scripts.graph_ab [parent=PATH/multimodal_weights.cu] [out=PATH|-] [--quick]
+    python -m m3p2i_aip_tpu_torch.scripts.graph_ab [parent=PATH/multimodal_weights.cu] [out=PATH|-] [--quick | tail=N]
 
-``--quick`` runs the parity and the capture stats only.  Prints one line
+``--quick`` runs the parity and the capture stats only; ``tail=N`` only
+profiles the eager north-star chunk N times without and with
+``bench_record.profile``'s pads, in turns (where the profiler loses
+events).  Prints one line
 per check and per rate with the card's name and power limit, and one JSON
 line, written to ``results_h100/bench/GRAPH_AB.json``.  Needs a card.
 """
@@ -433,19 +436,55 @@ def _traced_profile(loop, kernels: dict, label: str):
     (``br.traced_launches``).  A trace short of some events is taken once
     more, said in one line with the differing kernels' event times (the
     profiler has lost one tick's events of an eager chunk on the card); a
-    second difference raises."""
+    second difference raises.  A trace that kept every kernel of the run but
+    not all of ``br.profile``'s pads is said in a line too."""
     for attempt in range(2):
         before = br.launch_counts()
         prof = br.profile(_profile_of(loop), PROFILE_TICKS, kernels)
         if prof is None:
             return None
         diff = br.traced_launches(prof, before)
+        if not diff and min(prof["pad_traced"]) < prof["pad"]:
+            print(f"[graph-trace {label}] a pad took a loss: {_trace_line(prof, diff)}", flush=True)
         if not diff:
             return prof
-        starts = {sym: prof["kernel_starts_ms"][sym] for sym in diff}
-        print(f"[graph-trace {label}] kernel events (traced, counted) differ: {diff}; their start times, ms from the "
-              f"first device event: {starts}, the last device event's end {prof['device_span_ms']} ms", flush=True)
+        print(f"[graph-trace {label}] {_trace_line(prof, diff)}", flush=True)
     raise AssertionError(f"{label}: the profiled kernel events differ from the launches twice: {diff}")
+
+
+def _trace_line(prof: dict, diff: dict) -> str:
+    """A profile's kernel events against the launches counted: the kernels
+    that differ, their events' start times, the last device event's end,
+    the pads' events kept and the gaps between the pads and the run."""
+    starts = {sym: prof["kernel_starts_ms"][sym] for sym in diff}
+    (head, tail), (gap_head, gap_tail) = prof["pad_traced"], prof["pad_gaps_ms"]
+    return (f"kernel events (traced, counted) differ: {diff or 'none'}; their start times, ms from the first device "
+            f"event: {starts}, the last device event's end {prof['device_span_ms']} ms; pads: {head} and {tail} of "
+            f"{prof['pad']} events kept before and after the run, {gap_head} ms and {gap_tail} ms from it")
+
+
+def trace_tail(card: str, name: str = "north-star serial", rounds: int = 6) -> dict:
+    """Where the profiler loses kernel events: the rate ``name``'s eager
+    loop (the north-star chunk, whose profiles have traced 4 of 5 ticks' K1
+    and K2 events) profiled ``rounds`` times without ``br.profile``'s pads
+    and with them, in turns; each profile's kernels whose events differ
+    from the launches counted, by pad."""
+    (make, measure), kernels = RATES[name]
+    loop = make(False)
+    measure(loop, RATE_CHUNK, RATE_CHUNK)
+    out = {0: [], br.PAD: []}
+    for i in range(rounds):
+        for pad in out:
+            before = br.launch_counts()
+            prof = br.profile(_profile_of(loop), PROFILE_TICKS, kernels, pad=pad)
+            diff = br.traced_launches(prof, before)
+            out[pad].append({sym: list(d) for sym, d in diff.items()})
+            print(f"[graph-tail {name} eager, round {i}, pad {pad}] {_trace_line(prof, diff)} ({card})", flush=True)
+    lost = {pad: sum(bool(d) for d in diffs) for pad, diffs in out.items()}
+    print(f"[graph-tail {name} eager] profiles that lost kernel events, by pad: {lost} of {rounds} each ({card})",
+          flush=True)
+    return {"rate": name, "rounds": rounds, "lost": {str(k): v for k, v in lost.items()},
+            "diffs": {str(k): v for k, v in out.items()}}
 
 
 def paired_rates(card: str, names=tuple(RATES), chunk: int = RATE_CHUNK, timed: int = RATE_TIMED) -> dict:
@@ -565,14 +604,18 @@ def main(argv) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = br.nvidia_smi()
     print(f"[graph-ab] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
-    rec = {"weights": check_weights_captured(parent), "parity": check_parity()}
-    if "--quick" not in argv:
+    tail, argv = pop_option(argv, "tail", None)
+    if tail is not None:
+        rec = {"tail": trace_tail(card, rounds=int(tail))}
+    else:
+        rec = {"weights": check_weights_captured(parent), "parity": check_parity()}
+    if tail is None and "--quick" not in argv:
         rec["rates"] = paired_rates(card)
         rec["turns"] = {"two_terminal": two_terminal_turns(card), "steps": step_turns(card),
                         "grad_refine": grad_refine_turns(card)}
     dev = br.device_record(torch.device("cuda"))
     rec.update(platform=dev["platform"], device=dev)
-    br.emit(rec, "GRAPH_AB.json", out)
+    br.emit(rec, "GRAPH_AB.json" if tail is None else "GRAPH_TAIL.json", out)
     return rec
 
 

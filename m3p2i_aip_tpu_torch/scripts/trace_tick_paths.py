@@ -1,5 +1,6 @@
 """Record the per-tick and the chunked panda runs tick by tick and report
-the first tick where they part.
+the first tick where they part; or, with ``seed=N``, trace one seed of a
+point-family row tick by tick.
 
 Both runs start from the same warmed-up scene and the same generator state:
 one is ``SimLoop.tick`` (the host active-inference planner every tick), the
@@ -17,11 +18,26 @@ planner leaves it at zeros until the first pick).
 It ends with one JSON line: the first tick at which anything differs (null
 when the runs agree), the fields that differ there, and each run's success
 tick.
+
+With ``seed=N`` (a point, heijn or boxer scene: the overrides name it) the
+script runs seed N as ``run_experiments`` runs a row's seed (``reset(N)``,
+a 20-step warm-up, ``run_chunked(n_steps, chunk=4)``, the chunk of the
+two-corner rows of ``run_quality_campaign``; ``n_ticks=`` caps it) and
+records every tick's robot and box positions and every plan the host task
+planner makes at a chunk boundary: its task and goal, the pocket-endgame
+stage, the stall count and the reposition budget.  It prints each change
+of plan and one JSON line (the ticks the robot and the box last moved, the
+repositions, the last plan); ``out=PATH.npz`` keeps the record (the views
+the planner was given, in order).
+
+    python -m m3p2i_aip_tpu_torch.scripts.trace_tick_paths seed=17 [n_ticks=1000] [out=PATH.npz] \\
+        -cn config_boxer task=push_pull multi_modal=True ...
 """
 from __future__ import annotations
 
 import json
 import sys
+from typing import Optional
 
 import numpy as np
 import torch
@@ -81,6 +97,76 @@ def record_chunked(cfg, n_ticks: int, warmup: int, device) -> tuple:
     return rows, success
 
 
+_PLAN_FIELDS = ("_pocket_stage", "_stall_n", "_relatch_left")
+SEED_CHUNK = 4  # a seed trace's chunk: the two-corner rows' chunked=4 (run_quality_campaign.ROWS)
+
+
+def _plan(tp) -> dict:
+    """The host planner's plan after an ``update_plan``."""
+    return {"task": tp.task, "goal": np.asarray(tp.curr_goal, np.float64)[:2].tolist(),
+            **{f[1:]: int(getattr(tp, f)) for f in _PLAN_FIELDS},
+            "latch_d_bg": getattr(tp, "_latch_d_bg", None)}
+
+
+def record_seed(cfg, seed: int, n_ticks: int, chunk: int, device) -> dict:
+    """One seed of a point-family row, chunked: {"views0": the view the first
+    plan reads, "robot_pos", "box_pos" [ticks, 2] after each tick, "plans":
+    [(tick, plan)] for every ``update_plan``, "success_step"}."""
+    from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
+
+    loop = SimLoop(cfg, device=device)
+    loop.reset(seed)
+    loop.warmup(20)
+    tp, plans = loop.tamp.task_planner, []
+    update = tp.update_plan
+
+    def recorded(view):
+        update(view)
+        plans.append((loop.log.steps, _plan(tp)))
+
+    tp.update_plan = recorded
+    view0 = {k: np.asarray(loop._view[k], np.float32) for k in ("robot_pos", "box_pos")}
+    log = loop.run_chunked(n_ticks, chunk=chunk)
+    return {"views0": view0, "robot_pos": np.asarray(log.robot_pos, np.float32),
+            "box_pos": np.asarray(log.box_pos, np.float32), "plans": plans, "success_step": log.success_step}
+
+
+def _last_move(pos: np.ndarray, tol: float = 1e-3) -> int:
+    """The last tick at which ``pos`` [ticks, 2] moved more than ``tol``."""
+    moved = np.nonzero(np.linalg.norm(np.diff(pos, axis=0), axis=-1) > tol)[0]
+    return int(moved[-1]) + 1 if moved.size else 0
+
+
+def trace_seed(argv, seed: int, n_ticks: Optional[int], device) -> dict:
+    """``seed=N``'s trace (see the module docstring); ``n_ticks`` None: the
+    config's ``n_steps``."""
+    out, argv = pop_option(argv, "out", None)
+    cfg = load_config_from_argv(list(argv))
+    rec = record_seed(cfg, seed, cfg.n_steps if n_ticks is None else n_ticks, SEED_CHUNK, device)
+    prev = None
+    for tick, plan in rec["plans"]:
+        key = (plan["task"], plan["goal"], plan["pocket_stage"], plan["relatch_left"])
+        if key != prev:
+            print(f"tick {tick}: {plan}; robot {rec['robot_pos'][tick - 1] if tick else rec['views0']['robot_pos']}, "
+                  f"box {rec['box_pos'][tick - 1] if tick else rec['views0']['box_pos']}")
+            prev = key
+    result = {
+        "seed": seed, "ticks": int(rec["robot_pos"].shape[0]), "success_step": rec["success_step"],
+        "robot_final": rec["robot_pos"][-1].tolist(), "box_final": rec["box_pos"][-1].tolist(),
+        "robot_last_moved": _last_move(rec["robot_pos"]), "box_last_moved": _last_move(rec["box_pos"]),
+        "repositions": sum(1 for (_, a), (_, b) in zip(rec["plans"], rec["plans"][1:])
+                           if b["task"] == "reposition" and a["task"] != "reposition"),
+        "last_plan": rec["plans"][-1][1],
+    }
+    if out:
+        ticks, plans = zip(*rec["plans"])
+        np.savez_compressed(out, robot_pos0=rec["views0"]["robot_pos"], box_pos0=rec["views0"]["box_pos"],
+                            robot_pos=rec["robot_pos"], box_pos=rec["box_pos"], plan_tick=np.asarray(ticks),
+                            plan=np.asarray([json.dumps(p) for p in plans]))
+    print(json.dumps(result))
+    return result
+
+
 def first_differences(a: list, b: list) -> dict:
     """{field: (first tick at which the records differ in it, the largest
     difference at that tick)} over the ticks both records share; a reach
@@ -97,13 +183,17 @@ def first_differences(a: list, b: list) -> dict:
 
 
 def main(argv) -> dict:
-    n_ticks, argv = pop_option(argv, "n_ticks", "120")
+    n_ticks, argv = pop_option(argv, "n_ticks", None)
     warmup, argv = pop_option(argv, "warmup", "150")
     device, argv = pop_option(argv, "device", "cuda")
+    seed, argv = pop_option(argv, "seed", None)
+    if seed is not None:
+        return trace_seed(argv, int(seed), None if n_ticks is None else int(n_ticks), device)
     cfg = load_config_from_argv(["-cn", "config_panda"] + list(argv))
-    per_tick, per_tick_success = record_per_tick(cfg, int(n_ticks), int(warmup), device)
+    n_ticks = int(n_ticks or 120)
+    per_tick, per_tick_success = record_per_tick(cfg, n_ticks, int(warmup), device)
     cfg = load_config_from_argv(["-cn", "config_panda"] + list(argv))
-    chunked, chunked_success = record_chunked(cfg, int(n_ticks), int(warmup), device)
+    chunked, chunked_success = record_chunked(cfg, n_ticks, int(warmup), device)
     first = first_differences(per_tick, chunked)
     shared = min(len(per_tick), len(chunked))
     if not first:

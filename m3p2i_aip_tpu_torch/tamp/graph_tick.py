@@ -51,9 +51,11 @@ between them.  The first (eager) run of a body on the card runs on the
 capture stream, so the lazy state autograd and cuBLAS keep per stream and
 per thread exists before the capture (PyTorch's whole-network capture).
 
-Programs without a planner (:func:`env_steps`: warm-ups and settles, the sim
-client's step) take the same :class:`TickProgram` with the env state as their
-carry.
+The planner's own call (``MPPI.command``, the JAX package's
+``jax.jit(self._command_impl)``) is a :class:`TickProgram` too, with the
+planner state as its carry and the real state and ``TaskParams`` as its
+inputs.  Programs without a planner (:func:`env_steps`: warm-ups and
+settles, the sim client's step) take it with the env state as their carry.
 """
 from __future__ import annotations
 
@@ -108,6 +110,12 @@ def _leaves(tree) -> list:
     out = []
     _map(out.append, tree)
     return out
+
+
+def signature(tree) -> tuple:
+    """The shape and dtype of every tensor of ``tree``: what a capture bakes
+    in of its buffers."""
+    return tuple((tuple(x.shape), x.dtype) for x in _leaves(tree))
 
 
 def copy_into(dst, src) -> None:
@@ -241,6 +249,12 @@ class TickProgram:
         """Clones of the static carry, for the host to keep."""
         return clone(self.carry)
 
+    def registered(self, generators) -> bool:
+        """Whether this program was made with exactly ``generators`` (the
+        same objects): a graph replays the generators it registered,
+        whatever the planner holds now."""
+        return len(self.generators) == len(generators) and all(a is b for a, b in zip(self.generators, generators))
+
     def _run(self) -> None:
         nxt, outs = self.body(self.carry, self.inputs)
         copy_into(self.carry, nxt)
@@ -323,11 +337,11 @@ class TickProgram:
 
 
 class TickGraphs:
-    """A ``ReactiveTAMP``'s compiled programs (or, for a caller without a
-    planner, such as the sim client, its own): its mode, one
-    :class:`TickProgram` per key (the tick's kind, gate on/off and seed
-    count; the command; the env steps), one graph memory pool and one
-    capture stream."""
+    """A planner's compiled programs, shared with the ``ReactiveTAMP`` that
+    holds it (or, for a caller without a planner, such as the sim client,
+    its own): its mode, one :class:`TickProgram` per key (the command's; the
+    tick's kind, gate on/off and seed count; the env steps), one graph
+    memory pool and one capture stream."""
 
     def __init__(self, device: torch.device, graphs: Optional[bool]) -> None:
         self.device = torch.device(device)
@@ -342,7 +356,8 @@ class TickGraphs:
         sample-sharded planner over distinct cards)."""
         if self.mode != EAGER and reason not in self._said:
             self._said.add(reason)
-            print(f"graph_tick: {reason}: this planner runs the eager tick (no CUDA graph)", file=sys.stderr)
+            print(f"graph_tick: {reason}: this planner runs its command and ticks eagerly (no CUDA graph)",
+                  file=sys.stderr)
 
     def pool(self):
         if self._pool is None:

@@ -17,12 +17,14 @@ Compiled ticks (``tamp/graph_tick.py``): each chunk and the per-tick
 card as a CUDA graph and replayed every tick (the JAX package's jitted tick
 and scan); ``graphs=False`` keeps the eager tick, the same body called with
 a host tick index and fresh tensors, which the compiled one equals bit for
-bit.  The per-tick API's planner call (``run_tamp``, the RPC server's) is a
-compiled program too (``_command``, the JAX package's jitted
-``MPPI._command``), and so are the gradient steps inside a tick
+bit.  The per-tick API's planner call (``run_tamp``, the RPC server's) is
+the planner's own compiled ``MPPI.command`` (the JAX package's jitted
+``MPPI._command``), whose program lives in the planner's ``TickGraphs``,
+shared here as ``ticks``; the gradient steps inside a tick
 (``graph_tick.repeat``) and a sample-sharded planner on one card (each
-shard's rollout on a stream of its own, branches of one graph).  Only a
-planner sharded over distinct cards runs eagerly, by rule.
+shard's rollout on a stream of its own, branches of one graph) compile
+too.  Only a planner sharded over distinct cards runs eagerly, by rule
+(``MPPI.compiled``).
 
 The panda chunk (``_run_chunk_panda_impl``) runs the active-inference
 reach -> pick -> place decision on the device every tick
@@ -58,14 +60,14 @@ from m3p2i_aip_tpu_torch.planners.motion_planner.cost_functions import (
     PointObjective,
 )
 from m3p2i_aip_tpu_torch.planners.motion_planner.m3p2i import M3P2I
-from m3p2i_aip_tpu_torch.planners.motion_planner.mppi import MPPIState, TaskParams, make_task_params
+from m3p2i_aip_tpu_torch.planners.motion_planner.mppi import TaskParams, make_task_params
 from m3p2i_aip_tpu_torch.planners.task_planner.task_planner import (
     ZUP_IMPROVE_M,
     ZUP_RELEASE_M,
     ZUP_STALL_TICKS,
     set_task_planner,
 )
-from m3p2i_aip_tpu_torch.tamp.graph_tick import EAGER, TickGraphs, TickProgram, clone
+from m3p2i_aip_tpu_torch.tamp.graph_tick import TickProgram, clone
 from m3p2i_aip_tpu_torch.utils import skill_utils
 from m3p2i_aip_tpu_torch.utils.tree import tree_where
 
@@ -92,9 +94,11 @@ def build_task_planner(cfg, env: Env, objective):
 
 
 class ReactiveTAMP:
-    """``graphs``: None (the default) compiles the tick (a CUDA graph on
-    ``cuda``, the static-buffer body on the CPU), False runs it eagerly,
-    True insists on CUDA graphs (raises on the CPU); see ``graph_tick``."""
+    """``graphs``: None (the default) compiles the tick and the command (a
+    CUDA graph on ``cuda``, the static-buffer body on the CPU), False runs
+    them eagerly, True insists on CUDA graphs (raises on the CPU); see
+    ``graph_tick``.  The planner owns the programs' ``TickGraphs``, and
+    ``ticks`` is the same object."""
 
     def __init__(self, cfg, env: Optional[Env] = None, device="cuda", graphs: Optional[bool] = None) -> None:
         self.device = torch.device(device)
@@ -128,7 +132,8 @@ class ReactiveTAMP:
         self.task_planner = build_task_planner(cfg, self.env, self.objective)
         self.task_success = False
         self.motion_planner = M3P2I(
-            cfg, rollout, fric_noise=noise if noise is not None and np.any(noise) else None, device=self.device
+            cfg, rollout, fric_noise=noise if noise is not None and np.any(noise) else None, device=self.device,
+            graphs=graphs,
         )
         self.mppi_state = self.motion_planner.init_state()
         self.suction_active = int(cfg.suction_active)
@@ -139,7 +144,7 @@ class ReactiveTAMP:
         self.device_gate = True
         self._tp_key = None
         self._tp_cached: Optional[TaskParams] = None
-        self.ticks = TickGraphs(self.device, graphs)
+        self.ticks = self.motion_planner.ticks  # one pool and one mode for the command and the ticks
 
     # ------------------------------------------------------------------ api
     def run_tamp(self, real_state) -> torch.Tensor:
@@ -160,26 +165,11 @@ class ReactiveTAMP:
             return torch.zeros(u, self.env.nu, dtype=torch.float32, device=self.device)
         return self._command(real_state, task_params)[:u]
 
-    def _command_body(self, mppi_state, inputs):
-        """The planner's call as a program body: carry the planner state,
-        inputs (real state, TaskParams); outputs the action sequence and the
-        top trajectories."""
-        action_seq, mppi_state, aux = self.motion_planner._command_impl(mppi_state, *inputs)
-        return mppi_state, (action_seq, aux["top_trajs"])
-
     def _command(self, real_state, task: TaskParams) -> torch.Tensor:
-        """One replan from ``real_state`` (``MPPI.command`` with the
-        generator's draw): compiled, one replay of the command's program,
-        its outputs cloned out; the new planner state (``get_suction`` reads
-        its weights) and the top trajectories kept.  Returns the action
-        sequence [T, nu].  A call with an injected draw (``noise=``) is
-        ``MPPI.command``'s own, eager."""
-        if self._compiled():
-            prog = self._program("command", self._command_body, self.mppi_state, (real_state, task))
-            prog.step()
-            self.mppi_state = prog.carry_out()
-            action_seq, self.top_trajs = clone(prog.outputs)
-            return action_seq
+        """One replan from ``real_state`` (``MPPI.command``, compiled unless
+        the planner runs eagerly); the new planner state (``get_suction``
+        reads its weights) and the top trajectories kept.  Returns the
+        action sequence [T, nu]."""
         action_seq, self.mppi_state, aux = self.motion_planner.command(self.mppi_state, real_state, task)
         self.top_trajs = aux["top_trajs"]
         return action_seq
@@ -285,29 +275,19 @@ class ReactiveTAMP:
         return (ms, rs, done, n_ticks, i + 1), view
 
     def _compiled(self) -> bool:
-        """Whether this planner's ticks run compiled (``graph_tick``); a
-        planner sharded over distinct cards runs them eagerly, by rule."""
-        if self.ticks.mode == EAGER:
-            return False
-        mesh = self.motion_planner.mesh
-        if mesh is not None and len(set(mesh.devices)) > 1:
-            self.ticks.eager_by_rule("a sample-sharded planner over distinct cards (a graph across cards cannot be "
-                                     "checked on one card)")
-            return False
-        return True
+        """Whether this planner's ticks run compiled (``MPPI.compiled``)."""
+        return self.motion_planner.compiled()
 
     def _program(self, kind: str, body, carry, inputs) -> TickProgram:
-        """The compiled tick (or command) of ``kind`` for this carry's seed
-        count (made at first use with ``carry`` and ``inputs`` as its
-        buffers' templates), loaded with ``carry`` and ``inputs``."""
-        ms = carry if isinstance(carry, MPPIState) else carry[0]
-        lead = ms.mean_action.shape[:-2]
+        """The compiled tick of ``kind`` for this carry's seed count (made at
+        first use with ``carry`` and ``inputs`` as its buffers' templates),
+        loaded with ``carry`` and ``inputs``.  Raises if the planner's
+        generators are no longer those the program registered."""
+        lead = carry[0].mean_action.shape[:-2]
         key = (kind, lead[0] if lead else None)
-        mp = self.motion_planner
-        gens = mp.seed_generators if lead else [mp.generator]
+        gens = self.motion_planner.generators(lead)
         prog = self.ticks.program(key, lambda: TickProgram(self.ticks, key, body, carry, inputs, gens))
-        if len(prog.generators) != len(gens) or any(a is not b for a, b in zip(prog.generators, gens)):
-            # a graph replays the generators it registered, whatever the planner holds now
+        if not prog.registered(gens):
             raise RuntimeError(f"the compiled tick {key} was made with other generators than the planner's")
         prog.load(carry, inputs)
         return prog

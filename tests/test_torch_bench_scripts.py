@@ -149,6 +149,21 @@ def test_twin_prints_the_jax_line_and_writes_under_results(name, tiny_protocol, 
         assert row["rollout_flops"] > 0 and "kernel_ms" not in row  # no kernel time off the card
 
 
+@pytest.mark.parametrize("eager", [False, True], ids=["compiled", "eager"])
+def test_sharded_twin_says_which_command_it_times(eager, tiny_protocol, capsys):
+    """``bench_sharded`` times ``MPPI.command``'s compiled program (on the
+    CPU its static-buffer body) or, with ``--eager``, the eager call; every
+    line says which, and the 8-shard first command equals the unsharded
+    one either way."""
+    bench_sharded.main(["--virtual", "--sweep", "16,32", "--ticks", "1", "--device", "cpu", "--out", "-",
+                        *(["--eager"] if eager else [])])
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+    want = "eager" if eager else "static"
+    assert [line["tick"] for line in lines] == [want] * 3
+    assert all(row["action_maxdiff"] == 0.0 for row in lines[-1]["sweep"])
+    assert not (tiny_protocol / "results_h100").exists()
+
+
 def test_bench_embeds_no_tpu_artifact(tiny_protocol, capsys):
     """Without the port's own artifacts the headline line embeds nothing,
     whatever JSONs lie at the working directory's root."""
@@ -283,6 +298,37 @@ def test_rate_record_refuses_a_run_with_a_chunk_untimed(marks, fails):
             br.rate_record(4, 1.0, 2, clock)
     else:
         assert br.rate_record(4, 1.0, 2, clock)["chunks"] == 2
+
+
+@pytest.mark.parametrize("kept", [(4, 4), (1, 4), (4, 1), (0, 0)], ids=["pads-whole", "head-lost", "tail-lost",
+                                                                         "pads-lost"])
+def test_profile_summary_leaves_the_pads_out(kept):
+    """Two ticks of a K1 and a K2 event each between two pads of 4 empty
+    kernels, of which the trace kept ``kept`` (the head pad's last events,
+    the tail pad's first): the run's figures, launches and span are the same
+    whatever the pads kept, and the pads are counted apart, with their gaps
+    to the run."""
+    from types import SimpleNamespace
+
+    from m3p2i_aip_tpu_torch.analysis import bench_record as br
+
+    def event(name, start_us, end_us):
+        span = SimpleNamespace(start=start_us, end=end_us, elapsed_us=lambda: end_us - start_us)
+        return SimpleNamespace(name=name, time_range=span)
+
+    spin = f"at::cuda::{br.PAD_SYMBOL}(long)"
+    run = [event(f"void {sym}<3>(Params)", t, t + 100) for t0 in (1000, 2000)
+           for sym, t in (("point_rollout_kernel", t0), ("multimodal_weights_kernel", t0 + 500))]
+    head = [event(spin, 900 - 10 * i, 905 - 10 * i) for i in range(kept[0])]
+    tail = [event(spin, 2700 + 10 * i, 2705 + 10 * i) for i in range(kept[1])]
+    got = br.summarize(head + run + tail, 2, 0.004, {"K1": "point_rollout"}, pad=4)
+    assert got["traced_launches"]["point_rollout_kernel"] == 2
+    assert got["traced_launches"]["multimodal_weights_kernel"] == 2
+    assert got["kernels_per_tick"] == 2 and got["device_ms_per_tick"] == 0.2 and got["kernel_ms_per_tick"]["K1"] == 0.1
+    assert got["kernel_starts_ms"]["point_rollout_kernel"] == [0.0, 1.0] and got["device_span_ms"] == 1.6
+    assert got["pad"] == 4 and got["pad_traced"] == list(kept)
+    assert got["pad_gaps_ms"] == [0.095 if kept[0] else None, 0.1 if kept[1] else None]
+    assert br.summarize(head + tail, 2, 0.004, {}, pad=4) is None
 
 
 def test_recompute_refuses_an_unknown_schema(tmp_path):

@@ -11,10 +11,15 @@ is what a capture records on the card.  Here, each against its eager twin
   ``drive`` send the eager client's views tick for tick (the dyn-obs sign of
   the device counter is ``update_dyn_obs``'s over ticks 0-400), and the
   suction grant, a device input, is honoured both ways;
-* the planner's command (``ReactiveTAMP._command``, behind ``run_tamp``):
-  ten calls with the generator's draws, and with ``exploration_noise=0``
-  within tests/test_pallas.py's bars of the JAX ``MPPI.command``
-  (planar 1e-3, :259-260; panda 1e-4, :379-384);
+* the planner's command (``MPPI.command``, the JAX package's jitted
+  ``MPPI._command``; behind ``run_tamp`` too): ten calls with the
+  generator's draws through ``run_tamp_sequence`` and ten chained direct
+  calls (point, panda, albert, a B=3 seed batch, a standalone ``M3P2I``
+  and tests/test_torch_planner_modes.py's toy planner), no returned tensor
+  aliasing the program's buffers, ``set_mesh`` dropping the captured
+  command; and with ``exploration_noise=0`` within tests/test_pallas.py's
+  bars of the JAX ``MPPI.command`` (planar 1e-3, :259-260; panda 1e-4,
+  :379-384), through ``run_tamp_sequence`` and directly;
 * gradient refinement inside the tick (``graph_tick.repeat``): the panda's
   and the point's static ticks, a B=3 refined batch within 1e-5 of three
   single runs (the batch-vs-serial bar, tests/test_pallas.py:475), and the
@@ -35,6 +40,10 @@ from m3p2i_aip_tpu.config.config_store import load_config as jax_load_config
 from m3p2i_aip_tpu.tamp.sim_loop import SimLoop as JaxSimLoop
 from m3p2i_aip_tpu_torch.config.config_store import load_config
 from m3p2i_aip_tpu_torch.envs import make_env, update_dyn_obs
+from m3p2i_aip_tpu_torch.ops.rollout import make_point_rollout
+from m3p2i_aip_tpu_torch.parallel import make_mesh, shard_planner
+from m3p2i_aip_tpu_torch.planners.motion_planner.m3p2i import M3P2I
+from m3p2i_aip_tpu_torch.planners.motion_planner.mppi import make_task_params
 from m3p2i_aip_tpu_torch.scripts import graph_ab
 from m3p2i_aip_tpu_torch.scripts.sim import ClientStep, client_views, drive
 from m3p2i_aip_tpu_torch.tamp import graph_tick
@@ -43,6 +52,7 @@ from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMP
 from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop, real_suction_ext
 from m3p2i_aip_tpu_torch.utils import convert
 from m3p2i_aip_tpu_torch.utils.tree import tree_map
+from test_torch_planner_modes import _GOAL, _Toy, _toy_mppi
 
 SMALL = ["mppi.num_samples=8", "mppi.horizon=8"]
 PANDA_SMALL = ["mppi.num_samples=8", "mppi.horizon=4"]
@@ -201,7 +211,8 @@ def test_static_command_equals_eager_command(family):
         assert torch.equal(tamps[0].get_trajs(), tamps[1].get_trajs()), f"call {call}"
         assert tamps[0].get_suction() == tamps[1].get_suction()
         state = tamps[1].env.step(state, acts[1][0], tamps[1].env.zero_ext())
-    assert tamps[0].ticks.mode == graph_tick.STATIC and list(tamps[0].ticks.programs) == [("command", None)]
+    assert tamps[0].ticks.mode == graph_tick.STATIC and tamps[0].ticks is tamps[0].motion_planner.ticks
+    assert [key[:4] for key in tamps[0].ticks.programs] == [("command", None, None, 0)]  # the planner's program
 
 
 def _leaves(x) -> dict:
@@ -237,7 +248,141 @@ def test_static_command_matches_jax_command(family, refine):
         jact = np.asarray(jloop.tamp.run_tamp_sequence(jstate))
         pact = tamp.run_tamp_sequence(pstate).numpy()
         np.testing.assert_allclose(pact, jact, atol=BARS[family], rtol=0, err_msg=f"call {call}")
-    assert ("command", None) in tamp.ticks.programs
+    assert [key[:2] for key in tamp.ticks.programs] == [("command", None)]
+
+
+def _chain(planner, state, real_state, task, step, n: int = 10) -> list:
+    """``n`` chained ``planner.command`` calls, the real state moved by
+    ``step(real_state, actions)`` after each; every call's outputs."""
+    out = []
+    for _ in range(n):
+        action, state, aux = planner.command(state, real_state, task)
+        out.append((action, state, aux))
+        real_state = step(real_state, action)
+    return out
+
+
+def _env_chain(tamp, B: int = 1) -> list:
+    """Ten direct commands of ``tamp``'s planner from its start scene (a
+    B-seed batch when ``B`` > 1), the env stepped by each first action."""
+    mp, env = tamp.motion_planner, tamp.env
+    real = env.init_state()
+    task = tamp.tamp_interface(real)
+    state = tamp.mppi_state
+    if B > 1:
+        real, state = _seeds(real, B), mp.init_state_batch(list(range(B)))
+        task = tree_map(lambda x: x.expand((B,) + x.shape), task)
+    ext = env.zero_ext((B,)) if B > 1 else env.zero_ext()
+    return _chain(mp, state, real, task, lambda r, a: env.step(r, a[..., 0, :], ext))
+
+
+@pytest.mark.parametrize("family, B", [("point", 1), ("panda", 1), ("albert", 1), ("point", 3)])
+def test_direct_command_static_equals_eager(family, B):
+    """Ten chained ``MPPI.command`` calls, compiled (static) against
+    ``graphs=False``: actions, planner states and aux bit for bit, one
+    program for the chain."""
+    config_name, overrides = FAMILIES[family]
+    tamps = _planner_pair(config_name, overrides)
+    got, ref = (_env_chain(t, B) for t in tamps)
+    _assert_same(got, ref, f"{family} B={B}")
+    assert [key[:2] for key in tamps[0].ticks.programs] == [("command", None if B == 1 else B)]
+    assert not tamps[1].ticks.programs
+
+
+def _toy_chain(planner) -> list:
+    task = make_task_params("navigation", [_GOAL, 0.0])
+    return _chain(planner, planner.init_state(), _Toy(s=torch.zeros(1)), task, lambda r, a: _Toy(s=r.s + 0.1 * a[0]))
+
+
+@pytest.mark.parametrize("planner", ["m3p2i", "toy"])
+def test_standalone_planner_command_static_equals_eager(planner):
+    """A planner built on its own makes its own programs from its device: a
+    standalone ``M3P2I`` on the point hybrid and the toy planner, ten
+    chained commands each, compiled against ``graphs=False``."""
+    runs = []
+    for graphs in (None, False):
+        if planner == "toy":
+            mp = _toy_mppi()
+            mp.ticks = graph_tick.TickGraphs(mp.device, graphs)
+            runs.append((mp, _toy_chain(mp)))
+            continue
+        cfg = load_config(*FAMILIES["point"][:1], FAMILIES["point"][1])
+        env = make_env(cfg, "cpu")
+        rollout = make_point_rollout(env.params, float(cfg.kp_suction), cfg.mppi.num_samples, cfg.mppi.horizon, True)
+        mp = M3P2I(cfg, rollout, device="cpu", graphs=graphs)
+        real = env.init_state()
+        task = make_task_params(cfg.task, cfg.goal)
+        runs.append((mp, _chain(mp, mp.init_state(), real, task,
+                                lambda r, a: env.step(r, a[0], env.zero_ext()))))
+    (mp, got), (eager, ref) = runs
+    _assert_same(got, ref, planner)
+    assert mp.ticks.mode == graph_tick.STATIC and len(mp.ticks.programs) == 1 and not eager.ticks.programs
+
+
+def test_command_returns_the_callers_own_tensors():
+    """No returned tensor shares memory with the program's buffers; a state
+    held from call 1 is unchanged by calls 2-10; two calls from one state
+    (no exploration noise) return equal results."""
+    config_name, overrides = FAMILIES["point"]
+    tamp = ReactiveTAMP(load_config(config_name, [*overrides, NOISE_OFF]), device="cpu")
+    mp, env = tamp.motion_planner, tamp.env
+    real = env.init_state()
+    task = tamp.tamp_interface(real)
+    first = mp.command(tamp.mppi_state, real, task)
+    kept = graph_tick.clone(first)
+    (prog,) = mp.ticks.programs.values()
+    buffers = {x.untyped_storage().data_ptr() for x in graph_tick._leaves((prog.carry, prog.inputs, prog.outputs))}
+    rest = _chain(mp, first[1], real, task, lambda r, a: env.step(r, a[0], env.zero_ext()), n=9)
+    for call, out in enumerate([first, *rest]):
+        shared = [x.shape for x in graph_tick._leaves(out) if x.untyped_storage().data_ptr() in buffers]
+        assert not shared, f"call {call + 1} returns views of the program's buffers: {shared}"
+    _assert_same(first, kept, "call 1's outputs after calls 2-10")
+    again = [mp.command(first[1], real, task) for _ in range(2)]
+    _assert_same(again[0], again[1], "two calls from one state")
+
+
+def test_set_mesh_drops_the_compiled_command():
+    """A planner that has compiled its command, then sharded over 4
+    repeated ``cpu`` devices: its programs are gone, and its next command
+    equals a fresh sharded planner's bit for bit."""
+    config_name, overrides = FAMILIES["point"]
+    tamps = [ReactiveTAMP(load_config(config_name, overrides), device="cpu") for _ in range(2)]
+    real = tamps[0].env.init_state()
+    task = tamps[0].tamp_interface(real)
+    state, draws = tamps[0].mppi_state, tamps[0].motion_planner.generator.get_state()
+    tamps[0].motion_planner.command(state, real, task)
+    tamps[0].motion_planner.generator.set_state(draws)  # the draws of a fresh planner
+    assert tamps[0].ticks.programs
+    for tamp in tamps:
+        shard_planner(tamp.motion_planner, make_mesh([torch.device("cpu")] * 4))
+    assert not tamps[0].ticks.programs
+    got, ref = (t.motion_planner.command(state, real, task) for t in tamps)
+    _assert_same(got, ref, "the sharded command")
+    ((key, prog),) = tamps[0].ticks.programs.items()
+    assert key[2].size == 4 and prog.graph is None
+
+
+@pytest.mark.parametrize("family", ["point", "panda"])
+def test_direct_command_matches_jax_command(family):
+    """Two chained direct ``MPPI.command`` calls of the compiled (static)
+    planner from the JAX package's states, ``exploration_noise=0``: within
+    the family's bar of the JAX package's jitted ``MPPI.command``, actions
+    and means."""
+    config_name = {"point": "config_point", "panda": "config_panda"}[family]
+    overrides = [*({"point": HYBRID, "panda": ["multi_modal=True"]}[family]), "mppi.num_samples=16", NOISE_OFF]
+    jloop, jstate, tamp, pstate = _jax_pair(config_name, overrides)
+    jtask, ptask = jloop.tamp.tamp_interface(jstate), tamp.tamp_interface(pstate)
+    jms, pms = jloop.tamp.mppi_state, tamp.mppi_state
+    for call in range(2):
+        jact, jms, _ = jloop.tamp.motion_planner.command(jms, jstate, jtask)
+        pact, pms, _ = tamp.motion_planner.command(pms, pstate, ptask)
+        jact = np.asarray(jact)
+        np.testing.assert_allclose(pact.numpy()[: jact.shape[0]], jact, atol=BARS[family], rtol=0,
+                                   err_msg=f"call {call}")
+        for name in ("mean_action", "mean_action_1", "mean_action_2"):
+            np.testing.assert_allclose(getattr(pms, name).numpy(), np.asarray(getattr(jms, name)),
+                                       atol=BARS[family], rtol=0, err_msg=f"call {call} {name}")
+    assert [key[:2] for key in tamp.ticks.programs] == [("command", None)]
 
 
 # ------------------------------------------------------------ gradient refinement

@@ -16,9 +16,16 @@ port, against the JAX package on the CPU.
 * The two-corner spawn (``actors=["box"]
   initial_actor_positions=[[3.75,3.75]]``): the port's initial state is the
   JAX package's.
+* The boxer two-corner hybrid's failing seed (seed 17 of its n=20 row,
+  traced on the card by ``scripts/trace_tick_paths.py seed=17``, the record
+  in ``results_h100/trace/``): the views the port's host planner was given,
+  replayed through the port's and the JAX package's planners at the run's
+  cadence, give the plans the run made, in both.
 """
 import dataclasses
 import functools
+import json
+import pathlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +36,8 @@ from m3p2i_aip_tpu.envs import make_env as jax_make_env
 from m3p2i_aip_tpu.tamp.sim_loop import SimLoop as JaxSimLoop
 from m3p2i_aip_tpu_torch.config.config_store import load_config
 from m3p2i_aip_tpu_torch.envs import make_env
+from m3p2i_aip_tpu_torch.scripts import trace_tick_paths
+from m3p2i_aip_tpu_torch.scripts.trace_tick_paths import _plan
 from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
 from m3p2i_aip_tpu_torch.utils import convert
 
@@ -179,3 +188,49 @@ def test_two_corner_spawn_matches_jax_package(config_name):
     for name, ref in _leaves(js).items():
         np.testing.assert_array_equal(getattr(ps, name).numpy(), ref, err_msg=name)
     np.testing.assert_allclose(ps.dyn_pos[penv.box_slot].numpy(), [3.75, 3.75])
+
+
+SEED17 = pathlib.Path(__file__).resolve().parents[1] / "results_h100" / "trace" / "boxer_corner2_hybrid_seed17.npz"
+
+
+def test_boxer_two_corner_seed17_plans_as_the_jax_package():
+    """Seed 17's record, replayed as ``run_chunked`` feeds the host planner
+    (``update_plan`` on the last view at each chunk boundary, ``observe`` on
+    every tick's view): the port's and the JAX package's planners make the
+    plans the run made at all 250 boundaries, through the stall latch at
+    tick 144, six repositions to the standoff the corner clips to the
+    box's goal side, and the exhausted budget (ROADMAP.md, recorded
+    divergences)."""
+    rec = np.load(SEED17)
+    overrides = [*HYBRID, *TWO_CORNER, "mppi.num_samples=16"]
+    jtp = JaxSimLoop(jax_load_config("config_boxer", overrides)).tamp.task_planner
+    ptp = SimLoop(load_config("config_boxer", overrides), device="cpu").tamp.task_planner
+    views = [{"robot_pos": r, "box_pos": b} for r, b in zip(
+        [rec["robot_pos0"], *rec["robot_pos"]], [rec["box_pos0"], *rec["box_pos"]])]
+    seen = 0
+    plans = [json.loads(p) for p in rec["plan"]]
+    for tick, want in zip(rec["plan_tick"], plans):
+        for tp in (jtp, ptp):
+            for view in views[seen + 1: tick + 1]:
+                tp.observe(view)
+            tp.update_plan(views[tick])
+        seen = tick
+        assert _plan(ptp) == want, f"tick {tick}: the port plans {_plan(ptp)}, the run planned {want}"
+        assert _plan(jtp) == want, f"tick {tick}: the JAX package plans {_plan(jtp)}, the run planned {want}"
+    tasks = [p["task"] for p in plans]
+    assert tasks.count("reposition") and plans[-1]["relatch_left"] == 0 and plans[-1]["pocket_stage"] == 2
+    assert np.allclose(rec["box_pos"][-1], rec["box_pos0"], atol=0.01), "the box left its corner"
+
+
+def test_seed_trace_records_the_views_and_plans(tmp_path):
+    """``trace_tick_paths seed=N`` on the CPU, 8 ticks of the boxer
+    two-corner hybrid at K=16 x T=4: a plan at each chunk boundary (ticks 0
+    and 4), the views of every tick, and the box still in its corner."""
+    out = tmp_path / "trace.npz"
+    result = trace_tick_paths.main(["seed=17", "n_ticks=8", "device=cpu", f"out={out}", "-cn", "config_boxer", *HYBRID,
+                                    *TWO_CORNER, "mppi.num_samples=16", "mppi.horizon=4"])
+    rec = np.load(out)
+    assert list(rec["plan_tick"]) == [0, 4] and rec["robot_pos"].shape == rec["box_pos"].shape == (8, 2)
+    assert json.loads(rec["plan"][0])["task"] == "push_pull" and result["ticks"] == 8
+    np.testing.assert_array_equal(rec["box_pos0"], [3.75, 3.75])
+    assert result["last_plan"] == json.loads(rec["plan"][-1])
