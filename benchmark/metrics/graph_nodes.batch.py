@@ -1,0 +1,5 @@
+"""graph_nodes.batch: nodes of the CUDA graph of the compiled tick the window replays."""
+
+
+def read(ctx):
+    return ctx.get("graph_nodes")

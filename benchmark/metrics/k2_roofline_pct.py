@@ -1,0 +1,6 @@
+"""k2_roofline_pct: the yardstick's bound over K2's median launch in the trace, in %."""
+from benchmark.layers import roofline_pct
+
+
+def read(ctx):
+    return roofline_pct(ctx, "multimodal_weights_kernel", "weights")
