@@ -24,7 +24,8 @@ import pathlib
 import shutil
 import subprocess
 import threading
-import time
+
+from m3p2i_aip_tpu_torch.utils import profiling
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
@@ -38,9 +39,10 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-# filled by the first load: seconds spent building (0.0 when cached), the
-# library path, and nvcc's output (ptxas registers / spills per kernel, kept
-# beside the library and read back when it is cached)
+# filled by the first load: seconds spent building or loading (the
+# ``kernels.load`` span), the library path, and nvcc's output (ptxas
+# registers / spills per kernel, kept beside the library and read back when
+# it is cached)
 build_info: dict = {}
 
 _lock = threading.Lock()
@@ -77,7 +79,7 @@ def _library_path() -> pathlib.Path:
 
 
 def _build(target: pathlib.Path) -> None:
-    nvcc, t0 = _nvcc(), time.perf_counter()
+    nvcc = _nvcc()
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
     objs = [tmp.with_name(f"{tmp.name}.{pathlib.Path(s).stem}.o") for s in SOURCES]
     procs = [
@@ -102,29 +104,30 @@ def _build(target: pathlib.Path) -> None:
         raise RuntimeError(f"nvcc failed:\n{log}")
     target.with_suffix(".log").write_text(log)
     os.replace(tmp, target)
-    build_info["seconds"] = time.perf_counter() - t0
 
 
 def load_kernels() -> ctypes.CDLL:
-    """The kernel library, built on first use."""
+    """The kernel library, built on first use (a ``kernels.load`` span)."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        target = _library_path()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        build_info["seconds"] = 0.0
-        with open(BUILD_DIR / "build.lock", "w") as lock_file:
-            fcntl.flock(lock_file, fcntl.LOCK_EX)  # released on close or exit
-            if not target.exists():
-                _build(target)
-        log = target.with_suffix(".log")
-        build_info["log"] = log.read_text() if log.exists() else ""
-        lib = ctypes.CDLL(str(target))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+        with profiling.span("kernels.load"):
+            target = _library_path()
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            with open(BUILD_DIR / "build.lock", "w") as lock_file:
+                fcntl.flock(lock_file, fcntl.LOCK_EX)  # released on close or exit
+                if not target.exists():
+                    _build(target)
+            log = target.with_suffix(".log")
+            build_info["log"] = log.read_text() if log.exists() else ""
+            lib = ctypes.CDLL(str(target))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+        t0, t1 = profiling.last_span("kernels.load")
+        build_info["seconds"] = (t1 - t0) / 1e9
         build_info["path"] = str(target)
         _lib = lib
         return _lib

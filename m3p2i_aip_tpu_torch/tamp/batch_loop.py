@@ -45,7 +45,6 @@ sharded.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Union
 
@@ -56,7 +55,8 @@ from m3p2i_aip_tpu_torch.parallel.mesh import Mesh, make_mesh
 from m3p2i_aip_tpu_torch.planners.motion_planner.mppi import TASK_IDS, MPPIState, TaskParams
 from m3p2i_aip_tpu_torch.tamp.graph_tick import env_steps
 from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMP, build_task_planner
-from m3p2i_aip_tpu_torch.tamp.sim_loop import _STAGE_TASK, SimLoop, TickLog
+from m3p2i_aip_tpu_torch.tamp.sim_loop import _STAGE_TASK, SimLoop, TickLog, _seconds
+from m3p2i_aip_tpu_torch.utils import profiling
 from m3p2i_aip_tpu_torch.utils.tree import tree_map
 
 
@@ -192,7 +192,8 @@ class BatchSimLoop:
 
     def _drain_seed(self, b: int, i: int, views_b, n_ticks: int, dev_done: bool, per: float) -> None:
         """Host-side processing of one seed's slice of a fetched chunk: the
-        per-seed twin of ``SimLoop._drain_chunk``."""
+        per-seed twin of ``SimLoop._drain_chunk`` (inside its ``loop.drain``
+        span)."""
         tp = self.planners[b]
         log = self.logs[b]
         for k in range(n_ticks):
@@ -236,22 +237,23 @@ class BatchSimLoop:
             return self._run_chunked_panda(n_steps, chunk)
         i = 0
         while i < n_steps and not self.done.all():
-            t0 = time.perf_counter()
-            for b, tp in enumerate(self.planners):
-                if not self.done[b]:
-                    tp.update_plan(self.views[b])
-            inputs = [
-                (self._stacked_task_params(sh.seeds, sh.tamp.device),
-                 torch.as_tensor(self.done[sh.seeds], device=sh.tamp.device))
-                for sh in self._shards
-            ]
+            with profiling.span("tamp.plan", i):  # the host planners, then each shard's TaskParams
+                for b, tp in enumerate(self.planners):
+                    if not self.done[b]:
+                        tp.update_plan(self.views[b])
+                inputs = [
+                    (self._stacked_task_params(sh.seeds, sh.tamp.device),
+                     torch.as_tensor(self.done[sh.seeds], device=sh.tamp.device))
+                    for sh in self._shards
+                ]
+            t0 = profiling.last_span("tamp.plan")[0]
             # every shard's chunk enqueued before any shard's views are fetched
             outs = [
                 sh.tamp._run_chunk_impl(sh.mppi_state, sh.state, task, i, chunk, gate=True, done0=done0)
                 for sh, (task, done0) in zip(self._shards, inputs)
             ]
-            packed = [self._fetch(views, n_ticks, dev_done) for _, _, views, n_ticks, dev_done in outs]
-            t1 = time.perf_counter()
+            with profiling.span("loop.fetch", i):
+                packed = [self._fetch(views, n_ticks, dev_done) for _, _, views, n_ticks, dev_done in outs]
             seeds = []
             for sh, (ms, rs, views, _, _), flat in zip(self._shards, outs, packed):
                 sh.mppi_state, sh.state = ms, rs
@@ -262,10 +264,12 @@ class BatchSimLoop:
                 dev_done = flat[n_view + per :] > 0.5
                 for j, b in enumerate(range(sh.seeds.start, sh.seeds.stop)):
                     seeds.append((b, views_h[j], int(n_ticks[j]), bool(dev_done[j])))
-            per_tick = (t1 - t0) / max(sum(n for _, _, n, _ in seeds), 1)  # the seeds share one dispatch
-            for b, views_b, n, dev_done in seeds:
-                if not self.done[b] and n > 0:
-                    self._drain_seed(b, i, views_b, n, dev_done, per_tick)
+            # the seeds share one dispatch
+            per_tick = _seconds(t0, "loop.fetch") / max(sum(n for _, _, n, _ in seeds), 1)
+            with profiling.span("loop.drain", i):
+                for b, views_b, n, dev_done in seeds:
+                    if not self.done[b] and n > 0:
+                        self._drain_seed(b, i, views_b, n, dev_done, per_tick)
             i += chunk
         return self._finish_logs()
 
@@ -276,17 +280,16 @@ class BatchSimLoop:
         serial path's within-chunk freeze."""
         i = 0
         while i < n_steps and not self.done.all():
-            t0 = time.perf_counter()
             done0 = [torch.as_tensor(self.done[sh.seeds], device=sh.tamp.device) for sh in self._shards]
             # every shard's chunk enqueued before any shard's views are fetched
-            outs = [
-                sh.tamp._run_chunk_panda_impl(sh.mppi_state, sh.state, sh.stage, sh.zs, chunk, done0=d)
-                for sh, d in zip(self._shards, done0)
-            ]
-            packed = [self._fetch(views, stages, dones) for *_, views, stages, dones in outs]
-            t1 = time.perf_counter()
+            outs, t0 = [], None
+            for sh, d in zip(self._shards, done0):
+                outs.append(sh.tamp._run_chunk_panda_impl(sh.mppi_state, sh.state, sh.stage, sh.zs, chunk, done0=d))
+                t0 = t0 or profiling.last_span("tamp.chunk")[0]  # the first shard's chunk began the dispatch
+            with profiling.span("loop.fetch", i):
+                packed = [self._fetch(views, stages, dones) for *_, views, stages, dones in outs]
             live = max(int((~self.done).sum()), 1)
-            per_tick = (t1 - t0) / (chunk * live)
+            per_tick = _seconds(t0, "loop.fetch") / (chunk * live)
             for sh, (ms, rs, stage, zs, _, views, _, _), flat in zip(self._shards, outs, packed):
                 sh.mppi_state, sh.state, sh.stage, sh.zs = ms, rs, stage, zs
                 per, nv = sh.seeds.stop - sh.seeds.start, views.shape[-1]

@@ -21,9 +21,10 @@ state out with :meth:`carry_out` (clones: nothing the host keeps aliases
 memory a later replay overwrites).
 
 Modes (:func:`resolve_mode`): on ``cuda`` the tick is captured at its first
-use, after one eager run of the same body (the warm-up: lazy constants,
-cuBLAS handles, the kernel library's build and load and each kernel's first
-launch, so none of them happens inside a capture), and replayed from then on;
+use, after one eager run of the same body (the warm-up, a ``graph.first_run``
+span: lazy constants, cuBLAS handles, the kernel library's build and load and
+each kernel's first launch, so none of them happens inside a capture), and
+replayed from then on (the capture a ``graph.capture`` span);
 on the CPU there is no graph, and the same static-buffer body runs
 directly each tick; ``graphs=False`` keeps the eager tick, the reference
 the graphs are held to.  A failed capture or replay raises: there is no
@@ -67,6 +68,8 @@ import time
 from typing import Callable, Optional
 
 import torch
+
+from m3p2i_aip_tpu_torch.utils import profiling
 
 GRAPH, STATIC, EAGER = "graph", "static", "eager"
 
@@ -279,11 +282,12 @@ class TickProgram:
             self._run()
             return
         # the warm-up: the body once, eagerly, on the capture stream
-        stream, current = self.owner.stream(), torch.cuda.current_stream(self.owner.device)
-        stream.wait_stream(current)
-        with torch.cuda.stream(stream):
-            self._run()
-        current.wait_stream(stream)
+        with profiling.span("graph.first_run"):
+            stream, current = self.owner.stream(), torch.cuda.current_stream(self.owner.device)
+            stream.wait_stream(current)
+            with torch.cuda.stream(stream):
+                self._run()
+            current.wait_stream(stream)
         self._capture()
 
     def _capture(self) -> None:
@@ -297,26 +301,27 @@ class TickProgram:
         # before, and keep the collector off during it
         gc.collect()
         gc.disable()
-        t0 = time.perf_counter()
-        try:
-            with torch.cuda.device(dev):
-                torch.cuda.synchronize(dev)
-                with torch.cuda.stream(owner.stream()):
-                    _capturing = seg
-                    try:
-                        seg.begin()
-                        self._run()
-                        seg.end()
-                    except BaseException:
-                        seg.abort()
-                        raise
-                    finally:
-                        _capturing = None
-        finally:
-            gc.enable()
-        for graph, *_ in seg.parts:
-            graph.instantiate()
-        capture_s = time.perf_counter() - t0
+        with profiling.span("graph.capture"):
+            try:
+                with torch.cuda.device(dev):
+                    torch.cuda.synchronize(dev)
+                    with torch.cuda.stream(owner.stream()):
+                        _capturing = seg
+                        try:
+                            seg.begin()
+                            self._run()
+                            seg.end()
+                        except BaseException:
+                            seg.abort()
+                            raise
+                        finally:
+                            _capturing = None
+            finally:
+                gc.enable()
+            for graph, *_ in seg.parts:
+                graph.instantiate()
+        t0, t1 = profiling.last_span("graph.capture")
+        capture_s = (t1 - t0) / 1e9
         for (mod, name), n in before.items():
             setattr(mod, name, n)  # a capture launches nothing
         launches: dict = {}

@@ -68,7 +68,7 @@ from m3p2i_aip_tpu_torch.planners.task_planner.task_planner import (
     set_task_planner,
 )
 from m3p2i_aip_tpu_torch.tamp.graph_tick import TickProgram, clone
-from m3p2i_aip_tpu_torch.utils import skill_utils
+from m3p2i_aip_tpu_torch.utils import profiling, skill_utils
 from m3p2i_aip_tpu_torch.utils.tree import tree_where
 
 
@@ -178,24 +178,26 @@ class ReactiveTAMP:
         """:meth:`tamp_interface_view` on a real state (one device->host read)."""
         return self.tamp_interface_view(self.env.view(real_state))
 
-    def tamp_interface_view(self, view: dict) -> TaskParams:
+    def tamp_interface_view(self, view: dict, i: Optional[int] = None) -> TaskParams:
         """Update plan -> gripper -> success on a host observation dict, and
-        return the (cached) device TaskParams.  Parity: tamp_interface
+        return the (cached) device TaskParams: a ``tamp.plan`` span, its
+        request the tick index ``i``.  Parity: tamp_interface
         (reactive_tamp.py:75-81)."""
-        self.task_planner.update_plan(view)
-        gripper = self.motion_planner.update_gripper_command(self.task_planner.task)
-        self.task_success = self.task_planner.check_task_success(view)
-        grip = gripper if self.env.env_type == "panda_env" else "none"
-        zup = float(getattr(self.task_planner, "zup_gate", 0.0))
-        # the symbolic plan changes rarely: skip the host->device copies on
-        # unchanged ticks
-        key = (self.task_planner.task, tuple(np.ravel(self.task_planner.curr_goal)), grip, zup)
-        if self._tp_key != key:
-            self._tp_key = key
-            self._tp_cached = make_task_params(
-                self.task_planner.task, self.task_planner.curr_goal, grip, zup, device=self.device
-            )
-        return self._tp_cached
+        with profiling.span("tamp.plan", i):
+            self.task_planner.update_plan(view)
+            gripper = self.motion_planner.update_gripper_command(self.task_planner.task)
+            self.task_success = self.task_planner.check_task_success(view)
+            grip = gripper if self.env.env_type == "panda_env" else "none"
+            zup = float(getattr(self.task_planner, "zup_gate", 0.0))
+            # the symbolic plan changes rarely: skip the host->device copies on
+            # unchanged ticks
+            key = (self.task_planner.task, tuple(np.ravel(self.task_planner.curr_goal)), grip, zup)
+            if self._tp_key != key:
+                self._tp_key = key
+                self._tp_cached = make_task_params(
+                    self.task_planner.task, self.task_planner.curr_goal, grip, zup, device=self.device
+                )
+            return self._tp_cached
 
     @property
     def multi_modal_suction(self) -> bool:
@@ -300,17 +302,20 @@ class ReactiveTAMP:
         """One tick; returns (action, mppi_state, real_state, view_vec).  The
         replan's top trajectories stay on the device in ``top_trajs``
         (reactive_tamp.py:343): nothing is read back unless a caller
-        renders them.  Compiled, it is one replay of the ungated tick."""
-        carry = (mppi_state, real_state, i)
-        if self._compiled():
-            carry = (mppi_state, real_state, self._counter(i))
-            prog = self._program("open", self._open_tick, carry, task)
-            prog.step()
-            carry, outs = prog.carry_out(), clone(prog.outputs)
-        else:
-            carry, outs = self._open_tick(carry, task)
-        action, view, self.top_trajs = outs
-        return action, carry[0], carry[1], view
+        renders them.  Compiled, it is one replay of the ungated tick.  A
+        ``tamp.tick`` span, the replay a device ``tick`` span."""
+        with profiling.span("tamp.tick", i):
+            carry = (mppi_state, real_state, i)
+            if self._compiled():
+                carry = (mppi_state, real_state, self._counter(i))
+                prog = self._program("open", self._open_tick, carry, task)
+                with profiling.device_span("tick", i, self.device):
+                    prog.step()
+                carry, outs = prog.carry_out(), clone(prog.outputs)
+            else:
+                carry, outs = self._open_tick(carry, task)
+            action, view, self.top_trajs = outs
+            return action, carry[0], carry[1], view
 
     def _run_chunk_impl(self, mppi_state, real_state, task, i0: int, length: int, gate: bool = True, done0=None):
         """``length`` ticks with no host sync.  Returns (mppi_state,
@@ -325,27 +330,30 @@ class ReactiveTAMP:
         the latch is per seed, and a seed entered with ``done0`` set runs no
         tick and keeps its state.  Compiled, each tick is a replay of the
         (gated or open) tick's graph and its view row is copied into the
-        chunk's views after it.
+        chunk's views after it.  A ``tamp.chunk`` span, its request ``i0``;
+        the replays and row copies a device ``chunk`` span.
         """
-        lead = mppi_state.mean_action.shape[:-2]  # () or (B,)
-        nv = self.env.view_vec(real_state).shape[-1]
-        views = torch.zeros(lead + (length, nv), dtype=torch.float32, device=self.device)
-        body, carry = self._open_tick, (mppi_state, real_state, i0)
-        if gate:
-            done = torch.zeros(lead, dtype=torch.bool, device=self.device) if done0 is None else done0
-            body, carry = self._gated_tick, (mppi_state, real_state, done, torch.zeros(lead, dtype=torch.int32,
-                                                                                     device=self.device), i0)
-        if self._compiled():
-            carry = carry[:-1] + (self._counter(i0),)
-            prog = self._program("gated" if gate else "open", body, carry, task)
-            for k in range(length):
-                prog.step()
-                views[..., k, :] = prog.outputs if gate else prog.outputs[1]
-            carry = prog.carry_out()
-        else:
-            for k in range(length):
-                carry, out = body(carry, task)
-                views[..., k, :] = out if gate else out[1]  # in place into the chunk buffer
+        with profiling.span("tamp.chunk", i0):
+            lead = mppi_state.mean_action.shape[:-2]  # () or (B,)
+            nv = self.env.view_vec(real_state).shape[-1]
+            views = torch.zeros(lead + (length, nv), dtype=torch.float32, device=self.device)
+            body, carry = self._open_tick, (mppi_state, real_state, i0)
+            if gate:
+                done = torch.zeros(lead, dtype=torch.bool, device=self.device) if done0 is None else done0
+                body, carry = self._gated_tick, (mppi_state, real_state, done,
+                                                 torch.zeros(lead, dtype=torch.int32, device=self.device), i0)
+            if self._compiled():
+                carry = carry[:-1] + (self._counter(i0),)
+                prog = self._program("gated" if gate else "open", body, carry, task)
+                with profiling.device_span("chunk", i0, self.device):
+                    for k in range(length):
+                        prog.step()
+                        views[..., k, :] = prog.outputs if gate else prog.outputs[1]
+                carry = prog.carry_out()
+            else:
+                for k in range(length):
+                    carry, out = body(carry, task)
+                    views[..., k, :] = out if gate else out[1]  # in place into the chunk buffer
         if not gate:
             return carry[0], carry[1], views, length, False
         ms, rs, done, n_ticks, _ = carry
@@ -436,28 +444,32 @@ class ReactiveTAMP:
         zs, done, views [length, 22], stages [length], dones [length]); for a
         seed batch (``stage`` [B], ``zs`` [B, 4]) done is [B] and the
         per-tick outputs are [B, length, ...].  Compiled, each tick is a
-        replay of the panda tick's graph, its rows copied out after it."""
-        lead = stage.shape
-        done = torch.zeros(lead, dtype=torch.bool, device=self.device) if done0 is None else done0
-        ext = self.env.zero_ext(lead)
-        nv = self.env.view_vec(real_state).shape[-1]
-        views = torch.empty(lead + (length, nv), dtype=torch.float32, device=self.device)
-        stages = torch.empty(lead + (length,), dtype=torch.int32, device=self.device)
-        dones = torch.empty(lead + (length,), dtype=torch.bool, device=self.device)
-        carry = (mppi_state, real_state, stage, zs, done)
-        prog = None
-        if self._compiled():
-            prog = self._program("panda", self._panda_tick, carry, ext)
-        for k in range(length):
-            if prog is None:
-                carry, view = self._panda_tick(carry, ext)
-            else:
-                prog.step()
-                carry, view = prog.carry, prog.outputs
-            views[..., k, :], stages[..., k], dones[..., k] = view, carry[2], carry[4]
-        if prog is not None:
-            carry = prog.carry_out()
-        return (*carry, views, stages, dones)
+        replay of the panda tick's graph, its rows copied out after it.  A
+        ``tamp.chunk`` span (no request: the panda chunk has no tick index);
+        the replays and row copies a device ``chunk`` span."""
+        with profiling.span("tamp.chunk"):
+            lead = stage.shape
+            done = torch.zeros(lead, dtype=torch.bool, device=self.device) if done0 is None else done0
+            ext = self.env.zero_ext(lead)
+            nv = self.env.view_vec(real_state).shape[-1]
+            views = torch.empty(lead + (length, nv), dtype=torch.float32, device=self.device)
+            stages = torch.empty(lead + (length,), dtype=torch.int32, device=self.device)
+            dones = torch.empty(lead + (length,), dtype=torch.bool, device=self.device)
+            carry = (mppi_state, real_state, stage, zs, done)
+            prog = None
+            if self._compiled():
+                prog = self._program("panda", self._panda_tick, carry, ext)
+            with profiling.device_span("chunk", None, self.device):
+                for k in range(length):
+                    if prog is None:
+                        carry, view = self._panda_tick(carry, ext)
+                    else:
+                        prog.step()
+                        carry, view = prog.carry, prog.outputs
+                    views[..., k, :], stages[..., k], dones[..., k] = view, carry[2], carry[4]
+            if prog is not None:
+                carry = prog.carry_out()
+            return (*carry, views, stages, dones)
 
     def run_chunk_panda(self, mppi_state, real_state, stage, zs, length: int):
         stage = torch.as_tensor(stage, dtype=torch.int32, device=self.device)

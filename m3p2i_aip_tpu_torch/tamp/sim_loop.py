@@ -34,7 +34,7 @@ from m3p2i_aip_tpu_torch.envs import Env, command_world_vel
 from m3p2i_aip_tpu_torch.models.panda_env import DYN_NAMES
 from m3p2i_aip_tpu_torch.tamp.graph_tick import env_steps
 from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMP
-from m3p2i_aip_tpu_torch.utils import skill_utils
+from m3p2i_aip_tpu_torch.utils import profiling, skill_utils
 
 _STAGE_TASK = ("reach", "pick", "place")
 
@@ -75,6 +75,12 @@ def real_suction_ext_device(cfg, env: Env, state, action, suction: torch.Tensor)
     f_box, f_robot = skill_utils.calculate_suction(box_pos, robot_pos, float(cfg.kp_suction), threshold=1.5)
     dyn = torch.stack([torch.where(on, f_box, 0.0) if d == env.box_slot else ext.dyn[d] for d in range(ext.dyn.shape[0])])
     return dataclasses.replace(ext, robot=torch.where(on, f_robot, 0.0), dyn=dyn)
+
+
+def _seconds(t0_ns: int, until: str) -> float:
+    """Seconds from ``t0_ns`` to the end of the newest closed span
+    ``until``: a log row's time, read off the spans."""
+    return (profiling.last_span(until)[1] - t0_ns) / 1e9
 
 
 def _pack_chunk(views: torch.Tensor, n_ticks, dev_done) -> torch.Tensor:
@@ -162,23 +168,27 @@ class SimLoop:
         return bool(self.tamp.task_success)
 
     def tick(self, i: int) -> bool:
-        """One control tick with one device->host transfer (the view)."""
+        """One control tick with one device->host transfer (the view): the
+        ``tamp.plan`` and ``tamp.tick`` spans, then ``loop.fetch`` and
+        ``loop.observe``, all with the request ``i``; the log's replan
+        seconds run from the plan's start to the fetch's end."""
         if self._view is None:
             self._view = self.env.view(self.state)
-        t0 = time.perf_counter()
-        task_params = self.tamp.tamp_interface_view(self._view)
+        task_params = self.tamp.tamp_interface_view(self._view, i)
         if self.tamp.task_success:
             return self._record(i, self._view, 0.0, 0.0)
         _, self.tamp.mppi_state, self.state, vvec = self.tamp.tick_fused(
             self.tamp.mppi_state, self.state, task_params, i
         )
-        vvec = vvec.cpu().numpy()
-        t1 = time.perf_counter()
-        self._view = self.env.view_unpack(vvec)
-        # gate on the fresh post-step view, so success is logged at the
-        # crossing tick itself (the chunked latch uses the same convention)
-        self.tamp.task_success = self.tamp.task_planner.check_task_success(self._view)
-        return self._record(i, self._view, t1 - t0, t1 - t0)
+        with profiling.span("loop.fetch", i):
+            vvec = vvec.cpu().numpy()
+        replan_s = _seconds(profiling.last_span("tamp.plan")[0], "loop.fetch")
+        with profiling.span("loop.observe", i):
+            self._view = self.env.view_unpack(vvec)
+            # gate on the fresh post-step view, so success is logged at the
+            # crossing tick itself (the chunked latch uses the same convention)
+            self.tamp.task_success = self.tamp.task_planner.check_task_success(self._view)
+            return self._record(i, self._view, replan_s, replan_s)
 
     def run(self, n_steps: int = 1000, realtime: bool = False, verbose: bool = False, interactive: bool = False):
         """Tick until success or ``n_steps`` (sim_loop.py:154; sim.py:36-58).
@@ -241,8 +251,7 @@ class SimLoop:
             return self._run_chunked_pipelined(n_steps, chunk)
         i = 0
         while i < n_steps:
-            t0 = time.perf_counter()
-            task_params = self.tamp.tamp_interface_view(self._view)
+            task_params = self.tamp.tamp_interface_view(self._view, i)
             if self.tamp.task_success:
                 self._record(i, self._view, 0.0, 0.0)
                 break
@@ -250,10 +259,11 @@ class SimLoop:
                 self.tamp.mppi_state, self.state, task_params, i, chunk
             )
             # ONE device->host transfer: the views and the latch scalars together
-            packed = _pack_chunk(views, n_ticks, dev_done).cpu().numpy()
-            t1 = time.perf_counter()
+            with profiling.span("loop.fetch", i):
+                packed = _pack_chunk(views, n_ticks, dev_done).cpu().numpy()
             self.tamp.mppi_state, self.state = ms, rs
-            done_at = self._drain_chunk(i, *_unpack_chunk(packed, chunk, n_ticks), t1 - t0)
+            done_at = self._drain_chunk(i, *_unpack_chunk(packed, chunk, n_ticks),
+                                        _seconds(profiling.last_span("tamp.plan")[0], "loop.fetch"))
             if done_at is not None:
                 break
             i += chunk
@@ -265,8 +275,9 @@ class SimLoop:
         start a copy into the host buffer ``host`` (pinned; made here when
         None or of another size), after which a CUDA event is recorded.  On
         the CPU the copy is a plain one and there is no event.  Returns
-        (i, host buffer, event, chunk's n_ticks, enqueue time)."""
-        task_params = self.tamp.tamp_interface_view(self._view)
+        (i, host buffer, event, chunk's n_ticks, the end of its ``tamp.chunk``
+        span in ns)."""
+        task_params = self.tamp.tamp_interface_view(self._view, i)
         ms, rs, views, n_ticks, dev_done = self.tamp.run_chunk(self.tamp.mppi_state, self.state, task_params, i, chunk)
         self.tamp.mppi_state, self.state = ms, rs  # chunk i + chunk chains on this carry
         packed = _pack_chunk(views, n_ticks, dev_done)
@@ -278,7 +289,7 @@ class SimLoop:
         if on_card:
             event = torch.cuda.Event()
             event.record()
-        return i, host, event, n_ticks, time.perf_counter()
+        return i, host, event, n_ticks, profiling.last_span("tamp.chunk")[1]
 
     def _run_chunked_pipelined(self, n_steps: int, chunk: int) -> TickLog:
         """Chunks with one in flight (sim_loop.py:344): chunk N+1 is enqueued
@@ -287,7 +298,9 @@ class SimLoop:
         The plan then reacts one chunk later (at most ``2 * chunk - 1``
         ticks); a chunk enqueued past success is discarded unfetched, its
         carry committed, as in the JAX package.  Two pinned host buffers
-        alternate, so N+1's copy never lands in the buffer N is read from."""
+        alternate, so N+1's copy never lands in the buffer N is read from.
+        A chunk's log seconds run from its ``tamp.chunk`` span's end to its
+        ``loop.fetch`` span's end."""
         buffers: List[Optional[torch.Tensor]] = [None, None]
         pending = None
         i, slot = 0, 0
@@ -300,11 +313,12 @@ class SimLoop:
                 i += chunk
             if pending is not None:
                 i0, host, event, n_ticks, t0 = pending
-                if event is not None:
-                    event.synchronize()
-                packed = host.numpy().copy()  # the log keeps rows past the buffer's reuse
-                t1 = time.perf_counter()
-                if self._drain_chunk(i0, *_unpack_chunk(packed, chunk, n_ticks), t1 - t0) is not None:
+                with profiling.span("loop.fetch", i0):
+                    if event is not None:
+                        event.synchronize()
+                    packed = host.numpy().copy()  # the log keeps rows past the buffer's reuse
+                elapsed = _seconds(t0, "loop.fetch")
+                if self._drain_chunk(i0, *_unpack_chunk(packed, chunk, n_ticks), elapsed) is not None:
                     break
             if nxt is None:
                 if pending is None:
@@ -315,28 +329,29 @@ class SimLoop:
         return self.log
 
     def _drain_chunk(self, i: int, views, n_ticks: int, dev_done: bool, elapsed: float) -> Optional[int]:
-        """Host-side processing of one fetched chunk: unpack views, run the
-        host success check per tick, record log rows.  Returns the success
-        tick index, or None."""
-        per = elapsed / max(n_ticks, 1)
-        done_at = None
-        tp = self.tamp.task_planner
-        for k in range(n_ticks):
-            self._view = self.env.view_unpack(views[k])
-            if hasattr(tp, "observe"):
-                tp.observe(self._view)  # tick-granular stall bookkeeping
-            self.tamp.task_success = tp.check_task_success(self._view)
-            self._record(i + k, self._view, per, 0.0)
-            if self.tamp.task_success:
-                done_at = i + k
-                break
-        if done_at is None and dev_done:
-            # the device latch fired but the host check disagreed at the
-            # float boundary: trust the device (its state is frozen there)
-            self.tamp.task_success = True
-            done_at = i + n_ticks - 1
-            self.log.success_step = done_at
-        return done_at
+        """Host-side processing of one fetched chunk (a ``loop.drain``
+        span): unpack views, run the host success check per tick, record
+        log rows.  Returns the success tick index, or None."""
+        with profiling.span("loop.drain", i):
+            per = elapsed / max(n_ticks, 1)
+            done_at = None
+            tp = self.tamp.task_planner
+            for k in range(n_ticks):
+                self._view = self.env.view_unpack(views[k])
+                if hasattr(tp, "observe"):
+                    tp.observe(self._view)  # tick-granular stall bookkeeping
+                self.tamp.task_success = tp.check_task_success(self._view)
+                self._record(i + k, self._view, per, 0.0)
+                if self.tamp.task_success:
+                    done_at = i + k
+                    break
+            if done_at is None and dev_done:
+                # the device latch fired but the host check disagreed at the
+                # float boundary: trust the device (its state is frozen there)
+                self.tamp.task_success = True
+                done_at = i + n_ticks - 1
+                self.log.success_step = done_at
+            return done_at
 
     def _run_chunked_panda(self, n_steps: int, chunk: int) -> TickLog:
         """Chunked panda execution (sim_loop.py:386): the AIF gate runs on
@@ -349,20 +364,19 @@ class SimLoop:
         zs = self.tamp.zup_zs0() if self._panda_zs is None else self._panda_zs
         i = 0
         while i < n_steps:
-            t0 = time.perf_counter()
             ms, rs, stage, zs, _, views, stages, dones = self.tamp.run_chunk_panda(
                 self.tamp.mppi_state, self.state, stage, zs, chunk
             )
             # ONE device->host transfer: views, stages and latches together
-            packed = torch.cat([views.reshape(-1), stages.float(), dones.float()]).cpu().numpy()
-            t1 = time.perf_counter()
+            with profiling.span("loop.fetch", i):
+                packed = torch.cat([views.reshape(-1), stages.float(), dones.float()]).cpu().numpy()
             nv = views.shape[-1]
             views = packed[: chunk * nv].reshape(chunk, nv)
             stages = packed[chunk * nv : chunk * (nv + 1)].astype(int)
             dones = packed[chunk * (nv + 1) :] > 0.5
             self.tamp.mppi_state, self.state = ms, rs
             self._panda_stage, self._panda_zs = stage, zs  # device tensors
-            per = (t1 - t0) / chunk
+            per = _seconds(profiling.last_span("tamp.chunk")[0], "loop.fetch") / chunk
             done_at = None
             for k in range(chunk):
                 self._view = self.env.view_unpack(views[k])

@@ -1,5 +1,5 @@
 """The port's run tooling: the ASCII view, offline frames, live teleop, the
-rate tracker and trace, and checkpoint / resume.
+TensorBoard trace, and checkpoint / resume.
 
 A checkpoint of the port resumes bit for bit with the exploration noise on
 (the planner's generator state travels with it), and a checkpoint written
@@ -8,7 +8,6 @@ each package, equal at ``ATOL`` with ``mppi.exploration_noise=0``.
 """
 import dataclasses
 import os
-import time
 
 import numpy as np
 import pytest
@@ -24,7 +23,7 @@ from m3p2i_aip_tpu_torch.envs import make_env
 from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop, TickLog
 from m3p2i_aip_tpu_torch.utils import convert
 from m3p2i_aip_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
-from m3p2i_aip_tpu_torch.utils.profiling import RateTracker, trace
+from m3p2i_aip_tpu_torch.utils.profiling import trace
 from m3p2i_aip_tpu_torch.utils.render import render_point_env, save_frames, save_trajectory_plot
 from m3p2i_aip_tpu_torch.utils.teleop import SHOVE_KEYS, KeyboardTeleop
 
@@ -89,15 +88,7 @@ def test_keyboard_teleop_inert_off_a_tty():
     assert set(SHOVE_KEYS) == {"i", "j", "k", "l"}
 
 
-def test_rate_tracker_and_trace(tmp_path):
-    rt = RateTracker(window=4, env_steps_per_replan=200 * 15)
-    assert rt.hz == 0.0
-    for _ in range(5):
-        rt.tick()
-        time.sleep(0.01)
-    assert 20 < rt.hz < 110
-    assert rt.env_steps_per_sec == rt.hz * 3000
-    assert set(rt.summary()) == {"planner_hz", "env_steps_per_sec"}
+def test_trace_writes_a_tensorboard_trace(tmp_path):
     with trace(str(tmp_path / "trace")) as logdir:
         torch.ones(8).sum()
     assert os.listdir(logdir)
