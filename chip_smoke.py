@@ -31,6 +31,14 @@ that record nothing run it (``graphs=True``, or the default):
   single kernels not at all, and each of which prints its per-seed rows;
   and three seeds batched against three serial runs, compiled (point and
   panda: equal tick counts and success ticks, positions within 1e-4);
+* the point family's real-env step kernel (K5, K5b at B=20): every step
+  the main path and the point n=20 batch took through it, their warm-ups'
+  included, run again and held to ``point_env.step`` bit for bit, timed
+  single and replayed at B=1 and B=20 beside the plain step, and K1's
+  device time a launch after K5 and after the plain step.  Every step a
+  point-family env on the card is asked for is counted apart from the
+  kernel's launches, through the runs' graph replays too, and every launch
+  count the phases below read holds K5 and K5b to one launch a step;
 * the heijn (3-dof omni) and boxer (differential drive) bases and the
   planner modes beyond the default, each a gated ``run_chunked`` at
   K=200 x T=15 that must reach its goal, with its launch counts and success
@@ -176,6 +184,8 @@ from m3p2i_aip_tpu_torch.analysis import bench_record, roofline
 from m3p2i_aip_tpu_torch.analysis.bench_record import event_ms as _time_ms
 from m3p2i_aip_tpu_torch.analysis.bench_record import host_ms as _host_ms
 from m3p2i_aip_tpu_torch.analysis.bench_record import replayed_ms as _device_ms
+from m3p2i_aip_tpu_torch.models import point_env
+from m3p2i_aip_tpu_torch.ops import point_step as ps
 from m3p2i_aip_tpu_torch.scripts import graph_ab
 from m3p2i_aip_tpu_torch.scripts.bench import MAIN_PATH
 from m3p2i_aip_tpu_torch.tamp import graph_tick
@@ -262,6 +272,7 @@ PANDA_SHARD_TICKS = 30  # the sharded and unsharded multi-modal panda, tick for 
 SWEEP_K = (512, 2048, 8192, 16384)  # scripts/bench_sharded.py's sweep (horizon 12), unsharded against 8 shards
 SWEEP_TICKS = 10  # its timed replans a turn (scripts/bench_sharded.py --ticks)
 SEED_SHARDS = 4  # the n=20 point and panda batches over 4 shards of one card: 5 seeds each
+STEP_NEIGHBOUR_REPLAYS = 20  # replays of a [step, K1] graph a profile, K5 and the plain step in turns
 NORTHSTAR_CHECKED = 20  # the north-star's recorded ticks, every K1 call held to the plain version
 UTIL_CHUNK_TICKS = 4  # the utilization table's chunk: the tick in a chunk, and the profile
 WEIGHTS_LARGE_K = (16384, 65536)  # K2 / K2b with the cost-to-go in opted-in shared memory, then in global scratch
@@ -341,6 +352,29 @@ def _recorded_weights(name: str):
         yield calls
     finally:
         setattr(mppi, name, fn)
+
+
+@contextlib.contextmanager
+def _recorded_steps():
+    """Inside the block, each call of the real-env step kernel's wrapper
+    (``point_step.point_step``, which a point-family env's step calls on the
+    card) outside a graph capture is recorded into the yielded list as
+    (params, param buffer, copies of the state, action and forces); the call
+    itself goes through unchanged, launch count included."""
+    from m3p2i_aip_tpu_torch.utils.tree import tree_map
+
+    fn, calls = ps.point_step, []
+
+    def recording(params, buf, state, u, ext):
+        if not torch.cuda.is_current_stream_capturing():
+            calls.append((params, buf, tree_map(torch.clone, state), u.clone(), tree_map(torch.clone, ext)))
+        return fn(params, buf, state, u, ext)
+
+    ps.point_step = recording
+    try:
+        yield calls
+    finally:
+        ps.point_step = fn
 
 
 def _weights_check(mp, cost, label: str) -> float:
@@ -764,10 +798,10 @@ def phase_rollout_scaling(card: str, names: tuple, shape: dict, kernel, batched,
 
 def phase_main_path(cfg) -> tuple:
     """The main path with both gates on: the box must reach the goal, and
-    both kernels must launch once per dispatched tick.  Returns the loop,
-    the launch counts and K1's recorded inputs."""
+    K1, K2 and the real-env step's K5 must launch once per dispatched tick,
+    every other kernel never.  Returns the loop, the launch counts and K1's
+    recorded inputs."""
     from m3p2i_aip_tpu_torch.ops import rollout as ro
-    from m3p2i_aip_tpu_torch.ops import weights
     from m3p2i_aip_tpu_torch.tamp.sim_loop import SimLoop
 
     loop = SimLoop(cfg, device="cuda", graphs=False)
@@ -782,19 +816,20 @@ def phase_main_path(cfg) -> tuple:
 
     loop.tamp.run_chunk = counted_run_chunk
     outputs = graph_ab.record_chunks(loop)
-    ro.rollout_launches = 0
-    weights.weights_launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     with _recorded(ro, "point_rollout") as calls:
         log = loop.run_chunked(1000, chunk=50)
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    counts = _read_launches()
     EAGER_RUNS["point gated"] = graph_ab.loop_record(loop, outputs)
-    launches = {"point_rollout": ro.rollout_launches, "multimodal_weights": weights.weights_launches}
     loop.tamp.run_chunk = run_chunk
-    print(f"[main] {log.steps} ticks logged, {dispatched} dispatched in {wall:.2f} s; launches {launches}")
+    print(f"[main] {log.steps} ticks logged, {dispatched} dispatched in {wall:.2f} s")
     assert dispatched > 0
-    for name, n in launches.items():
-        assert n == dispatched, f"{name}: {n} launches for {dispatched} dispatched ticks"
+    _expect_launches("main", counts, {name: dispatched for name in ("rollout_launches", "weights_launches",
+                                                                     "step_launches")})
+    launches = {KERNEL_OF_COUNTER[name]: n for name, n in counts.items()}
     robot, box = np.asarray(log.robot_pos), np.asarray(log.box_pos)
     assert np.isfinite(robot).all() and np.isfinite(box).all(), "non-finite positions"
     assert np.abs(box).max() <= 3.8, f"box tunnelled: max |coord| {np.abs(box).max()}"
@@ -803,6 +838,92 @@ def phase_main_path(cfg) -> tuple:
     print(f"[main] success tick {log.success_step}, final box-to-goal distance {final:.4f} m")
     assert log.success_step is not None and final <= 0.1, "the box did not reach the goal"
     return loop, launches, calls
+
+
+def _graph_of(fn) -> torch.cuda.CUDAGraph:
+    """``fn`` captured once into a CUDA graph, warmed up off the capture as
+    ``bench_record.replayed_ms`` does."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return graph
+
+
+def phase_point_step(card: str, calls: list, k1_call) -> tuple:
+    """K5 and K5b, the point family's real-env step, on the inputs the
+    closed loops gave them (``calls``, recorded by ``_recorded_steps``: the
+    main path's single states and the n=20 batch's [20] states, D = 2 and
+    S = 5, with their warm-ups' steps): each call run again through the
+    wrapper and held to ``point_env.step`` on the same inputs, every field
+    bit for bit.  Then the last call of each layout timed single (CUDA
+    events, median of TIMED_CALLS: the host's time to issue it, where the
+    kernel is shorter) and replayed from a CUDA graph, beside the plain step
+    (median of 5), with its bound: the scene constants and each operand read
+    once and each output written once, against the step's operations
+    (``roofline.point_step_ops``, and a projection for each live contact).
+    Then K1's device time a launch beside each step: a graph of [step, K1]
+    on the main path's inputs replayed STEP_NEIGHBOUR_REPLAYS times under
+    the profiler, K5 and the plain step in turns.  Returns the kernel
+    table's entries of K5 and K5b."""
+    from m3p2i_aip_tpu_torch.ops import rollout as ro
+
+    layouts = {"point_step": [c for c in calls if c[2].q.dim() == 1],
+               "point_step_batched": [c for c in calls if c[2].q.dim() > 1]}
+    entries = {}
+    for name, group in layouts.items():
+        assert group, f"{name}: no recorded call"
+        for n, (params, buf, state, u, ext) in enumerate(group):
+            got, ref = ps.point_step(params, buf, state, u, ext), point_env.step(params, state, u, ext)
+            for f in dataclasses.fields(ref):
+                a, b = getattr(got, f.name), getattr(ref, f.name)
+                assert a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                                          b.contiguous().view(torch.int32)), (
+                    f"{name} call {n} of {len(group)}: {f.name} differs from the plain step by "
+                    f"{float((a - b).abs().max())}")
+        params, buf, state, u, ext = group[-1]
+        B, D, S = int(np.prod(state.q.shape[:-1])), params.dyn_half.shape[0], params.stat_pos.shape[0]
+        step = lambda: ps.point_step(params, buf, state, u, ext)  # noqa: E731
+        ms, dev_ms = _time_ms(step), _device_ms(step)
+        with roofline.live_contacts() as live:
+            plain = point_env.step(params, state, u, ext)
+        plain_ms = _time_ms(lambda: point_env.step(params, state, u, ext), calls=5, warmup=1)
+        outputs = [getattr(plain, f) for f in ps.OUTPUTS]
+        operands = [getattr(state, f) for f in ps.INPUTS[:7]] + [u, ext.robot, ext.dyn]
+        n_live = roofline.total(live)
+        bound = roofline.bound(roofline.tensor_bytes(buf, *operands, *outputs),
+                               B * roofline.point_step_ops(params, D, S) + roofline.RESOLVE_OPS * n_live)
+        print(f"[{name}] {len(group)} recorded calls at B={B}, D={D}, S={S} ({params.robot_type}): every field bit "
+              f"for bit the plain step's; the last call ({n_live} live contacts): kernel {ms:.4f} ms single (median "
+              f"of {TIMED_CALLS}), {dev_ms:.4f} ms replayed, plain {plain_ms:.4f} ms (median of 5); bound {bound} "
+              f"({card})")
+        entries[name] = {"max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, **bound,
+                         "library_ms": None, "calls_checked": len(group)}
+
+    spec, k1_inputs = k1_call
+    params, buf, state, u, ext = layouts["point_step"][-1]
+    steps = {"K5": lambda: ps.point_step(params, buf, state, u, ext),
+             "plain step": lambda: point_env.step(params, state, u, ext)}
+    k1_ms: dict = {}
+    for before in ("K5", "plain step", "plain step", "K5"):
+        graph = _graph_of(lambda: (steps[before](), ro.point_rollout(spec, *k1_inputs)))
+        prof = bench_record.profile(lambda: [graph.replay() for _ in range(STEP_NEIGHBOUR_REPLAYS)],
+                                    STEP_NEIGHBOUR_REPLAYS, {"K1": "point_rollout_kernel"})
+        assert prof is not None, f"K1 beside {before}: the profiler saw no device kernel"
+        traced = prof["traced_launches"]["point_rollout_kernel"]
+        assert traced > 0, f"K1 beside {before}: no K1 event traced"
+        k1_ms.setdefault(before, []).append(prof["kernel_ms_per_tick"]["K1"] * STEP_NEIGHBOUR_REPLAYS / traced)
+        del graph
+    print("[K1 beside the step] K1's device ms a launch in a replayed [step, K1] graph, profiled, in turns: " + "; ".join(
+        f"after {before} {', '.join(f'{t:.4f}' for t in ts)}" for before, ts in k1_ms.items()) + f" ({card})")
+    return entries["point_step"], entries["point_step_batched"]
 
 
 def _rate_line(rate: dict) -> str:
@@ -1162,25 +1283,74 @@ def _launch_counters() -> list:
     return list(bench_record.launch_counters().values())
 
 
+class _EnvSteps:
+    """The steps that point-family envs on the card were asked for since
+    ``_zero_launches``, for one state and for a batch, counted by the env's
+    step function (``_count_env_steps``) apart from the kernel's launch
+    counts: ``_read_launches`` holds K5 / K5b to one launch a step."""
+
+    env_steps = 0
+    env_batched_steps = 0
+
+
+STEP_OF_COUNTER = {"step_launches": "env_steps", "step_batched_launches": "env_batched_steps"}
+
+
+def _count_env_steps() -> None:
+    """From here on, count in ``_EnvSteps`` every step asked of a
+    point-family env on the card: the step function ``envs.py`` makes
+    (``point_step.make_step``) is wrapped at each env's making, and the
+    counts join the launch counts ``graph_tick`` takes around a capture,
+    so a replayed graph adds the steps it captured, times its replays, as
+    it adds its launches."""
+    make_step, launch_counts = ps.make_step, graph_tick._launch_counts
+
+    def counting_make_step(params):
+        step = make_step(params)
+        if params.device.type != "cuda":
+            return step
+
+        def counted(state, u, ext):
+            name = "env_batched_steps" if state.q.dim() > 1 else "env_steps"
+            setattr(_EnvSteps, name, getattr(_EnvSteps, name) + 1)
+            return step(state, u, ext)
+
+        return counted
+
+    ps.make_step = counting_make_step
+    graph_tick._launch_counts = lambda: {
+        **launch_counts(), **{(_EnvSteps, name): getattr(_EnvSteps, name) for name in STEP_OF_COUNTER.values()},
+    }
+
+
 KERNEL_OF_COUNTER = {
     "rollout_launches": "point_rollout", "rollout_batched_launches": "point_rollout_batched",
     "weights_launches": "multimodal_weights", "weights_batched_launches": "multimodal_weights_batched",
     "panda_rollout_launches": "panda_rollout", "panda_rollout_batched_launches": "panda_rollout_batched",
     "albert_rollout_launches": "albert_rollout", "albert_rollout_batched_launches": "albert_rollout_batched",
+    "step_launches": "point_step", "step_batched_launches": "point_step_batched",
 }
 
 
 def _zero_launches() -> None:
     for mod, name in _launch_counters():
         setattr(mod, name, 0)
+    for name in STEP_OF_COUNTER.values():
+        setattr(_EnvSteps, name, 0)
     graph_tick.replayed_launches.clear()
 
 
 def _read_launches() -> dict:
     """Every kernel's launches since ``_zero_launches``, by wrapper count:
     those its wrapper made plus those graph replays made (captured launches
-    x replays, ``graph_tick.replayed_launches``)."""
-    return {name: getattr(mod, name) + graph_tick.replayed_launches.get(name, 0) for mod, name in _launch_counters()}
+    x replays, ``graph_tick.replayed_launches``).  K5 and K5b must have
+    launched exactly once for each step of a point-family env on the card
+    since then, one state and a batch (``_EnvSteps``, replays included)."""
+    counts = {name: getattr(mod, name) + graph_tick.replayed_launches.get(name, 0) for mod, name in _launch_counters()}
+    for counter, name in STEP_OF_COUNTER.items():
+        steps = getattr(_EnvSteps, name) + graph_tick.replayed_launches.get(name, 0)
+        assert counts[counter] == steps, f"{counter}: {counts[counter]} launches for {steps} env steps on the card"
+    return counts
 
 
 def _read_replayed() -> dict:
@@ -1188,7 +1358,8 @@ def _read_replayed() -> dict:
     the smoke's ``kernels`` line reports it as ``graph_launches``, apart from
     the launches the wrappers counted (``phase_graphs`` holds it to the
     profiler's kernel events)."""
-    return {KERNEL_OF_COUNTER[name]: n for name, n in graph_tick.replayed_launches.items() if n}
+    return {KERNEL_OF_COUNTER[name]: n for name, n in graph_tick.replayed_launches.items()
+            if n and name in KERNEL_OF_COUNTER}  # not the env steps
 
 
 def _add_launches(launches: dict, graph_launches: dict, counts: dict, replayed: dict) -> None:
@@ -1563,10 +1734,11 @@ def phase_batch_vs_serial(label: str, config_name: str, overrides: list, chunk: 
 def phase_gated_loop(label: str, config_name: str, overrides: list, max_ticks: int) -> tuple:
     """One gated closed loop through ``SimLoop.run_chunked`` (warm-up 10,
     chunks of LOOP_CHUNK): every launch count set to 0 just before and read
-    just after, K1 launched once per dispatched tick and K2 once per tick of
-    a multi-modal halton planner (never in single mode or simple mode),
-    every other kernel never; the box (the robot, for navigation) must reach
-    the goal, and the boxer corner hybrid's staged endgame must engage.
+    just after, K1 and the real-env step's K5 launched once per dispatched
+    tick and K2 once per tick of a multi-modal halton planner (never in
+    single mode or simple mode), every other kernel never; the box (the
+    robot, for navigation) must reach the goal, and the boxer corner
+    hybrid's staged endgame must engage.
     Returns (the launch counts, K1's recorded calls)."""
     from m3p2i_aip_tpu_torch.config.config_store import load_config
     from m3p2i_aip_tpu_torch.ops import rollout as ro
@@ -1593,7 +1765,8 @@ def phase_gated_loop(label: str, config_name: str, overrides: list, max_ticks: i
     wall = time.perf_counter() - t0
     counts = _read_launches()
     weighted = mp.multi_modal and mp.mppi_mode != "simple"
-    want = {"rollout_launches": dispatched, "weights_launches": dispatched if weighted else 0}
+    want = {"rollout_launches": dispatched, "weights_launches": dispatched if weighted else 0,
+            "step_launches": dispatched}
     print(f"[{label}] {log.steps} ticks logged, {dispatched} dispatched in {wall:.2f} s; launches {counts}")
     for name, n in counts.items():
         assert n == want.get(name, 0), f"{label}: {name} launched {n} times, expected {want.get(name, 0)}"
@@ -1742,9 +1915,13 @@ def phase_every_call(label: str, calls: list, kernel, flat=_point_plain_flat, ba
 
 
 def _expect_launches(label: str, counts: dict, want: dict) -> None:
-    """Every kernel's launch count of one run: ``want`` where named, else 0."""
+    """Every kernel's launch count of one run: ``want`` where named, else 0;
+    K5's and K5b's, where not named, as ``_read_launches`` held them, one a
+    step of the run's point-family env (its warm-ups and settles too)."""
     print(f"[{label}] launches {counts}")
     for name, n in counts.items():
+        if name in STEP_OF_COUNTER and name not in want:
+            continue
         assert n == want.get(name, 0), f"{label}: {name} launched {n} times, expected {want.get(name, 0)}"
 
 
@@ -2678,7 +2855,8 @@ def phase_seed_shard(card: str, unsharded: dict) -> tuple:
 
     mesh = _card_mesh(SEED_SHARDS)
     for family, config_name, overrides, chunk, cap, per_tick in (
-        ("point", "config_point", MAIN_PATH, 4, 300, {"rollout_batched_launches": 1, "weights_batched_launches": 1}),
+        ("point", "config_point", MAIN_PATH, 4, 300,
+         {"rollout_batched_launches": 1, "weights_batched_launches": 1, "step_batched_launches": 1}),
         ("panda", "config_panda", ["multi_modal=True"], 10, 600,
          {"panda_rollout_batched_launches": 4, "weights_batched_launches": 3}),
     ):
@@ -2778,6 +2956,7 @@ def main() -> None:
     from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMP
 
     # 1. device
+    _count_env_steps()  # before any env is made
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
@@ -2804,7 +2983,7 @@ def main() -> None:
     del tamp
     _stamp("the K1 / K2 checks")
     # 5. / 6. the point main path
-    with _recorded_weights("multimodal_weights") as k2_point:
+    with _recorded_weights("multimodal_weights") as k2_point, _recorded_steps() as step_calls:
         loop, launches, k1_calls = phase_main_path(load_config("config_point", MAIN_PATH))
     point_chunked_tick = loop.log.success_step
     main_log = _log_record(loop.log)
@@ -2834,10 +3013,11 @@ def main() -> None:
     _stamp("the batched kernels' checks")
     # 19. - 21. the three n=20 batches through BatchSimLoop
     with _recorded(ro, "point_rollout_batched") as k1b_calls, \
-            _recorded_weights("multimodal_weights_batched") as k2b_point:
+            _recorded_weights("multimodal_weights_batched") as k2b_point, _recorded_steps() as step_b_calls:
         point_counts, point_rows, point_steps, _ = phase_seed_batch(
             "batch-point", "config_point", MAIN_PATH, 4, 300,
-            {"rollout_batched_launches": 1, "weights_batched_launches": 1}, keep="point batch", graphs=False,
+            {"rollout_batched_launches": 1, "weights_batched_launches": 1, "step_batched_launches": 1},
+            keep="point batch", graphs=False,
         )
     with _recorded(pr, "panda_rollout_batched") as k3b_calls, \
             _recorded_weights("multimodal_weights_batched") as k2b_panda:
@@ -2856,7 +3036,14 @@ def main() -> None:
     )
     launches["panda_rollout_batched"] = panda_counts["panda_rollout_batched_launches"]
     launches["albert_rollout_batched"] = albert_counts["albert_rollout_batched_launches"]
+    launches["point_step_batched"] = point_counts["step_batched_launches"]
     _stamp("the n=20 batches")
+    # 21b. K5 and K5b against the plain step on the main path's and the n=20 batch's steps, timed;
+    # K1 beside each step
+    stats["point_step"], stats["point_step_batched"] = phase_point_step(card, step_calls + step_b_calls,
+                                                                        k1_calls[-1])
+    del step_calls, step_b_calls
+    _stamp("the real-env step's checks")
     # 22. / 23. three seeds batched against three serial runs, compiled
     phase_batch_vs_serial("batch-vs-serial point", "config_point", MAIN_PATH, 4, 300)
     phase_batch_vs_serial("batch-vs-serial panda", "config_panda", ["multi_modal=True"], 10, 600)
@@ -2871,6 +3058,7 @@ def main() -> None:
             k2_runs[label] = k2_calls
         launches["point_rollout"] += counts["rollout_launches"]
         launches["multimodal_weights"] += counts["weights_launches"]
+        launches["point_step"] += counts["step_launches"]
     family_hz = {name: phase_family_bench(card, f"config_{name}", f"family-bench {name}") for name in ("heijn", "boxer")}
     _stamp("the family and planner-mode runs")
     # 28. - 30. the README's entry points: the run_tamp script per tick, the two terminals over a
@@ -3000,6 +3188,12 @@ def main() -> None:
         "albert_rollout_batched": (
             "m3p2i_aip_tpu_torch/csrc/albert_rollout.cu",
             "m3p2i_aip_tpu/ops/pallas_albert_rollout.py:425",
+        ),
+        # no TPU kernel: the JAX real-env step is XLA code
+        "point_step": ("m3p2i_aip_tpu_torch/csrc/point_step.cu", "none, XLA: m3p2i_aip_tpu/models/point_env.py:283"),
+        "point_step_batched": (
+            "m3p2i_aip_tpu_torch/csrc/point_step.cu",
+            "none, XLA: m3p2i_aip_tpu/models/point_env.py:283",
         ),
     }
     never = [name for name in sources if launches[name] == 0]

@@ -174,6 +174,7 @@ def launch_counters() -> dict:
     """{kernel: (module, attribute)} of every kernel wrapper's launch count."""
     from m3p2i_aip_tpu_torch.ops import albert_rollout as ar
     from m3p2i_aip_tpu_torch.ops import panda_rollout as pr
+    from m3p2i_aip_tpu_torch.ops import point_step as ps
     from m3p2i_aip_tpu_torch.ops import rollout as ro
     from m3p2i_aip_tpu_torch.ops import weights
 
@@ -182,16 +183,18 @@ def launch_counters() -> dict:
         "K2": (weights, "weights_launches"), "K2b": (weights, "weights_batched_launches"),
         "K3": (pr, "panda_rollout_launches"), "K3b": (pr, "panda_rollout_batched_launches"),
         "K4": (ar, "albert_rollout_launches"), "K4b": (ar, "albert_rollout_batched_launches"),
+        "K5": (ps, "step_launches"), "K5b": (ps, "step_batched_launches"),
     }
 
 
 # the symbol of each wrapper's kernel in a profiler trace (a batched call
-# launches its single call's kernel, with the seed on blockIdx.y)
+# launches its single call's kernel)
 KERNEL_SYMBOLS = {
     "K1": "point_rollout_kernel", "K1b": "point_rollout_kernel",
     "K2": "multimodal_weights_kernel", "K2b": "multimodal_weights_kernel",
     "K3": "panda_rollout_kernel", "K3b": "panda_rollout_kernel",
     "K4": "albert_rollout_kernel", "K4b": "albert_rollout_kernel",
+    "K5": "point_env_step_kernel", "K5b": "point_env_step_kernel",
 }
 
 

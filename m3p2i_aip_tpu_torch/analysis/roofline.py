@@ -42,21 +42,28 @@ def bound(n_bytes: float, n_ops: float) -> dict:
     return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def point_rollout_ops(spec, K: int, live: int) -> float:
-    """K1 on K samples: per position iteration the contact tests of the five
-    Jacobi passes (robot vs boxes, box pairs, boxes vs statics, robot vs
-    statics, robot vs held boxes) for every contact; per substep the drive,
-    ground friction and integration; per step the costs with the
-    wall-crush probe; and one projection for each of the ``live`` contacts
-    (pen > 0, counted by :func:`live_contacts` on the same inputs), since a
-    contact that is not live projects to zero and needs no projection."""
-    D, S, p = spec.D, spec.S, spec.env_params
+def point_step_ops(p, D: int, S: int) -> float:
+    """One state's step of the point physics, its contacts' projections
+    left out: per position iteration the contact tests of the five Jacobi
+    passes (robot vs boxes, box pairs, boxes vs statics, robot vs statics,
+    robot vs held boxes) for every contact; per substep the drive, ground
+    friction and integration.  K1 runs it each step of each sample, K5
+    once a state."""
     per_iter = (
         2 * D * (2 + CIRCLE_TEST_OPS) + D * (D - 1) * (2 + CORNER_TEST_OPS)
         + D * S * (CORNER_TEST_OPS + 10) + S * CIRCLE_TEST_OPS
     )
-    per_sub = 40 + 40 * D + p.pos_iters * per_iter + 4
-    return K * spec.T * (p.substeps * per_sub + 150 + 55 * S) + RESOLVE_OPS * live
+    return p.substeps * (40 + 40 * D + p.pos_iters * per_iter + 4)
+
+
+def point_rollout_ops(spec, K: int, live: int) -> float:
+    """K1 on K samples: each step's :func:`point_step_ops`, the costs with
+    the wall-crush probe, and one projection for each of the ``live``
+    contacts (pen > 0, counted by :func:`live_contacts` on the same
+    inputs), since a contact that is not live projects to zero and needs no
+    projection."""
+    S = spec.S
+    return K * spec.T * (point_step_ops(spec.env_params, spec.D, S) + 150 + 55 * S) + RESOLVE_OPS * live
 
 
 @contextlib.contextmanager

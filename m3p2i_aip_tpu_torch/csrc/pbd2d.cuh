@@ -1,7 +1,9 @@
-// Planar PBD contact primitives shared by the rollout kernels: a circle
-// against an oriented box, and one Jacobi projection of a single contact.
+// Planar PBD contact primitives shared by the point-family kernels (the
+// rollout, the real-env step) and the albert rollout: a circle against an
+// oriented box, a box's four corners against an oriented box, one Jacobi
+// projection of a single contact, and the sum of a box pair's four corners.
 // Device counterparts of m3p2i_aip_tpu_torch/sim/pbd2d.py (circle_vs_obb,
-// resolve_contact), with the plain versions' operation order.
+// corners_vs_obb, resolve_contact), with the plain versions' operation order.
 //
 // The divisions whose quotient no output reads are skipped behind a branch:
 // the ratio test that picks the pushout axis runs only for a centre inside
@@ -121,6 +123,69 @@ __device__ Resolved resolve(float pen, float nx, float ny, float px, float py,
   o.fx = f * nx;
   o.fy = f * ny;
   return o;
+}
+
+// The four corners of box A against box B's dominant face (chosen from A's
+// center): penetrations, world corner points, one world normal.
+struct CornerContacts {
+  float pen[4], wx[4], wy[4];
+  float nx, ny;
+};
+
+__device__ CornerContacts corners_vs_obb(float ax, float ay, float ac, float as,
+                                         float hxa, float hya, float bx, float by,
+                                         float bc, float bs, float hxb, float hyb) {
+  const float dx = ax - bx, dy = ay - by;
+  const float clx = bc * dx + bs * dy;
+  const float cly = -bs * dx + bc * dy;
+  const bool use_x = fabsf(clx) / hxb >= fabsf(cly) / hyb;
+  const float sgn = use_x ? sgn_pos(clx) : sgn_pos(cly);
+  const float half_axis = use_x ? hxb : hyb;
+  const float nlx = use_x ? sgn : 0.0f;
+  const float nly = use_x ? 0.0f : sgn;
+  CornerContacts cc;
+  cc.nx = bc * nlx - bs * nly;
+  cc.ny = bs * nlx + bc * nly;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float lxa = (i < 2 ? 1.0f : -1.0f) * hxa;
+    const float lya = (i % 2 == 0 ? 1.0f : -1.0f) * hya;
+    const float wx = ax + (ac * lxa - as * lya);
+    const float wy = ay + (as * lxa + ac * lya);
+    const float ex = wx - bx, ey = wy - by;
+    const float lx = bc * ex + bs * ey;
+    const float ly = -bs * ex + bc * ey;
+    const float local_a = use_x ? lx : ly;
+    const float sep_other = use_x ? hyb - fabsf(ly) : hxb - fabsf(lx);
+    const float pen_val = half_axis - sgn * local_a;
+    cc.pen[i] = (pen_val > 0.0f && sep_other > 0.0f) ? pen_val : -1.0f;
+    cc.wx[i] = wx;
+    cc.wy[i] = wy;
+  }
+  return cc;
+}
+
+// The four corners' corrections of one box pair summed as the plain
+// version's sums over the corners add them: the [.., 4, 2] position,
+// velocity and force rows in corner order, the contiguous [.., 4] yaw and
+// spin rows as (c0 + c2) + (c1 + c3)
+__device__ __forceinline__ Resolved corner_sum(const Resolved (&o)[4]) {
+  Resolved r;
+  r.dax = ((o[0].dax + o[1].dax) + o[2].dax) + o[3].dax;
+  r.day = ((o[0].day + o[1].day) + o[2].day) + o[3].day;
+  r.dvax = ((o[0].dvax + o[1].dvax) + o[2].dvax) + o[3].dvax;
+  r.dvay = ((o[0].dvay + o[1].dvay) + o[2].dvay) + o[3].dvay;
+  r.dbx = ((o[0].dbx + o[1].dbx) + o[2].dbx) + o[3].dbx;
+  r.dby = ((o[0].dby + o[1].dby) + o[2].dby) + o[3].dby;
+  r.dvbx = ((o[0].dvbx + o[1].dvbx) + o[2].dvbx) + o[3].dvbx;
+  r.dvby = ((o[0].dvby + o[1].dvby) + o[2].dvby) + o[3].dvby;
+  r.fx = ((o[0].fx + o[1].fx) + o[2].fx) + o[3].fx;
+  r.fy = ((o[0].fy + o[1].fy) + o[2].fy) + o[3].fy;
+  r.dyaw_a = (o[0].dyaw_a + o[2].dyaw_a) + (o[1].dyaw_a + o[3].dyaw_a);
+  r.dom_a = (o[0].dom_a + o[2].dom_a) + (o[1].dom_a + o[3].dom_a);
+  r.dyaw_b = (o[0].dyaw_b + o[2].dyaw_b) + (o[1].dyaw_b + o[3].dyaw_b);
+  r.dom_b = (o[0].dom_b + o[2].dom_b) + (o[1].dom_b + o[3].dom_b);
+  return r;
 }
 
 }  // namespace

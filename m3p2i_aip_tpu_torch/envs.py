@@ -3,8 +3,10 @@ in torch.
 
 Port of ``m3p2i_aip_tpu/envs.py``: the per-actor YAMLs are packed into
 tensors on one device once, and the scene is exposed as a bundle of functions
-closed over those params.  The K rollouts and the real system share one
-``step`` (a leading K axis vs none).  The Isaac-layout views (an interleaved
+closed over those params.  The K rollouts' plain version and the real system
+share one step function (a leading K axis vs none); on a card the point
+family's real system steps in one launch of its kernel
+(``ops/point_step.py``), bit for bit that function.  The Isaac-layout views (an interleaved
 dof state, a root state [A, 13]) and their loaders carry one real state over
 the two-terminal RPC boundary (``tamp/reactive_tamp.py``
 ``ReactiveTAMPServer``).
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from m3p2i_aip_tpu_torch.models import albert, panda_env, panda_fk, point_env
+from m3p2i_aip_tpu_torch.ops import point_step
 from m3p2i_aip_tpu_torch.ops.quat import mat_to_quat, quat_from_yaw
 from m3p2i_aip_tpu_torch.sim.sim_config import load_env_cfgs
 
@@ -139,7 +142,7 @@ def _make_point_env(cfg, actors, device) -> Env:
         params=params,
         nu=point_env.robot_nu(params),
         nx=2 * point_env.robot_nq(params),
-        step=lambda s, u, e: point_env.step(params, s, u, e),
+        step=point_step.make_step(params),  # one kernel launch on a card
         init_state=lambda: point_env.init_state(params),
         zero_ext=lambda batch=(): point_env.zero_ext(params, batch),
         dof_state_view=dof_state_view,

@@ -216,6 +216,14 @@ def _check_batch(fn: str, spec: RolloutSpec, task_vec, state0, fric_k, acts) -> 
             raise ValueError(f"{fn}: {name} must be contiguous float32 on {acts.device}")
 
 
+def check_scene(fn: str, D: int, S: int) -> None:
+    """Raise unless the point kernels (this rollout's and the real-env
+    step's, ``ops/point_step.py``) take a scene of ``D`` dynamic and ``S``
+    static boxes: 1 to their compile-time maxima."""
+    if not (1 <= D <= MAX_DYN and 1 <= S <= MAX_STAT):
+        raise ValueError(f"{fn}: scene has D={D}, S={S}; the kernel takes 1 <= D <= {MAX_DYN}, 1 <= S <= {MAX_STAT}")
+
+
 def _launch(fn: str, spec: RolloutSpec, task_vec, state0, fric_k, acts):
     """ONE launch of the kernel on the current stream for B seeds' inputs
     (the seed on the grid's y axis); raises on anything it does not take."""
@@ -224,8 +232,7 @@ def _launch(fn: str, spec: RolloutSpec, task_vec, state0, fric_k, acts):
     _check_batch(fn, spec, task_vec, state0, fric_k, acts)
     B, K, T, n_u = acts.shape
     D, S = spec.D, spec.S
-    if D > MAX_DYN or S > MAX_STAT:
-        raise ValueError(f"{fn}: scene has D={D}, S={S}; the kernel takes D <= {MAX_DYN}, S <= {MAX_STAT}")
+    check_scene(fn, D, S)
     cost = torch.empty(B, K, T, dtype=torch.float32, device=acts.device)
     traj = torch.empty(B, K, T, 2, dtype=torch.float32, device=acts.device)
     lib = cuda_build.load_kernels()

@@ -23,10 +23,12 @@ from m3p2i_aip_tpu_torch.envs import make_env
 from m3p2i_aip_tpu_torch.models import panda_env, point_env
 from m3p2i_aip_tpu_torch.ops import albert_rollout as ar
 from m3p2i_aip_tpu_torch.ops import panda_rollout as pr
+from m3p2i_aip_tpu_torch.ops import point_step as ps
 from m3p2i_aip_tpu_torch.ops import rollout as ro
 from m3p2i_aip_tpu_torch.ops import weights
 from m3p2i_aip_tpu_torch.planners.motion_planner.mppi import make_task_params
 from m3p2i_aip_tpu_torch.sim.sim_config import ActorCfg, load_env_cfgs
+from m3p2i_aip_tpu_torch.tamp import graph_tick
 from m3p2i_aip_tpu_torch.tamp.reactive_tamp import ReactiveTAMP
 from m3p2i_aip_tpu_torch.utils.tree import tree_map
 
@@ -556,3 +558,204 @@ def test_batched_albert_kernel_matches_plain_and_single(cuda, B):
         lambda *a: ar.albert_rollout_batched(spec, *a), lambda *a: ar.albert_rollout_batched_plain(spec, *a),
         lambda *a: ar.albert_rollout(spec, *a), inputs, 1e-4, 1e-4, lambda: ar.albert_rollout_batched_launches,
     )
+
+
+# ------------------------------------------------- the real-env step (K5)
+# The step kernel follows models/point_env.step bit for bit as K1 follows the
+# plain rollout: it adds each sum in the order PyTorch's CUDA reductions add
+# it at the plain step's layouts, which are the rollout's without the K axis
+# (one robot) or with a seed axis in its place (the batch).  These orders are
+# measured first, at both layouts, with numpy's float32 adds in the order the
+# kernel takes (csrc/point_rollout.cu's head note).
+
+
+def _acc4(values):
+    """A thread's reduction: element i into accumulator i % 4, then the four in order."""
+    acc = [np.float32(0.0)] * 4
+    for i, v in enumerate(values):
+        acc[i % 4] = np.float32(acc[i % 4] + v)
+    return np.float32(np.float32(np.float32(acc[0] + acc[1]) + acc[2]) + acc[3])
+
+
+def _tree32(values):
+    """A warp's reduction over the innermost dims: element e on lane e % 32,
+    then the lanes folded by shuffles down 16, 8, 4, 2, 1."""
+    lanes = [np.float32(0.0)] * 32
+    for e, v in enumerate(values):
+        lanes[e % 32] = np.float32(lanes[e % 32] + v)
+    for off in (16, 8, 4, 2, 1):
+        lanes = [np.float32(lanes[l] + lanes[l + off]) if l + off < 32 else lanes[l] for l in range(32)]
+    return lanes[0]
+
+
+def _norm2(values):
+    return np.sqrt(np.float32(np.float32(values[0] * values[0]) + np.float32(values[1] * values[1])))
+
+
+# (the step's sum, the summed tensor's trailing shape, the reduced dims, the
+# order), D = 2 or 4 boxes and S = 5 or 16 statics
+SUM_ORDERS = {
+    "pass 1 robot rows": (lambda D, S: (D, 2), (-2,), _acc4),
+    "pass 2 corner rows": (lambda D, S: (4, 2), (-2,), _acc4),
+    "pass 2 corner yaws": (lambda D, S: (4,), (-1,), _tree32),
+    "pass 3 box rows": (lambda D, S: (D, S, 4, 2), (-3, -2), _acc4),
+    "pass 3 box yaws": (lambda D, S: (D, S, 4), (-2, -1), _tree32),
+    "pass 3 static rows": (lambda D, S: (D, S, 4, 2), (-4, -2), _acc4),
+    "pass 4 robot rows": (lambda D, S: (S, 2), (-2,), _acc4),
+    "speeds": (lambda D, S: (D, 2), (-1,), _norm2),
+}
+
+
+@pytest.mark.parametrize("lead", [(), (20,)], ids=["one", "batch20"])
+@pytest.mark.parametrize("name", list(SUM_ORDERS))
+def test_plain_step_sum_orders(cuda, name, lead):
+    """Each sum of models/point_env.step, at its layout without and with a
+    leading seed axis, adds in the order the step kernel takes: on values
+    of mixed magnitudes and signs with live and dead (+-0) entries, every
+    output equal bit for bit."""
+    shape_of, dims, order = SUM_ORDERS[name]
+    rng = np.random.default_rng(20)
+    for D, S in ((2, 5), (4, 16)):
+        shape = lead + shape_of(D, S)
+        for _ in range(8):
+            x = (rng.standard_normal(shape) * 10.0 ** rng.uniform(-6, 3, shape)).astype(np.float32)
+            x[rng.random(shape) < 0.3] = 0.0
+            x[rng.random(shape) < 0.1] = -0.0
+            t = torch.as_tensor(x, device=cuda)
+            got = (torch.linalg.vector_norm(t, dim=-1) if order is _norm2 else torch.sum(t, dim=dims)).cpu().numpy()
+            moved = np.moveaxis(x, dims, range(-len(dims), 0))  # the reduced dims last, in their order
+            flat = moved.reshape(moved.shape[: moved.ndim - len(dims)] + (-1,))  # the last reduced dim fastest
+            want = np.array([order(r) for r in flat.reshape(-1, flat.shape[-1])], np.float32).reshape(got.shape)
+            assert np.array_equal(got.view(np.int32), want.view(np.int32)), (name, lead, D, S)
+
+
+# starts in contact in config_point's scene (the dyn-obs is slot 0, the box
+# slot 1; the static obs at [2, 2], the walls' inner faces at +-3.95):
+# (robot xy, robot velocity, {slot: (x, y, yaw)})
+STEP_STARTS = {
+    "box_into_wall": ([0.0, 3.42], [0.0, 2.0], {1: (0.0, 3.8, 0.0)}),
+    "box_on_box": ([-0.38, 2.0], [2.0, 0.0], {0: (0.38, 2.05, 0.2)}),
+    "robot_on_static": ([1.67, 2.0], [2.5, 0.3], {}),
+    "box_on_static": ([1.29, 2.0], [2.0, 0.0], {1: (1.68, 2.0, 0.1)}),
+    "arena_corner": ([3.9, -3.9], [3.0, -3.0], {}),
+}
+STEP_TICKS = 25
+
+
+def _step_case(params, B, rng, device):
+    """B states from STEP_STARTS in turn, each with its own random box and
+    robot velocities, friction scales (0.7-1.3), suction forces (half of
+    them zero) and action: (state, u, ext); a single state for B = 1."""
+    nq, nu, D = point_env.robot_nq(params), point_env.robot_nu(params), params.dyn_half.shape[0]
+    rows = []
+    for b in range(B):
+        q, qd, boxes = list(STEP_STARTS.values())[b % len(STEP_STARTS)]
+        state = point_env.init_state(params)
+        pos, yaw = state.dyn_pos.cpu().numpy().copy(), np.zeros(D, np.float32)
+        for slot, (x, y, a) in boxes.items():
+            pos[slot], yaw[slot] = (x, y), a
+        f = lambda *shape: rng.uniform(-1, 1, shape).astype(np.float32)  # noqa: E731
+        gate = lambda *shape: f(*shape) * (rng.random() < 0.5)  # noqa: E731
+        rows.append(dict(
+            q=q + list(rng.uniform(-np.pi, np.pi, nq - 2)), qd=qd + list(f(nq - 2)), dyn_pos=pos, dyn_yaw=yaw,
+            dyn_vel=f(D, 2), dyn_om=f(D), fric_scale=rng.uniform(0.7, 1.3, D), u=3.0 * f(nu),
+            ext_robot=40.0 * gate(2), ext_dyn=60.0 * gate(D, 2),
+        ))
+    t = {k: torch.as_tensor(np.stack([np.asarray(r[k], np.float32) for r in rows]), device=device) for k in rows[0]}
+    if B == 1:
+        t = {k: v[0] for k, v in t.items()}
+    state = point_env.PointEnvState(
+        q=t["q"], qd=t["qd"], dyn_pos=t["dyn_pos"], dyn_yaw=t["dyn_yaw"], dyn_vel=t["dyn_vel"], dyn_om=t["dyn_om"],
+        contact_force=torch.zeros(*t["q"].shape[:-1], params.num_actors, 3, device=device),
+        fric_scale=t["fric_scale"],
+    )
+    return state, t["u"], point_env.PointExtForces(robot=t["ext_robot"], dyn=t["ext_dyn"])
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().view(torch.int32)
+
+
+def _check_step_bit_for_bit(params, step, B, seed, device):
+    """STEP_TICKS steps of the kernel from a _step_case, each against the
+    plain step from the same state: every field equal bit for bit."""
+    state, u, ext = _step_case(params, B, np.random.default_rng(seed), device)
+    counter = "step_batched_launches" if B > 1 else "step_launches"
+    live = 0
+    for tick in range(STEP_TICKS):
+        before = getattr(ps, counter)
+        got = step(state, u, ext)
+        assert getattr(ps, counter) == before + 1
+        ref = point_env.step(params, state, u, ext)
+        for f in dataclasses.fields(ref):
+            a, r = getattr(got, f.name), getattr(ref, f.name)
+            assert a.shape == r.shape and torch.equal(_bits(a), _bits(r)), (
+                f.name, tick, int((_bits(a) != _bits(r)).sum()), float((a - r).abs().max()))
+        live += int((ref.contact_force != 0).any(-1).sum())
+        state = got
+    assert live > 0  # the starts are in contact
+
+
+@pytest.mark.parametrize("B", [1, 20])
+@pytest.mark.parametrize("config_name", ["config_point", "config_heijn", "config_boxer"])
+def test_step_kernel_equals_plain_bit_for_bit(cuda, config_name, B):
+    """The real-env step kernel against models/point_env.step on the card,
+    for the point, heijn and boxer bases, one state and a batch of 20: every
+    field of every step bit for bit, from starts in contact (the robot
+    pushing the box into a wall, box against box, robot against a static,
+    box against a static, the arena clamp) with suction forces and friction
+    scales."""
+    env = make_env(load_config(config_name, POINT_MAIN), device=cuda)
+    _check_step_bit_for_bit(env.params, env.step, B, 7 + B, cuda)
+
+
+@pytest.mark.parametrize("B", [1, 20])
+def test_step_kernel_equals_plain_at_the_maxima(cuda, B):
+    """D = 4, S = 16 (pass 2 both rounds, passes 3 and 4 two rounds of
+    statics, three rotated pillars): bit for bit."""
+    params, _ = _point_scene_at_the_maxima(cuda)
+    assert (params.dyn_half.shape[0], params.stat_pos.shape[0]) == (ro.MAX_DYN, ro.MAX_STAT)
+    _check_step_bit_for_bit(params, ps.make_step(params), B, 11 + B, cuda)
+
+
+def test_step_over_the_kernel_limits_raises(cuda):
+    """A seventeenth static on the card: the env's step is not made and the
+    kernel's wrapper raises, as the point rollout kernel's does; no launch."""
+    cfg = load_config("config_point", POINT_MAIN)
+    actors = load_env_cfgs(cfg.env_type) + [_box(f"pillar-{i}", [-3.0 + 0.5 * i, -3.0], [0.2, 0.2], True)
+                                            for i in range(12)]
+    params = point_env.build_params(actors, cfg.sim, device=cuda)
+    assert params.stat_pos.shape[0] == ro.MAX_STAT + 1
+    state, u, ext = _step_case(params, 1, np.random.default_rng(1), cuda)
+    before = (ps.step_launches, ps.step_batched_launches)
+    with pytest.raises(ValueError, match="the kernel takes 1 <= D <= 4, 1 <= S <= 16"):
+        ps.make_step(params)
+    with pytest.raises(ValueError, match="the kernel takes 1 <= D <= 4, 1 <= S <= 16"):
+        ps.point_step(params, ps.param_buffer(params), state, u, ext)
+    assert (ps.step_launches, ps.step_batched_launches) == before
+
+
+def test_compiled_point_tick_launches_the_step_kernel_once(cuda):
+    """The compiled point tick: its capture records one step launch beside
+    K1 and K2 and fewer than 300 graph nodes, and a compiled chunk equals
+    the eager chunk bit for bit."""
+    cfg = load_config("config_point", POINT_MAIN)
+
+    def chunk(tamp):
+        env = tamp.env
+        state = env.init_state()
+        for _ in range(10):
+            state = env.step(state, torch.zeros(env.nu, device=cuda), env.zero_ext())
+        return tamp._run_chunk_impl(tamp.mppi_state, state, tamp.tamp_interface(state), 0, 12, gate=False)
+
+    tamp = ReactiveTAMP(cfg, device=cuda)
+    got = chunk(tamp)
+    (prog,) = tamp.ticks.programs.values()
+    assert prog.graph is not None
+    assert prog.stats["launches"] == {"rollout_launches": 1, "weights_launches": 1, "step_launches": 1}
+    assert prog.stats["nodes"] < 300, prog.stats["nodes"]
+    ref = chunk(ReactiveTAMP(cfg, device=cuda, graphs=False))
+    got, ref = graph_tick._leaves(got), graph_tick._leaves(ref)
+    assert len(got) == len(ref)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert torch.equal(_bits(a), _bits(b)) if a.dtype == torch.float32 else torch.equal(a, b), i

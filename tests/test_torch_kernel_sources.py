@@ -15,6 +15,7 @@ from m3p2i_aip_tpu_torch.envs import make_env
 from m3p2i_aip_tpu_torch.ops import albert_rollout as ar
 from m3p2i_aip_tpu_torch.ops import cuda_build
 from m3p2i_aip_tpu_torch.ops import panda_rollout as pr
+from m3p2i_aip_tpu_torch.ops import point_step as ps
 from m3p2i_aip_tpu_torch.ops import rollout as ro
 from m3p2i_aip_tpu_torch.ops import weights
 
@@ -82,8 +83,30 @@ def _check_weights(c: dict) -> None:
     assert not re.search(r"\b(__)?(powf?|exp2f|exp10f)\s*\(", code)
 
 
+def _enum(source: str, name: str) -> list:
+    """The enumerators of ``enum name`` in a source, before its count."""
+    body = re.search(rf"enum {name} \{{(.*?)\}};", (cuda_build.CSRC_DIR / source).read_text(), re.S).group(1)
+    return [e.split("=")[0].strip() for e in body.split(",") if e.strip()][:-1]
+
+
+def _check_point_step(c: dict) -> None:
+    # the wrapper's limits are the point rollout kernel's (rollout.check_scene)
+    assert (c["kMaxD"], c["kMaxS"], c["N_SCALARS"]) == (ro.MAX_DYN, ro.MAX_STAT, ps.N_SCALARS)
+    assert (c["kDynStride"], c["kStatStride"]) == (ps.DYN_STRIDE, ps.STAT_STRIDE)
+    assert (c["kRowRobot"], c["kRowDyn"], c["kRowDyn"] + c["kMaxD"]) == (ps.ROW_ROBOT, ps.ROW_DYN, ps.ROW_STAT)
+    # the operands the wrapper passes, in the kernel's order
+    assert [e[2:].lower() for e in _enum("point_step.cu", "Input")] == list(ps.INPUTS)
+    assert [e[2:].lower() for e in _enum("point_step.cu", "Output")] == list(ps.OUTPUTS)
+    # the block is one team of the point rollout kernel's width: one round
+    # of boxes in passes 1 and 5, kMaxS statics in two rounds, pass 3's
+    # 32-lane yaw tree over 4 corners x kTeam lanes
+    assert 32 % c["kTeam"] == 0 and c["kTeam"] % c["kMaxD"] == 0 and 4 * c["kTeam"] == 32
+    assert c["kMaxS"] <= 2 * c["kTeam"]
+
+
 CHECKS = {
     "point_rollout.cu": _check_point,
+    "point_step.cu": _check_point_step,
     "panda_rollout.cu": _check_panda,
     "albert_rollout.cu": _check_albert,
     "multimodal_weights.cu": _check_weights,
@@ -122,3 +145,30 @@ def test_team_fits_the_warp(source):
     assert 32 % c["kTeam"] == 0
     assert c["kThreads"] % 32 == 0
     assert TEAM_MAPPINGS[source](c)
+
+
+def _global_names() -> list:
+    """The name of every ``__global__`` function of the sources."""
+    names = []
+    for path in sorted(cuda_build.CSRC_DIR.glob("*.cu")):
+        names += re.findall(r"__global__\s+void\s+(?:__launch_bounds__\s*\([^)]*\)\s*)?(\w+)\s*\(",
+                            path.read_text())
+    return names
+
+
+def _symbols() -> list:
+    from benchmark import layers
+    from m3p2i_aip_tpu_torch.analysis import bench_record
+
+    return sorted(set(layers.KERNEL_SYMBOLS) | set(bench_record.KERNEL_SYMBOLS.values()))
+
+
+@pytest.mark.parametrize("symbol", _symbols())
+def test_each_kernel_symbol_names_one_kernel(symbol):
+    """The benchmark (``benchmark/layers.py``) and the launch counters
+    (``analysis/bench_record.py``) pick a kernel's launches in a trace by a
+    substring of its symbol: each must be in exactly one ``__global__`` name,
+    or a roofline share reads another kernel's launches (or none)."""
+    names = _global_names()
+    assert len(names) == len(cuda_build.SOURCES)  # one kernel a source
+    assert len([n for n in names if symbol in n]) == 1, names
