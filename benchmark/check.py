@@ -2,22 +2,25 @@
 reference, after the window.
 
 A sample of the window's checkpoints, drawn from the run's seed, is
-recomputed by the reference (``benchmark/reference/tick.py``) from the same
-inputs, and each view row the program wrote for that tick is compared with
-the reference's.  For every tick the mix checks (an episode's start and
-each later chunk start it names), the sample takes ``per_tick`` of the
-window's checkpoints there; in a seed batch, of seeds that no earlier
-checked tick of the run took, so a run checks ``per_tick`` x ticks
-distinct seeds.  The
+recomputed by the plain reference that the cell's configuration file names
+(``"reference"``: ``benchmark/reference/<name>.py``, found by name through
+``spec.reference``) from the same inputs, and each view row the program
+wrote for that tick is compared with the reference's.  For every tick the
+mix checks (an episode's start and each later chunk start it names), the
+sample takes ``per_tick`` of the window's checkpoints there; in a seed
+batch, of seeds that no earlier checked tick of the run took, so a run
+checks ``per_tick`` x ticks distinct seeds.  The
 number compared is ``view_gap``: the widest absolute difference, over the
 sampled ticks and the row's entries (positions in m, velocities in m/s,
 quaternion components, a contact force), between the two.  A row that is
 missing or not finite reads as infinitely far.  Its limit lies in
 ``benchmark/limits/<cell>.json``.
 
-With ``count_live`` the reference also counts, for each rollout and weights
-call of each sampled tick, the work the yardstick's bound needs
-(``yardstick/roofline.py``).
+With ``count_live`` the reference also gives, through its module's
+``bounds``, the yardstick's bound of each kernel call of each sampled tick,
+by kind (``{"rollout": [ms, ...], ...}``); the kinds are the reference's
+own, and a per-layer reader asks for the kind it reads
+(``layers.roofline_pct``).
 """
 from __future__ import annotations
 
@@ -25,10 +28,8 @@ import math
 from typing import List, Optional
 
 import numpy as np
-import torch
 
-from benchmark.reference import tick as ref_tick
-from benchmark.yardstick import roofline
+from benchmark import spec as spec_mod
 
 
 def sample(checkpoints: List[dict], per_tick: int, seed: int) -> List[dict]:
@@ -58,44 +59,19 @@ def view_gap(program_view, reference_view) -> float:
     return float(np.max(np.abs(p - r)))
 
 
-def _bounds(scene, seeds_per_tick: int) -> dict:
-    """The yardstick's bounds of the last reference tick's kernel calls:
-    {"rollout": [ms, ...], "weights": [ms, ...]}, each times the seeds a
-    batched launch carries."""
-    from benchmark.reference.plain.ops import panda_rollout, rollout as point_rollout
-    from benchmark.reference.plain.ops.weights import beta_rounds
-
-    spec = scene.rollout_spec
-    out = {"rollout": [], "weights": []}
-    for kind, args, live in scene.calls:
-        if kind == "rollout":
-            sim_state_k, acts, task = args
-            K = acts.shape[-3]
-            if scene.is_panda:
-                inputs = (*panda_rollout.rollout_inputs(sim_state_k, task), acts)
-                ops = roofline.panda_rollout_ops(spec, K)
-            else:
-                inputs = (*point_rollout.rollout_inputs(sim_state_k, task), acts)
-                ops = roofline.point_rollout_ops(spec, K, int(torch.stack(live).sum()) if live else 0)
-            out["rollout"].append(seeds_per_tick * roofline.rollout_bound_ms(spec, inputs, K, ops))
-        else:
-            cost, gamma, half_K, eta_u, eta_l = args
-            rounds = beta_rounds(cost, gamma, half_K, eta_u, eta_l)[0]
-            out["weights"].append(seeds_per_tick * roofline.weights_bound_ms(cost, gamma, half_K, rounds))
-    return out
-
-
 def reference_views(cfg_file: dict, cks: List[dict], device, precision: Optional[str] = None,
                     count_live: bool = False, seeds_per_tick: int = 1):
-    """The reference's view row for each checkpoint (in ``precision`` for a
-    control), and the bounds of their kernel calls when ``count_live``."""
-    scene = ref_tick.Scene(cfg_file, device, precision=precision, count_live=count_live)
-    views, bounds = [], {"rollout": [], "weights": []}
+    """The view row for each checkpoint of the reference that ``cfg_file``
+    names (in ``precision`` for a control), and the bounds of their kernel
+    calls by kind when ``count_live``."""
+    ref = spec_mod.reference(cfg_file.get("reference"))
+    scene = ref.Scene(cfg_file, device, precision=precision, count_live=count_live)
+    views, bounds = [], {}
     for ck in cks:
         views.append(scene.tick(ck).cpu().numpy())
         if count_live:
-            for k, v in _bounds(scene, seeds_per_tick).items():
-                bounds[k] += v
+            for k, v in ref.bounds(scene, seeds_per_tick).items():
+                bounds.setdefault(k, []).extend(v)
         scene.calls = []
     return views, bounds
 

@@ -15,7 +15,7 @@ from typing import Optional
 
 # the port's hand-written kernels, by their symbols in a trace (csrc/*.cu)
 KERNEL_SYMBOLS = ("point_rollout_kernel", "multimodal_weights_kernel", "panda_rollout_kernel",
-                  "albert_rollout_kernel")
+                  "albert_rollout_kernel", "point_env_step_kernel")
 
 
 def kernel_median_s(ctx: dict, symbol: str) -> Optional[float]:
@@ -43,8 +43,8 @@ NOT_KERNELS = ("Memcpy", "Memset")
 
 def plain_ops_device_ms(ctx: dict) -> Optional[float]:
     """Device ms a tick in kernels that are none of the port's hand-written
-    kernels: the plain torch ops of the real-env step and the planner
-    (copies and fills left out)."""
+    kernels: the plain torch ops of the planner's glue and of a real-env
+    step that is no kernel (the panda's), copies and fills left out."""
     tr = ctx.get("trace")
     if not tr:
         return None

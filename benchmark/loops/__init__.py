@@ -11,10 +11,14 @@ loop chunks.
 
 While the window runs, a loop keeps checkpoints at the chunk starts the
 mix's ``check_ticks`` name: the program's state there (references to the
-carry the loop already holds; the generator's state from the host), the
-task the host planner handed the tick, and, once fetched, the view row the
-program wrote for that tick.  The check (``benchmark/check.py``) samples
-them after the window.
+carry the loop already holds, less the planner's Halton deltas and
+friction scales, which the reference works out again from the seed; the
+generator's state from the host), the task the host planner handed the
+tick, and, once fetched, the view row the program wrote for that tick.  A
+seed batch keeps its carry and task once a chunk, and each seed's rows are
+taken from them after the window.  So the window does little work and
+holds little device memory for its checkpoints beyond what the reference
+reads.  The check (``benchmark/check.py``) samples them after the window.
 
 A loop file defines ``LOOP``, a subclass of :class:`Loop` that implements
 ``_build``, ``_episode`` and ``_trace_run``.
@@ -175,12 +179,14 @@ class Loop:
     def _checkpoint(self, i: int, seed_val: int, task=None, **carry) -> dict:
         """A checkpoint at tick ``i`` of the current episode: the task the
         host planner handed the tick (the point family) and, inside an
-        episode, the program's carry there."""
+        episode, the program's carry there (the planner state without its
+        deltas and friction scales)."""
         ck = {"i": i, "start": i == 0, "episode": self.episode, "seed_val": seed_val, "view": None}
         if task is not None:
             ck["task"] = task_fields(task)
         if i:
             ck.update(carry)
+            ck["mppi_state"] = dataclasses.replace(ck["mppi_state"], halton_delta=None, fric_scale_k=None)
         return ck
 
     def _fetch_pending(self) -> None:

@@ -49,13 +49,10 @@ class Batch(Loop):
             tp.update_plan(batch.views[b])
         task = batch._stacked_task_params()
         cks = []
-        if keep:
+        if keep:  # the batch's carry and task once; each seed's rows after the window (``window``)
             gens = [g.get_state() for g in tamp.motion_planner.seed_generators]
-            for b in range(self.B):
-                ck = self._checkpoint(i, batch.seeds[b], task=_row(task, b), mppi_state=_row(batch.mppi_state, b),
-                                      real_state=_row(batch.state, b), generator=gens[b])
-                ck["seed"] = b
-                cks.append(ck)
+            shared = self._checkpoint(i, None, task=task, mppi_state=batch.mppi_state, real_state=batch.state)
+            cks = [dict(shared, seed_val=batch.seeds[b], seed=b, generator=gens[b]) for b in range(self.B)]
         ms, rs, views, _, _ = tamp._run_chunk_impl(batch.mppi_state, batch.state, task, i, chunk, gate=False)
         batch.mppi_state, batch.state = ms, rs
         views = views.reshape(-1).cpu().numpy().reshape(self.B, chunk, -1)
@@ -69,13 +66,26 @@ class Batch(Loop):
             ck["view"] = np.array(views[b, 0], dtype=np.float32)
         self.checkpoints += cks
 
+    def window(self, seconds: float, time_replays: bool = False) -> float:
+        """The window; then each checkpoint's rows of its seed."""
+        elapsed = super().window(seconds, time_replays)
+        for ck in self.checkpoints:
+            b = ck["seed"]
+            ck["task"] = {k: v[b] for k, v in ck["task"].items()}
+            for name in ("mppi_state", "real_state"):
+                if name in ck:
+                    ck[name] = _row(ck[name], b)
+        return elapsed
+
     def _trace_run(self, n: int) -> None:
         self._chunk(0, n, False)
 
 
 def _row(tree, b: int):
-    """Seed ``b``'s slice of a batched dataclass of tensors."""
-    return dataclasses.replace(tree, **{f.name: getattr(tree, f.name)[b] for f in dataclasses.fields(tree)})
+    """Seed ``b``'s slice of a batched dataclass of tensors (a field that is
+    None stays None)."""
+    return dataclasses.replace(tree, **{f.name: None if getattr(tree, f.name) is None else getattr(tree, f.name)[b]
+                                        for f in dataclasses.fields(tree)})
 
 
 LOOP = Batch

@@ -1,0 +1,7 @@
+"""k5b_roofline_pct: the yardstick's bound over K5b's median launch in the trace, in %:
+the point family's real-env step, a seed batch's states a launch."""
+from benchmark.layers import roofline_pct
+
+
+def read(ctx):
+    return roofline_pct(ctx, "point_env_step_kernel", "step")

@@ -1,5 +1,5 @@
 """plain_ops_device_ms.batch: device ms a tick in kernels other than the hand-written
-ones: the real-env step and the planner glue as plain torch ops."""
+ones: the planner glue and a real-env step that is no kernel (the panda's) as plain torch ops."""
 from benchmark.layers import plain_ops_device_ms
 
 

@@ -19,6 +19,12 @@ program's chunk writes for that tick.
 run in TF32; ``"bf16"`` rounds every tensor that passes between the tick's
 stages (the states, the sampled actions, the costs, the weights, the
 command and the stepped state) to bfloat16.
+
+The tick records each call that a kernel of the program does in its place
+(:attr:`Scene.calls`): every rollout (K1, K3), every weights update (K2)
+and, in a point-family scene, the real-env step (K5).  :func:`bounds`
+gives the yardstick's bound of each, by kind.  This is the reference of the
+point family and the panda; a configuration file names it as ``"tick"``.
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ from benchmark.reference.plain.planners.motion_planner.mppi import MPPIState, Ta
 from benchmark.reference.plain.planners.task_planner_constants import ZUP_IMPROVE_M, ZUP_RELEASE_M, ZUP_STALL_TICKS
 from benchmark.reference.plain.sim import pbd2d
 from benchmark.reference.plain.utils import skill_utils
+from benchmark.yardstick import roofline
 
 
 def bf16(x):
@@ -67,7 +74,7 @@ class Scene:
     def __init__(self, cfg_file: dict, device, precision: Optional[str] = None, count_live: bool = False) -> None:
         self.device = torch.device(device)
         self.precision = precision
-        self.count_live = count_live  # count each rollout's live contacts (the K1 roofline's operations)
+        self.count_live = count_live  # count each rollout's and step's live contacts (K1's and K5's operations)
         self._live: Optional[list] = None
         self.cfg = cfg = config_of(cfg_file)
         self.env = make_env(cfg, self.device)
@@ -81,7 +88,7 @@ class Scene:
                                          boxer_continuous_align=bool(cfg.mppi.boxer_continuous_align))
             noise = self.env.params.dyn_fric_noise.cpu().numpy()
         self.rollout_spec = rollout.spec
-        self.calls: list = []  # (kind, inputs, live contacts) of every rollout and weights call of the last tick
+        self.calls: list = []  # (kind, inputs, live contacts) of every kernel's call of the last tick
         self.planner = M3P2I(cfg, self._recorded(rollout),
                              fric_noise=noise if noise is not None and np.any(noise) else None, device=self.device)
         self.settle_steps = int(cfg_file["settle_steps"])
@@ -254,7 +261,55 @@ class Scene:
                 ext = self._suction_ext(ms, rs, task, bf16(action) if lowp else action)
             if lowp:
                 action = bf16(action)
-            rs = self.env.step(rs, action, ext)
+            rs = self._step(rs, action, ext)
             if lowp:
                 rs = bf16(rs)
             return self.env.view_vec(rs)
+
+    def _step(self, state, action, ext):
+        """The real-env step; in a point-family scene recorded as a call of
+        K5 (its inputs, its output, its live contacts)."""
+        if self.is_panda:
+            return self.env.step(state, action, ext)
+        self._live = [] if self.count_live else None
+        try:
+            out = self.env.step(state, action, ext)
+        finally:
+            live, self._live = self._live, None
+        self.calls.append(("step", (state, action, ext, out), live))
+        return out
+
+
+def _total(live) -> int:
+    return int(torch.stack(live).sum()) if live else 0
+
+
+def bounds(scene: Scene, seeds_per_tick: int) -> dict:
+    """The yardstick's bounds of the last reference tick's kernel calls:
+    {"rollout": [ms, ...], "weights": [ms, ...], "step": [ms, ...]}, each
+    times the seeds a batched launch carries."""
+    from benchmark.reference.plain.ops import panda_rollout, rollout as point_rollout
+    from benchmark.reference.plain.ops.weights import beta_rounds
+
+    spec = scene.rollout_spec
+    out = {"rollout": [], "weights": [], "step": []}
+    for kind, args, live in scene.calls:
+        if kind == "rollout":
+            sim_state_k, acts, task = args
+            K = acts.shape[-3]
+            if scene.is_panda:
+                inputs = (*panda_rollout.rollout_inputs(sim_state_k, task), acts)
+                ops = roofline.panda_rollout_ops(spec, K)
+            else:
+                inputs = (*point_rollout.rollout_inputs(sim_state_k, task), acts)
+                ops = roofline.point_rollout_ops(spec, K, _total(live))
+            out["rollout"].append(seeds_per_tick * roofline.rollout_bound_ms(spec, inputs, K, ops))
+        elif kind == "weights":
+            cost, gamma, half_K, eta_u, eta_l = args
+            rounds = beta_rounds(cost, gamma, half_K, eta_u, eta_l)[0]
+            out["weights"].append(seeds_per_tick * roofline.weights_bound_ms(cost, gamma, half_K, rounds))
+        else:
+            state, action, ext, stepped = args
+            out["step"].append(seeds_per_tick * roofline.point_step_bound_ms(scene.env.params, state, action, ext,
+                                                                             stepped, _total(live)))
+    return out

@@ -9,7 +9,9 @@ settles the scene and runs one episode, which captures every program the
 window replays (set-up, ``setup_s``); then it runs the mix's
 ``warm_seconds`` of episodes (not counted), measures for ``--seconds``,
 reads the device's peak memory, frees the program, and holds a sample of
-the window's ticks to the plain reference (``benchmark/check.py``).  With
+the window's ticks to the plain reference that the configuration names
+(``benchmark/check.py``; a configuration that names none, or one whose
+file is missing, fails at set-up, before the window).  With
 ``--trace 1`` the window also times every graph replay between CUDA
 events, a stretch of ticks runs under the profiler after it, and the line
 carries the per-layer metrics and a breakdown instead of the end-to-end
@@ -98,6 +100,10 @@ def run(argv, t_start: float = T_START) -> dict:
     cfg_file = spec_mod.config_file(spec, cell)
     traffic = spec_mod.traffic(cell)
     limits = spec_mod.limits(cell)
+    try:
+        spec_mod.reference(cfg_file.get("reference"))
+    except LookupError as e:
+        raise SystemExit(f"benchmark: configuration {cell['config']!r}: {e}") from None
 
     loop = spec_mod.loop(traffic["loop"])(cfg_file, traffic, args.seed, device)
     loop.setup()

@@ -5,9 +5,13 @@ lies under ``benchmark/configs``, and a traffic mix, read from
 ``benchmark/traffic/<traffic>.json``, whose ``loop`` is the class ``LOOP``
 of ``benchmark/loops/<loop>.py``.  A metric's reader is
 ``benchmark/metrics/<name>.py`` with a function ``read(ctx)`` that returns
-the metric's value or None (nothing to read).  The limits of a cell's
-correctness numbers are ``benchmark/limits/<cell>.json``.  Adding a
-configuration, a mix, a metric or a cell is adding files and entries.
+the metric's value or None (nothing to read).  A configuration file names
+its plain reference, ``benchmark/reference/<reference>.py``, whose
+``Scene`` recomputes a checked tick and whose ``bounds`` gives the
+yardstick's bounds of that tick's kernel calls by kind.  The limits of a
+cell's correctness numbers are ``benchmark/limits/<cell>.json``.  Adding a
+configuration (of a new robot family too), a mix, a metric or a cell is
+adding files and entries.
 """
 from __future__ import annotations
 
@@ -82,6 +86,20 @@ def _module(folder: str, name: str, root: Optional[pathlib.Path]):
 def reader(name: str, root: Optional[pathlib.Path] = None) -> Callable:
     """``read`` of ``benchmark/metrics/<name>.py``."""
     return _module("metrics", name, root).read
+
+
+def reference(name: Optional[str], root: Optional[pathlib.Path] = None):
+    """``benchmark/reference/<name>.py``: the plain reference a configuration
+    file names (``Scene(cfg_file, device, precision, count_live)`` and
+    ``bounds(scene, seeds_per_tick)``).  Raises LookupError with a plain
+    message for a configuration that names none or a file that is not
+    there."""
+    if not name:
+        raise LookupError("the configuration file names no reference (its key \"reference\")")
+    path = _root(root) / "benchmark" / "reference" / f"{name}.py"
+    if not path.is_file():
+        raise LookupError(f"the configuration's reference {name!r} has no file {path}")
+    return _module("reference", name, root)
 
 
 def loop(name: str, root: Optional[pathlib.Path] = None) -> type:

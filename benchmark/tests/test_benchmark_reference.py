@@ -12,7 +12,9 @@ import pytest
 import torch
 
 from benchmark import check
+from benchmark.reference import tick as ref_tick
 from benchmark.tests import tiny
+from benchmark.yardstick import roofline
 
 CELLS = ["point-pushpull-chunked", "panda-pick-chunked", "point-pushpull-pertick", "point-pushpull-batch20"]
 
@@ -30,6 +32,93 @@ def test_reference_equals_the_program_on_the_cpu(cell, root, monkeypatch):
     assert line["checked"]["view_gap"]["value"] == 0.0  # the same plain code on the same device
     assert list(line)[-1] == "checked"
     assert set(line["metrics"]) >= {"setup_s"} and len(line["metrics"]) == 2
+
+
+def _parents_bounds(scene, seeds_per_tick: int) -> dict:
+    """``check._bounds`` as it was before a configuration named its
+    reference: the rollout and weights bounds of the last tick's calls."""
+    from benchmark.reference.plain.ops import panda_rollout, rollout as point_rollout
+    from benchmark.reference.plain.ops.weights import beta_rounds
+
+    spec = scene.rollout_spec
+    out = {"rollout": [], "weights": []}
+    for kind, args, live in scene.calls:
+        if kind == "rollout":
+            sim_state_k, acts, task = args
+            K = acts.shape[-3]
+            if scene.is_panda:
+                inputs = (*panda_rollout.rollout_inputs(sim_state_k, task), acts)
+                ops = roofline.panda_rollout_ops(spec, K)
+            else:
+                inputs = (*point_rollout.rollout_inputs(sim_state_k, task), acts)
+                ops = roofline.point_rollout_ops(spec, K, int(torch.stack(live).sum()) if live else 0)
+            out["rollout"].append(seeds_per_tick * roofline.rollout_bound_ms(spec, inputs, K, ops))
+        else:
+            cost, gamma, half_K, eta_u, eta_l = args
+            rounds = beta_rounds(cost, gamma, half_K, eta_u, eta_l)[0]
+            out["weights"].append(seeds_per_tick * roofline.weights_bound_ms(cost, gamma, half_K, rounds))
+    return out
+
+
+class _ParentScene(ref_tick.Scene):
+    """The tick as it was: the real-env step not recorded as a call."""
+
+    def _step(self, state, action, ext):
+        return self.env.step(state, action, ext)
+
+
+def _window_checkpoints(root, monkeypatch, cell, seed):
+    from benchmark import spec as spec_mod
+
+    monkeypatch.setattr(spec_mod, "ROOT", root)
+    spec = spec_mod.load()
+    w = spec_mod.cell(spec, cell)
+    cfg_file, traffic = spec_mod.config_file(spec, w), spec_mod.traffic(w)
+    loop = spec_mod.loop(traffic["loop"])(cfg_file, traffic, seed, "cpu")
+    loop.setup()
+    loop.window(0.1)
+    return cfg_file, check.sample(loop.checkpoints, 2, seed), loop.seeds_per_tick
+
+
+@pytest.mark.parametrize("cell", ["point-pushpull-chunked", "panda-pick-chunked", "point-pushpull-batch20"])
+def test_the_named_reference_gives_the_parents_views_and_bounds(cell, root, monkeypatch):
+    """Through the configuration's named reference: the view rows, and the
+    rollout and weights bounds, of the parent's fixed reference and its
+    ``check._bounds``, bit for bit; the step's bounds besides, one a point
+    tick."""
+    cfg_file, cks, per = _window_checkpoints(root, monkeypatch, cell, 2147483655)
+    assert cfg_file["reference"] == "tick" and len(cks) >= 2
+    views, bounds = check.reference_views(cfg_file, cks, "cpu", count_live=True, seeds_per_tick=per)
+    parent = _ParentScene(cfg_file, "cpu", count_live=True)
+    want = {"rollout": [], "weights": []}
+    for ck, view in zip(cks, views):
+        assert parent.tick(ck).cpu().numpy().tobytes() == view.tobytes()
+        for k, v in _parents_bounds(parent, per).items():
+            want[k] += v
+    assert want["rollout"] and want["weights"]
+    assert bounds["rollout"] == want["rollout"] and bounds["weights"] == want["weights"]
+    panda = cell.startswith("panda")
+    assert len(bounds["step"]) == (0 if panda else len(cks)) and all(b > 0 for b in bounds["step"])
+    plain, _ = check.reference_views(cfg_file, cks, "cpu")
+    assert all(a.tobytes() == b.tobytes() for a, b in zip(plain, views))
+
+
+@pytest.mark.parametrize("named", [None, "nowhere"])
+def test_a_configuration_without_its_reference_fails_before_its_window(named, tmp_path, monkeypatch):
+    from benchmark.loops import Loop
+
+    root = tiny.make(tmp_path / "copy")
+    f = root / "benchmark" / "configs" / "point-pushpull.json"
+    c = json.loads(f.read_text())
+    if named is None:
+        del c["reference"]
+    else:
+        c["reference"] = named
+    f.write_text(json.dumps(c))
+    for phase in ("setup", "window"):
+        monkeypatch.setattr(Loop, phase, lambda *a, **k: pytest.fail("the run went past set-up's check"))
+    with pytest.raises(SystemExit, match="reference"):
+        tiny.run(root, monkeypatch, "--workload", "point-pushpull-chunked", "--seed", "3", "--seconds", "0.1")
 
 
 def test_the_harness_and_reference_load_no_jax():

@@ -3,6 +3,7 @@ promise that a configuration, a mix, a metric or a cell is added by adding
 files and entries alone."""
 from __future__ import annotations
 
+import hashlib
 import json
 import re
 
@@ -60,7 +61,10 @@ def test_names_units_and_lines():
 @pytest.mark.parametrize("cell", CELLS)
 def test_every_cell_has_its_files_and_metrics(cell):
     w = spec_mod.cell(SPEC, cell)
-    assert spec_mod.config_file(SPEC, w)["numbers"]
+    cfg_file = spec_mod.config_file(SPEC, w)
+    assert cfg_file["numbers"]
+    ref = spec_mod.reference(cfg_file["reference"])
+    assert isinstance(ref.Scene, type) and callable(ref.bounds)
     assert issubclass(spec_mod.loop(spec_mod.traffic(w)["loop"]), Loop)
     assert spec_mod.limits(w)["view_gap"] > 0
     e2e = [m["name"] for m in spec_mod.end_to_end(SPEC, w)]
@@ -90,8 +94,18 @@ def test_at_most_a_quarter_of_the_cells_take_four_chips():
     assert sum(w["chips"] == 4 for w in SPEC["workloads"]) <= max(1, len(CELLS) // 4)
 
 
+def _hashes(root) -> dict:
+    return {p: hashlib.sha256(p.read_bytes()).hexdigest() for p in sorted(root.rglob("*"))
+            if p.is_file() and "__pycache__" not in p.parts and p.name != "BENCHMARK.json"}
+
+
 def test_a_cell_a_mix_a_loop_and_a_metric_added_as_files_and_entries(tmp_path, monkeypatch):
+    """Two cells added: one on a configuration that is there, and one on a
+    configuration that names a reference of its own, written here, which
+    reports a bound kind of its own that a new metric reads.  No file that
+    was there changes, ``BENCHMARK.json`` aside, which gains entries."""
     root = tiny.make(tmp_path / "copy")
+    before, harness = _hashes(root), _hashes(tiny.REPO / "benchmark")
     spec = json.loads((root / "BENCHMARK.json").read_text())
     (root / "benchmark" / "loops" / "chunked_again.py").write_text(
         "from benchmark import spec\n\n\nclass Again(spec.loop('chunked')):\n    pass\n\n\nLOOP = Again\n")
@@ -114,3 +128,31 @@ def test_a_cell_a_mix_a_loop_and_a_metric_added_as_files_and_entries(tmp_path, m
     line = tiny.run(root, monkeypatch, "--workload", "point-pushpull-chunked6", "--seed", "7", "--seconds", "0.1",
                     "--trace", "1")
     assert line["metrics"]["episodes_done"]["value"] >= 1
+
+    (root / "benchmark" / "reference" / "tick_doubled.py").write_text(
+        "from benchmark.reference import tick\n\nScene = tick.Scene\n\n\n"
+        "def bounds(scene, seeds_per_tick):\n    out = tick.bounds(scene, seeds_per_tick)\n"
+        "    out['doubled_rollout'] = [2 * b for b in out['rollout']]\n    return out\n")
+    cfg = json.loads((root / "benchmark" / "configs" / "point-pushpull.json").read_text())
+    cfg["reference"] = "tick_doubled"
+    (root / "benchmark" / "configs" / "point-pushpull-doubled.json").write_text(json.dumps(cfg))
+    (root / "benchmark" / "metrics" / "doubled_rollout_ms.py").write_text(
+        "import statistics\n\n\ndef read(ctx):\n    b = ctx['bounds'].get('doubled_rollout')\n"
+        "    return statistics.median(b) if b else None\n")
+    spec["configs"].append({"name": "point-pushpull-doubled", "source": "https://github.com/tud-amr/m3p2i-aip",
+                            "file": "benchmark/configs/point-pushpull-doubled.json", "reduced": [],
+                            "why": "the point configuration under a reference of its own"})
+    spec["workloads"].append({"name": "point-pushpull-doubled-chunked6", "config": "point-pushpull-doubled",
+                              "traffic": "chunked6", "chips": 1, "why": "a configuration with its own reference"})
+    spec["end_to_end"][0]["workloads"].append("point-pushpull-doubled-chunked6")
+    spec["per_layer"].append({"name": "doubled_rollout_ms", "unit": "ms", "better": "lower",
+                              "source": "program_counter", "layer": "csrc kernels", "moves": "tick_rate",
+                              "workloads": ["point-pushpull-doubled-chunked6"]})
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+    (root / "benchmark" / "limits" / "point-pushpull-doubled-chunked6.json").write_text('{"view_gap": 1e-4}')
+    line = tiny.run(root, monkeypatch, "--workload", "point-pushpull-doubled-chunked6", "--seed", "8",
+                    "--seconds", "0.1", "--trace", "1")
+    assert line["correct"] and line["metrics"]["doubled_rollout_ms"]["value"] > 0
+    after = _hashes(root)
+    assert {p: after[p] for p in before} == before and _hashes(tiny.REPO / "benchmark") == harness
+    assert len(after) == len(before) + 8  # a loop, a mix, a reference, a configuration, two metrics, two limits

@@ -105,3 +105,29 @@ def test_bound_takes_the_longer_of_bytes_and_operations():
     assert roofline.bound_ms(3.35e12, 0) == pytest.approx(1e3)
     assert roofline.bound_ms(0, 67e12) == pytest.approx(1e3)
     assert roofline.bound_ms(3.35e9, 67e12) == pytest.approx(1e3)
+
+
+def test_point_step_ops_and_bound_by_hand():
+    p = SimpleNamespace(pos_iters=1, substeps=2, num_actors=4, dyn_half=torch.zeros(2, 2), stat_pos=torch.zeros(1, 2))
+    assert roofline.point_step_ops(p, 2, 1) == 2 * (40 + 80 + 787 + 4)  # per_iter 787 as in K1's count
+    spec = SimpleNamespace(D=2, S=1, T=3, env_params=p)
+    assert roofline.point_rollout_ops(spec, 5, live=7) == 5 * 3 * (2 * 911 + 150 + 55) + 90 * 7
+    z = torch.zeros
+    state = SimpleNamespace(q=z(2), qd=z(2), dyn_pos=z(2, 2), dyn_yaw=z(2), dyn_vel=z(2, 2), dyn_om=z(2),
+                            fric_scale=z(2), contact_force=z(4, 3))
+    ext = SimpleNamespace(robot=z(2), dyn=z(2, 2))
+    consts = 4 * (11 + 6 * 2 + 7 * 1 + 4)
+    read = 4 * (2 + 2 + 4 + 2 + 4 + 2 + 2 + 2 + 2 + 4)
+    written = 4 * (2 + 2 + 4 + 2 + 4 + 2 + 12)
+    ops = 2 * 911 + 90 * 3
+    assert roofline.point_step_bound_ms(p, state, z(2), ext, state, live=3) == pytest.approx(
+        max((consts + read + written) / 3.35e12, ops / 67e12) * 1e3)
+
+
+def test_the_step_kernel_is_a_hand_written_kernel_with_its_roofline():
+    dev = [("k_a", 0, 10), ("point_env_step_kernel_float", 10, 14), ("point_env_step_kernel_float", 20, 24)]
+    s = summarize(dev, [], n_ticks=2, wall=1e-4)
+    assert layers.plain_ops_device_ms({"trace": s}) == pytest.approx(1e3 * 10e-6 / 2)  # K5 left out
+    ctx = {"trace": s, "bounds": {"step": [1e-6, 2e-6, 4e-6], "rollout": [1.0]}}
+    assert layers.roofline_pct(ctx, "point_env_step_kernel", "step") == pytest.approx(100 * 2e-6 / 4e-3)
+    assert layers.roofline_pct({"trace": s, "bounds": {}}, "point_env_step_kernel", "step") is None

@@ -1,8 +1,9 @@
 """A copy of the benchmark's data at a size a CPU test run holds: K=16 x T=4,
 three settle steps, two-tick chunks, four-tick episodes checked at ticks 0 and 2,
 three seeds a batch.  The copy holds ``BENCHMARK.json`` and
-``benchmark/{configs,traffic,limits,metrics,loops}``; the rest of the harness and
-the program stay where they are."""
+``benchmark/{configs,traffic,limits,metrics,loops,reference}``; the rest of the
+harness and the program stay where they are (a reference file of the copy imports
+its frozen modules from the repository's ``benchmark.reference.plain``)."""
 from __future__ import annotations
 
 import json
@@ -17,7 +18,7 @@ REPO = pathlib.Path(__file__).resolve().parents[2]
 def make(dst: pathlib.Path) -> pathlib.Path:
     (dst / "benchmark").mkdir(parents=True)
     shutil.copy(REPO / "BENCHMARK.json", dst)
-    for sub in ("metrics", "limits", "loops"):
+    for sub in ("metrics", "limits", "loops", "reference"):
         shutil.copytree(REPO / "benchmark" / sub, dst / "benchmark" / sub,
                         ignore=shutil.ignore_patterns("__pycache__"))
     for sub in ("configs", "traffic"):
