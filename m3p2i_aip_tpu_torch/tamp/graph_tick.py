@@ -52,6 +52,11 @@ between them.  The first (eager) run of a body on the card runs on the
 capture stream, so the lazy state autograd and cuBLAS keep per stream and
 per thread exists before the capture (PyTorch's whole-network capture).
 
+Parts of a tick (:func:`part`: the real-env step) are counted while the
+tick is captured: the nodes a part adds to the graph under capture go to
+the tracer's counter ``graph.<part>_nodes``.  A replay runs no Python, and
+outside a capture the marker does nothing.
+
 The planner's own call (``MPPI.command``, the JAX package's
 ``jax.jit(self._command_impl)``) is a :class:`TickProgram` too, with the
 planner state as its carry and the real state and ``TaskParams`` as its
@@ -60,6 +65,7 @@ settles, the sim client's step) take it with the env state as their carry.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import gc
@@ -153,6 +159,27 @@ def graph_nodes(graph) -> int:
     return int(n.value)
 
 
+_CAPTURE_ACTIVE = 1  # CU_STREAM_CAPTURE_STATUS_ACTIVE
+
+
+def _capture_nodes(stream: torch.cuda.Stream) -> tuple:
+    """(graph handle, node count) of the graph under capture on ``stream``
+    (``cuStreamGetCaptureInfo_v2`` and ``cuGraphGetNodes`` of libcuda)."""
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    status, capture_id = ctypes.c_int(0), ctypes.c_uint64(0)
+    graph, deps, n_deps = ctypes.c_void_p(), ctypes.c_void_p(), ctypes.c_size_t(0)
+    err = libcuda.cuStreamGetCaptureInfo_v2(ctypes.c_void_p(stream.cuda_stream), ctypes.byref(status),
+                                            ctypes.byref(capture_id), ctypes.byref(graph), ctypes.byref(deps),
+                                            ctypes.byref(n_deps))
+    if err != 0 or status.value != _CAPTURE_ACTIVE:
+        raise RuntimeError(f"cuStreamGetCaptureInfo_v2: CUresult {err}, capture status {status.value}")
+    n = ctypes.c_size_t(0)
+    err = libcuda.cuGraphGetNodes(graph, None, ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed: CUresult {err}")
+    return graph.value, int(n.value)
+
+
 def pool_bytes(pool) -> int:
     """Bytes of device memory reserved by the graph memory pool ``pool``."""
     return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
@@ -223,6 +250,25 @@ def repeat(n: int, step: Callable, carry, inputs):
     seg.end(replays=n)
     seg.begin()
     return buf
+
+
+@contextlib.contextmanager
+def part(name: str):
+    """``with part(name):`` inside a tick body: while the tick is captured,
+    the nodes the block adds to the graph under capture are recorded under
+    the tracer's counter ``graph.<name>_nodes``; otherwise (a replay, the
+    eager or static tick, the CPU) nothing.  The block may not hold a
+    :func:`repeat`, which would end the graph it started in."""
+    if _capturing is None:
+        yield
+        return
+    stream = torch.cuda.current_stream()
+    graph, n0 = _capture_nodes(stream)
+    yield
+    after, n1 = _capture_nodes(stream)
+    if after != graph:
+        raise RuntimeError(f"graph_tick.part({name!r}) holds a repeat: its nodes lie in two graphs")
+    profiling.count(f"graph.{name}_nodes", n1 - n0)
 
 
 class TickProgram:

@@ -67,7 +67,7 @@ from m3p2i_aip_tpu_torch.planners.task_planner.task_planner import (
     ZUP_STALL_TICKS,
     set_task_planner,
 )
-from m3p2i_aip_tpu_torch.tamp.graph_tick import TickProgram, clone
+from m3p2i_aip_tpu_torch.tamp.graph_tick import TickProgram, clone, part
 from m3p2i_aip_tpu_torch.utils import profiling, skill_utils
 from m3p2i_aip_tpu_torch.utils.tree import tree_where
 
@@ -249,7 +249,8 @@ class ReactiveTAMP:
         action_seq, mppi_state, aux = self.motion_planner._command_impl(mppi_state, real_state, task)
         action = action_seq[..., 0, :]
         ext = self._suction_ext_device(pre_state, real_state, task, action)
-        real_state = self.env.step(real_state, action, ext)
+        with part("step"):  # counted while captured: graph.step_nodes
+            real_state = self.env.step(real_state, action, ext)
         return action, mppi_state, real_state, aux
 
     # ------------------------------------------------------- the tick bodies
@@ -430,7 +431,8 @@ class ReactiveTAMP:
         done = done | succ
         action_seq, ms, _ = self.motion_planner._command_impl(ms, rs, task)
         action = torch.where(done[..., None], 0.0, action_seq[..., 0, :])
-        rs = self.env.step(rs, action, ext)
+        with part("step"):  # counted while captured: graph.step_nodes
+            rs = self.env.step(rs, action, ext)
         return (ms, rs, stage, zs, done), self.env.view_vec(rs)
 
     def _run_chunk_panda_impl(self, mppi_state, real_state, stage, zs, length: int, done0=None):

@@ -10,9 +10,11 @@ and the rate columns of its experiment logs.  Here:
   * :func:`device_span`: the device time of a block on the current stream,
     between two CUDA timing events from a preallocated pool, which is the
     device spans' ring;
+  * :func:`count`: a named counter of the program's own (a value recorded
+    at a site: its count, total and newest value);
   * :func:`snapshot`: per name, the count, total and self seconds (exact for
     the whole process) and the p50 over retained records, all of them or a
-    run's stretch of them (``last``, ``skip``);
+    run's stretch of them (``last``, ``skip``), and the counters;
   * :func:`trace`: a ``torch.profiler`` trace (host and, on a GPU, device
     activity) written for TensorBoard.
 
@@ -37,6 +39,10 @@ span                   site                                        metric
 device ``tick``        the replay in ``tick_fused``                ``tick_device_ms_p50.pertick``
 device ``chunk``       a chunk's replays and view-row copies       ``chunk_device_ms_p50.chunked``,
                                                                    ``.batch``
+counter                ``graph_tick.part("step")`` around the      ``step_nodes.chunked``
+``graph.step_nodes``   real-env step of ``ReactiveTAMP._tick`` and
+                       ``_panda_tick``, while a tick is captured:
+                       the nodes the step adds to its graph
 =====================  ==========================================  ==================================
 
 The loops' ``TickLog.replan_s``, ``TickProgram.stats["capture_s"]`` and
@@ -176,6 +182,7 @@ class Tracer:
         self._last: dict = {}  # name -> (start ns, end ns) of its newest span
         self._pools: dict = {}  # device index -> _Pool
         self._dev_n = 0  # device spans opened
+        self._counters: dict = {}  # name -> [count, total, newest value]
 
     # ------------------------------------------------------------ host spans
     def span(self, name: str, req=None) -> _Frame:
@@ -208,6 +215,16 @@ class Tracer:
         pair.stream = pool.current_stream(index)
         return pair
 
+    # -------------------------------------------------------------- counters
+    def count(self, name: str, value) -> None:
+        """Record ``value`` under the counter ``name``."""
+        c = self._counters.get(name)
+        if c is None:
+            c = self._counters[name] = [0, 0, 0]
+        c[0] += 1
+        c[1] += value
+        c[2] = value
+
     # --------------------------------------------------------------- reading
     def records(self) -> list:
         """The retained span records in the order they ended: (name, req,
@@ -231,10 +248,11 @@ class Tracer:
 
     def snapshot(self, last: Optional[int] = None, skip: int = 0) -> dict:
         """``{"spans": {name: {count, total_s, self_s, p50_s}}, "device":
-        {name: {p50_s}}}``: counts and totals over the whole process; each
-        median over the name's retained records, or over its ``last`` records
-        before its ``skip`` newest (a run's window ahead of a stretch that
-        followed it)."""
+        {name: {p50_s}}, "counters": {name: {count, total, last}}}``: counts
+        and totals over the whole process; each median over the name's
+        retained records, or over its ``last`` records before its ``skip``
+        newest (a run's window ahead of a stretch that followed it); a
+        counter's newest value as ``last``."""
         spans = {name: {"count": n, "total_s": total / 1e9, "self_s": own / 1e9}
                  for name, (n, total, own) in self._totals.items()}
         kept: dict = {}
@@ -251,7 +269,9 @@ class Tracer:
                     xs = xs[len(xs) - min(last, len(xs)):]
                 if xs:
                     out[name]["p50_s"] = statistics.median(xs)
-        return {"spans": spans, "device": device}
+        counters = {name: {"count": n, "total": total, "last": newest}
+                    for name, (n, total, newest) in self._counters.items()}
+        return {"spans": spans, "device": device, "counters": counters}
 
     def reset(self) -> None:
         """Forget every record and total (tests)."""
@@ -259,6 +279,7 @@ class Tracer:
         self._n = 0
         self._totals.clear()
         self._last.clear()
+        self._counters.clear()
         for pool in self._pools.values():
             for pair in pool.pairs:
                 pair.span = None
@@ -268,6 +289,7 @@ TRACER = Tracer()
 span = TRACER.span
 device_span = TRACER.device_span
 last_span = TRACER.last_span
+count = TRACER.count
 snapshot = TRACER.snapshot
 reset = TRACER.reset
 
