@@ -39,6 +39,13 @@ that record nothing run it (``graphs=True``, or the default):
   point-family env on the card is asked for is counted apart from the
   kernel's launches, through the runs' graph replays too, and every launch
   count the phases below read holds K5 and K5b to one launch a step;
+* the panda's real-env step kernel (K6, K6b at B=20): every eager step the
+  panda main path and the panda n=20 batch took through it run again, a
+  single state held to ``panda_env.step`` bit for bit, a batch to single
+  launches (and every 25th to the plain step of each state alone), timed
+  single and replayed at B=1 and B=20 beside the plain step; every step a
+  panda env on the card is asked for is counted as the point family's, and
+  the launch counts hold K6 and K6b to one launch a step;
 * the heijn (3-dof omni) and boxer (differential drive) bases and the
   planner modes beyond the default, each a gated ``run_chunked`` at
   K=200 x T=15 that must reach its goal, with its launch counts and success
@@ -185,6 +192,7 @@ from m3p2i_aip_tpu_torch.analysis.bench_record import event_ms as _time_ms
 from m3p2i_aip_tpu_torch.analysis.bench_record import host_ms as _host_ms
 from m3p2i_aip_tpu_torch.analysis.bench_record import replayed_ms as _device_ms
 from m3p2i_aip_tpu_torch.models import point_env
+from m3p2i_aip_tpu_torch.ops import panda_step as pps
 from m3p2i_aip_tpu_torch.ops import point_step as ps
 from m3p2i_aip_tpu_torch.scripts import graph_ab
 from m3p2i_aip_tpu_torch.scripts.bench import MAIN_PATH
@@ -202,6 +210,7 @@ WEIGHTS_ATOL, SUM_TOL = 1e-6, 1e-5  # tests/test_pallas.py:131-132
 COST_ATOL, TRAJ_ATOL = 1e-2, 1e-3  # tests/test_pallas.py:259-260 (and :379-384 for the panda)
 PLANAR_BARS = (COST_ATOL, TRAJ_ATOL)  # the point and panda rollouts' (cost, trajectory) bars
 TIMED_CALLS = 50
+PANDA_STEP_PLAIN_EVERY = 25  # every n-th recorded K6b call is held to the plain step of each of its states
 PANDA_TICKS = 900  # the table pick-place must latch success within this many ticks
 ALBERT_ATOL = 1e-4  # K4 vs its plain version, cost and trajectory (tests/test_pallas.py:818-821)
 ALBERT_BARS = (ALBERT_ATOL, ALBERT_ATOL)
@@ -355,26 +364,27 @@ def _recorded_weights(name: str):
 
 
 @contextlib.contextmanager
-def _recorded_steps():
-    """Inside the block, each call of the real-env step kernel's wrapper
+def _recorded_steps(mod=ps, name: str = "point_step"):
+    """Inside the block, each call of a real-env step kernel's wrapper
     (``point_step.point_step``, which a point-family env's step calls on the
-    card) outside a graph capture is recorded into the yielded list as
-    (params, param buffer, copies of the state, action and forces); the call
-    itself goes through unchanged, launch count included."""
+    card, or ``panda_step.panda_step``, the panda's) outside a graph capture
+    is recorded into the yielded list as (params, param buffer, copies of
+    the state, action and forces); the call itself goes through unchanged,
+    launch count included."""
     from m3p2i_aip_tpu_torch.utils.tree import tree_map
 
-    fn, calls = ps.point_step, []
+    fn, calls = getattr(mod, name), []
 
     def recording(params, buf, state, u, ext):
         if not torch.cuda.is_current_stream_capturing():
             calls.append((params, buf, tree_map(torch.clone, state), u.clone(), tree_map(torch.clone, ext)))
         return fn(params, buf, state, u, ext)
 
-    ps.point_step = recording
+    setattr(mod, name, recording)
     try:
         yield calls
     finally:
-        ps.point_step = fn
+        setattr(mod, name, fn)
 
 
 def _weights_check(mp, cost, label: str) -> float:
@@ -926,6 +936,69 @@ def phase_point_step(card: str, calls: list, k1_call) -> tuple:
     return entries["point_step"], entries["point_step_batched"]
 
 
+def phase_panda_step(card: str, calls: list) -> tuple:
+    """K6 and K6b, the panda's real-env step, on the inputs the closed loops
+    gave them (``calls``, recorded by ``_recorded_steps``: the panda main
+    path's single states and the n=20 panda batch's [20] states): each
+    single call run again through the wrapper and held to
+    ``panda_env.step`` on the same inputs, every field bit for bit; each
+    batched call held to one single launch a state, and every
+    PANDA_STEP_PLAIN_EVERY-th to the plain step of each state alone, bit for
+    bit (cuBLAS forms some 3x3 products of a batch in another order than
+    one state's, tests/test_torch_cuda.py, so the batched plain step is not
+    the reference).  Then the last call of each layout timed single (CUDA
+    events, median of TIMED_CALLS: the host's time to issue it, where the
+    kernel is shorter) and replayed from a CUDA graph, beside the plain step
+    (median of 5), with its bound: the scene constants and each operand read
+    once and each output written once, against ``roofline.panda_step_ops``.
+    Returns the kernel table's entries of K6 and K6b."""
+    from m3p2i_aip_tpu_torch.models import panda_env
+    from m3p2i_aip_tpu_torch.utils.tree import tree_map
+
+    def same(got, ref, what: str) -> None:
+        for f in dataclasses.fields(ref):
+            a, b = getattr(got, f.name), getattr(ref, f.name)
+            assert a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                                      b.contiguous().view(torch.int32)), (
+                f"{what}: {f.name} differs by {float((a - b).abs().max())}")
+
+    layouts = {"panda_step": [c for c in calls if c[2].q.dim() == 1],
+               "panda_step_batched": [c for c in calls if c[2].q.dim() > 1]}
+    entries = {}
+    for name, group in layouts.items():
+        assert group, f"{name}: no recorded call"
+        plain_checked = 0
+        for n, (params, buf, state, u, ext) in enumerate(group):
+            got = pps.panda_step(params, buf, state, u, ext)
+            if state.q.dim() == 1:
+                same(got, panda_env.step(params, state, u, ext), f"{name} call {n} of {len(group)}")
+                plain_checked += 1
+                continue
+            for b in range(state.q.shape[0]):
+                row = lambda x: x[b]  # noqa: E731
+                args = (tree_map(row, state), u[b], tree_map(row, ext))
+                same(tree_map(row, got), pps.panda_step(params, buf, *args), f"{name} call {n} state {b}: single")
+                if n % PANDA_STEP_PLAIN_EVERY == 0:
+                    same(tree_map(row, got), panda_env.step(params, *args), f"{name} call {n} state {b}: plain")
+            plain_checked += n % PANDA_STEP_PLAIN_EVERY == 0
+        params, buf, state, u, ext = group[-1]
+        B, S = int(np.prod(state.q.shape[:-1])), params.stat_min.shape[0]
+        step = lambda: pps.panda_step(params, buf, state, u, ext)  # noqa: E731
+        ms, dev_ms = _time_ms(step), _device_ms(step)
+        plain = panda_env.step(params, state, u, ext)
+        plain_ms = _time_ms(lambda: panda_env.step(params, state, u, ext), calls=5, warmup=1)
+        operands = [getattr(state, f) for f in pps.INPUTS[:9]] + [u, ext.body]
+        outputs = [getattr(plain, f) for f in pps.OUTPUTS]
+        bound = roofline.bound(roofline.tensor_bytes(buf, *operands, *outputs), B * roofline.panda_step_ops(params, S))
+        print(f"[{name}] {len(group)} recorded calls at B={B}, S={S}: every field bit for bit the plain step's "
+              f"({plain_checked} calls against the plain step, the rest against single launches); the last call: "
+              f"kernel {ms:.4f} ms single (median of {TIMED_CALLS}), {dev_ms:.4f} ms replayed, plain {plain_ms:.4f} "
+              f"ms (median of 5); bound {bound} ({card})")
+        entries[name] = {"max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, **bound,
+                         "library_ms": None, "calls_checked": len(group)}
+    return entries["panda_step"], entries["panda_step_batched"]
+
+
 def _rate_line(rate: dict) -> str:
     """A twin's rate with its per-chunk spread."""
     return (f"{rate['value']:.2f} Hz replan+step (chunks: median {rate['chunk_hz_median']:.2f}, quartiles "
@@ -1024,9 +1097,10 @@ def _count_chunk_views(loop) -> list:
 def phase_panda_main() -> tuple:
     """The panda main path: ``config_panda`` (reactive_pick, cube on the
     table, single mode) through ``SimLoop.run_chunked`` in chunks of 50.  The
-    cube must be grasped, success must latch within PANDA_TICKS, and K3 must
-    launch 1 + refine_iters times per dispatched tick.  Returns K3's launch
-    count, its recorded inputs and the success tick."""
+    cube must be grasped, success must latch within PANDA_TICKS, K3 must
+    launch 1 + refine_iters times and K6 once per dispatched tick.  Returns
+    K3's launch count, its recorded inputs, the success tick and K6's launch
+    count."""
     from m3p2i_aip_tpu_torch.config.config_store import load_config
     from m3p2i_aip_tpu_torch.ops import panda_rollout as pr
     from m3p2i_aip_tpu_torch.ops import weights
@@ -1041,19 +1115,22 @@ def phase_panda_main() -> tuple:
     per_tick = 1 + int(cfg.mppi.refine_iters)
     pr.panda_rollout_launches = 0
     weights.weights_launches = 0
+    pps.panda_step_launches = 0
     t0 = time.perf_counter()
     with _recorded(pr, "panda_rollout") as calls:
         log = loop.run_chunked(PANDA_TICKS, chunk=50)
     wall = time.perf_counter() - t0
     EAGER_RUNS["panda gated"] = graph_ab.loop_record(loop, outputs)
-    launches = pr.panda_rollout_launches
+    launches, step_launches = pr.panda_rollout_launches, pps.panda_step_launches
     dispatched = sum(n for n, _ in record)
     views = torch.cat([v for _, v in record]).cpu().numpy()
     print(
         f"[panda-main] {log.steps} ticks logged, {dispatched} dispatched in {wall:.2f} s; "
-        f"panda_rollout launches {launches}, multimodal_weights launches {weights.weights_launches}"
+        f"panda_rollout launches {launches}, multimodal_weights launches {weights.weights_launches}, "
+        f"panda_step launches {step_launches}"
     )
     assert launches == per_tick * dispatched, f"panda_rollout: {launches} launches for {dispatched} ticks"
+    assert step_launches == dispatched, f"panda_step: {step_launches} launches for {dispatched} ticks"
     assert weights.weights_launches == 0, "the single-mode panda path launched the weights kernel"
     assert np.isfinite(views).all(), "non-finite panda views"
     grasped = np.nonzero(views[:, 21] > 0.5)[0]
@@ -1065,7 +1142,7 @@ def phase_panda_main() -> tuple:
     pos_err = float(np.linalg.norm(view["cube_state"][:2] - view["cube_goal"][:2]))
     ori_err = float(general_ori_cube2goal(view["cube_state"][3:], view["cube_goal"][3:]))
     print(f"[panda-main] success tick {log.success_step}; settled cube error: pos {pos_err:.4f} m, ori {ori_err:.4f}")
-    return launches, calls, log.success_step
+    return launches, calls, log.success_step, step_launches
 
 
 def phase_panda_shelf() -> float:
@@ -1284,40 +1361,50 @@ def _launch_counters() -> list:
 
 
 class _EnvSteps:
-    """The steps that point-family envs on the card were asked for since
-    ``_zero_launches``, for one state and for a batch, counted by the env's
-    step function (``_count_env_steps``) apart from the kernel's launch
-    counts: ``_read_launches`` holds K5 / K5b to one launch a step."""
+    """The steps that point-family and panda envs on the card were asked for
+    since ``_zero_launches``, for one state and for a batch, counted by the
+    env's step function (``_count_env_steps``) apart from the kernels'
+    launch counts: ``_read_launches`` holds K5 / K5b and K6 / K6b to one
+    launch a step."""
 
     env_steps = 0
     env_batched_steps = 0
+    panda_env_steps = 0
+    panda_env_batched_steps = 0
 
 
-STEP_OF_COUNTER = {"step_launches": "env_steps", "step_batched_launches": "env_batched_steps"}
+STEP_OF_COUNTER = {"step_launches": "env_steps", "step_batched_launches": "env_batched_steps",
+                   "panda_step_launches": "panda_env_steps", "panda_step_batched_launches": "panda_env_batched_steps"}
 
 
 def _count_env_steps() -> None:
     """From here on, count in ``_EnvSteps`` every step asked of a
-    point-family env on the card: the step function ``envs.py`` makes
-    (``point_step.make_step``) is wrapped at each env's making, and the
-    counts join the launch counts ``graph_tick`` takes around a capture,
-    so a replayed graph adds the steps it captured, times its replays, as
-    it adds its launches."""
-    make_step, launch_counts = ps.make_step, graph_tick._launch_counts
+    point-family or panda env on the card: the step functions ``envs.py``
+    makes (``point_step.make_step``, ``panda_step.make_step``) are wrapped
+    at each env's making, and the counts join the launch counts
+    ``graph_tick`` takes around a capture, so a replayed graph adds the steps
+    it captured, times its replays, as it adds its launches."""
+    launch_counts = graph_tick._launch_counts
 
-    def counting_make_step(params):
-        step = make_step(params)
-        if params.device.type != "cuda":
-            return step
+    def counting(mod, prefix: str) -> None:
+        make_step = mod.make_step
 
-        def counted(state, u, ext):
-            name = "env_batched_steps" if state.q.dim() > 1 else "env_steps"
-            setattr(_EnvSteps, name, getattr(_EnvSteps, name) + 1)
-            return step(state, u, ext)
+        def counting_make_step(params):
+            step = make_step(params)
+            if params.device.type != "cuda":
+                return step
 
-        return counted
+            def counted(state, u, ext):
+                name = f"{prefix}env_batched_steps" if state.q.dim() > 1 else f"{prefix}env_steps"
+                setattr(_EnvSteps, name, getattr(_EnvSteps, name) + 1)
+                return step(state, u, ext)
 
-    ps.make_step = counting_make_step
+            return counted
+
+        mod.make_step = counting_make_step
+
+    counting(ps, "")
+    counting(pps, "panda_")
     graph_tick._launch_counts = lambda: {
         **launch_counts(), **{(_EnvSteps, name): getattr(_EnvSteps, name) for name in STEP_OF_COUNTER.values()},
     }
@@ -1329,6 +1416,7 @@ KERNEL_OF_COUNTER = {
     "panda_rollout_launches": "panda_rollout", "panda_rollout_batched_launches": "panda_rollout_batched",
     "albert_rollout_launches": "albert_rollout", "albert_rollout_batched_launches": "albert_rollout_batched",
     "step_launches": "point_step", "step_batched_launches": "point_step_batched",
+    "panda_step_launches": "panda_step", "panda_step_batched_launches": "panda_step_batched",
 }
 
 
@@ -1343,9 +1431,10 @@ def _zero_launches() -> None:
 def _read_launches() -> dict:
     """Every kernel's launches since ``_zero_launches``, by wrapper count:
     those its wrapper made plus those graph replays made (captured launches
-    x replays, ``graph_tick.replayed_launches``).  K5 and K5b must have
-    launched exactly once for each step of a point-family env on the card
-    since then, one state and a batch (``_EnvSteps``, replays included)."""
+    x replays, ``graph_tick.replayed_launches``).  K5 and K5b (K6 and K6b)
+    must have launched exactly once for each step of a point-family (panda)
+    env on the card since then, one state and a batch (``_EnvSteps``,
+    replays included)."""
     counts = {name: getattr(mod, name) + graph_tick.replayed_launches.get(name, 0) for mod, name in _launch_counters()}
     for counter, name in STEP_OF_COUNTER.items():
         steps = getattr(_EnvSteps, name) + graph_tick.replayed_launches.get(name, 0)
@@ -1916,8 +2005,9 @@ def phase_every_call(label: str, calls: list, kernel, flat=_point_plain_flat, ba
 
 def _expect_launches(label: str, counts: dict, want: dict) -> None:
     """Every kernel's launch count of one run: ``want`` where named, else 0;
-    K5's and K5b's, where not named, as ``_read_launches`` held them, one a
-    step of the run's point-family env (its warm-ups and settles too)."""
+    the real-env steps' (K5 / K5b, K6 / K6b), where not named, as
+    ``_read_launches`` held them, one a step of the run's env on the card
+    (its warm-ups and settles too)."""
     print(f"[{label}] launches {counts}")
     for name, n in counts.items():
         if name in STEP_OF_COUNTER and name not in want:
@@ -2858,7 +2948,7 @@ def phase_seed_shard(card: str, unsharded: dict) -> tuple:
         ("point", "config_point", MAIN_PATH, 4, 300,
          {"rollout_batched_launches": 1, "weights_batched_launches": 1, "step_batched_launches": 1}),
         ("panda", "config_panda", ["multi_modal=True"], 10, 600,
-         {"panda_rollout_batched_launches": 4, "weights_batched_launches": 3}),
+         {"panda_rollout_batched_launches": 4, "weights_batched_launches": 3, "panda_step_batched_launches": 1}),
     ):
         label = f"seed-shard {family} x{SEED_SHARDS}"
         counts, rows, steps, part = phase_seed_batch(label, config_name, overrides, chunk, cap, per_tick,
@@ -2991,7 +3081,8 @@ def main() -> None:
     _stamp("the point path")
     # 7. K3 against its plain version; 8. / 9. / 10. the panda path
     stats["panda_rollout"], w_err, k3_parity = phase_panda_rollout()
-    launches["panda_rollout"], k3_calls, panda_chunked_tick = phase_panda_main()
+    with _recorded_steps(pps, "panda_step") as panda_step_calls:
+        launches["panda_rollout"], k3_calls, panda_chunked_tick, launches["panda_step"] = phase_panda_main()
     with _recorded_weights("multimodal_weights") as k2_shelf:
         w_err = max(w_err, phase_panda_shelf())
     k2 = stats["multimodal_weights"]
@@ -3020,10 +3111,12 @@ def main() -> None:
             keep="point batch", graphs=False,
         )
     with _recorded(pr, "panda_rollout_batched") as k3b_calls, \
-            _recorded_weights("multimodal_weights_batched") as k2b_panda:
+            _recorded_weights("multimodal_weights_batched") as k2b_panda, \
+            _recorded_steps(pps, "panda_step") as panda_step_b_calls:
         panda_counts, panda_rows, panda_steps, _ = phase_seed_batch(
             "batch-panda", "config_panda", ["multi_modal=True"], 10, 600,
-            {"panda_rollout_batched_launches": 4, "weights_batched_launches": 3}, keep="panda batch", graphs=False,
+            {"panda_rollout_batched_launches": 4, "weights_batched_launches": 3, "panda_step_batched_launches": 1},
+            keep="panda batch", graphs=False,
         )
     with _recorded(ar, "albert_rollout_batched") as k4b_calls:
         albert_counts, _, _, _ = phase_seed_batch(
@@ -3037,12 +3130,16 @@ def main() -> None:
     launches["panda_rollout_batched"] = panda_counts["panda_rollout_batched_launches"]
     launches["albert_rollout_batched"] = albert_counts["albert_rollout_batched_launches"]
     launches["point_step_batched"] = point_counts["step_batched_launches"]
+    launches["panda_step_batched"] = panda_counts["panda_step_batched_launches"]
     _stamp("the n=20 batches")
     # 21b. K5 and K5b against the plain step on the main path's and the n=20 batch's steps, timed;
     # K1 beside each step
     stats["point_step"], stats["point_step_batched"] = phase_point_step(card, step_calls + step_b_calls,
                                                                         k1_calls[-1])
     del step_calls, step_b_calls
+    # 21c. K6 and K6b against the plain step on the panda main path's and the n=20 panda batch's steps, timed
+    stats["panda_step"], stats["panda_step_batched"] = phase_panda_step(card, panda_step_calls + panda_step_b_calls)
+    del panda_step_calls, panda_step_b_calls
     _stamp("the real-env step's checks")
     # 22. / 23. three seeds batched against three serial runs, compiled
     phase_batch_vs_serial("batch-vs-serial point", "config_point", MAIN_PATH, 4, 300)
@@ -3194,6 +3291,11 @@ def main() -> None:
         "point_step_batched": (
             "m3p2i_aip_tpu_torch/csrc/point_step.cu",
             "none, XLA: m3p2i_aip_tpu/models/point_env.py:283",
+        ),
+        "panda_step": ("m3p2i_aip_tpu_torch/csrc/panda_step.cu", "none, XLA: m3p2i_aip_tpu/models/panda_env.py:204"),
+        "panda_step_batched": (
+            "m3p2i_aip_tpu_torch/csrc/panda_step.cu",
+            "none, XLA: m3p2i_aip_tpu/models/panda_env.py:204",
         ),
     }
     never = [name for name in sources if launches[name] == 0]

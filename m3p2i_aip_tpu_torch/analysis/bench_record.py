@@ -174,6 +174,7 @@ def launch_counters() -> dict:
     """{kernel: (module, attribute)} of every kernel wrapper's launch count."""
     from m3p2i_aip_tpu_torch.ops import albert_rollout as ar
     from m3p2i_aip_tpu_torch.ops import panda_rollout as pr
+    from m3p2i_aip_tpu_torch.ops import panda_step as pps
     from m3p2i_aip_tpu_torch.ops import point_step as ps
     from m3p2i_aip_tpu_torch.ops import rollout as ro
     from m3p2i_aip_tpu_torch.ops import weights
@@ -184,6 +185,7 @@ def launch_counters() -> dict:
         "K3": (pr, "panda_rollout_launches"), "K3b": (pr, "panda_rollout_batched_launches"),
         "K4": (ar, "albert_rollout_launches"), "K4b": (ar, "albert_rollout_batched_launches"),
         "K5": (ps, "step_launches"), "K5b": (ps, "step_batched_launches"),
+        "K6": (pps, "panda_step_launches"), "K6b": (pps, "panda_step_batched_launches"),
     }
 
 
@@ -195,6 +197,7 @@ KERNEL_SYMBOLS = {
     "K3": "panda_rollout_kernel", "K3b": "panda_rollout_kernel",
     "K4": "albert_rollout_kernel", "K4b": "albert_rollout_kernel",
     "K5": "point_env_step_kernel", "K5b": "point_env_step_kernel",
+    "K6": "panda_env_step_kernel", "K6b": "panda_env_step_kernel",
 }
 
 

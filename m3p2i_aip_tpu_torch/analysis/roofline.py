@@ -127,6 +127,17 @@ def panda_rollout_ops(spec, K: int) -> float:
     return K * spec.T * (spec.env_params.substeps * per_sub + 200)
 
 
+def panda_step_ops(p, S: int) -> float:
+    """One state's panda step (K6): per substep the 9-joint drive, the FK
+    with its 3x3 products, the grasp test, three bodies' gravity,
+    integration, quaternion, support search and settling, their pushout
+    against the S statics, the held cube, the seven probes against the S
+    statics and cubeB and cubeA against cubeB, and the force sums."""
+    bodies = 3 * (28 + 30 + 8 * (S + 1) + 57 * S)
+    per_sub = 108 + PANDA_FK_OPS + 10 + 35 + bodies + 60 + 7 * (S + 1) * 45 + 55 + 12 * S
+    return p.substeps * per_sub + 3 * p.num_actors
+
+
 def albert_rollout_ops(spec, K: int) -> float:
     """K4: per substep the base and arm drive with the clip, and with a box
     its ground friction, integration and two base-vs-box contact passes; per

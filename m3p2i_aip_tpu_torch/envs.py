@@ -5,11 +5,11 @@ Port of ``m3p2i_aip_tpu/envs.py``: the per-actor YAMLs are packed into
 tensors on one device once, and the scene is exposed as a bundle of functions
 closed over those params.  The K rollouts' plain version and the real system
 share one step function (a leading K axis vs none); on a card the point
-family's real system steps in one launch of its kernel
-(``ops/point_step.py``), bit for bit that function.  The Isaac-layout views (an interleaved
-dof state, a root state [A, 13]) and their loaders carry one real state over
-the two-terminal RPC boundary (``tamp/reactive_tamp.py``
-``ReactiveTAMPServer``).
+family's and the panda's real systems step in one launch of their kernels
+(``ops/point_step.py``, ``ops/panda_step.py``), bit for bit that function.
+The Isaac-layout views (an interleaved dof state, a root state [A, 13]) and
+their loaders carry one real state over the two-terminal RPC boundary
+(``tamp/reactive_tamp.py`` ``ReactiveTAMPServer``).
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from m3p2i_aip_tpu_torch.models import albert, panda_env, panda_fk, point_env
-from m3p2i_aip_tpu_torch.ops import point_step
+from m3p2i_aip_tpu_torch.ops import panda_step, point_step
 from m3p2i_aip_tpu_torch.ops.quat import mat_to_quat, quat_from_yaw
 from m3p2i_aip_tpu_torch.sim.sim_config import load_env_cfgs
 
@@ -201,7 +201,7 @@ def _make_panda_env(cfg, actors, device) -> Env:
         params=params,
         nu=9,
         nx=18,
-        step=lambda s, u, e: panda_env.step(params, s, u, e),
+        step=panda_step.make_step(params),  # one kernel launch on a card
         init_state=lambda: panda_env.init_state(params),
         zero_ext=lambda batch=(): panda_env.zero_ext(params, batch),
         dof_state_view=dof_state_view,

@@ -30,7 +30,8 @@ from m3p2i_aip_tpu_torch.utils import profiling
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("point_rollout.cu", "multimodal_weights.cu", "panda_rollout.cu", "albert_rollout.cu", "point_step.cu")
+SOURCES = ("point_rollout.cu", "multimodal_weights.cu", "panda_rollout.cu", "albert_rollout.cu", "point_step.cu",
+           "panda_step.cu")
 HEADERS = ("pbd2d.cuh", "panda_fk.cuh", "team.cuh")  # device code shared by the sources
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -59,6 +60,7 @@ _SIGNATURES = {
     "m3p2i_panda_rollout": [_VP] * 6 + [_I] * 10 + [_VP],
     "m3p2i_albert_rollout": [_VP] * 6 + [_I] * 6 + [_VP],
     "m3p2i_point_step": [_VP] * 4 + [_I] * 10 + [_VP],
+    "m3p2i_panda_step": [_VP] * 4 + [_I] * 6 + [_VP],
 }
 
 

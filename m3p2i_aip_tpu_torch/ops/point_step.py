@@ -87,14 +87,14 @@ def param_buffer(p: point_env.PointEnvParams) -> torch.Tensor:
     return torch.cat([torch.tensor(scalars, **f32), dyn.flatten(), stat.flatten(), torch.tensor(rows, **f32)])
 
 
-def _rows(x: torch.Tensor, lead: tuple, tail: tuple, device: torch.device):
+def _rows(x: torch.Tensor, lead: tuple, tail: tuple, device: torch.device, who: str = "point_step"):
     """``x`` broadcast to ``lead + tail`` as one row a state: (tensor, the
     floats between two states' rows).  A view where the lead dims have one
     stride and each row is contiguous (a strided action row, a broadcast
-    input: stride 0), else a copy."""
+    input: stride 0), else a copy.  ``who`` names the caller in the error."""
     if x.dtype != torch.float32 or x.device != device:
-        raise ValueError(f"point_step: every tensor must be float32 on {device}, got {x.dtype} on {x.device}")
-    r = x.expand(*lead, *tail).reshape(-1, math.prod(tail))
+        raise ValueError(f"{who}: every tensor must be float32 on {device}, got {x.dtype} on {x.device}")
+    r = x.expand(lead + tail).reshape(-1, math.prod(tail))
     if r.shape[1] > 1 and r.stride(1) != 1:
         r = r.contiguous()
     return r, r.stride(0)

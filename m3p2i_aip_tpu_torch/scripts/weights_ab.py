@@ -222,7 +222,8 @@ def _inputs(record: bool) -> dict:
         sets["point n=20 batch"] = list(calls)
         with cs._recorded_weights("multimodal_weights_batched") as calls:
             cs.phase_seed_batch("batch-panda", "config_panda", ["multi_modal=True"], 10, 600,
-                                {"panda_rollout_batched_launches": 4, "weights_batched_launches": 3})
+                                {"panda_rollout_batched_launches": 4, "weights_batched_launches": 3,
+                                 "panda_step_batched_launches": 1})
         sets["panda n=20 batch"] = list(calls)
     return sets
 

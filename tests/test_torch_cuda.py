@@ -20,9 +20,10 @@ import torch
 
 from m3p2i_aip_tpu_torch.config.config_store import load_config
 from m3p2i_aip_tpu_torch.envs import make_env
-from m3p2i_aip_tpu_torch.models import panda_env, point_env
+from m3p2i_aip_tpu_torch.models import panda_env, panda_fk, point_env
 from m3p2i_aip_tpu_torch.ops import albert_rollout as ar
 from m3p2i_aip_tpu_torch.ops import panda_rollout as pr
+from m3p2i_aip_tpu_torch.ops import panda_step as pps
 from m3p2i_aip_tpu_torch.ops import point_step as ps
 from m3p2i_aip_tpu_torch.ops import rollout as ro
 from m3p2i_aip_tpu_torch.ops import weights
@@ -316,19 +317,25 @@ def test_panda_rollout_kernel_matches_plain_at_other_sample_counts(cuda, K):
         assert float(torch.max(torch.abs(t_k - t_p))) <= 1e-3, start
 
 
-def test_panda_rollout_kernel_matches_plain_at_the_maxima(cuda):
-    """config_panda's scene grown to the kernel's kMaxS = 8 statics: five
-    posts, four pressed against cubeA, cubeB and the dyn-obs, so all three
-    pushout rounds see live contacts, through the kernel's run-time-S
-    instantiation (the shipped scenes have S = 3)."""
-    cfg = load_config("config_panda", ["multi_modal=True"])
+def _panda_scene_at_the_maxima(cfg, device) -> panda_env.PandaEnvParams:
+    """config_panda's scene grown to the kernels' kMaxS = 8 statics: five
+    posts, four of them pressed against cubeA, cubeB and the dyn-obs."""
     posts = [([0.24, -0.2, 1.1], [0.04, 0.04, 0.15]), ([0.16, 0.2, 1.1], [0.04, 0.04, 0.15]),
              ([0.35, 0.14, 1.735], [0.06, 0.06, 0.06]), ([0.2, -0.27, 1.1], [0.06, 0.04, 0.15]),
              ([0.25, 0.2, 1.1], [0.04, 0.04, 0.15])]
     actors = load_env_cfgs(cfg.env_type) + [
         ActorCfg(type="box", name=f"post-{i}", size=size, init_pos=pos, fixed=True) for i, (pos, size) in enumerate(posts)
     ]
-    params = panda_env.build_params(actors, cfg.sim, device=cuda)
+    return panda_env.build_params(actors, cfg.sim, cube_on_shelf=cfg.cube_on_shelf, device=device)
+
+
+def test_panda_rollout_kernel_matches_plain_at_the_maxima(cuda):
+    """config_panda's scene grown to the kernel's kMaxS = 8 statics: five
+    posts, four pressed against cubeA, cubeB and the dyn-obs, so all three
+    pushout rounds see live contacts, through the kernel's run-time-S
+    instantiation (the shipped scenes have S = 3)."""
+    cfg = load_config("config_panda", ["multi_modal=True"])
+    params = _panda_scene_at_the_maxima(cfg, cuda)
     K, T = cfg.mppi.num_samples, cfg.mppi.horizon
     spec = pr.make_panda_rollout(params, cfg.pre_height_diff, K, T, True).spec
     assert spec.S == pr.MAX_STAT
@@ -754,6 +761,355 @@ def test_compiled_point_tick_launches_the_step_kernel_once(cuda):
     assert prog.graph is not None
     assert prog.stats["launches"] == {"rollout_launches": 1, "weights_launches": 1, "step_launches": 1}
     assert prog.stats["nodes"] < 300, prog.stats["nodes"]
+    ref = chunk(ReactiveTAMP(cfg, device=cuda, graphs=False))
+    got, ref = graph_tick._leaves(got), graph_tick._leaves(ref)
+    assert len(got) == len(ref)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert torch.equal(_bits(a), _bits(b)) if a.dtype == torch.float32 else torch.equal(a, b), i
+
+
+# ------------------------------------------------- the panda's real-env step (K6)
+# The panda step kernel follows models/panda_env.step bit for bit on one
+# state: it adds each sum in the order PyTorch's CUDA reductions add it and
+# forms each 3x3 product in the order cuBLAS forms it for one state.  Those
+# orders are measured first; cuBLAS forms some products of a batch of states
+# in another order, so a batched launch is held to the plain step of each
+# state alone and to B single launches.
+
+
+def _fma(a, b, c):
+    """float32 fma(a, b, c): the product is exact in float64."""
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64) + np.asarray(c, np.float64)).astype(np.float32)
+
+
+def _dot_single(a, b):
+    """fma(a1, b1, a0 b0) + a2 b2 over the last axis."""
+    return (_fma(a[..., 1], b[..., 1], (a[..., 0] * b[..., 0]).astype(np.float32))
+            + (a[..., 2] * b[..., 2]).astype(np.float32)).astype(np.float32)
+
+
+def _dot_fused(a, b):
+    """fma(a2, b2, fma(a1, b1, a0 b0)) over the last axis."""
+    return _fma(a[..., 2], b[..., 2], _fma(a[..., 1], b[..., 1], (a[..., 0] * b[..., 0]).astype(np.float32)))
+
+
+def _tree_norm(x):
+    """The innermost-dim norm of 2, 3 or 4 values: lane e holds element e,
+    the lanes folded by shuffles down (x0^2 + x2^2) + (x1^2 + x3^2)."""
+    sq = (x * x).astype(np.float32)
+    even = sq[..., 0] if x.shape[-1] < 3 else (sq[..., 0] + sq[..., 2]).astype(np.float32)
+    odd = sq[..., 1] if x.shape[-1] < 4 else (sq[..., 1] + sq[..., 3]).astype(np.float32)
+    return np.sqrt((even + odd).astype(np.float32))
+
+
+# (the plain step's product, its operands' shapes without the batch, the
+# product, the order for one state, the order for a batch of 20)
+PANDA_PRODUCTS = {
+    "FK matrix-vector": (((3, 3), (3,)), lambda a, b: a @ b, _dot_single, _dot_single),
+    "FK and held-cube matrix-matrix": (((3, 3), (3, 3)), lambda a, b: a @ b, _dot_single, _dot_fused),
+    "grasp row-vector": (((1, 3), (3, 3)), lambda a, b: a @ b, _dot_single, _dot_fused),
+    "held-cube column-vector": (((3, 3), (3, 1)), lambda a, b: a @ b, _dot_single, _dot_single),
+    "grasp transposed": (((3, 3), (3, 3)), lambda a, b: a.transpose(-1, -2) @ b, _dot_fused, _dot_fused),
+}
+
+
+@pytest.mark.parametrize("lead", [(), (20,)], ids=["one", "batch20"])
+@pytest.mark.parametrize("name", list(PANDA_PRODUCTS))
+def test_panda_plain_step_product_orders(cuda, name, lead):
+    """Each 3x3 product of models/panda_env.step (and panda_fk.fk) on the
+    card, with the operands' batch as the plain step has it (the FK's
+    constant factors unbatched): one state's products as the kernel forms
+    them, a batch's partly in the other order."""
+    (sa, sb), prod, single, batch = PANDA_PRODUCTS[name]
+    order = single if lead == () else batch
+    rng = np.random.default_rng(23)
+    lead_b = () if name == "FK matrix-vector" or (name.startswith("FK and") and lead == ()) else lead
+    for _ in range(16):
+        a = (rng.standard_normal(lead + sa) * 10.0 ** rng.uniform(-2, 1, lead + sa)).astype(np.float32)
+        b = (rng.standard_normal(lead_b + sb) * 10.0 ** rng.uniform(-2, 1, lead_b + sb)).astype(np.float32)
+        got = prod(torch.as_tensor(a, device=cuda), torch.as_tensor(b, device=cuda)).cpu().numpy()
+        at = np.swapaxes(a, -1, -2) if name == "grasp transposed" else a
+        bm = b[..., None] if b.ndim == len(lead_b) + 1 else b
+        want = order(at[..., :, None, :], np.swapaxes(bm, -1, -2)[..., None, :, :])
+        want = want.reshape(got.shape)
+        assert np.array_equal(got.view(np.int32), want.view(np.int32)), (name, lead)
+
+
+# (the step's reduction, the reduced tensor's trailing shape, the reduction,
+# its order) at S = 3 and 8 statics
+PANDA_SUMS = {
+    "pushout over statics": (lambda S: (3, S, 3), lambda t: torch.sum(t, dim=-2),
+                             lambda x: np.apply_along_axis(_acc4, -1, np.moveaxis(x, -2, -1))),
+    "static forces over bodies": (lambda S: (3, S, 3), lambda t: torch.sum(t, dim=-3),
+                                  lambda x: np.apply_along_axis(_acc4, -1, np.moveaxis(x, -3, -1))),
+    "probe forces over statics": (lambda S: (S, 3), lambda t: torch.sum(t, dim=-2),
+                                  lambda x: np.apply_along_axis(_acc4, -1, np.moveaxis(x, -2, -1))),
+    "3-vector norms": (lambda S: (3, S, 3), lambda t: torch.linalg.vector_norm(t, dim=-1), _tree_norm),
+    "quaternion norms": (lambda S: (3, 4), lambda t: torch.linalg.vector_norm(t, dim=-1), _tree_norm),
+    "xy speeds": (lambda S: (3, 3), lambda t: torch.linalg.vector_norm(t[..., :2], dim=-1),
+                  lambda x: _tree_norm(x[..., :2])),
+}
+
+
+@pytest.mark.parametrize("lead", [(), (20,)], ids=["one", "batch20"])
+@pytest.mark.parametrize("name", list(PANDA_SUMS))
+def test_panda_plain_step_sum_orders(cuda, name, lead):
+    """Each sum and norm of models/panda_env.step at its layout, without and
+    with a leading seed axis, in the order the panda step kernel takes, on
+    values of mixed magnitudes and signs with zeros: bit for bit."""
+    shape_of, reduce, order = PANDA_SUMS[name]
+    rng = np.random.default_rng(24)
+    for S in (3, 8):
+        shape = lead + shape_of(S)
+        for _ in range(6):
+            x = (rng.standard_normal(shape) * 10.0 ** rng.uniform(-6, 3, shape)).astype(np.float32)
+            x[rng.random(shape) < 0.3] = 0.0
+            got = reduce(torch.as_tensor(x, device=cuda)).cpu().numpy()
+            want = np.asarray(order(x), np.float32).reshape(got.shape)
+            assert np.array_equal(got.view(np.int32), want.view(np.int32)), (name, lead, S)
+
+
+PANDA_SCENES = {"table": [], "shelf": ["cube_on_shelf=True"]}
+PANDA_SCRIPT_T = 240
+
+
+def _unit(v: np.ndarray) -> np.ndarray:
+    return (v / np.linalg.norm(v)).astype(np.float32)
+
+
+def _pressing_qs(params, rng, device) -> list:
+    """For each static that some of 4,000 random joint vectors within the
+    limits press a probe into (a probe sphere 5 mm deep in the box), the
+    first such joint vector."""
+    lo, hi = params.joint_lower.cpu().numpy(), params.joint_upper.cpu().numpy()
+    q = torch.as_tensor(rng.uniform(lo, hi, (4000, 9)).astype(np.float32), device=device)
+    links = panda_fk.fk(q, params.base_pos)
+    probes = torch.stack([links[n][0] for n in ("link4", "link5", "link6", "hand", "leftfinger", "rightfinger",
+                                                "fingertip")], dim=-2)  # [N, 7, 3]
+    found = []
+    for s in range(params.stat_min.shape[0]):
+        pen, _ = panda_env.sphere_vs_aabb(probes, 0.05, params.stat_min[s], params.stat_max[s])
+        hits = torch.nonzero((pen > 0.005).any(-1)).flatten()
+        if hits.numel() > 0:
+            found.append(q[int(hits[0])])
+    return found
+
+
+class _PandaScript:
+    """A scripted run of one panda state over PANDA_SCRIPT_T steps, from
+    ``offset`` on: a free reach, a grasp of cubeA put at the fingertip, a
+    carry with the fingers clamped, an opening release (below, then above
+    the release gap), cubeA dropped on cubeB and on the table, a closing
+    gripper far from cubeA, cubeA pushing cubeB, and the arm pressing into
+    each static in turn; random forces on the bodies every other step
+    outside the push.  ``(t, state) -> (state, u, ext)``: the state may be
+    moved before the step."""
+
+    def __init__(self, params, rng, offset: int, pressing: list):
+        self.p, self.rng, self.offset, self.pressing = params, rng, offset, pressing
+        self.joints = np.zeros(7, np.float32)
+
+    def phase(self, t: int) -> int:
+        return (t + self.offset) % PANDA_SCRIPT_T
+
+    def __call__(self, t: int, state):
+        p, rng, t = self.p, self.rng, self.phase(t)
+        dev = p.device
+        tensor = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)  # noqa: E731
+        pos, quat = state.body_pos.clone(), state.body_quat.clone()
+        vel, om, q, qd = state.body_vel.clone(), state.body_om.clone(), state.q.clone(), state.qd.clone()
+        if t == 30:  # cubeA at the fingertip, turned
+            tip = panda_fk.fk(state.q, p.base_pos)["fingertip"][0]
+            pos[1] = tip + tensor(0.01 * _unit(rng.standard_normal(3)))
+            quat[1], vel[1], om[1] = tensor(_unit(rng.standard_normal(4))), 0.0, 0.0
+        if t == 110:  # cubeA above cubeB
+            pos[1] = pos[2] + tensor([0.005, -0.004, 0.08])
+            vel[1], om[1] = 0.0, tensor(rng.uniform(-0.5, 0.5, 3))
+        if t == 130:  # cubeA above the table
+            pos[1], vel[1] = tensor([0.0, -0.3, 1.09]), 0.0
+        if t == 160:  # cubeA beside cubeB, moving into it
+            pos[1] = pos[2] + tensor([0.04, 0.005, 0.0])
+            vel[1] = tensor([-0.1, 0.0, 0.0])
+        if t >= 180 and (t - 180) % 20 == 0:  # the arm pressing into static k
+            q, qd = self.pressing[(t - 180) // 20 % len(self.pressing)].clone(), torch.zeros_like(qd)
+        if t % 10 == 0:
+            scale = {0: 0.5, 3: 0.2, 5: 0.8, 9: 0.5, 11: 0.5, 13: 0.5, 14: 0.3, 16: 0.1}.get(t // 10, 0.1)
+            self.joints = rng.uniform(-scale, scale, 7).astype(np.float32)
+        closing = 30 <= t < 90 or 145 <= t < 160
+        fingers = -0.1 if closing else 0.05
+        u = tensor(list(self.joints) + [fingers, fingers])
+        push = 160 <= t < 180
+        body = rng.normal(0.0, 0.5, (3, 3)) if t % 2 == 0 and not push else np.zeros((3, 3))
+        state = dataclasses.replace(state, q=q, qd=qd, body_pos=pos, body_quat=quat, body_vel=vel, body_om=om)
+        return state, u, panda_env.PandaExtForces(body=tensor(body))
+
+
+def _stack(trees):
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def _row(tree, b: int):
+    return tree_map(lambda x: x[b], tree)
+
+
+def _assert_bits(got, ref, what) -> None:
+    for f in dataclasses.fields(ref):
+        a, r = getattr(got, f.name), getattr(ref, f.name)
+        assert a.shape == r.shape and torch.equal(_bits(a), _bits(r)), (
+            what, f.name, int((_bits(a) != _bits(r)).sum()), float((a - r).abs().max()))
+
+
+def _panda_coverage(params, t_phase, state, u, ref, seen: set) -> None:
+    """Mark what the step from ``state`` exercised (its plain result ``ref``)."""
+    att0, att1 = float(state.attached), float(ref.attached)
+    seen.add("attach" if att0 < 0.5 < att1 else "release" if att1 < 0.5 < att0 else "")
+    if float(u[7]) < 0.0 and att0 < 0.5 and att1 < 0.5:
+        seen.add("closing far")
+    if float(u[7]) > 0.0 and att0 > 0.5 and att1 > 0.5:
+        seen.add("opening held")
+    if 50 <= t_phase < 90 and att1 > 0.5:
+        seen.add("carry")
+    if float(state.body_vel[1, 2]) < 0.0 and float(ref.body_vel[1, 2]) == 0.0:
+        top_b = float(ref.body_pos[2, 2] + params.body_half[2, 2])
+        seen.add("lands on cubeB" if float(ref.body_pos[1, 2]) > top_b else "lands on the table")
+    if 160 <= t_phase < 180 and not torch.equal(ref.body_pos[2, :2], state.body_pos[2, :2]):
+        seen.add("pushes cubeB")
+    for k, a in enumerate(params.stat_actor_idx):
+        if t_phase >= 180 and bool((ref.contact_force[a] != 0).any()):
+            seen.add(f"presses static {k}")
+
+
+def _check_panda_step(params, step, B: int, steps: int, seed: int, device) -> set:
+    """``steps`` scripted steps of B states through ``step`` (the kernel),
+    each from the state the kernel gave: every field bit for bit the plain
+    step of each state alone, and a batch bit for bit B single launches.
+    Returns what the single-state steps exercised."""
+    rng = np.random.default_rng(seed)
+    pressing = _pressing_qs(params, rng, device)
+    scripts = [_PandaScript(params, np.random.default_rng(seed * 1000 + b), 37 * b, pressing) for b in range(B)]
+    rows = [panda_env.init_state(params) for _ in range(B)]
+    counter = "panda_step_batched_launches" if B > 1 else "panda_step_launches"
+    seen: set = set()
+    for t in range(steps):
+        inputs = [script(t, row) for script, row in zip(scripts, rows)]
+        batch = inputs[0] if B == 1 else tuple(_stack(x) if dataclasses.is_dataclass(x[0]) else torch.stack(x)
+                                               for x in zip(*inputs))
+        before = getattr(pps, counter)
+        got = step(*batch)
+        assert getattr(pps, counter) == before + 1
+        for b, (state, u, ext) in enumerate(inputs):
+            ref = panda_env.step(params, state, u, ext)
+            row = got if B == 1 else _row(got, b)
+            _assert_bits(row, ref, (t, b))
+            if B > 1:
+                _assert_bits(row, step(state, u, ext), (t, b, "single launch"))
+            else:
+                _panda_coverage(params, scripts[b].phase(t), state, u, ref, seen)
+        rows = [got] if B == 1 else [_row(got, b) for b in range(B)]
+    return seen - {""}
+
+
+@pytest.mark.parametrize("scene", list(PANDA_SCENES))
+def test_panda_step_kernel_equals_plain_bit_for_bit(cuda, scene):
+    """K6 against models/panda_env.step on the card, the table and the shelf
+    scene, one state over the 240-step script: every field of every step bit
+    for bit, through the attach, the carry with the finger clamp, the
+    release below and above the gap, cubeA landing on cubeB and on the
+    table, a closing gripper far from cubeA, cubeA pushing cubeB, the probes
+    pressing into every static, and random body forces."""
+    env = make_env(load_config("config_panda", PANDA_SCENES[scene]), device=cuda)
+    seen = _check_panda_step(env.params, env.step, 1, PANDA_SCRIPT_T, 5, cuda)
+    want = {"attach", "release", "closing far", "opening held", "carry", "lands on cubeB", "lands on the table",
+            "pushes cubeB"} | {f"presses static {k}" for k in range(env.params.stat_min.shape[0])}
+    assert want <= seen, want - seen
+
+
+@pytest.mark.parametrize("B, steps", [(3, PANDA_SCRIPT_T), (20, 48)])
+def test_batched_panda_step_kernel_equals_plain_and_single(cuda, B, steps):
+    """K6b at B = 3 over the whole script and at B = 20 (each state at its
+    own phase of it): each state bit for bit the plain step on that state
+    alone and a single launch."""
+    env = make_env(load_config("config_panda"), device=cuda)
+    _check_panda_step(env.params, env.step, B, steps, 6 + B, cuda)
+
+
+def test_panda_step_kernel_at_the_maxima(cuda):
+    """S = 8 statics (the pushout's sums over five to eight statics, three
+    rounds of first-round tests): bit for bit, one state and B = 3."""
+    params = _panda_scene_at_the_maxima(load_config("config_panda"), cuda)
+    assert params.stat_min.shape[0] == pr.MAX_STAT
+    step = pps.make_step(params)
+    _check_panda_step(params, step, 1, 120, 8, cuda)
+    _check_panda_step(params, step, 3, 60, 9, cuda)
+
+
+@pytest.mark.parametrize("B", [1, 3])
+def test_panda_step_graph_replay_equals_eager(cuda, B):
+    """The step captured in a CUDA graph (``graph_tick.env_steps``, the
+    settle's and the sim client's program): one launch a replay, counted by
+    graph_tick as the launches a replay stands for, and the replayed steps
+    bit for bit the eager ones."""
+    env = make_env(load_config("config_panda"), device=cuda)
+    script = _PandaScript(env.params, np.random.default_rng(B), 20, _pressing_qs(env.params, np.random.default_rng(0),
+                                                                                  cuda))
+    state, u, ext = script(0, env.init_state())
+    if B > 1:
+        state, u, ext = _stack([state] * B), torch.stack([u] * B), _stack([ext] * B)
+    eager = state
+    for _ in range(12):
+        eager = env.step(eager, u, ext)
+    name = "panda_step_batched_launches" if B > 1 else "panda_step_launches"
+    own, replayed = getattr(pps, name), graph_tick.replayed_launches.get(name, 0)
+    ticks = graph_tick.TickGraphs(cuda, None)
+    got = graph_tick.env_steps(ticks, env, state, u, ext, 12)
+    _assert_bits(got, eager, "replayed")
+    (stats,) = ticks.stats()
+    # the kernel and the copies of the stepped state into the carry
+    assert stats["launches"] == {name: 1} and stats["nodes"] <= 1 + len(dataclasses.fields(state)), stats
+    assert getattr(pps, name) - own == 1  # the eager warm-up; the capture launches nothing
+    assert graph_tick.replayed_launches.get(name, 0) - replayed == 11
+
+
+def test_panda_step_over_the_kernel_limits_raises(cuda):
+    """A ninth static on the card: the env's step is not made and the
+    kernel's wrapper raises; no launch."""
+    cfg = load_config("config_panda")
+    actors = load_env_cfgs(cfg.env_type) + [
+        ActorCfg(type="box", name=f"post-{i}", size=[0.04, 0.04, 0.1], init_pos=[0.3, -0.5 + 0.1 * i, 1.1], fixed=True)
+        for i in range(6)
+    ]
+    params = panda_env.build_params(actors, cfg.sim, device=cuda)
+    assert params.stat_min.shape[0] == pr.MAX_STAT + 1
+    state = panda_env.init_state(params)
+    u, ext = torch.zeros(9, device=cuda), panda_env.zero_ext(params)
+    before = (pps.panda_step_launches, pps.panda_step_batched_launches)
+    with pytest.raises(ValueError, match="the kernel takes 1 <= S <= 8"):
+        pps.make_step(params)
+    with pytest.raises(ValueError, match="the kernel takes 1 <= S <= 8"):
+        pps.panda_step(params, pps.param_buffer(params), state, u, ext)
+    assert (pps.panda_step_launches, pps.panda_step_batched_launches) == before
+
+
+def test_compiled_panda_tick_launches_the_step_kernel_once(cuda):
+    """The compiled panda tick of the panda-pick cell (multi-modal, the
+    refine ladder): its capture records one K6 launch beside K3 x4 and K2 x3
+    and fewer than 700 graph nodes, and a compiled chunk equals the eager
+    chunk bit for bit."""
+    cfg = load_config("config_panda", ["multi_modal=True"])
+
+    def chunk(tamp):
+        env = tamp.env
+        state = env.init_state()
+        for _ in range(10):
+            state = env.step(state, torch.zeros(env.nu, device=cuda), env.zero_ext())
+        stage = torch.zeros((), dtype=torch.int32, device=cuda)
+        return tamp._run_chunk_panda_impl(tamp.mppi_state, state, stage, tamp.zup_zs0(), 12)
+
+    tamp = ReactiveTAMP(cfg, device=cuda)
+    got = chunk(tamp)
+    (prog,) = [p for p in tamp.ticks.programs.values() if p.graph is not None]
+    assert prog.stats["launches"] == {"panda_rollout_launches": 4, "weights_launches": 3, "panda_step_launches": 1}
+    assert prog.stats["nodes"] < 700, prog.stats["nodes"]
     ref = chunk(ReactiveTAMP(cfg, device=cuda, graphs=False))
     got, ref = graph_tick._leaves(got), graph_tick._leaves(ref)
     assert len(got) == len(ref)

@@ -14,7 +14,9 @@ from m3p2i_aip_tpu_torch.config.config_store import load_config
 from m3p2i_aip_tpu_torch.envs import make_env
 from m3p2i_aip_tpu_torch.ops import albert_rollout as ar
 from m3p2i_aip_tpu_torch.ops import cuda_build
+from m3p2i_aip_tpu_torch.models import panda_env
 from m3p2i_aip_tpu_torch.ops import panda_rollout as pr
+from m3p2i_aip_tpu_torch.ops import panda_step as pps
 from m3p2i_aip_tpu_torch.ops import point_step as ps
 from m3p2i_aip_tpu_torch.ops import rollout as ro
 from m3p2i_aip_tpu_torch.ops import weights
@@ -104,9 +106,22 @@ def _check_point_step(c: dict) -> None:
     assert c["kMaxS"] <= 2 * c["kTeam"]
 
 
+def _check_panda_step(c: dict) -> None:
+    # the wrapper's limits are the panda rollout kernel's; the bodies are panda_env's
+    assert (c["kMaxS"], c["kBodies"], c["N_SCALARS"]) == (pr.MAX_STAT, len(panda_env.DYN_NAMES), pps.N_SCALARS)
+    assert (c["kJointStride"], c["kBodyStride"], c["kStatStride"], c["kSupStride"]) == (
+        pps.JOINT_STRIDE, pps.BODY_STRIDE, pps.STAT_STRIDE, pps.SUP_STRIDE)
+    assert (c["kRowRobot"], c["kRowDyn"], c["kRowDyn"] + c["kBodies"]) == (pps.ROW_ROBOT, pps.ROW_DYN, pps.ROW_STAT)
+    assert [e[2:].lower() for e in _enum("panda_step.cu", "Input")] == list(pps.INPUTS)
+    assert [e[2:].lower() for e in _enum("panda_step.cu", "Output")] == list(pps.OUTPUTS)
+    # the block is one warp; the second round's probes and cubeA-cubeB take one lane each
+    assert c["kTeam"] == 32 and c["kTeam"] >= c["kProbes"] + 1
+
+
 CHECKS = {
     "point_rollout.cu": _check_point,
     "point_step.cu": _check_point_step,
+    "panda_step.cu": _check_panda_step,
     "panda_rollout.cu": _check_panda,
     "albert_rollout.cu": _check_albert,
     "multimodal_weights.cu": _check_weights,
@@ -172,3 +187,27 @@ def test_each_kernel_symbol_names_one_kernel(symbol):
     names = _global_names()
     assert len(names) == len(cuda_build.SOURCES)  # one kernel a source
     assert len([n for n in names if symbol in n]) == 1, names
+
+
+def test_no_kernel_symbol_holds_another():
+    """``benchmark/layers.kernel_median_s`` and ``bench_record.traced_launches``
+    match a trace's kernels by ``symbol in name``: a symbol inside another's
+    (``panda_rollout_kernel`` in a ``panda_rollout_kernel_step``) would give
+    one kernel's roofline share the other's launches, or none."""
+    symbols = _symbols()
+    assert [(a, b) for a in symbols for b in symbols if a != b and a in b] == []
+
+
+@pytest.mark.parametrize("source", ["point_step.cu", "panda_step.cu"])
+def test_step_kernels_keep_the_plain_floating_point(source):
+    """The real-env step kernels hold the plain step's bits, so they build
+    with every source's flags (one flag set, no per-source flags): IEEE
+    division and square root, no fast math, no FMA contraction; and their
+    code calls no approximate intrinsic."""
+    assert source in cuda_build.SOURCES
+    flags = cuda_build.NVCC_FLAGS
+    assert "-fmad=false" in flags and not any("fast" in f for f in flags)
+    assert not any(f.startswith(("-prec-div", "-prec-sqrt", "-ftz")) for f in flags)
+    code = re.sub(r"//[^\n]*", "", (cuda_build.CSRC_DIR / source).read_text())
+    assert not re.search(r"\b__(sinf|cosf|tanf|expf|exp10f|logf|log2f|powf|fdividef|frcp_r[nduz]|fsqrt_r[nduz]|"
+                         r"fdiv_r[nduz])\s*\(", code)
